@@ -1,0 +1,312 @@
+"""The four CV flux components, on batched tensors.
+
+Port of ``lfit_python_tpu/models/components.py`` (primal only).  Per-walker
+scalars are tensors of any leading shape ``(...)``; phase sweeps carry a
+trailing phase axis ``(..., P)`` and element sets a trailing element axis
+``(..., N)`` (positions ``(..., N, 3)``).  Every ``*_flux`` function returns
+the normalised curve of one component, scaled by its flux parameter in
+``models/cv.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..ops import contacts
+from ..roche.stream import stream_impacts
+from ..roche.geometry import (
+    earth_vector,
+    inscribed_radius,
+    origin_shadow_distance,
+    visible_fraction_interval,
+)
+
+__all__ = [
+    "wd_flux",
+    "disc_elements",
+    "spot_elements",
+    "spot_normal",
+    "element_intervals",
+    "element_flux_curve",
+    "DonorGrid",
+    "donor_grid",
+    "donor_flux",
+]
+
+# elements per chunk of the (rows, P, N) sweeps in element_flux_curve and
+# donor_flux: 2**25 f32 elements = 128 MiB per intermediate, so the
+# north-star shapes (GBs if materialised whole) stay at a few hundred MiB
+_CHUNK_ELEMS = 1 << 25
+
+
+def _edge_visible_fraction(x, ulimb):
+    """Visible flux fraction of a linearly limb-darkened disc cut by a
+    straight shadow edge; ``x`` is the signed distance of the disc centre
+    from the edge in disc radii (+1 fully visible, -1 fully occulted)."""
+    a = torch.clamp(-x, -1.0, 1.0)
+    uni = torch.arccos(a) - a * torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
+    sq = 0.5 * math.pi * ((1.0 - a) - (1.0 - a ** 3) / 3.0)
+    total = (1.0 - ulimb) * math.pi + ulimb * 2.0 * math.pi / 3.0
+    return ((1.0 - ulimb) * uni + ulimb * sq) / total
+
+
+def wd_flux(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins=None):
+    """Normalised white-dwarf light curve (out of eclipse == 1): the
+    smooth shadow distance of the WD centre, an inscribed-sphere guard for
+    certain occultation, and the analytic edge fraction.  Broadcasts."""
+    d, clear = origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1)
+    if r_ins is None:
+        r_ins = inscribed_radius(q, xl1_val, phi_l1)
+    th = 2.0 * math.pi * phases
+    si = torch.sin(torch.deg2rad(incl_deg))
+    tstar = si * torch.cos(th)
+    miss = torch.sqrt(torch.clamp(1.0 - tstar * tstar, min=0.0))
+    certain_occ = (tstar > 0.0) & (miss < r_ins - rwd)
+    one = torch.ones_like(d)
+    x = torch.where(clear > 0.25, one,
+                    torch.where(certain_occ, -one,
+                                torch.clamp(d / rwd, -1.0, 1.0)))
+    return _edge_visible_fraction(x, ulimb)
+
+
+def disc_elements(rwd, rdisc, dexp, n_rad=24, n_az=40):
+    """Tile the disc annulus [rwd, rdisc] into n_rad x n_az elements.
+
+    ``rwd``, ``rdisc``, ``dexp``: (...).  Returns positions (..., N, 3) in
+    the orbital plane and weights (..., N) summing to 1 (surface
+    brightness ~ r^-dexp times the annulus area r dr dphi)."""
+    dt, dev = rdisc.dtype, rdisc.device
+    edges = torch.linspace(0.0, 1.0, n_rad + 1, dtype=dt, device=dev)
+    mids = 0.5 * (edges[:-1] + edges[1:])
+    span = (rdisc - rwd)[..., None]
+    rmid = rwd[..., None] + span * mids                     # (..., n_rad)
+    dr = (rdisc - rwd) / n_rad
+    az = (torch.arange(n_az, dtype=dt, device=dev) + 0.5) * (
+        2.0 * math.pi / n_az)
+    r = torch.repeat_interleave(rmid, n_az, dim=-1)
+    a = az.repeat(n_rad)
+    pos = torch.stack([r * torch.cos(a), r * torch.sin(a),
+                       torch.zeros_like(r)], dim=-1)
+    w = torch.repeat_interleave(
+        rmid ** (1.0 - dexp[..., None]) * dr[..., None], n_az, dim=-1)
+    return pos, w / w.sum(dim=-1, keepdim=True)
+
+
+def spot_elements(q, rdisc, scale, az_deg, exp1, exp2, n_elem=32,
+                  max_extent=5.0, impact=None):
+    """Bright-spot strip elements: from the stream / disc-rim impact point
+    along the in-plane direction ``az_deg``, brightness
+    (l/scale)^exp1 exp(-(l/scale)^exp2), l in (0, max_extent * scale].
+
+    Per-walker arguments are (...); ``impact`` (..., 3) is the
+    precomputed impact point (integrated from ``q`` and ``rdisc`` when
+    None).  Returns positions (..., n, 3) and weights (..., n) summing to
+    1."""
+    if impact is None:
+        lead = torch.broadcast_shapes(q.shape, rdisc.shape)
+        impact = stream_impacts(q.expand(lead).reshape(-1),
+                                rdisc.expand(lead).reshape(-1, 1))
+        impact = impact.reshape(lead + (3,))
+    dt, dev = scale.dtype, scale.device
+    azr = torch.deg2rad(az_deg)
+    tdir = torch.stack([torch.cos(azr), torch.sin(azr),
+                        torch.zeros_like(azr)], dim=-1)
+    base = (torch.arange(n_elem, dtype=dt, device=dev) + 0.5) / n_elem
+    ell = base * max_extent * scale[..., None]               # (..., n)
+    pos = impact[..., None, :] + ell[..., None] * tdir[..., None, :]
+    x = ell / scale[..., None]
+    w = x ** exp1[..., None] * torch.exp(-(x ** exp2[..., None]))
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-300)
+    return pos, w
+
+
+def spot_normal(az_deg, tilt_deg, yaw_deg):
+    """Outward emission normal (..., 3) of the beamed bright spot: the
+    strip direction rotated -90 deg in the plane, turned by ``yaw`` and
+    tipped by ``tilt`` out of the plane (tilt = 90: in the plane)."""
+    azr = torch.deg2rad(az_deg)
+    tr = torch.deg2rad(tilt_deg)
+    yr = torch.deg2rad(yaw_deg)
+    psi = azr - 0.5 * math.pi + yr
+    return torch.stack([torch.sin(tr) * torch.cos(psi),
+                        torch.sin(tr) * torch.sin(psi), torch.cos(tr)],
+                       dim=-1)
+
+
+def element_intervals(q, incl_deg, positions, xl1_val, phi_l1):
+    """Per-element eclipse intervals, one root-find per element.
+
+    ``q``, ``incl_deg``, ``xl1_val``, ``phi_l1``: (...); ``positions``:
+    (..., N, 3) orbital-plane points.  The leading axes are flattened into
+    rows and solved in one call of ``ops.contacts.element_intervals`` (the
+    CUDA kernel for float32 on the card).  Returns (phi_in, phi_out,
+    eclipsed), each (..., N)."""
+    lead = positions.shape[:-2]
+    n = positions.shape[-2]
+
+    def rows(a):
+        return a.expand(lead).reshape(-1)
+
+    r_ins = inscribed_radius(q, xl1_val, phi_l1)
+    px = positions[..., 0].reshape(-1, n).contiguous()
+    py = positions[..., 1].reshape(-1, n).contiguous()
+    out = contacts.element_intervals(rows(q), rows(incl_deg), px, py,
+                                     rows(xl1_val), rows(phi_l1), rows(r_ins))
+    return tuple(o.reshape(lead + (n,)) for o in out)
+
+
+def _row_chunks(n_rows, per_row):
+    step = max(1, _CHUNK_ELEMS // max(per_row, 1))
+    for i in range(0, n_rows, step):
+        yield slice(i, min(i + step, n_rows))
+
+
+def element_flux_curve(phases, widths, intervals, weights):
+    """Weighted visible-fraction light curve of an element set.
+
+    ``phases`` (..., P), ``widths`` (..., P) or None, ``intervals`` from
+    :func:`element_intervals` (each (..., N)), ``weights`` (..., N).
+    Returns (..., P).  The (P, N) visibility sweep is chunked over the
+    flattened leading axes to bound memory."""
+    phi_in, phi_out, ecl = intervals
+    lead = torch.broadcast_shapes(phases.shape[:-1], weights.shape[:-1])
+    P, N = phases.shape[-1], weights.shape[-1]
+
+    def flat(a, last):
+        return a.expand(lead + (last,)).reshape(-1, last)
+
+    ph, pin, pout = flat(phases, P), flat(phi_in, N), flat(phi_out, N)
+    wts, ec = flat(weights, N), flat(ecl, N)
+    wd = None if widths is None else flat(widths, P)
+    out = []
+    for s in _row_chunks(ph.shape[0], P * N):
+        if wd is None:
+            # instantaneous indicator: occulted iff mod(phase - phi_in, 1)
+            # < dur (non-eclipsed elements have dur == 0)
+            d = ph[s, :, None] - pin[s, None, :]
+            rel = d - torch.floor(d)
+            occ = rel < (pout[s] - pin[s])[:, None, :]
+            vis = 1.0 - occ.to(ph.dtype)
+        else:
+            vis = visible_fraction_interval(
+                ph[s, :, None], wd[s, :, None], pin[s, None, :],
+                pout[s, None, :], ec[s, None, :])
+        out.append(torch.matmul(vis, wts[s, :, None])[..., 0])
+    return torch.cat(out).reshape(lead + (P,))
+
+
+class DonorGrid(NamedTuple):
+    positions: torch.Tensor   # (..., N, 3) element centres (binary frame)
+    normals: torch.Tensor     # (..., N, 3) outward surface normals
+    areas: torch.Tensor       # (..., N) element areas
+
+
+def donor_grid(q, xl1_val, phi_l1, n_lat=16, n_lon=24):
+    """Tile the Roche-lobe-filling donor surface: directions from the
+    donor centre on an off-pole (lat x lon) grid, the lobe radius along
+    each (Phi = Phi_L1), outward normals grad(Phi)/|grad(Phi)| and areas
+    r^2 dOmega / (d . n).  ``q``, ``xl1_val``, ``phi_l1``: (...); returns a
+    :class:`DonorGrid` of (..., n_lat * n_lon) elements.
+
+    float64 bisects the radius to machine precision (54 steps); float32
+    takes 8 bisection steps and 4 safeguarded Newton steps, as the JAX
+    package does."""
+    dt, dev = q.dtype, q.device
+    th = (torch.arange(n_lat, dtype=dt, device=dev) + 0.5) / n_lat * math.pi
+    phl = (torch.arange(n_lon, dtype=dt, device=dev) + 0.5) / n_lon * (
+        2.0 * math.pi)
+    TH, PH = torch.meshgrid(th, phl, indexing="ij")
+    dx = (torch.sin(TH) * torch.cos(PH)).reshape(-1)
+    dy = (torch.sin(TH) * torch.sin(PH)).reshape(-1)
+    dz = torch.cos(TH).reshape(-1)
+    d_omega = ((math.pi / n_lat) * (2.0 * math.pi / n_lon)
+               * torch.sin(TH)).reshape(-1)
+
+    mu = (q / (1.0 + q))[..., None]
+    pl1 = phi_l1[..., None]
+    rmax = (1.0 - xl1_val)[..., None]
+
+    def lobe_f(r):
+        i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
+        cx = 1.0 + r * dx - mu
+        cy = r * dy
+        return (-(1.0 - mu) * i1 - mu / r - 0.5 * (cx * cx + cy * cy)) - pl1
+
+    def lobe_fp(r):
+        i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
+        cx = 1.0 + r * dx - mu
+        cy = r * dy
+        return ((1.0 - mu) * (r + dx) * i1 * i1 * i1 + mu / (r * r)
+                - (cx * dx + cy * dy))
+
+    shape = rmax.shape[:-1] + dx.shape
+    lo = (torch.full_like(dx, 1e-6) * rmax).expand(shape)
+    hi = rmax.expand(shape)
+
+    def bisect(lo, hi, n):
+        for _ in range(n):
+            mid = 0.5 * (lo + hi)
+            inside = lobe_f(mid) < 0.0
+            lo = torch.where(inside, mid, lo)
+            hi = torch.where(inside, hi, mid)
+        return lo, hi
+
+    if dt == torch.float64:
+        lo, hi = bisect(lo, hi, 54)
+        r = 0.5 * (lo + hi)
+    else:
+        lo, hi = bisect(lo, hi, 8)
+        r = 0.5 * (lo + hi)
+        for _ in range(4):
+            fr = lobe_f(r)
+            inside = fr < 0.0
+            lo = torch.where(inside, r, lo)
+            hi = torch.where(inside, hi, r)
+            rn = r - fr / torch.clamp(lobe_fp(r), min=1e-12)
+            bad = (rn < lo) | (rn > hi)
+            r = torch.where(bad, 0.5 * (lo + hi), rn)
+
+    px = 1.0 + r * dx
+    py = r * dy
+    pz = r * dz
+    i1 = torch.rsqrt(px * px + py * py + pz * pz)
+    i2 = 1.0 / r
+    i13 = i1 * i1 * i1
+    i23 = i2 * i2 * i2
+    gx = (1.0 - mu) * px * i13 + mu * (px - 1.0) * i23 - (px - mu)
+    gy = py * ((1.0 - mu) * i13 + mu * i23 - 1.0)
+    gz = pz * ((1.0 - mu) * i13 + mu * i23)
+    gn = torch.clamp(torch.sqrt(gx * gx + gy * gy + gz * gz), min=1e-12)
+    nx, ny, nz = gx / gn, gy / gn, gz / gn
+    mu_dn = torch.clamp(dx * nx + dy * ny + dz * nz, min=1e-3)
+    areas = r * r * d_omega / mu_dn
+    return DonorGrid(torch.stack([px, py, pz], dim=-1),
+                     torch.stack([nx, ny, nz], dim=-1), areas)
+
+
+def donor_flux(incl_deg, phases, grid: DonorGrid, ulimb_donor=0.9):
+    """Donor light curve, unnormalised: per element area * mu * I(mu) for
+    mu = n . e(phase) > 0 (Lambertian + linear limb darkening).
+
+    ``incl_deg`` (...), ``phases`` (..., P), ``grid`` of (..., N)
+    elements; returns (..., P).  The (P, N) sweep is chunked over the
+    flattened leading axes."""
+    e = earth_vector(phases, incl_deg[..., None])             # (..., P, 3)
+    lead = torch.broadcast_shapes(e.shape[:-2], grid.areas.shape[:-1])
+    P, N = e.shape[-2], grid.areas.shape[-1]
+    e = e.expand(lead + (P, 3)).reshape(-1, P, 3)
+    nrm = grid.normals.expand(lead + (N, 3)).reshape(-1, N, 3)
+    areas = grid.areas.expand(lead + (N,)).reshape(-1, N)
+    out = []
+    for s in _row_chunks(e.shape[0], P * N):
+        es, ns = e[s], nrm[s]
+        mu = (es[:, :, None, 0] * ns[:, None, :, 0]
+              + es[:, :, None, 1] * ns[:, None, :, 1]
+              + es[:, :, None, 2] * ns[:, None, :, 2])
+        mu = torch.clamp(mu, min=0.0)
+        w = mu * (1.0 - ulimb_donor) + ulimb_donor * mu * mu
+        out.append((w * areas[s, None, :]).sum(dim=-1))
+    return torch.cat(out).reshape(lead + (P,))
