@@ -1,26 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card, and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
 Runs from the root of a checkout, needs one NVIDIA Hopper card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; imports nothing of JAX.  The
 north-star model (5 eclipses, 2 bands, 128 points per eclipse, default
-CVConfig widths) is built with synthetic data, and the port's posterior
-and ensemble sampler run at 1024 walkers in float32.  Phases:
+CVConfig widths) is built with synthetic data; the port's posterior and
+ensemble sampler run at 1024 walkers in float32, and its gradient and HMC
+at 256 chains on the same model with the exposure widths a .calib light
+curve gets (0.3 / 127 cycles).  Phases:
 
-  1. device: the card, its power limit, the K1 build from
-     lfit_python_tpu_torch/ops/csrc/;
+  1. device: the card, its power limit, the builds of K1 (contacts.cu)
+     and K2 (stream.cu) from lfit_python_tpu_torch/ops/csrc/, in parallel;
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements);
   3. the posterior with K1 against the same posterior with the plain
-     contact solver, at the same 1024 walkers; ms per evaluation, the
-     stream scan's share, peak device memory, the other stages' time
-     (the stream cut to 64 steps) and the stream's device-busy share;
+     contact solver, at the same 1024 walkers, timed in turns; ms per
+     evaluation, the stream scan (K2) alone, peak device memory, and the
+     evaluation's device-busy share;
   4. float32 flux parity against the port's own float64 plain path
      (64 walkers), and float64 fluxes against tests/golden/golden_v1.npz;
-  5. the sampler: init_walkers and 3 run_sampler steps at 1024 walkers,
-     with K1's launch count read around the run.
+  5. the ensemble sampler: init_walkers and 3 run_sampler steps at 1024
+     walkers, with the K1 and K2 launch counts read around the run;
+  6. K2 against its plain version on the north-star stream inputs: the
+     primal at 1024 walkers, with sensitivities at 256, float32 and
+     float64;
+  7. the gradient on the widths model at 256 chains: ms per
+     value_and_grad, peak memory, K1's backward and K2's sensitivity
+     launch counted once per evaluation, the K1 path against the plain
+     contact path with the float64 gradient as referee, float32 against
+     float64, and where the device time goes;
+  8. HMC on the widths model: init_hmc, warmup_hmc (4 steps) and run_hmc
+     (3 steps) at 256 chains x 16 leapfrog steps, with the counts read
+     around the run.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel, the card's name and power limit
@@ -33,6 +46,8 @@ import json
 import subprocess
 import sys
 import time
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -40,8 +55,13 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_WALKERS = 1024
-KERNEL_SOURCE = "lfit_python_tpu_torch/ops/csrc/contacts.cu"
-KERNEL_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:352"
+N_CHAINS = 256
+N_LEAPFROG = 16
+K1_SOURCE = "lfit_python_tpu_torch/ops/csrc/contacts.cu"
+K1_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:352"
+K1_GRAD_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:448"
+K2_SOURCE = "lfit_python_tpu_torch/ops/csrc/stream.cu"
+K2_REPLACES = "lfit_python_tpu/roche/stream.py:278"
 
 
 def _check(cond, msg):
@@ -83,19 +103,74 @@ def _event_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def _device_busy_us(fn):
-    """Microseconds of device kernels in one profiled call of ``fn``, and
-    how many kernels ran."""
+def _device_kernels(fn):
+    """Device kernels of one profiled call of ``fn``: (busy us, kernel
+    count, host-clock us of the call, {kernel name: device us})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels), len(kernels)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = defaultdict(float)
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            n += 1
+    return sum(by_name.values()), n, wall_us, by_name
+
+
+def _busy_line(busy_us, n_kern, wall_us):
+    if not n_kern:
+        return "not measured (no device events traced)"
+    return (f"{busy_us / wall_us:.1%} ({n_kern} kernels, {busy_us:.0f} us "
+            f"on the device in {wall_us:.0f} us)")
+
+
+def _walkers(start, n, seed, dtype, dev):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pos = (start[None, :] + 0.001 * np.abs(start)[None, :]
+           * rng.standard_normal((n, start.size)))
+    return torch.tensor(pos, dtype=dtype, device=dev)
+
+
+def _zero_counts(contacts, stream):
+    contacts.LAUNCHES = contacts.BACKWARD_CALLS = 0
+    stream.LAUNCHES = stream.SENS_LAUNCHES = 0
+
+
+def _counts(contacts, stream):
+    return {"k1": contacts.LAUNCHES, "k1_bwd": contacts.BACKWARD_CALLS,
+            "k2": stream.LAUNCHES, "k2_sens": stream.SENS_LAUNCHES}
+
+
+def _k2_against_plain(stream, q, rd, x1, n_steps, with_sens):
+    """K2 and its plain version on the same inputs: (max |d impact|,
+    [max |d J| / max |J| for jq, jx0, jrd], kernel ms, plain ms)."""
+    import torch
+
+    k = stream.stream_impacts_kernel(q, rd, x1, n_steps, with_sens=with_sens)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p = stream._plain(q, rd, x1, n_steps, stream.plain._DT, with_sens)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    imp_err = (k[0] - p[0]).abs().max().item()
+    jac_rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(k[1:], p[1:])]
+    ms = _event_ms(lambda: stream.stream_impacts_kernel(
+        q, rd, x1, n_steps, with_sens=with_sens), 5)
+    return imp_err, jac_rel, ms, plain_ms
 
 
 def main():
@@ -109,14 +184,15 @@ def main():
     pkg_root = Path(lfit_python_tpu_torch.__file__).resolve().parent.parent
     _check(pkg_root == ROOT,
            f"the port was imported from {pkg_root}, not this checkout")
-    from lfit_python_tpu_torch.examples import build_model
+    from lfit_python_tpu_torch.examples import build_model, with_calib_widths
     from lfit_python_tpu_torch.models.cv import CVConfig, cv_fluxes
     from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-    from lfit_python_tpu_torch.ops import _build, contacts
+    from lfit_python_tpu_torch.ops import _build, contacts, stream
     from lfit_python_tpu_torch.roche.geometry import xl1
-    from lfit_python_tpu_torch.roche.stream import stream_impacts
     from lfit_python_tpu_torch.sampling.ensemble import (init_walkers,
                                                          run_sampler)
+    from lfit_python_tpu_torch.sampling.hmc import (init_hmc, run_hmc,
+                                                    warmup_hmc)
 
     _check("jax" not in sys.modules, "the port imported jax")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,29 +201,31 @@ def main():
     f32, f64 = torch.float32, torch.float64
     smi = _smi()
 
-    # ---- 1. device and build ------------------------------------------
+    # ---- 1. device and builds -----------------------------------------
     print(f"[1 device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    contacts._kernel_fn()
+    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, at once
+        for fut in [pool.submit(contacts._kernel_fn),
+                    pool.submit(stream._kernel)]:
+            fut.result()
     build_s = time.perf_counter() - t0
-    nvcc_s = _build.BUILD_SECONDS.get("contacts")
-    print(f"[1 device] K1 built and loaded in {build_s:.2f} s (nvcc "
-          f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
-    for path in _build._BUILD_ROOT.glob("*/contacts.ptxas.txt"):
-        for ln in path.read_text().splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"[1 device] ptxas: {ln.strip()}")
+    for name in ("contacts", "stream"):
+        nvcc_s = _build.BUILD_SECONDS.get(name)
+        print(f"[1 device] {name}.cu nvcc "
+              f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}")
+        for path in _build._BUILD_ROOT.glob(f"*/{name}.ptxas.txt"):
+            for ln in path.read_text().splitlines():
+                if "registers" in ln or "spill" in ln:
+                    print(f"[1 device] ptxas {name}: {ln.strip()}")
+    print(f"[1 device] K1 and K2 built and loaded in {build_s:.2f} s")
 
     # ---- the north-star model and 1024 walkers around its start -------
     t0 = time.perf_counter()
     model = build_model(n_eclipses=5, complex_spot=[False] * 5,
                         n_points=128, bands=("g", "r")).compile()
     start = model.var_start()
-    rng = np.random.default_rng(0)
-    pos_host = (start[None, :] + 0.001 * np.abs(start)[None, :]
-                * rng.standard_normal((N_WALKERS, start.size)))
-    pos = torch.tensor(pos_host, dtype=f32, device=dev)
+    pos = _walkers(start, N_WALKERS, 0, f32, dev)
     lp32 = make_ln_prob(model, dtype=f32, device=dev)
     print(f"[model] 5 eclipses x 128 points, 2 bands, D = {start.size}; "
           f"built on the host in {time.perf_counter() - t0:.1f} s")
@@ -168,17 +246,17 @@ def main():
     both = k_out[2] & p_out[2]
     err_in = (k_out[0] - p_out[0]).abs()[both].max().item()
     err_out = (k_out[1] - p_out[1]).abs()[both].max().item()
-    max_abs_err = max(err_in, err_out)
+    k1_err = max(err_in, err_out)
     n_ecl = int(both.sum().item())
     print(f"[2 K1] {rows} x {n} contacts, {n_ecl} eclipsed in both; flag "
           f"disagreement {flag_diff:.3e} (limit 1e-4); max |dphi| "
-          f"{max_abs_err:.3e} cycles (limit 1e-5)")
+          f"{k1_err:.3e} cycles (limit 1e-5)")
     _check(flag_diff <= 1e-4, "K1 eclipsed flags disagree with plain")
-    _check(max_abs_err <= 1e-5, "K1 contact phases disagree with plain")
-    k_ms = _event_ms(lambda: contacts.element_intervals_kernel(*args), 20)
-    p_ms = _event_ms(lambda: contacts.element_intervals_plain(*args), 5)
-    print(f"[2 K1] time per call: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms ({p_ms / k_ms:.1f}x)")
+    _check(k1_err <= 1e-5, "K1 contact phases disagree with plain")
+    k1_ms = _event_ms(lambda: contacts.element_intervals_kernel(*args), 20)
+    k1_plain_ms = _event_ms(lambda: contacts.element_intervals_plain(*args), 5)
+    print(f"[2 K1] time per call: kernel {k1_ms:.4f} ms, plain "
+          f"{k1_plain_ms:.4f} ms ({k1_plain_ms / k1_ms:.1f}x)")
 
     # ---- 3. posterior: kernel path vs plain path ----------------------
     def plain_path(fn):
@@ -192,8 +270,7 @@ def main():
     _check(int(fin_k.sum()) > N_WALKERS // 2, "most walkers are -inf")
     fk = lp32.model_flux(pos)
     fp = plain_path(lambda: lp32.model_flux(pos))
-    good = fin_k
-    dflux = (fk - fp).abs()[good]
+    dflux = (fk - fp).abs()[fin_k]
     f_max, f_med = dflux.max().item(), dflux.median().item()
     print(f"[3 posterior] {int(fin_k.sum())}/{N_WALKERS} walkers finite "
           f"in both paths; model flux |kernel - plain| max {f_max:.3e} "
@@ -201,50 +278,32 @@ def main():
     _check(f_max <= 2e-4 and f_med <= 1e-6, "posterior fluxes disagree")
     with torch.inference_mode():
         cvp = model.cv_params(model.full_from_var(pos))
-        q = cvp[:, 0, 4]
+        q = cvp[:, 0, 4].contiguous()
         x1 = xl1(q)
-        rd = cvp[..., 6] * x1[:, None]
+        rd = (cvp[..., 6] * x1[:, None]).contiguous()
+    n_steps = lp32.stream_steps
 
-    def stream_alone(n_steps):
-        with torch.inference_mode():
-            stream_impacts(q, rd, x1, n_steps=n_steps)
-
-    # both are bound by host dispatch, whose speed drifts within a run:
-    # the eval and the stream alone are timed in turns, the least of each
+    # host-clock times drift within a run: the two paths in turns (plain,
+    # kernel, kernel, plain), the least of each
     torch.cuda.reset_peak_memory_stats()
-    turns = {"kernel": [], "stream": []}
-    for _ in range(2):
-        turns["kernel"].append(_sync_time(lambda: lp32(pos), 1))
-        turns["stream"].append(
-            _sync_time(lambda: stream_alone(lp32.stream_steps), 1))
-    peak = torch.cuda.max_memory_allocated()
-    ms_kernel, ms_stream = min(turns["kernel"]), min(turns["stream"])
-    ms_plain = plain_path(lambda: _sync_time(lambda: lp32(pos), 2))
-    print(f"[3 posterior] ms per eval at {N_WALKERS} walkers: kernel path "
-          f"{ms_kernel:.1f} (turns {turns['kernel'][0]:.1f}, "
-          f"{turns['kernel'][1]:.1f}), plain path {ms_plain:.1f}; stream "
-          f"scan alone {ms_stream:.1f} ms (turns {turns['stream'][0]:.1f}, "
-          f"{turns['stream'][1]:.1f}) = {ms_stream / ms_kernel:.1%} of the "
-          f"kernel path; peak device memory {peak / 2**30:.2f} GiB")
-    # the posterior's other stages: the same evaluation with the stream
-    # cut to 64 steps (its values unused), in turns plain, kernel, kernel,
-    # plain; and the stream scan's device-busy share under the profiler
-    steps, lp32.stream_steps = lp32.stream_steps, 64
-    rest = {"plain": [], "kernel": []}
+    turns = {"plain": [], "kernel": []}
     for path in ("plain", "kernel", "kernel", "plain"):
         def run():
-            return _sync_time(lambda: lp32(pos), 3)
-        rest[path].append(plain_path(run) if path == "plain" else run())
-    lp32.stream_steps = steps
-    ms64 = _sync_time(lambda: stream_alone(64), 3)
-    busy_us, n_kern = _device_busy_us(lambda: stream_alone(64))
-    busy = (f"{busy_us / (ms64 * 1e3):.1%} ({n_kern} kernels, "
-            f"{busy_us:.0f} us on the device in {ms64 * 1e3:.0f} us)"
-            if n_kern else "not measured (no device events traced)")
-    print(f"[3 stages] posterior with the stream cut to 64 steps: kernel "
-          f"path {min(rest['kernel']):.1f} ms, plain path "
-          f"{min(rest['plain']):.1f} ms; 64 stream steps {ms64:.2f} ms, "
-          f"device-busy share {busy}")
+            return _sync_time(lambda: lp32(pos), 2)
+        turns[path].append(plain_path(run) if path == "plain" else run())
+    peak = torch.cuda.max_memory_allocated()
+    ms_kernel, ms_plain = min(turns["kernel"]), min(turns["plain"])
+    ms_stream = _event_ms(lambda: stream.stream_impacts_kernel(
+        q, rd, x1, n_steps), 5)
+    busy_us, n_kern, wall_us, _ = _device_kernels(lambda: lp32(pos))
+    print(f"[3 posterior] ms per eval at {N_WALKERS} walkers: kernel path "
+          f"{ms_kernel:.1f} (turns {turns['kernel'][0]:.1f}, "
+          f"{turns['kernel'][1]:.1f}), plain contact path {ms_plain:.1f} "
+          f"(turns {turns['plain'][0]:.1f}, {turns['plain'][1]:.1f}); "
+          f"stream scan (K2, {n_steps} steps) alone {ms_stream:.3f} ms = "
+          f"{ms_stream / ms_kernel:.1%} of the kernel path; peak device "
+          f"memory {peak / 2**30:.2f} GiB; device-busy share of one eval "
+          f"{_busy_line(busy_us, n_kern, wall_us)}")
 
     # ---- 4. f32 parity vs the f64 plain path; f64 vs golden ------------
     # identical f32-representable parameter vectors in both precisions
@@ -288,39 +347,214 @@ def main():
           f"relative error {worst:.2e} (limit 1e-9)")
     _check(worst <= 1e-9, "f64 fluxes drifted from golden")
 
-    # ---- 5. sampler: the main path ------------------------------------
+    # ---- 5. the ensemble sampler: a main path --------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     start_t = torch.tensor(start, dtype=f32, device=dev)
     scatter = 1e-3 * torch.clamp(start_t.abs(), min=1e-2)
-    contacts.LAUNCHES = 0
+    _zero_counts(contacts, stream)
     t0 = time.perf_counter()
     state = init_walkers(gen, start_t, scatter, lp32, N_WALKERS)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    launches_init = contacts.LAUNCHES
-    n_steps = 3
+    c_init = _counts(contacts, stream)
+    n_ens = 3
     t0 = time.perf_counter()
-    state, chain, chain_lp, acc = run_sampler(state, lp32, n_steps, gen)
+    state, chain, chain_lp, acc = run_sampler(state, lp32, n_ens, gen)
     torch.cuda.synchronize()
-    s_step = (time.perf_counter() - t0) / n_steps
-    launches = contacts.LAUNCHES
+    s_step = (time.perf_counter() - t0) / n_ens
+    c_ens = _counts(contacts, stream)
+    k1_steps = c_ens["k1"] - c_init["k1"]
+    k2_steps = c_ens["k2"] - c_init["k2"]
     acc_mean = acc.mean().item()
-    print(f"[5 sampler] init_walkers {t_init:.1f} s ({launches_init} K1 "
-          f"launches); {n_steps} steps at {s_step:.2f} s/step; acceptance "
-          f"{acc_mean:.3f}; K1 launches in the steps "
-          f"{launches - launches_init} (2 per step expected)")
+    print(f"[5 sampler] init_walkers {t_init:.2f} s ({c_init['k1']} K1, "
+          f"{c_init['k2']} K2 launches); {n_ens} steps at {s_step:.3f} "
+          f"s/step; acceptance {acc_mean:.3f}; launches in the steps: K1 "
+          f"{k1_steps}, K2 {k2_steps} (2 each per step expected)")
     _check(bool(torch.isfinite(state.log_prob).all()), "non-finite log_prob")
     _check(0.0 < acc_mean < 1.0, "acceptance fraction outside (0, 1)")
-    _check(launches - launches_init == 2 * n_steps,
-           "K1 did not launch once per half-step")
-    _check(tuple(chain.shape) == (n_steps, N_WALKERS, start.size),
+    _check(k1_steps == 2 * n_ens, "K1 did not launch once per half-step")
+    _check(k2_steps == 2 * n_ens, "K2 did not launch once per half-step")
+    _check(c_ens["k1_bwd"] == 0 and c_ens["k2_sens"] == 0,
+           "the ensemble path ran a gradient")
+    _check(tuple(chain.shape) == (n_ens, N_WALKERS, start.size),
            "chain shape")
 
-    print(json.dumps({"kernels": [{
-        "name": "contacts", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms}]}))
+    # ---- 6. K2 vs plain on the north-star stream inputs ----------------
+    k2 = {}
+    for dt in (f32, f64):
+        for w, sens in ((N_WALKERS, False), (N_CHAINS, True)):
+            a = [t[:w].to(dt).contiguous() for t in (q, rd, x1)]
+            k2[dt, sens] = _k2_against_plain(stream, *a, n_steps, sens)
+            imp_err, jac, ms, pms = k2[dt, sens]
+            jtxt = ("; max |dJ|/max|J|: jq {:.2e}, jx0 {:.2e}, jrd {:.2e}"
+                    .format(*jac) if sens else "")
+            print(f"[6 K2] {str(dt)[6:]} {w} walkers x {rd.shape[1]} radii, "
+                  f"{n_steps} steps{', sensitivities' if sens else ''}: max "
+                  f"|d impact| {imp_err:.2e}{jtxt}; kernel {ms:.4f} ms, "
+                  f"plain {pms:.1f} ms ({pms / ms:.0f}x)")
+            _check(imp_err <= (1e-10 if dt == f64 else 1e-4),
+                   f"K2 impacts disagree with plain ({dt}, sens={sens})")
+            _check(all(j <= (1e-8 if dt == f64 else 1e-4) for j in jac),
+                   f"K2 Jacobians disagree with plain ({dt})")
+
+    # ---- 7. the gradient on the widths model ---------------------------
+    model_w = with_calib_widths(build_model(
+        n_eclipses=5, complex_spot=[False] * 5, n_points=128,
+        bands=("g", "r"))).compile()
+    lpw = make_ln_prob(model_w, dtype=f32, device=dev)
+    _check(lpw.width is not None, "the widths model has no widths")
+    width = float(np.asarray(model_w.data_width).max())
+    posw = _walkers(start, N_CHAINS, 1, f32, dev)
+    lpw.value_and_grad(posw)                          # warm the allocator
+    _zero_counts(contacts, stream)
+    lp_g, g_k = lpw.value_and_grad(posw)
+    c_one = _counts(contacts, stream)
+    print(f"[7 grad] widths model (width {width:.6f} cycles), {N_CHAINS} "
+          f"chains: one value_and_grad launched K1 {c_one['k1']}, K1 "
+          f"backward {c_one['k1_bwd']}, K2 {c_one['k2']} (with "
+          f"sensitivities {c_one['k2_sens']})")
+    _check(c_one == {"k1": 1, "k1_bwd": 1, "k2": 1, "k2_sens": 1},
+           "K1's backward or K2's sensitivities not once per evaluation")
+    _check(bool(torch.isfinite(lp_g).all()), "a chain's ln p is not finite")
+    _check(bool(torch.isfinite(g_k).all()), "a gradient is not finite")
+    _check(bool((g_k.abs().amax(dim=-1) > 0).all()), "a zero gradient row")
+    torch.cuda.reset_peak_memory_stats()
+    vg_turns, fwd_turns = [], []
+    for _ in range(2):
+        vg_turns.append(_sync_time(lambda: lpw.value_and_grad(posw), 1))
+        fwd_turns.append(_sync_time(lambda: lpw(posw), 1))
+    peak_g = torch.cuda.max_memory_allocated()
+    vg_ms, fwd_ms = min(vg_turns), min(fwd_turns)
+    print(f"[7 grad] ms per value_and_grad {vg_ms:.1f} (turns "
+          f"{vg_turns[0]:.1f}, {vg_turns[1]:.1f}); forward alone "
+          f"{fwd_ms:.1f} ms; peak device memory {peak_g / 2**30:.2f} GiB")
+
+    # K1's backward alone, on the main path's own contact rows
+    with mock.patch.object(contacts, "element_intervals_diff",
+                           wraps=contacts.element_intervals_diff) as rec:
+        lpw.value_and_grad(posw)
+    _check(rec.call_count == 1, "element_intervals_diff not called once")
+    crow = [a.detach() for a in rec.call_args.args]
+    cot = torch.randn(crow[2].shape, generator=torch.Generator(
+        device=dev).manual_seed(1), dtype=f32, device=dev)
+
+    def k1_fwd(bwd):
+        leaves = [a.clone().requires_grad_() for a in crow[:6]]
+        with torch.enable_grad():
+            pin, pout, _ = contacts.element_intervals_diff(*leaves, crow[6])
+            if bwd:
+                torch.autograd.grad((pin * cot + pout * cot).sum(), leaves)
+
+    k1_bwd_ms = _event_ms(lambda: k1_fwd(True), 5) - _event_ms(
+        lambda: k1_fwd(False), 5)
+    print(f"[7 grad] K1's backward on {crow[2].shape[0]} x "
+          f"{crow[2].shape[1]} contacts: {k1_bwd_ms:.3f} ms = "
+          f"{k1_bwd_ms / vg_ms:.1%} of a gradient evaluation")
+
+    # the gradient on the K1 path against the plain contact path, with
+    # the float64 gradient (plain contact solver) as referee
+    _, g_p = plain_path(lambda: lpw.value_and_grad(posw))
+    lpw64 = make_ln_prob(model_w, dtype=f64, device=dev)
+    _, g64 = lpw64.value_and_grad(posw.to(f64))
+    g_k64, g_p64 = g_k.to(f64), g_p.to(f64)
+    d_kp = (g_k64 - g_p64).abs()
+    bound = 1e-5 + 2e-3 * g_p64.abs()
+    outside = d_kp > bound
+    # an entry outside the bound must still sit inside the float32 path's
+    # own error there: the chi^2 gradient is a sum of large cancelling
+    # terms, and its float32 rounding, not K1, sets the small entries
+    unexplained = outside & (d_kp > (g_p64 - g64).abs())
+    print(f"[7 grad] K1 path vs plain contact path, {g_k.numel()} entries: "
+          f"{int(outside.sum())} outside |dg| <= 1e-5 + 2e-3 |g|, max "
+          f"|dg| / bound {(d_kp / bound).max().item():.3f}; "
+          f"of those, {int(unexplained.sum())} (limit 0) farther apart "
+          f"than the plain path is from the float64 gradient")
+    _check(int(unexplained.sum()) == 0,
+           "gradients of the K1 and plain paths disagree")
+
+    # float32 against float64
+    cos = ((g_k64 * g64).sum(-1) / (g_k64.norm(dim=-1) * g64.norm(dim=-1)))
+    relc = ((g_k64 - g64).abs() / g64.abs().clamp(min=1e-30)).median(
+        dim=0).values
+    frac_ok = (cos >= 0.999).double().mean().item()
+    print(f"[7 grad] f32 vs f64 at {N_CHAINS} chains: per-component median "
+          f"relative error: median {relc.median().item():.2e}, max "
+          f"{relc.max().item():.2e}; cosine min {cos.min().item():.6f}, "
+          f"median {cos.median().item():.8f}; {frac_ok:.0%} of chains at "
+          f"cosine >= 0.999 (limit 95%)")
+    _check(frac_ok >= 0.95, "f32 gradients point away from f64")
+
+    # where one gradient evaluation's device time goes
+    busy_g, n_kg, wall_g, by_name = _device_kernels(
+        lambda: lpw.value_and_grad(posw))
+    print(f"[7 grad] device-busy share of one value_and_grad "
+          f"{_busy_line(busy_g, n_kg, wall_g)}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[7 grad]   {us:9.0f} us  {us / max(busy_g, 1):5.1%}  "
+              f"{name[:90]}")
+
+    # ---- 8. HMC on the widths model: a main path -----------------------
+    genh = torch.Generator(device=dev)
+    genh.manual_seed(0)
+    scat_h = torch.tensor(1e-3 * np.abs(start) + 1e-6, dtype=f32, device=dev)
+    _zero_counts(contacts, stream)
+    t0 = time.perf_counter()
+    hs = init_hmc(genh, start_t, scat_h, lpw, N_CHAINS)
+    pos0 = hs.positions.clone()
+    hs = warmup_hmc(hs, lpw, 4, genh, n_leapfrog=N_LEAPFROG)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    c_warm = _counts(contacts, stream)
+    n_hmc = 3
+    t0 = time.perf_counter()
+    hs, hchain, hchain_lp, hacc, hdiv = run_hmc(hs, lpw, n_hmc, genh,
+                                                n_leapfrog=N_LEAPFROG)
+    torch.cuda.synchronize()
+    s_hmc = (time.perf_counter() - t0) / n_hmc
+    c_hmc = _counts(contacts, stream)
+    per = {k: (c_hmc[k] - c_warm[k]) / n_hmc for k in c_hmc}
+    moved = (hs.positions != pos0).any(dim=-1).double().mean().item()
+    print(f"[8 hmc] {N_CHAINS} chains x {N_LEAPFROG} leapfrog: init + 4 "
+          f"warmup steps {t_warm:.1f} s; {n_hmc} steps at {s_hmc:.2f} "
+          f"s/step ({N_CHAINS * N_LEAPFROG / s_hmc:.0f} chain-gradients/s); "
+          f"acceptance {hacc.mean().item():.3f}; divergences "
+          f"{hdiv.mean().item():.3f}; adapted step size "
+          f"{hs.step_size.item():.3e}; per step: K1 {per['k1']:.0f}, K1 "
+          f"backward {per['k1_bwd']:.0f}, K2 {per['k2']:.0f} (16 each "
+          f"expected); chains moved {moved:.0%}")
+    _check(per["k1"] == per["k1_bwd"] == per["k2"] == per["k2_sens"]
+           == N_LEAPFROG, "not one K1, K1 backward and K2 per leapfrog")
+    _check(bool(torch.isfinite(hs.positions).all()), "non-finite positions")
+    _check(bool(torch.isfinite(hs.log_prob).all()), "non-finite log_prob")
+    _check(bool(torch.isfinite(hchain_lp).all()), "non-finite chain_lp")
+    _check(moved > 0.5, "the chains did not move")
+    _check(tuple(hchain.shape) == (n_hmc, N_CHAINS, start.size),
+           "HMC chain shape")
+
+    k2_ms, k2_pms = k2[f32, False][2:]
+    print(json.dumps({"kernels": [
+        {"name": "contacts", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES,
+         "launches": c_ens["k1"] + c_hmc["k1"],
+         "launches_by_path": {"ensemble": c_ens["k1"], "hmc": c_hmc["k1"]},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "gradient": {
+             "route": "torch.autograd.Function, backward in plain PyTorch "
+                      "(lfit_python_tpu_torch/ops/contacts.py)",
+             "replaces": K1_GRAD_REPLACES,
+             "backward_calls": c_hmc["k1_bwd"], "backward_ms": k1_bwd_ms}},
+        {"name": "stream", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES + " (an XLA lax.scan, no pallas_call)",
+         "launches": c_ens["k2"] + c_hmc["k2"],
+         "launches_by_path": {"ensemble": c_ens["k2"], "hmc": c_hmc["k2"]},
+         "max_abs_err": k2[f32, False][0], "ms": k2_ms, "plain_ms": k2_pms,
+         "sensitivities": {
+             "launches": c_hmc["k2_sens"], "walkers": N_CHAINS,
+             "max_abs_err": k2[f32, True][0],
+             "max_rel_err_jacobians": max(k2[f32, True][1]),
+             "ms": k2[f32, True][2], "plain_ms": k2[f32, True][3]}},
+    ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

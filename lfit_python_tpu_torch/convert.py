@@ -4,6 +4,8 @@
 attribute, so this module imports nothing of JAX — or a dict of the same
 arrays, and returns the port's :class:`~.models.tree.CompiledModel`, so
 both packages evaluate the same posterior on the same data.
+``state_from_numpy`` and ``hmc_state_from_numpy`` carry sampler states
+across as arrays.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ import torch
 from .models.priors import PriorTable
 from .models.tree import CompiledModel
 from .sampling.ensemble import EnsembleState
+from .sampling.hmc import HMCState
 
-__all__ = ["from_jax_model", "state_from_numpy"]
+__all__ = ["from_jax_model", "state_from_numpy", "hmc_state_from_numpy"]
 
 _ARRAYS = ("full_start", "var_idx", "var_pos", "scatter", "cv_idx",
            "cv_const", "gp_idx", "gp_mask", "data_phase", "data_flux",
@@ -53,3 +56,17 @@ def state_from_numpy(positions, log_prob, step=0, dtype=torch.float64,
         torch.tensor(np.asarray(positions), dtype=dtype, device=device),
         torch.tensor(np.asarray(log_prob), dtype=dtype, device=device),
         int(step))
+
+
+def hmc_state_from_numpy(state, dtype=torch.float64, device=None) -> HMCState:
+    """The port's HMC state from a JAX-package ``HMCState`` (read by
+    attribute) or a dict of its fields: positions (C, D), log_prob (C,),
+    grad (C, D), step_size, inv_mass (D,) and step.  The PRNG key does
+    not carry over: the port draws from a ``torch.Generator``."""
+    def arr(name):
+        return torch.tensor(np.asarray(_get(state, name)), dtype=dtype,
+                            device=device)
+
+    return HMCState(arr("positions"), arr("log_prob"), arr("grad"),
+                    arr("step_size"), arr("inv_mass"),
+                    int(np.asarray(_get(state, "step"))))

@@ -17,7 +17,7 @@ from .models.priors import Param, Prior
 from .models.tree import EclipseSpec, HierarchicalModel, Lightcurve
 
 __all__ = ["TRUE_PARAMS", "make_synthetic_lightcurve",
-           "default_eclipse_params", "build_model"]
+           "default_eclipse_params", "build_model", "with_calib_widths"]
 
 TRUE_PARAMS = {
     "wdFlux": 0.1, "dFlux": 0.05, "sFlux": 0.08, "rsFlux": 0.03,
@@ -134,3 +134,16 @@ def build_model(n_eclipses=1, complex_spot=False, use_gp=False,
             default_eclipse_params(cs, use_gp[k]),
             complex_spot=cs, use_gp=use_gp[k]))
     return HierarchicalModel(core, band_params, eclipses)
+
+
+def with_calib_widths(spec: HierarchicalModel) -> HierarchicalModel:
+    """``spec`` with every light curve given the exposure widths a
+    ``.calib`` file gets on loading (the reference's
+    ``Lightcurve.from_calib``): the median sample spacing, in cycles.
+    The flux then goes through the exact finite-exposure smearing, which
+    is continuous in the contact phases.  Changes ``spec`` in place."""
+    for ecl in spec.eclipses:
+        lc = ecl.lightcurve
+        lc.width = np.full_like(lc.phase,
+                                np.median(np.abs(np.diff(lc.phase))))
+    return spec

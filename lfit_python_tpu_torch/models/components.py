@@ -1,11 +1,16 @@
 """The four CV flux components, on batched tensors.
 
-Port of ``lfit_python_tpu/models/components.py`` (primal only).  Per-walker
+Port of ``lfit_python_tpu/models/components.py``.  Per-walker
 scalars are tensors of any leading shape ``(...)``; phase sweeps carry a
 trailing phase axis ``(..., P)`` and element sets a trailing element axis
 ``(..., N)`` (positions ``(..., N, 3)``).  Every ``*_flux`` function returns
 the normalised curve of one component, scaled by its flux parameter in
 ``models/cv.py``.
+
+Everything is differentiable: the contact phases through
+``ops.contacts.element_intervals_diff``, the donor lobe radius through
+its IFT tangent, and the white dwarf's edge fraction through an
+``autograd.Function`` whose derivative stays finite at |x| = 1.
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ from typing import NamedTuple
 import torch
 
 from ..ops import contacts
-from ..roche.stream import stream_impacts
+from ..ops.stream import stream_impacts
 from ..roche.geometry import (
+    _recording,
     earth_vector,
+    implicit_tangent,
     inscribed_radius,
     origin_shadow_distance,
     visible_fraction_interval,
@@ -42,15 +49,40 @@ __all__ = [
 _CHUNK_ELEMS = 1 << 25
 
 
+class _EdgeVisibleFraction(torch.autograd.Function):
+    """The edge fraction with the reference's custom JVP: autograd of
+    arccos at |a| = 1 gives inf * 0 = NaN, but the true derivative
+    dV/da = -[2 (1-u) sqrt(1-a^2) + (pi/2) u (1-a^2)] / total is smooth
+    and vanishes there."""
+
+    @staticmethod
+    def forward(ctx, x, ulimb):
+        a = torch.clamp(-x, -1.0, 1.0)
+        s2 = torch.clamp(1.0 - a * a, min=0.0)
+        uni = torch.arccos(a) - a * torch.sqrt(s2)
+        sq = 0.5 * math.pi * ((1.0 - a) - (1.0 - a ** 3) / 3.0)
+        total = (1.0 - ulimb) * math.pi + ulimb * 2.0 * math.pi / 3.0
+        val = ((1.0 - ulimb) * uni + ulimb * sq) / total
+        ctx.save_for_backward(x, ulimb, val, s2, uni, sq, total)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        x, u, val, s2, uni, sq, total = ctx.saved_tensors
+        dvda = -(2.0 * (1.0 - u) * torch.sqrt(s2)
+                 + 0.5 * math.pi * u * s2) / total
+        inside = (x > -1.0) & (x < 1.0)
+        dvdx = torch.where(inside, -dvda, torch.zeros_like(dvda))
+        dvdu = (sq - uni) / total + val * (math.pi / 3.0) / total
+        return ((g * dvdx).sum_to_size(x.shape),
+                (g * dvdu).sum_to_size(u.shape))
+
+
 def _edge_visible_fraction(x, ulimb):
     """Visible flux fraction of a linearly limb-darkened disc cut by a
     straight shadow edge; ``x`` is the signed distance of the disc centre
     from the edge in disc radii (+1 fully visible, -1 fully occulted)."""
-    a = torch.clamp(-x, -1.0, 1.0)
-    uni = torch.arccos(a) - a * torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
-    sq = 0.5 * math.pi * ((1.0 - a) - (1.0 - a ** 3) / 3.0)
-    total = (1.0 - ulimb) * math.pi + ulimb * 2.0 * math.pi / 3.0
-    return ((1.0 - ulimb) * uni + ulimb * sq) / total
+    return _EdgeVisibleFraction.apply(x, ulimb)
 
 
 def wd_flux(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins=None):
@@ -141,9 +173,9 @@ def element_intervals(q, incl_deg, positions, xl1_val, phi_l1):
 
     ``q``, ``incl_deg``, ``xl1_val``, ``phi_l1``: (...); ``positions``:
     (..., N, 3) orbital-plane points.  The leading axes are flattened into
-    rows and solved in one call of ``ops.contacts.element_intervals`` (the
-    CUDA kernel for float32 on the card).  Returns (phi_in, phi_out,
-    eclipsed), each (..., N)."""
+    rows and solved in one call of ``ops.contacts.element_intervals_diff``
+    (the CUDA kernel for float32 on the card, IFT gradients in the
+    backward).  Returns (phi_in, phi_out, eclipsed), each (..., N)."""
     lead = positions.shape[:-2]
     n = positions.shape[-2]
 
@@ -153,8 +185,9 @@ def element_intervals(q, incl_deg, positions, xl1_val, phi_l1):
     r_ins = inscribed_radius(q, xl1_val, phi_l1)
     px = positions[..., 0].reshape(-1, n).contiguous()
     py = positions[..., 1].reshape(-1, n).contiguous()
-    out = contacts.element_intervals(rows(q), rows(incl_deg), px, py,
-                                     rows(xl1_val), rows(phi_l1), rows(r_ins))
+    out = contacts.element_intervals_diff(
+        rows(q), rows(incl_deg), px, py, rows(xl1_val), rows(phi_l1),
+        rows(r_ins))
     return tuple(o.reshape(lead + (n,)) for o in out)
 
 
@@ -213,7 +246,8 @@ def donor_grid(q, xl1_val, phi_l1, n_lat=16, n_lon=24):
 
     float64 bisects the radius to machine precision (54 steps); float32
     takes 8 bisection steps and 4 safeguarded Newton steps, as the JAX
-    package does."""
+    package does.  Either solve runs without a graph; the radius gets the
+    IFT tangent of F(r) = Phi(c2 + r d) - Phi_L1."""
     dt, dev = q.dtype, q.device
     th = (torch.arange(n_lat, dtype=dt, device=dev) + 0.5) / n_lat * math.pi
     phl = (torch.arange(n_lon, dtype=dt, device=dev) + 0.5) / n_lon * (
@@ -227,47 +261,52 @@ def donor_grid(q, xl1_val, phi_l1, n_lat=16, n_lon=24):
 
     mu = (q / (1.0 + q))[..., None]
     pl1 = phi_l1[..., None]
-    rmax = (1.0 - xl1_val)[..., None]
 
-    def lobe_f(r):
+    def lobe_f(r, mu=mu, pl1=pl1):
         i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
         cx = 1.0 + r * dx - mu
         cy = r * dy
         return (-(1.0 - mu) * i1 - mu / r - 0.5 * (cx * cx + cy * cy)) - pl1
 
-    def lobe_fp(r):
+    def lobe_fp(r, mu):
         i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
         cx = 1.0 + r * dx - mu
         cy = r * dy
         return ((1.0 - mu) * (r + dx) * i1 * i1 * i1 + mu / (r * r)
                 - (cx * dx + cy * dy))
 
-    shape = rmax.shape[:-1] + dx.shape
-    lo = (torch.full_like(dx, 1e-6) * rmax).expand(shape)
-    hi = rmax.expand(shape)
+    with torch.no_grad():
+        mu0, pl10 = mu.detach(), pl1.detach()
+        rmax = (1.0 - xl1_val.detach())[..., None]
+        shape = rmax.shape[:-1] + dx.shape
+        lo = (torch.full_like(dx, 1e-6) * rmax).expand(shape)
+        hi = rmax.expand(shape)
 
-    def bisect(lo, hi, n):
-        for _ in range(n):
-            mid = 0.5 * (lo + hi)
-            inside = lobe_f(mid) < 0.0
-            lo = torch.where(inside, mid, lo)
-            hi = torch.where(inside, hi, mid)
-        return lo, hi
+        def bisect(lo, hi, n):
+            for _ in range(n):
+                mid = 0.5 * (lo + hi)
+                inside = lobe_f(mid, mu0, pl10) < 0.0
+                lo = torch.where(inside, mid, lo)
+                hi = torch.where(inside, hi, mid)
+            return lo, hi
 
-    if dt == torch.float64:
-        lo, hi = bisect(lo, hi, 54)
-        r = 0.5 * (lo + hi)
-    else:
-        lo, hi = bisect(lo, hi, 8)
-        r = 0.5 * (lo + hi)
-        for _ in range(4):
-            fr = lobe_f(r)
-            inside = fr < 0.0
-            lo = torch.where(inside, r, lo)
-            hi = torch.where(inside, hi, r)
-            rn = r - fr / torch.clamp(lobe_fp(r), min=1e-12)
-            bad = (rn < lo) | (rn > hi)
-            r = torch.where(bad, 0.5 * (lo + hi), rn)
+        if dt == torch.float64:
+            lo, hi = bisect(lo, hi, 54)
+            r = 0.5 * (lo + hi)
+        else:
+            lo, hi = bisect(lo, hi, 8)
+            r = 0.5 * (lo + hi)
+            for _ in range(4):
+                fr = lobe_f(r, mu0, pl10)
+                inside = fr < 0.0
+                lo = torch.where(inside, r, lo)
+                hi = torch.where(inside, hi, r)
+                rn = r - fr / torch.clamp(lobe_fp(r, mu0), min=1e-12)
+                bad = (rn < lo) | (rn > hi)
+                r = torch.where(bad, 0.5 * (lo + hi), rn)
+        slope = lobe_fp(r, mu0)
+    if _recording(mu, pl1):
+        r = implicit_tangent(r, lobe_f(r), slope)
 
     px = 1.0 + r * dx
     py = r * dy

@@ -18,8 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.stream import stream_impacts
 from ..roche.geometry import earth_vector, findi, l1_potential, xl1
-from ..roche.stream import stream_impacts
 from . import components as comp
 
 __all__ = [

@@ -6,6 +6,12 @@ Port of the chi^2 branch of ``lfit_python_tpu/models/likelihood.py``.
 and every eclipse at once: the core-node geometry (L1, inclination, the
 gas-stream integration, the donor grid) is solved once per walker, and
 the per-eclipse work runs on ``(W, E, ...)`` tensors.
+
+:meth:`Posterior.value_and_grad` differentiates the same evaluation for
+the gradient samplers: every root solve carries its implicit-function-
+theorem gradient, the contact phases through K1's backward
+(``ops.contacts``) and the stream impacts through K2's forward
+sensitivities (``ops.stream``).
 """
 
 from __future__ import annotations
@@ -15,8 +21,9 @@ import math
 import numpy as np
 import torch
 
+from ..ops.stream import stream_impacts
 from ..roche.geometry import findi, l1_potential, xl1
-from ..roche.stream import stream_impacts, stream_steps_for
+from ..roche.stream import stream_steps_for
 from .components import donor_grid
 from .cv import CVConfig, CVGeometry, cv_physical_ok, cv_total_flux
 from .priors import ln_prior_table
@@ -111,14 +118,30 @@ class Posterior:
         with torch.inference_mode():
             return self._terms(var)[2]
 
+    def _ln_prob(self, var):
+        lp, ok, mflux = self._terms(var)
+        ll = _chi2_ln_like(mflux, self.flux, self.err, self.mask)
+        ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
+        total = lp + ll.sum(dim=-1)
+        return torch.where(torch.isfinite(total), total,
+                           torch.full_like(total, -math.inf))
+
     def __call__(self, var):
         with torch.inference_mode():
-            lp, ok, mflux = self._terms(var)
-            ll = _chi2_ln_like(mflux, self.flux, self.err, self.mask)
-            ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
-            total = lp + ll.sum(dim=-1)
-            return torch.where(torch.isfinite(total), total,
-                               torch.full_like(total, -math.inf))
+            return self._ln_prob(var)
+
+    def value_and_grad(self, var):
+        """``(ln p (W,), d ln p / d var (W, D))`` of sampled vectors
+        ``var`` (W, D), in ``var``'s dtype.  Walkers are independent, so
+        the gradient of the summed ln p is each walker's own; non-finite
+        gradient entries (a walker outside the support) are zeroed."""
+        with torch.inference_mode(False), torch.enable_grad():
+            v = var.detach().to(self.dtype).clone().requires_grad_()
+            total = self._ln_prob(v)
+            grad, = torch.autograd.grad(total.sum(), v)
+        grad = torch.where(torch.isfinite(grad), grad,
+                           torch.zeros_like(grad))
+        return total.detach().to(var.dtype), grad.to(var.dtype)
 
 
 def make_ln_prob(model: CompiledModel, config: CVConfig | None = None,

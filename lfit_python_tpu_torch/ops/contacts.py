@@ -16,21 +16,31 @@ package: float32 goes to :func:`element_intervals_kernel`, float64 to
 hand-written CUDA kernel ``csrc/contacts.cu`` for CUDA tensors and raises
 on anything it cannot take; only for tensors on the CPU, where no kernel
 exists, does it run the plain version.
+
+:func:`element_intervals_diff` is the differentiable form (port of
+``contacts_op_diff``, ``pallas_contacts.py:448-494``): the same forward,
+and a backward that takes the implicit-function-theorem gradient of the
+contact phases at the solved roots from ``roche.geometry._edge_residual``
+in plain PyTorch, as the reference's backward is plain XLA.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from ..roche.geometry import contact_interval
+from ..roche.geometry import _edge_residual, contact_interval
 
-__all__ = ["element_intervals", "element_intervals_kernel",
-           "element_intervals_plain", "LAUNCHES"]
+__all__ = ["element_intervals", "element_intervals_diff",
+           "element_intervals_kernel", "element_intervals_plain",
+           "LAUNCHES", "BACKWARD_CALLS"]
 
 # number of K1 launches made by element_intervals_kernel in this process
 LAUNCHES = 0
+# number of backward passes of element_intervals_diff in this process
+BACKWARD_CALLS = 0
 
 _fn = None
 
@@ -105,3 +115,60 @@ def element_intervals(q, incl, px, py, x1, pl1, r_ins):
     if px.dtype == torch.float32:
         return element_intervals_kernel(q, incl, px, py, x1, pl1, r_ins)
     return element_intervals_plain(q, incl, px, py, x1, pl1, r_ins)
+
+
+class _ContactIntervals(torch.autograd.Function):
+    """:func:`element_intervals` with IFT gradients.  At a contact root
+    phi* of c(phi; theta) = 0, dphi*/dtheta = -(dc/dtheta) / (dc/dphi):
+    the backward evaluates the residual at the detached roots of both
+    edges at once, takes dc/dphi's value (non-finite coefficients
+    zeroed) and the VJP of c in (q, incl, px, py, x1, pl1) by autograd.
+    Non-eclipsed elements carry phi_c = atan2(py, 1 - px) / 2 pi and its
+    gradient; ``r_ins`` shapes only the bracket and gets none."""
+
+    @staticmethod
+    def forward(ctx, q, incl, px, py, x1, pl1, r_ins):
+        phi_in, phi_out, ecl = element_intervals(q, incl, px, py, x1, pl1,
+                                                 r_ins)
+        ctx.mark_non_differentiable(ecl)
+        ctx.save_for_backward(q, incl, px, py, x1, pl1, phi_in, phi_out,
+                              ecl)
+        return phi_in, phi_out, ecl
+
+    @staticmethod
+    def backward(ctx, g_in, g_out, _):
+        global BACKWARD_CALLS
+        BACKWARD_CALLS += 1
+        q, incl, px, py, x1, pl1, phi_in, phi_out, ecl = ctx.saved_tensors
+        zero = torch.zeros_like(g_in)
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_()
+                      for a in (q, incl, px, py, x1, pl1)]
+            lq, li, lpx, lpy, lx1, lpl1 = leaves
+            row = (lambda a: a[:, None, None])
+            phi = torch.stack([phi_in, phi_out], dim=-1)     # (R, N, 2)
+            c, dcdphi = _edge_residual(phi, row(lq), row(li), lpx[..., None],
+                                       lpy[..., None], row(lx1), row(lpl1))
+            coeff = -1.0 / dcdphi.detach()
+            coeff = torch.where(torch.isfinite(coeff), coeff,
+                                torch.zeros_like(coeff))
+            g = torch.stack([torch.where(ecl, g_in, zero),
+                             torch.where(ecl, g_out, zero)], dim=-1)
+            grads = torch.autograd.grad(c, leaves, g * coeff,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(a) if d is None else d
+                 for a, d in zip(leaves, grads)]
+        # never-eclipsed: phi_in = phi_out = atan2(py, 1 - px) / 2 pi
+        g_c = torch.where(ecl, zero, g_in + g_out) / (2.0 * math.pi)
+        wx = 1.0 - px
+        r2 = wx * wx + py * py
+        grads[2] = grads[2] + g_c * py / r2
+        grads[3] = grads[3] + g_c * wx / r2
+        return (*grads, None)
+
+
+def element_intervals_diff(q, incl, px, py, x1, pl1, r_ins):
+    """:func:`element_intervals` carrying IFT gradients to (q, incl, px,
+    py, x1, pl1); the forward is :func:`element_intervals` (K1 for
+    float32 on the card)."""
+    return _ContactIntervals.apply(q, incl, px, py, x1, pl1, r_ins)

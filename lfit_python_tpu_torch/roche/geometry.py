@@ -1,11 +1,17 @@
 """Roche-lobe geometry core, on tensors.
 
-Port of ``lfit_python_tpu/roche/geometry.py`` (primal only).  Every
-routine is elementwise: scalar arguments may be tensors of any
-broadcastable shape — ``(W,)`` per-walker solves, ``(W, E, P)`` phase
-sweeps — so the JAX package's ``vmap``s become broadcasting.  The fixed
-iteration counts are the reference's, so f64 results agree with it to
-rounding.
+Port of ``lfit_python_tpu/roche/geometry.py``.  Every routine is
+elementwise: scalar arguments may be tensors of any broadcastable shape —
+``(W,)`` per-walker solves, ``(W, E, P)`` phase sweeps — so the JAX
+package's ``vmap``s become broadcasting.  The fixed iteration counts are
+the reference's, so f64 results agree with it to rounding.
+
+Gradients: every fixed-iteration root solve runs its iterations under
+``torch.no_grad()`` on detached inputs and then attaches the
+implicit-function-theorem tangent with :func:`implicit_tangent` (only
+when a gradient is being recorded).  Differentiating through the
+iterations instead would record them all, and through the bracket ends
+(``lobe_radius``'s depends on ``xl1``) it gives a wrong gradient.
 
 Conventions (dimensionless binary units): separation a = 1, G(M1+M2) = 1,
 w = 1; the white dwarf at the origin, the donor at (1, 0, 0); q = M2/M1;
@@ -20,6 +26,7 @@ import math
 import torch
 
 __all__ = [
+    "implicit_tangent",
     "roche_potential",
     "xl1",
     "l1_potential",
@@ -49,6 +56,30 @@ _EDGE_T_NEWTON = 3
 _EDGE_T_WARM = 1
 
 
+def _recording(*ts):
+    """True when autograd records a graph through any of ``ts``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def implicit_tangent(x, residual, slope):
+    """Attach the implicit-function-theorem tangent to a solved root with
+    exactly zero primal change.
+
+    For a root x* of F(x, theta) = 0, dx*/dtheta = -F_theta / F_x.
+    ``residual`` is F(x*.detach(), theta) evaluated with theta attached,
+    ``slope`` F_x at the root (its value only).  Returns
+    ``x.detach() + (d - d.detach())`` with d = -residual / slope: the
+    primal value is x's, the gradient the IFT one.  Where d is not finite
+    (an infeasible walker, a zero slope) the tangent is zero, and the
+    division is guarded so no NaN reaches ``residual``'s graph."""
+    slope = slope.detach()
+    ok = torch.isfinite(residual.detach() / slope)
+    d = torch.where(ok, -residual / torch.where(ok, slope, 1.0),
+                    torch.zeros_like(residual))
+    return x.detach() + (d - d.detach())
+
+
 def roche_potential(q, r):
     """Synchronous Roche potential at positions ``r`` (..., 3):
     Phi = -(1-mu)/r1 - mu/r2 - 0.5((x-mu)^2 + y^2),  mu = q/(1+q)."""
@@ -68,15 +99,25 @@ def _potential_on_axis_dx(q, x):
 
 def xl1(q):
     """Distance of the inner Lagrangian point L1 from the primary
-    (fixed-iteration bisection of dPhi/dx on (0, 1))."""
-    lo = torch.full_like(q, 1e-6)
-    hi = torch.full_like(q, 1.0 - 1e-6)
-    for _ in range(_XL1_ITERS):
-        mid = 0.5 * (lo + hi)
-        pos = _potential_on_axis_dx(q, mid) > 0.0
-        lo = torch.where(pos, mid, lo)
-        hi = torch.where(pos, hi, mid)
-    return 0.5 * (lo + hi)
+    (fixed-iteration bisection of dPhi/dx on (0, 1)), with the IFT
+    tangent of F = dPhi/dx on the axis."""
+    recording = _recording(q)
+    with torch.no_grad():
+        qd = q.detach()
+        lo = torch.full_like(qd, 1e-6)
+        hi = torch.full_like(qd, 1.0 - 1e-6)
+        for _ in range(_XL1_ITERS):
+            mid = 0.5 * (lo + hi)
+            pos = _potential_on_axis_dx(qd, mid) > 0.0
+            lo = torch.where(pos, mid, lo)
+            hi = torch.where(pos, hi, mid)
+        x = 0.5 * (lo + hi)
+        if not recording:
+            return x
+        mu = qd / (1.0 + qd)
+        slope = (-2.0 * (1.0 - mu) / x ** 3 - 2.0 * mu / (1.0 - x) ** 3
+                 - 1.0)
+    return implicit_tangent(x, _potential_on_axis_dx(q, x), slope)
 
 
 def l1_potential(q, xl1_val=None):
@@ -237,49 +278,78 @@ def origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1):
 def findi(q, dphi, xl1_val=None, phi_l1=None):
     """Inclination (deg) at which the WD centre's eclipse has full phase
     width ``dphi``: bisection of the origin clearance at phase dphi/2 over
-    i in (1, 90).  NaN where even i = 90 gives no eclipse that wide."""
+    i in (1, 90).  NaN where even i = 90 gives no eclipse that wide.
+
+    The IFT tangent takes the clearance's slope in i from autograd of a
+    detached evaluation at the root (the reference's ``jax.grad`` of the
+    same function), so the nested derivative never enters the graph."""
     if xl1_val is None:
         xl1_val = xl1(q)
     if phi_l1 is None:
         phi_l1 = l1_potential(q, xl1_val)
     shape = torch.broadcast_shapes(q.shape, dphi.shape, xl1_val.shape)
-    half_w = 0.5 * dphi
+    args = (q, 0.5 * dphi, xl1_val, phi_l1)
+    fixed = tuple(a.detach() for a in args)
 
-    def clear_at(i_deg):
-        return _origin_clearance(q, i_deg, half_w, xl1_val, phi_l1)[0]
+    def clear_at(i_deg, q, half_w, x1, pl1):
+        return _origin_clearance(q, i_deg, half_w, x1, pl1)[0]
 
-    lo = torch.full(shape, 1.0, dtype=q.dtype, device=q.device)
-    hi = torch.full(shape, 90.0, dtype=q.dtype, device=q.device)
-    for _ in range(_FINDI_ITERS):
-        mid = 0.5 * (lo + hi)
-        vis = clear_at(mid) > 0.0        # not yet eclipsed -> need higher i
-        lo = torch.where(vis, mid, lo)
-        hi = torch.where(vis, hi, mid)
-    i_sol = 0.5 * (lo + hi)
-    feasible = clear_at(torch.full_like(lo, 90.0)) <= 0.0
+    with torch.no_grad():
+        lo = torch.full(shape, 1.0, dtype=q.dtype, device=q.device)
+        hi = torch.full(shape, 90.0, dtype=q.dtype, device=q.device)
+        for _ in range(_FINDI_ITERS):
+            mid = 0.5 * (lo + hi)
+            vis = clear_at(mid, *fixed) > 0.0  # not eclipsed: higher i
+            lo = torch.where(vis, mid, lo)
+            hi = torch.where(vis, hi, mid)
+        i_sol = 0.5 * (lo + hi)
+        feasible = clear_at(torch.full_like(lo, 90.0), *fixed) <= 0.0
+    if _recording(*args):
+        with torch.enable_grad():
+            i0 = i_sol.clone().requires_grad_()
+            slope, = torch.autograd.grad(clear_at(i0, *fixed).sum(), i0)
+        i_sol = implicit_tangent(i_sol, clear_at(i_sol, *args), slope)
     return torch.where(feasible, i_sol, torch.full_like(i_sol, math.nan))
 
 
 def lobe_radius(q, direction, xl1_val=None, phi_l1=None):
     """Roche-lobe surface radius from the donor centre along the unit
     ``direction`` (..., 3): bisection of Phi(c2 + r d) = Phi_L1 on
-    (0, 1 - xl1]."""
+    (0, 1 - xl1], with the IFT tangent (F_r = grad(Phi) . d).  The
+    bracket's dependence on xl1 carries no gradient."""
     if xl1_val is None:
         xl1_val = xl1(q)
     if phi_l1 is None:
         phi_l1 = l1_potential(q, xl1_val)
-    rmax = 1.0 - xl1_val
     dx, dy, dz = direction[..., 0], direction[..., 1], direction[..., 2]
-    lo = 1e-6 * rmax
-    hi = rmax
-    lo, hi = torch.broadcast_tensors(lo, hi, dx)[:2]
-    for _ in range(_LOBE_ITERS):
-        mid = 0.5 * (lo + hi)
-        r = torch.stack([1.0 + mid * dx, mid * dy, mid * dz], dim=-1)
-        inside = roche_potential(q, r) - phi_l1 < 0.0
-        lo = torch.where(inside, mid, lo)
-        hi = torch.where(inside, hi, mid)
-    return 0.5 * (lo + hi)
+
+    def at(r):
+        return torch.stack([1.0 + r * dx, r * dy, r * dz], dim=-1)
+
+    recording = _recording(q, phi_l1)
+    with torch.no_grad():
+        qd, pl1 = q.detach(), phi_l1.detach()
+        rmax = 1.0 - xl1_val.detach()
+        lo, hi = torch.broadcast_tensors(1e-6 * rmax, rmax, dx)[:2]
+        for _ in range(_LOBE_ITERS):
+            mid = 0.5 * (lo + hi)
+            inside = roche_potential(qd, at(mid)) - pl1 < 0.0
+            lo = torch.where(inside, mid, lo)
+            hi = torch.where(inside, hi, mid)
+        r = 0.5 * (lo + hi)
+        if not recording:
+            return r
+        # grad(Phi) . d at the root, in closed form
+        mu = qd / (1.0 + qd)
+        x, y, z = 1.0 + r * dx, r * dy, r * dz
+        i1 = torch.rsqrt(x * x + y * y + z * z)
+        i2 = torch.rsqrt((x - 1.0) ** 2 + y * y + z * z)
+        i13, i23 = i1 ** 3, i2 ** 3
+        gx = (1.0 - mu) * x * i13 + mu * (x - 1.0) * i23 - (x - mu)
+        gy = (1.0 - mu) * y * i13 + mu * y * i23 - y
+        gz = (1.0 - mu) * z * i13 + mu * z * i23
+        slope = gx * dx + gy * dy + gz * dz
+    return implicit_tangent(r, roche_potential(q, at(r)) - phi_l1, slope)
 
 
 def inscribed_radius(q, xl1_val=None, phi_l1=None):
@@ -492,6 +562,76 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
     phi_in = torch.where(eclipsed, edge[..., 0], phi_c)
     phi_out = torch.where(eclipsed, edge[..., 1], phi_c)
     return phi_in, phi_out, eclipsed
+
+
+def _edge_residual(phi, q, incl_deg, px, py, xl1_val, phi_l1):
+    """Envelope clearance c(phi) = min_t Phi(r(t)) - Phi_L1 at fixed
+    ``phi`` for the orbital-plane point (px, py), and the envelope
+    derivative dc/dphi: the residual behind the contact phases' IFT
+    gradient (``ops.contacts``).  Explicit ops and an unrolled clamped
+    Newton, so autograd differentiates it in every argument; the
+    arithmetic is the reference's ``_edge_residual``.  Broadcasts."""
+    mu = q / (1.0 + q)
+    i_rad = torch.deg2rad(incl_deg)
+    si, ci = torch.sin(i_rad), torch.cos(i_rad)
+    rad = 1.0 - xl1_val
+    wx, wy = 1.0 - px, -py
+    ww = wx * wx + wy * wy
+    c1 = px * px + py * py
+    two_pi = 2.0 * math.pi
+    th = two_pi * phi
+    ex, ey = si * torch.cos(th), -si * torch.sin(th)
+    tstar = wx * ex + wy * ey
+    disc = rad * rad - (ww - tstar * tstar)
+    half = torch.sqrt(torch.clamp(disc, min=1e-30))
+    t_lo = torch.clamp(tstar - half, min=0.0)
+    t_hi = torch.clamp(tstar + half, min=0.0)
+    no_occ = (disc <= 0.0) | (tstar + half <= 1e-9)
+    b1 = px * ex + py * ey
+    b2 = b1 - ex
+
+    def g_val(t):
+        i1 = torch.rsqrt(t * t + 2.0 * b1 * t + c1)
+        i2 = torch.rsqrt(t * t + 2.0 * b2 * t + ww)
+        cx = px - mu + t * ex
+        cy = py + t * ey
+        return -(1.0 - mu) * i1 - mu * i2 - 0.5 * (cx * cx + cy * cy)
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    t = clip(tstar, t_lo, t_hi)
+    for _ in range(_EDGE_T_NEWTON):
+        i1 = torch.rsqrt(t * t + 2.0 * b1 * t + c1)
+        i2 = torch.rsqrt(t * t + 2.0 * b2 * t + ww)
+        u1, u2 = t + b1, t + b2
+        i13, i23 = i1 * i1 * i1, i2 * i2 * i2
+        cx = px - mu + t * ex
+        cy = py + t * ey
+        g1 = (1.0 - mu) * u1 * i13 + mu * u2 * i23 - (cx * ex + cy * ey)
+        g2 = ((1.0 - mu) * (i13 - 3.0 * u1 * u1 * i13 * i1 * i1)
+              + mu * (i23 - 3.0 * u2 * u2 * i23 * i2 * i2)
+              - (ex * ex + ey * ey))
+        step = torch.where(g2 > 1e-12, g1 / torch.clamp(g2, min=1e-12),
+                           torch.zeros_like(g2))
+        t = clip(t - step, t_lo, t_hi)
+    val = g_val(t)
+    v_lo, v_hi = g_val(t_lo), g_val(t_hi)
+    t = torch.where(v_lo < val, t_lo, t)
+    val = torch.minimum(val, v_lo)
+    t = torch.where(v_hi < val, t_hi, t)
+    val = torch.minimum(val, v_hi)
+    c = torch.where(no_occ, torch.full_like(val, _CLEAR_VISIBLE),
+                    val - phi_l1)
+
+    rx, ry, rz = px + t * ex, py + t * ey, t * ci
+    i1 = torch.rsqrt(rx * rx + ry * ry + rz * rz)
+    dx = rx - 1.0
+    i2 = torch.rsqrt(dx * dx + ry * ry + rz * rz)
+    i13, i23 = i1 * i1 * i1, i2 * i2 * i2
+    gx = (1.0 - mu) * rx * i13 + mu * dx * i23 - (rx - mu)
+    gy = ry * ((1.0 - mu) * i13 + mu * i23 - 1.0)
+    return c, t * two_pi * (gx * ey - gy * ex)
 
 
 def visible_fraction_interval(phase, width, phi_in, phi_out, eclipsed):

@@ -1,6 +1,8 @@
-"""The CUDA kernel K1 on the card, against its plain PyTorch version.
+"""The CUDA kernels K1 (contacts) and K2 (gas stream) on the card, against
+their plain PyTorch versions, and the posterior and its gradient through
+them.
 
-Every test here needs a CUDA card (the kernel has no CPU form) and skips
+Every test here needs a CUDA card (the kernels have no CPU form) and skips
 without one.  The file imports nothing of JAX, so on a machine with the
 card it runs on its own:
 
@@ -13,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from lfit_python_tpu_torch.examples import build_model
+from lfit_python_tpu_torch.examples import build_model, with_calib_widths
 from lfit_python_tpu_torch.models.cv import CVConfig
 from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-from lfit_python_tpu_torch.ops import contacts
+from lfit_python_tpu_torch.ops import contacts, stream
 from lfit_python_tpu_torch.roche import geometry as tg
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +111,91 @@ def test_posterior_kernel_path_matches_plain_path(cuda):
     assert bool(torch.isfinite(a).all())
     assert torch.equal(torch.isfinite(a), torch.isfinite(b))
     assert float((fa - fb).abs().max()) <= 2e-4
+
+
+def stream_inputs(dev, dtype):
+    """Four walkers over the q range and four disc radii each; the
+    smallest the stream never reaches in 3072 steps (closest-approach
+    fallback)."""
+    q = torch.tensor([0.08, 0.15, 0.6, 1.2], dtype=dtype, device=dev)
+    x1 = tg.xl1(q)
+    frac = torch.tensor([0.95, 0.8, 0.6, 0.02], dtype=dtype, device=dev)
+    return q, (frac[None] * x1[:, None]).contiguous(), x1
+
+
+@pytest.mark.parametrize("with_sens", [False, True])
+@pytest.mark.parametrize("dtype,imp_tol,jac_tol", [
+    (torch.float64, 1e-10, 1e-8), (torch.float32, 1e-4, 1e-4)])
+def test_stream_kernel_matches_plain(cuda, dtype, imp_tol, jac_tol,
+                                     with_sens):
+    """K2 repeats the plain loop's arithmetic op for op (built without
+    contracted multiply-adds); the bounds leave room for the device's
+    rsqrt and sqrt against PyTorch's."""
+    q, rd, x1 = stream_inputs(cuda, dtype)
+    before = (stream.LAUNCHES, stream.SENS_LAUNCHES)
+    k = stream.stream_impacts_kernel(q, rd, x1, 3072, with_sens=with_sens)
+    p = stream._plain(q, rd, x1, 3072, stream.plain._DT, with_sens)
+    torch.cuda.synchronize()
+    assert (stream.LAUNCHES, stream.SENS_LAUNCHES) == (
+        before[0] + 1, before[1] + int(with_sens))
+    assert len(k) == len(p) == (4 if with_sens else 1)
+    assert bool((k[0][..., 2] == 0).all())
+    assert float((k[0] - p[0]).abs().max()) <= imp_tol
+    for a, b in zip(k[1:], p[1:]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max()) <= jac_tol
+    if with_sens:
+        # the unreached radius carries no rdisc derivative
+        assert bool((k[3][:, 3] == 0).all())
+
+
+def test_stream_kernel_checks_inputs(cuda):
+    q, rd, x1 = stream_inputs(cuda, torch.float32)
+    with pytest.raises(TypeError):
+        stream.stream_impacts_kernel(q.double(), rd, x1)
+    with pytest.raises(TypeError):
+        stream.stream_impacts_kernel(q.half(), rd.half(), x1.half())
+    with pytest.raises(ValueError):
+        stream.stream_impacts_kernel(q[:-1], rd, x1)
+    with pytest.raises(ValueError):
+        stream.stream_impacts_kernel(q, rd[:, 0], x1)
+    with pytest.raises(ValueError):
+        stream.stream_impacts_kernel(q.cpu(), rd, x1)
+    with pytest.raises(ValueError):
+        stream.stream_impacts_kernel(q, rd.t().contiguous().t(), x1)
+    wide = rd[:, :1].expand(4, 17).contiguous()
+    with pytest.raises(ValueError):
+        stream.stream_impacts_kernel(q, wide, x1)
+
+
+def test_posterior_gradient_kernel_path_matches_plain_path(cuda):
+    """float32 on the card, on the tiny model with exposure widths: the
+    gradient through K1 (with its IFT backward) and K2 (with its
+    sensitivities) against the same gradient with the plain contact
+    solver and the plain stream loop, at tests/test_pallas.py's bound
+    for the Pallas and XLA paths' posterior gradients."""
+    model = with_calib_widths(build_model(
+        n_eclipses=2, complex_spot=[False, True], n_points=16,
+        bands=("g",))).compile()
+    lp = make_ln_prob(model, CVConfig(**TINY), dtype=torch.float32,
+                      device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(3)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((8, start.size)),
+                       dtype=torch.float32, device=cuda)
+    before = (contacts.BACKWARD_CALLS, stream.SENS_LAUNCHES)
+    a, ga = lp.value_and_grad(pos)
+    assert (contacts.BACKWARD_CALLS, stream.SENS_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+
+    def plain_stream(q, rd, x1, n_steps, dt, with_sens=False):
+        return stream._plain(q, rd, x1, n_steps, dt, with_sens)
+
+    with mock.patch.object(contacts, "element_intervals_kernel",
+                           contacts.element_intervals_plain), \
+            mock.patch.object(stream, "stream_impacts_kernel", plain_stream):
+        b, gb = lp.value_and_grad(pos)
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(ga).all())
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(ga, gb, rtol=2e-3, atol=1e-5)
