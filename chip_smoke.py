@@ -12,9 +12,14 @@ at 256 chains on the same model with the exposure widths a .calib light
 curve gets (0.3 / 127 cycles).  Phases:
 
   1. device: the card, its power limit, the builds of K1 (contacts.cu)
-     and K2 (stream.cu) from lfit_python_tpu_torch/ops/csrc/, in parallel;
+     and K2 (stream.cu) from lfit_python_tpu_torch/ops/csrc/, in parallel,
+     with each K2 instantiation's stack frame from ptxas (must be 0: no
+     array in local memory);
   2. K1 against its plain version on the contact rows one posterior
-     evaluation hands it (5120 rows x 512 elements);
+     evaluation hands it (5120 rows x 512 elements); the eclipsed share
+     f, K1's operation count, its bound and its share of the bound; the
+     device launches of one call of each wrapper (K1, K2, K2 with
+     sensitivities), read by the profiler;
   3. the posterior with K1 against the same posterior with the plain
      contact solver, at the same 1024 walkers, timed in turns; ms per
      evaluation, the stream scan (K2) alone, peak device memory, and the
@@ -23,12 +28,13 @@ curve gets (0.3 / 127 cycles).  Phases:
      (64 walkers), and float64 fluxes against tests/golden/golden_v1.npz;
   5. the ensemble sampler: init_walkers and 3 run_sampler steps at 1024
      walkers, with the K1 and K2 launch counts read around the run;
-  6. K2 against its plain version on the north-star stream inputs: the
-     primal at 1024 walkers, with sensitivities at 256, float32 and
-     float64;
+  6. K2 against its plain version on the north-star stream inputs, bit
+     for bit: the primal at 1024 walkers, with sensitivities at 256,
+     float32 and float64; its bound and its time per RK4 step;
   7. the gradient on the widths model at 256 chains: ms per
      value_and_grad, peak memory, K1's backward and K2's sensitivity
-     launch counted once per evaluation, the K1 path against the plain
+     launch counted once per evaluation, the backward's operations
+     (counted by hand) and bound, the K1 path against the plain
      contact path with the float64 gradient as referee, float32 against
      float64, and where the device time goes;
   8. HMC on the widths model: init_hmc, warmup_hmc (4 steps) and run_hmc
@@ -36,13 +42,22 @@ curve gets (0.3 / 127 cycles).  Phases:
      around the run.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
-are a JSON object describing each kernel, the card's name and power limit
-as nvidia-smi gives them, and {"ok": true, "device": {...}}.
+are a JSON object describing each kernel (its launches on the main paths,
+its error against its plain version, its time, its plain version's time,
+its bound and what sets it), the card's name and power limit as
+nvidia-smi gives them, and {"ok": true, "device": {...}}.
+
+A kernel's bound is the least time the card could take for its work: the
+larger of its bytes (each input read once, each output written once)
+over the memory rate and its operations over the peak rate for their
+type, with the peaks of one H100 SXM from NVIDIA's data sheet (3.35 TB/s;
+67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor cores).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +77,24 @@ K1_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:352"
 K1_GRAD_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:448"
 K2_SOURCE = "lfit_python_tpu_torch/ops/csrc/stream.cu"
 K2_REPLACES = "lfit_python_tpu/roche/stream.py:278"
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+# operations, counted by hand from the kernel sources (each rsqrt, sqrt,
+# divide and atan as one): K1 per element (setup and conjunction test)
+# and per eclipsed element (bracket, 16 edge steps, atans); K2 per RK4
+# step for the primal and for each of its two tangent columns
+K1_OPS_ELEMENT = 287
+K1_OPS_ECLIPSED = 3401
+K2_OPS_STEP = 180
+K2_OPS_STEP_COLUMN = 248
+# K1's backward per eclipsed element and edge: the residual at its root
+# (33 for the setup, 2 + 3 x 56 for the clamped Newton steps in t, 3 x 24
+# for the end values, 6 selects, 40 for dc/dphi) and its partials in the
+# six inputs at the root's t (envelope theorem, ~85); per element, the
+# never-eclipsed phase's atan2 gradient and the masks
+K1_BWD_OPS_EDGE = 406
+K1_BWD_OPS_ELEMENT = 15
+NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
 def _check(cond, msg):
@@ -133,6 +166,81 @@ def _busy_line(busy_us, n_kern, wall_us):
             f"on the device in {wall_us:.0f} us)")
 
 
+def _bound(ops, nbytes, dtype="float32"):
+    """(least ms the card could take, what sets it) for ``ops``
+    operations of ``dtype`` moving ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _stack_frames(ptxas_log):
+    """{kernel entry: stack-frame bytes} from an ``-Xptxas -v`` report."""
+    frames, entry = {}, None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if m and entry is not None:
+            frames[entry] = int(m.group(1))
+            entry = None
+    return frames
+
+
+def _launches_per_call(calls):
+    """The device events of one warmed-up call of each of ``calls``
+    ({name: fn}), in one profiled window, each call after a spin kernel
+    that marks where its events start: {name: [event names]}.
+
+    Run it before any other profiled window of the process: after one
+    window and many untraced launches, the next window has lost its first
+    kernel records on the H100 (PERF.md)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    _check(sum("spin_kernel" in e.name for e in events) == len(calls)
+           and "spin_kernel" in events[0].name,
+           "the trace lost a marker: launches per call not read")
+    out, order = {}, iter(calls)
+    for e in events:
+        if "spin_kernel" in e.name:
+            cur = next(order)
+            out[cur] = []
+        else:
+            out[cur].append(e.name)
+    return out
+
+
+def _check_launches(tag, names, kernel):
+    """(launches of ``kernel``, device events) of one wrapper call whose
+    device events are ``names``; fails unless it is one launch and no
+    memory copy or set."""
+    mine = sum(bool(re.search(rf"\b{kernel}\b", nm)) for nm in names)
+    copies = sum(nm.startswith(("Memcpy", "Memset")) for nm in names)
+    print(f"[2 launches] {tag}, one wrapper call: {mine} {kernel} launch, "
+          f"{len(names)} device events in all (the rest PyTorch's own "
+          f"kernels around it), {copies} copies or sets")
+    _check(mine == 1 and copies == 0,
+           f"a {tag} call is not one {kernel} launch without copies: "
+           f"{[nm[:60] for nm in names]}")
+    return mine, len(names)
+
+
 def _walkers(start, n, seed, dtype, dev):
     import torch
 
@@ -154,7 +262,7 @@ def _counts(contacts, stream):
 
 def _k2_against_plain(stream, q, rd, x1, n_steps, with_sens):
     """K2 and its plain version on the same inputs: (max |d impact|,
-    [max |d J| / max |J| for jq, jx0, jrd], kernel ms, plain ms)."""
+    [max |d J| for jq, jx0, jrd], kernel ms, plain ms)."""
     import torch
 
     k = stream.stream_impacts_kernel(q, rd, x1, n_steps, with_sens=with_sens)
@@ -166,11 +274,10 @@ def _k2_against_plain(stream, q, rd, x1, n_steps, with_sens):
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
     imp_err = (k[0] - p[0]).abs().max().item()
-    jac_rel = [((a - b).abs().max() / b.abs().max()).item()
-               for a, b in zip(k[1:], p[1:])]
+    jac_err = [(a - b).abs().max().item() for a, b in zip(k[1:], p[1:])]
     ms = _event_ms(lambda: stream.stream_impacts_kernel(
         q, rd, x1, n_steps, with_sens=with_sens), 5)
-    return imp_err, jac_rel, ms, plain_ms
+    return imp_err, jac_err, ms, plain_ms
 
 
 def main():
@@ -214,11 +321,15 @@ def main():
         nvcc_s = _build.BUILD_SECONDS.get(name)
         print(f"[1 device] {name}.cu nvcc "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}")
-        for path in _build._BUILD_ROOT.glob(f"*/{name}.ptxas.txt"):
-            for ln in path.read_text().splitlines():
-                if "registers" in ln or "spill" in ln:
-                    print(f"[1 device] ptxas {name}: {ln.strip()}")
+        for ln in _build.PTXAS_LOGS[name].read_text().splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"[1 device] ptxas {name}: {ln.strip()}")
     print(f"[1 device] K1 and K2 built and loaded in {build_s:.2f} s")
+    frames = _stack_frames(_build.PTXAS_LOGS["stream"].read_text())
+    print("[1 device] K2 stack frames (bytes, ptxas): " + ", ".join(
+        f"{e[:24]}... {b}" for e, b in sorted(frames.items())))
+    _check(len(frames) == 4 and not any(frames.values()),
+           "a K2 instantiation keeps an array in local memory")
 
     # ---- the north-star model and 1024 walkers around its start -------
     t0 = time.perf_counter()
@@ -229,6 +340,8 @@ def main():
     lp32 = make_ln_prob(model, dtype=f32, device=dev)
     print(f"[model] 5 eclipses x 128 points, 2 bands, D = {start.size}; "
           f"built on the host in {time.perf_counter() - t0:.1f} s")
+    _check(make_ln_prob(model, dtype=f32).flux.device.type == "cuda",
+           "make_ln_prob does not default to the card")
 
     # ---- 2. K1 vs plain on the main path's own contact rows -----------
     with mock.patch.object(contacts, "element_intervals_kernel",
@@ -255,8 +368,35 @@ def main():
     _check(k1_err <= 1e-5, "K1 contact phases disagree with plain")
     k1_ms = _event_ms(lambda: contacts.element_intervals_kernel(*args), 20)
     k1_plain_ms = _event_ms(lambda: contacts.element_intervals_plain(*args), 5)
+    n_el, n_ecl_k = rows * n, int(k_out[2].sum().item())
+    f_ecl = n_ecl_k / n_el
+    k1_ops = n_el * K1_OPS_ELEMENT + n_ecl_k * K1_OPS_ECLIPSED
+    # px, py in; phi_in, phi_out, eclipsed out; six scalars per row
+    k1_bytes = n_el * (4 + 4 + 4 + 4 + 1) + rows * 6 * 4
+    k1_bound, k1_by = _bound(k1_ops, k1_bytes)
     print(f"[2 K1] time per call: kernel {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.4f} ms ({k1_plain_ms / k1_ms:.1f}x)")
+    print(f"[2 K1] eclipsed share f = {f_ecl:.6f} ({n_ecl_k} of {n_el}); "
+          f"{k1_ops / 1e9:.3f} GFLOP ({K1_OPS_ELEMENT} per element + "
+          f"{K1_OPS_ECLIPSED} per eclipsed one), {k1_bytes / 1e6:.1f} MB; "
+          f"bound {k1_bound * 1e3:.1f} us (set by {k1_by}); the kernel at "
+          f"{k1_bound / k1_ms:.1%} of its bound")
+    with torch.inference_mode():
+        cvp = model.cv_params(model.full_from_var(pos))
+        q = cvp[:, 0, 4].contiguous()
+        x1 = xl1(q)
+        rd = (cvp[..., 6] * x1[:, None]).contiguous()
+    n_steps = lp32.stream_steps
+    sub = [t[:N_CHAINS] for t in (q, rd, x1)]
+    events = _launches_per_call({
+        "K1": lambda: contacts.element_intervals_kernel(*args),
+        "K2": lambda: stream.stream_impacts_kernel(q, rd, x1, n_steps),
+        "K2 with sensitivities": lambda: stream.stream_impacts_kernel(
+            *sub, n_steps, with_sens=True)})
+    k1_launch = _check_launches("K1", events["K1"], "contacts_kernel")
+    k2_launch = {sens: _check_launches(tag, events[tag], "stream_kernel")
+                 for sens, tag in ((False, "K2"),
+                                   (True, "K2 with sensitivities"))}
 
     # ---- 3. posterior: kernel path vs plain path ----------------------
     def plain_path(fn):
@@ -276,12 +416,6 @@ def main():
           f"in both paths; model flux |kernel - plain| max {f_max:.3e} "
           f"(limit 2e-4), median {f_med:.3e} (limit 1e-6)")
     _check(f_max <= 2e-4 and f_med <= 1e-6, "posterior fluxes disagree")
-    with torch.inference_mode():
-        cvp = model.cv_params(model.full_from_var(pos))
-        q = cvp[:, 0, 4].contiguous()
-        x1 = xl1(q)
-        rd = (cvp[..., 6] * x1[:, None]).contiguous()
-    n_steps = lp32.stream_steps
 
     # host-clock times drift within a run: the two paths in turns (plain,
     # kernel, kernel, plain), the least of each
@@ -381,22 +515,34 @@ def main():
            "chain shape")
 
     # ---- 6. K2 vs plain on the north-star stream inputs ----------------
-    k2 = {}
+    k2, k2_bound = {}, {}
+    n_rad = rd.shape[1]
     for dt in (f32, f64):
         for w, sens in ((N_WALKERS, False), (N_CHAINS, True)):
             a = [t[:w].to(dt).contiguous() for t in (q, rd, x1)]
             k2[dt, sens] = _k2_against_plain(stream, *a, n_steps, sens)
             imp_err, jac, ms, pms = k2[dt, sens]
-            jtxt = ("; max |dJ|/max|J|: jq {:.2e}, jx0 {:.2e}, jrd {:.2e}"
+            name, isz = str(dt)[6:], a[0].element_size()
+            ops = w * n_steps * (K2_OPS_STEP
+                                 + (2 * K2_OPS_STEP_COLUMN if sens else 0))
+            nbytes = isz * (w * (2 + n_rad) + w * n_rad * 2 * (4 if sens
+                                                               else 1))
+            k2_bound[dt, sens] = _bound(ops, nbytes, name)
+            jtxt = ("; max |dJ|: jq {:.2e}, jx0 {:.2e}, jrd {:.2e}"
                     .format(*jac) if sens else "")
-            print(f"[6 K2] {str(dt)[6:]} {w} walkers x {rd.shape[1]} radii, "
-                  f"{n_steps} steps{', sensitivities' if sens else ''}: max "
-                  f"|d impact| {imp_err:.2e}{jtxt}; kernel {ms:.4f} ms, "
-                  f"plain {pms:.1f} ms ({pms / ms:.0f}x)")
-            _check(imp_err <= (1e-10 if dt == f64 else 1e-4),
-                   f"K2 impacts disagree with plain ({dt}, sens={sens})")
-            _check(all(j <= (1e-8 if dt == f64 else 1e-4) for j in jac),
-                   f"K2 Jacobians disagree with plain ({dt})")
+            print(f"[6 K2] {name} {w} walkers x {n_rad} radii, {n_steps} "
+                  f"steps{', sensitivities' if sens else ''}: max "
+                  f"|d impact| {imp_err:.2e}{jtxt}; kernel {ms:.4f} ms "
+                  f"({ms / n_steps * 1e6:.1f} ns per step), plain "
+                  f"{pms:.1f} ms ({pms / ms:.0f}x); bound "
+                  f"{k2_bound[dt, sens][0] * 1e3:.2f} us ({ops / 1e9:.3f} "
+                  f"G{name} ops, set by {k2_bound[dt, sens][1]}): the kernel "
+                  f"at {k2_bound[dt, sens][0] / ms:.2%} of its bound")
+            # the same operations in the same order: bit for bit
+            _check(imp_err == 0.0,
+                   f"K2 impacts differ from plain ({dt}, sens={sens})")
+            _check(all(j == 0.0 for j in jac),
+                   f"K2 Jacobians differ from plain ({dt})")
 
     # ---- 7. the gradient on the widths model ---------------------------
     model_w = with_calib_widths(build_model(
@@ -448,9 +594,20 @@ def main():
 
     k1_bwd_ms = _event_ms(lambda: k1_fwd(True), 5) - _event_ms(
         lambda: k1_fwd(False), 5)
+    n_ecl_g = int(contacts.element_intervals_kernel(*crow)[2].sum().item())
+    bwd_ops = (2 * n_ecl_g * K1_BWD_OPS_EDGE
+               + crow[2].numel() * K1_BWD_OPS_ELEMENT)
+    # px, py, both phases, both cotangents and the flags in; d px, d py out
+    bwd_bytes = crow[2].numel() * (6 * 4 + 1 + 2 * 4)
+    k1_bwd_bound, k1_bwd_by = _bound(bwd_ops, bwd_bytes)
     print(f"[7 grad] K1's backward on {crow[2].shape[0]} x "
           f"{crow[2].shape[1]} contacts: {k1_bwd_ms:.3f} ms = "
-          f"{k1_bwd_ms / vg_ms:.1%} of a gradient evaluation")
+          f"{k1_bwd_ms / vg_ms:.1%} of a gradient evaluation; "
+          f"{n_ecl_g} eclipsed; {bwd_ops / 1e9:.3f} GFLOP "
+          f"({K1_BWD_OPS_EDGE} per eclipsed edge + {K1_BWD_OPS_ELEMENT} per "
+          f"element), {bwd_bytes / 1e6:.1f} MB: bound "
+          f"{k1_bwd_bound * 1e3:.1f} us (set by {k1_bwd_by}), "
+          f"{k1_bwd_bound / k1_bwd_ms:.2%} of it")
 
     # the gradient on the K1 path against the plain contact path, with
     # the float64 gradient (plain contact solver) as referee
@@ -538,22 +695,46 @@ def main():
          "replaces": K1_REPLACES,
          "launches": c_ens["k1"] + c_hmc["k1"],
          "launches_by_path": {"ensemble": c_ens["k1"], "hmc": c_hmc["k1"]},
+         "device_launches_per_call": k1_launch[0],
+         "device_events_per_call": k1_launch[1],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": k1_by, "ops": k1_ops,
+         "eclipsed_share": f_ecl, "library_ms": None,
+         "library_ms_reason": NO_LIBRARY.format(
+             "a fixed-iteration safeguarded Newton solve of each element's "
+             "eclipse contact phases"),
          "gradient": {
              "route": "torch.autograd.Function, backward in plain PyTorch "
                       "(lfit_python_tpu_torch/ops/contacts.py)",
              "replaces": K1_GRAD_REPLACES,
-             "backward_calls": c_hmc["k1_bwd"], "backward_ms": k1_bwd_ms}},
+             "backward_calls": c_hmc["k1_bwd"], "backward_ms": k1_bwd_ms,
+             "bound_ms": k1_bwd_bound, "bound_by": k1_bwd_by,
+             "ops": bwd_ops, "library_ms": None}},
         {"name": "stream", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES + " (an XLA lax.scan, no pallas_call)",
          "launches": c_ens["k2"] + c_hmc["k2"],
          "launches_by_path": {"ensemble": c_ens["k2"], "hmc": c_hmc["k2"]},
+         "device_launches_per_call": k2_launch[False][0],
+         "device_events_per_call": k2_launch[False][1],
          "max_abs_err": k2[f32, False][0], "ms": k2_ms, "plain_ms": k2_pms,
+         "ms_per_step": k2_ms / n_steps,
+         "bound_ms": k2_bound[f32, False][0],
+         "bound_by": k2_bound[f32, False][1], "library_ms": None,
+         "library_ms_reason": NO_LIBRARY.format(
+             "a 4352-step RK4 scan with first-crossing records"),
          "sensitivities": {
              "launches": c_hmc["k2_sens"], "walkers": N_CHAINS,
              "max_abs_err": k2[f32, True][0],
-             "max_rel_err_jacobians": max(k2[f32, True][1]),
-             "ms": k2[f32, True][2], "plain_ms": k2[f32, True][3]}},
+             "max_abs_err_jacobians": max(k2[f32, True][1]),
+             "ms": k2[f32, True][2], "plain_ms": k2[f32, True][3],
+             "bound_ms": k2_bound[f32, True][0],
+             "bound_by": k2_bound[f32, True][1],
+             "device_launches_per_call": k2_launch[True][0],
+             "device_events_per_call": k2_launch[True][1]},
+         "float64": {
+             "ms": k2[f64, False][2], "bound_ms": k2_bound[f64, False][0],
+             "sens_ms": k2[f64, True][2],
+             "sens_bound_ms": k2_bound[f64, True][0]}},
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models.priors import PriorTable
 from .models.tree import CompiledModel
 from .sampling.ensemble import EnsembleState
@@ -51,7 +52,9 @@ def from_jax_model(compiled) -> CompiledModel:
 def state_from_numpy(positions, log_prob, step=0, dtype=torch.float64,
                      device=None) -> EnsembleState:
     """The port's ensemble state from numpy walker positions (W, D),
-    ln-probabilities (W,) and the global step count."""
+    ln-probabilities (W,) and the global step count, on ``device`` (the
+    CUDA card unless given; raises without one)."""
+    device = resolve_device(device)
     return EnsembleState(
         torch.tensor(np.asarray(positions), dtype=dtype, device=device),
         torch.tensor(np.asarray(log_prob), dtype=dtype, device=device),
@@ -62,7 +65,10 @@ def hmc_state_from_numpy(state, dtype=torch.float64, device=None) -> HMCState:
     """The port's HMC state from a JAX-package ``HMCState`` (read by
     attribute) or a dict of its fields: positions (C, D), log_prob (C,),
     grad (C, D), step_size, inv_mass (D,) and step.  The PRNG key does
-    not carry over: the port draws from a ``torch.Generator``."""
+    not carry over: the port draws from a ``torch.Generator``.  On
+    ``device``, the CUDA card unless given (raises without one)."""
+    device = resolve_device(device)
+
     def arr(name):
         return torch.tensor(np.asarray(_get(state, name)), dtype=dtype,
                             device=device)

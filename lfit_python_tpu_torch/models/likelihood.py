@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.stream import stream_impacts
 from ..roche.geometry import findi, l1_potential, xl1
 from ..roche.stream import stream_steps_for
@@ -61,7 +62,8 @@ class Posterior:
     """The north-star posterior of one compiled model, with its data on
     ``device`` in ``dtype``.  Call it on a ``(W, D)`` tensor of sampled
     vectors for the ``(W,)`` ln-probabilities (-inf where a prior or the
-    physical validity fails)."""
+    physical validity fails).  ``device=None`` is the CUDA card, and
+    raises without one: pass ``device="cpu"`` for the CPU."""
 
     def __init__(self, model: CompiledModel, config: CVConfig | None = None,
                  dtype=torch.float64, device=None):
@@ -74,8 +76,7 @@ class Posterior:
         self.config = config._replace(complex_spot=True)
         self.model = model
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
 
         def dev(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt,
@@ -147,5 +148,6 @@ class Posterior:
 def make_ln_prob(model: CompiledModel, config: CVConfig | None = None,
                  dtype=torch.float64, device=None) -> Posterior:
     """The batched posterior ln-probability ``(W, D) -> (W,)`` of the
-    sampled vector, evaluated in ``dtype`` on ``device``."""
+    sampled vector, evaluated in ``dtype`` on ``device`` (the CUDA card
+    unless given; raises without one)."""
     return Posterior(model, config, dtype, device)

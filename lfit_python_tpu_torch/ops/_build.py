@@ -19,7 +19,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "BUILD_SECONDS"]
+__all__ = ["load_library", "BUILD_SECONDS", "PTXAS_LOGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -29,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _LOADED: dict = {}
 # seconds spent in nvcc by this process, per source name
 BUILD_SECONDS: dict = {}
+# the ``-Xptxas -v`` report of each loaded library, per source name
+PTXAS_LOGS: dict = {}
 
 
 def _nvcc() -> str:
@@ -68,5 +70,6 @@ def load_library(name: str) -> ctypes.CDLL:
         (out_dir / f"{name}.ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, so)          # atomic: concurrent builders agree
     lib = ctypes.CDLL(str(so))
+    PTXAS_LOGS[name] = out_dir / f"{name}.ptxas.txt"
     _LOADED[name] = lib
     return lib

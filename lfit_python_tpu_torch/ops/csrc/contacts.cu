@@ -20,11 +20,16 @@
 //      bisection fallback, returning the best EVALUATED point;
 //   4. one atan per edge converts w back to phase.
 //
-// What bounds it on the card: latency of the dependent per-element chain,
-// not bytes.  At the north-star shape (5120 rows x 512 elements) one
-// posterior evaluation is ~2.6 M solves of ~2 k f32 flops each, while the
-// kernel reads 8 bytes and writes 9 bytes per element.  Each iteration is
-// a serial chain of rsqrt / divide steps.
+// What bounds it on the card: issued instructions, not bytes.  At the
+// north-star shape (5120 rows x 512 elements) the kernel reads 8 bytes
+// and writes 9 per element (44.6 MB, 13 us at 3.35 TB/s), while every
+// element needs ~287 operations for its setup and conjunction test and
+// an eclipsed one ~3,400 more for its bracket, 16 edge steps and atans
+// (counted by hand from this source, each rsqrt, sqrt, divide and atan
+// as one).  About 93% of the north-star's elements are eclipsed, so a
+// call is ~9 GFLOP: ~135 us at the f32 peak of 67 TFLOP/s, which counts
+// a fused multiply-add as two; --fmad=false forbids those, and each
+// divide, sqrt and atan is several instructions.
 //
 // What the design does about it: one thread owns one (row, element) and
 // keeps all state in registers (no shared memory, nothing spilled to
@@ -33,6 +38,13 @@
 // scheduler two dependency chains per thread, as the TPU kernel does.
 // Blocks of 128 threads cover a row's elements; the grid is
 // (rows, ceil(N / 128)) and the kernel masks the ragged edge itself.
+// Visible elements share warps with eclipsed ones, but they idle only
+// ~7% of the lanes that run the edge loop, and an idle lane costs no
+// issue slot.  Compacting the eclipsed elements into a work list for a
+// second, persistent pass (bit-identical) was measured slower on an
+// H100: its conjunction-test pass alone costs 15% of this kernel, and
+// the edge pass over the list is no faster than this kernel's whole
+// run (PERF.md).
 //
 // Rounding: built with --fmad=false, so every product and sum is rounded
 // as the plain version's separate tensor ops round it.  min / max / clip

@@ -77,6 +77,60 @@ def test_kernel_on_an_infeasible_row(cuda):
     assert float((k[0][0] - p[0][0]).abs().max()) <= 1e-6
 
 
+def special_rows(dev, case):
+    """Rows at the edges of K1's two passes: every element eclipsed (all
+    near the white dwarf), none (a low inclination), a row shorter than
+    a warp and one not a multiple of the block (ragged edges), and an
+    infeasible row (NaN inclination) among feasible ones."""
+    if case == "all eclipsed":
+        args = contact_rows(dev, rows=6, n=256, seed=1)
+        rng = np.random.default_rng(1)
+        r = rng.uniform(0.005, 0.05, (6, 256))
+        th = rng.uniform(0, 2 * np.pi, (6, 256))
+        args[2] = torch.tensor(r * np.cos(th), dtype=torch.float32,
+                               device=dev)
+        args[3] = torch.tensor(r * np.sin(th), dtype=torch.float32,
+                               device=dev)
+    elif case == "all visible":
+        args = contact_rows(dev, rows=6, n=256, seed=2)
+        args[1] = torch.full_like(args[1], 40.0)
+    elif case == "n = 37":
+        args = contact_rows(dev, rows=9, n=37, seed=3)
+    elif case == "n = 300":
+        args = contact_rows(dev, rows=7, n=300, seed=4)
+    else:
+        args = contact_rows(dev, rows=5, n=160, seed=5)
+        args[1] = args[1].clone()
+        args[1][2] = float("nan")
+    return args
+
+
+@pytest.mark.parametrize("case", ["all eclipsed", "all visible", "n = 37",
+                                  "n = 300", "infeasible row"])
+def test_kernel_on_edge_rows(cuda, case):
+    args = special_rows(cuda, case)
+    k = contacts.element_intervals_kernel(*args)
+    p = contacts.element_intervals_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k[2], p[2])
+    m = k[2]
+    if case == "all eclipsed":
+        assert bool(m.all())
+    elif case == "all visible":
+        assert not bool(m.any())
+    elif case == "infeasible row":
+        assert not bool(m[2].any()) and bool(m.any())
+    else:
+        assert 0 < int(m.sum()) < m.numel()
+    if bool(m.any()):
+        assert float((k[0] - p[0]).abs()[m].max()) <= 1e-5
+        assert float((k[1] - p[1]).abs()[m].max()) <= 1e-5
+    # a visible element's interval is empty, at phi_c, as in plain
+    assert torch.equal(k[0][~m], k[1][~m])
+    if not bool(m.all()):
+        assert float((k[0] - p[0]).abs()[~m].max()) <= 1e-6
+
+
 def test_kernel_checks_inputs(cuda):
     args = contact_rows(cuda, rows=4)
     with pytest.raises(TypeError):
@@ -147,6 +201,51 @@ def test_stream_kernel_matches_plain(cuda, dtype, imp_tol, jac_tol,
     if with_sens:
         # the unreached radius carries no rdisc derivative
         assert bool((k[3][:, 3] == 0).all())
+
+
+N_STEPS_EXACT = 1024
+
+
+@pytest.fixture(scope="module")
+def stream_radii():
+    """Per walker, 16 disc radii for N_STEPS_EXACT steps, from the plain
+    trajectory's own radii (float64 on the CPU): crossed in an order
+    other than the given one, a three-way tie, a radius equal to a step's
+    radius, a NaN, and one below the closest approach (never reached)."""
+    q = torch.tensor([0.08, 0.15, 0.6, 1.2], dtype=torch.float64)
+    traj = stream.plain.stream_trajectory(q, tg.xl1(q), N_STEPS_EXACT)
+    r = torch.linalg.vector_norm(traj, dim=-1)[:, 1:]       # (4, S)
+    lo, hi = r.amin(dim=1), r.amax(dim=1)
+    rng = np.random.default_rng(11)
+    u = torch.tensor(rng.uniform(0.0, 1.0, (4, 16)), dtype=torch.float64)
+    rd = lo[:, None] + u * (hi - lo)[:, None]
+    rd[:, [3, 9]] = rd[:, [5]]
+    rd[:, 7] = r[:, N_STEPS_EXACT // 2]
+    rd[:, 11] = float("nan")
+    rd[:, 14] = 0.5 * lo
+    return q, rd
+
+
+@pytest.mark.parametrize("with_sens", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_radii", [1, 5, 16])
+def test_stream_kernel_bit_identical(cuda, stream_radii, n_radii, dtype,
+                                     with_sens):
+    """K2's sorted-radius bookkeeping, closest-approach selects and
+    two-thread sensitivities change no operation: its outputs equal the
+    plain loop's bit for bit, on the card, in both dtypes and modes."""
+    q, rd = stream_radii
+    cols = {1: [7], 5: [14, 3, 0, 9, 7], 16: list(range(16))}[n_radii]
+    q = q.to(cuda, dtype)
+    rd = rd[:, cols].to(cuda, dtype).contiguous()
+    x1 = tg.xl1(q)
+    k = stream.stream_impacts_kernel(q, rd, x1, N_STEPS_EXACT,
+                                     with_sens=with_sens)
+    p = stream._plain(q, rd, x1, N_STEPS_EXACT, stream.plain._DT, with_sens)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
 
 
 def test_stream_kernel_checks_inputs(cuda):

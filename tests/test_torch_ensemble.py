@@ -51,7 +51,7 @@ def setup():
     jm = jax_twin(spec)
     jlp = jax.jit(jax.vmap(jmake(jm, config=JCfg(
         n_donor_quad=0, pallas_contacts=False, **TINY))))
-    tlp = make_ln_prob(from_jax_model(jm), CVConfig(**TINY))
+    tlp = make_ln_prob(from_jax_model(jm), CVConfig(**TINY), device="cpu")
     start = jm.var_start()
     rng = np.random.default_rng(0)
     pos = start[None] + 1e-3 * np.abs(start)[None] * rng.standard_normal(
@@ -92,7 +92,7 @@ class TestAgainstReplay:
 
     def test_ensemble_step(self, setup):
         jlp, tlp, pos, lp = setup
-        state = state_from_numpy(pos, lp, step=5)
+        state = state_from_numpy(pos, lp, step=5, device="cpu")
         gen = torch.Generator().manual_seed(42)
         new, frac = ens.ensemble_step(state, tlp, gen, A)
         # replay: the same generator stream, the same draw order

@@ -35,7 +35,7 @@ def widths_model():
     jlp = jmake(jm, config=JCfg(n_donor_quad=0, pallas_contacts=False,
                                 **TINY))
     tm = from_jax_model(jm)
-    tlp = make_ln_prob(tm, CVConfig(**TINY))
+    tlp = make_ln_prob(tm, CVConfig(**TINY), device="cpu")
     assert tlp.width is not None
     pos = walkers(tm, 3, 0)
     ref = jax.jit(jax.vmap(jax.value_and_grad(jlp)))(pos)
@@ -96,7 +96,7 @@ class TestPosteriorGradient:
         """Without widths the flux uses the instantaneous indicator, a
         comparison: the contact phases get no gradient to carry."""
         m = build_model(n_eclipses=1, n_points=8).compile()
-        tlp = make_ln_prob(m, CVConfig(**TINY))
+        tlp = make_ln_prob(m, CVConfig(**TINY), device="cpu")
         assert tlp.width is None
         before = contacts.BACKWARD_CALLS
         lp, g = tlp.value_and_grad(torch.tensor(walkers(m, 1, 3)))

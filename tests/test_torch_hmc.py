@@ -93,7 +93,7 @@ class TestAgainstJax:
     def test_state_from_jax(self):
         state = jhmc.init_hmc(jax.random.PRNGKey(1), jnp.zeros(2),
                               0.5 * jnp.ones(2), gauss_jax, 4)
-        port = hmc_state_from_numpy(state)
+        port = hmc_state_from_numpy(state, device="cpu")
         np.testing.assert_array_equal(port.positions.numpy(),
                                       np.asarray(state.positions))
         np.testing.assert_array_equal(port.grad.numpy(),
@@ -170,7 +170,7 @@ def test_hmc_step_on_the_cv_posterior_with_widths():
     m = with_calib_widths(build_model(n_eclipses=2,
                                       complex_spot=[False, True],
                                       n_points=16, bands=("g",))).compile()
-    lp = make_ln_prob(m, CVConfig(**TINY))
+    lp = make_ln_prob(m, CVConfig(**TINY), device="cpu")
     start = torch.tensor(m.var_start())
     scatter = 1e-3 * start.abs().clamp(min=1e-2)
     g = gen(0)

@@ -165,7 +165,8 @@ class TestTreeAndData:
             assert cm.param_names == tm.param_names
 
     def test_state_from_numpy(self):
-        st = convert.state_from_numpy(np.ones((4, 3)), np.zeros(4), 7)
+        st = convert.state_from_numpy(np.ones((4, 3)), np.zeros(4), 7,
+                                      device="cpu")
         assert st.positions.shape == (4, 3) and st.step == 7
         assert st.log_prob.dtype == torch.float64
 

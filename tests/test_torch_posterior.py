@@ -57,7 +57,7 @@ def both_posteriors(spec):
     jlp = jax.jit(jax.vmap(jmake(jm, config=JCfg(
         n_donor_quad=0, pallas_contacts=False, **TINY))))
     tm = from_jax_model(jm)
-    return jm, jlp, tm, make_ln_prob(tm, CVConfig(**TINY))
+    return jm, jlp, tm, make_ln_prob(tm, CVConfig(**TINY), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +106,8 @@ class TestLnProb:
     def test_model_flux_shape_and_dtype(self, mixed):
         _, _, tm, tlp = mixed
         pos = torch.tensor(walkers(tm, 2, 2), dtype=torch.float32)
-        lp32 = make_ln_prob(tm, CVConfig(**TINY), dtype=torch.float32)
+        lp32 = make_ln_prob(tm, CVConfig(**TINY), dtype=torch.float32,
+                            device="cpu")
         f = lp32.model_flux(pos)
         assert f.shape == (2, 2, 16) and f.dtype == torch.float32
         f64 = tlp.model_flux(pos.double())

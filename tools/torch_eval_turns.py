@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Time one checkout's north-star posterior evaluation, gradient
+evaluation and CUDA kernels on one CUDA card, for comparing two
+checkouts in turns.
+
+    python3 tools/torch_eval_turns.py CHECKOUT_ROOT
+
+Imports ``lfit_python_tpu_torch`` from CHECKOUT_ROOT and prints one JSON
+line:
+
+- ms per ln_prob evaluation at 1024 walkers (the north-star model,
+  float32) and ms per value_and_grad at 256 chains (the same model with
+  .calib exposure widths), three host-clock turns each after a warm-up;
+- ms per call of the checkout's kernels, through its own wrappers and
+  timed with CUDA events: K1 on the contact rows one evaluation hands it
+  (5120 x 512), K2 on that evaluation's stream inputs (primal at 1024
+  walkers, with sensitivities at 256; float32 and float64);
+- a SHA-256 of each kernel's outputs, so that two checkouts whose
+  kernels give the same bits print the same digests.
+
+The evaluations are host-bound, so compare two checkouts only within one
+call, each in its own process, in the order a, b, b, a:
+
+    for r in OLD NEW NEW OLD; do python3 tools/torch_eval_turns.py $r; done
+"""
+
+import hashlib
+import json
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+
+DEV = torch.device("cuda", 0)
+F32, F64 = torch.float32, torch.float64
+
+
+def walkers(start, n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(start[None] + 0.001 * np.abs(start)[None]
+                        * rng.standard_normal((n, start.size)), dtype=F32,
+                        device=DEV)
+
+
+def turns(fn, n_turns=3, reps=2):
+    out = []
+    for _ in range(n_turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / reps * 1e3)
+    return out
+
+
+def event_ms(fn, reps, warmup=2):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def digest(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main():
+    root = str(Path(sys.argv[1]).resolve())
+    sys.path.insert(0, root)
+    import lfit_python_tpu_torch
+    from lfit_python_tpu_torch.examples import build_model, with_calib_widths
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+    from lfit_python_tpu_torch.ops import contacts, stream
+    from lfit_python_tpu_torch.roche.geometry import xl1
+
+    if not lfit_python_tpu_torch.__file__.startswith(root):
+        raise SystemExit(f"imported {lfit_python_tpu_torch.__file__}")
+    spec = dict(n_eclipses=5, complex_spot=[False] * 5, n_points=128,
+                bands=("g", "r"))
+    model = build_model(**spec).compile()
+    lp = make_ln_prob(model, dtype=F32, device=DEV)
+    pos = walkers(model.var_start(), 1024, 0)
+    with mock.patch.object(contacts, "element_intervals_kernel",
+                           wraps=contacts.element_intervals_kernel) as rec:
+        lp(pos)
+    ev = turns(lambda: lp(pos))
+    lpw = make_ln_prob(with_calib_widths(build_model(**spec)).compile(),
+                       dtype=F32, device=DEV)
+    posw = walkers(model.var_start(), 256, 1)
+    lpw.value_and_grad(posw)
+    vg = turns(lambda: lpw.value_and_grad(posw), reps=1)
+
+    k1_args = rec.call_args.args
+    kernels = {"k1": {"ms": event_ms(
+        lambda: contacts.element_intervals_kernel(*k1_args), 20),
+        "sha256": digest(contacts.element_intervals_kernel(*k1_args))}}
+    with torch.inference_mode():
+        cvp = model.cv_params(model.full_from_var(pos))
+        q = cvp[:, 0, 4].contiguous()
+        x1 = xl1(q)
+        rd = (cvp[..., 6] * x1[:, None]).contiguous()
+    for dt in (F32, F64):
+        for w, sens in ((1024, False), (256, True)):
+            a = [t[:w].to(dt).contiguous() for t in (q, rd, x1)]
+
+            def k2():
+                return stream.stream_impacts_kernel(*a, lp.stream_steps,
+                                                    with_sens=sens)
+            kernels[f"k2_{str(dt)[6:]}{'_sens' if sens else ''}"] = {
+                "ms": event_ms(k2, 5), "sha256": digest(k2())}
+    print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
+                      "eval_ms": ev, "value_and_grad_ms": vg,
+                      "kernels": kernels}))
+
+
+if __name__ == "__main__":
+    main()
