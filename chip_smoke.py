@@ -7,19 +7,23 @@ Runs from the root of a checkout, needs one NVIDIA Hopper card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; imports nothing of JAX.  The
 north-star model (5 eclipses, 2 bands, 128 points per eclipse, default
 CVConfig widths) is built with synthetic data; the port's posterior and
-ensemble sampler run at 1024 walkers in float32, and its gradient and HMC
-at 256 chains on the same model with the exposure widths a .calib light
-curve gets (0.3 / 127 cycles).  Phases:
+ensemble sampler run at 1024 walkers in float32, and its gradient, HMC
+and NUTS at 256 chains on the same model with the exposure widths a
+.calib light curve gets (0.3 / 127 cycles); the GP flickering likelihood
+runs on the same tree with use_gp on every eclipse, and on 10
+complex-spot GP eclipses at 4096 walkers; parallel tempering at 4 rungs
+x 256 walkers.  Phases:
 
-  1. device: the card, its power limit, the builds of K1 (contacts.cu)
-     and K2 (stream.cu) from lfit_python_tpu_torch/ops/csrc/, in parallel,
-     with each K2 instantiation's stack frame from ptxas (must be 0: no
-     array in local memory);
+  1. device: the card, its power limit, the builds of K1 (contacts.cu),
+     K2 (stream.cu) and K3 (gp.cu) from lfit_python_tpu_torch/ops/csrc/,
+     in parallel, with each K2 and K3 instantiation's stack frame from
+     ptxas (must be 0: no array in local memory; K3's are the forward
+     and the reverse kernel in both dtypes);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
      device launches of one call of each wrapper (K1, K2, K2 with
-     sensitivities), read by the profiler;
+     sensitivities, K3, K3 with its reverse pass), read by the profiler;
   3. the posterior with K1 against the same posterior with the plain
      contact solver, at the same 1024 walkers, timed in turns; ms per
      evaluation, the stream scan (K2) alone, peak device memory, and the
@@ -39,7 +43,22 @@ curve gets (0.3 / 127 cycles).  Phases:
      float64, and where the device time goes;
   8. HMC on the widths model: init_hmc, warmup_hmc (4 steps) and run_hmc
      (3 steps) at 256 chains x 16 leapfrog steps, with the counts read
-     around the run.
+     around the run;
+  9. K3 against its plain version on the series one evaluation of the GP
+     model hands it (5120 series x 128 points), float32 and float64; its
+     time, the plain loop's, its bound; K3's reverse kernel against
+     autograd on the plain loop on the series one gradient evaluation
+     hands it (1280 series x 128 points), both dtypes, its time and bound;
+ 10. the GP posterior: at 1024 walkers with K3 and with the plain
+     recursion in turns; the ensemble sampler on it; one evaluation of
+     10 complex-spot GP eclipses at 4096 walkers; value_and_grad at 256
+     chains on the GP model with exposure widths, with K3 and its
+     reverse kernel and with the plain recursion under autograd in
+     turns, float32 against float64; one hmc_step of 16 leapfrog steps;
+ 11. parallel tempering on the north-star model: init_pt and 3 pt_steps
+     at 4 rungs x 256 walkers, each half's proposals one shared pass;
+ 12. NUTS on the widths model: 2 nuts_steps at max_depth 6 from phase
+     8's adapted state, one gradient evaluation of all chains per leaf.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -77,6 +96,8 @@ K1_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:352"
 K1_GRAD_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:448"
 K2_SOURCE = "lfit_python_tpu_torch/ops/csrc/stream.cu"
 K2_REPLACES = "lfit_python_tpu/roche/stream.py:278"
+K3_SOURCE = "lfit_python_tpu_torch/ops/csrc/gp.cu"
+K3_REPLACES = "lfit_python_tpu/ops/gp.py:88"
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 # operations, counted by hand from the kernel sources (each rsqrt, sqrt,
@@ -92,6 +113,11 @@ K2_OPS_STEP_COLUMN = 248
 # for the end values, 6 selects, 40 for dc/dphi) and its partials in the
 # six inputs at the root's t (envelope theorem, ~85); per element, the
 # never-eclipsed phase's atan2 gradient and the masks
+# K3 per point of a series (the divide, the log and each select as one);
+# its reverse kernel per point: the step's forward again without the log
+# (42) and the adjoint (112)
+K3_OPS_POINT = 64
+K3_BWD_OPS_POINT = 154
 K1_BWD_OPS_EDGE = 406
 K1_BWD_OPS_ELEMENT = 15
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
@@ -191,7 +217,8 @@ def _stack_frames(ptxas_log):
 def _launches_per_call(calls):
     """The device events of one warmed-up call of each of ``calls``
     ({name: fn}), in one profiled window, each call after a spin kernel
-    that marks where its events start: {name: [event names]}.
+    that marks where its events start: ({name: [event names]}, {name:
+    {event name: device us}}).
 
     Run it before any other profiled window of the process: after one
     window and many untraced launches, the next window has lost its first
@@ -216,14 +243,15 @@ def _launches_per_call(calls):
     _check(sum("spin_kernel" in e.name for e in events) == len(calls)
            and "spin_kernel" in events[0].name,
            "the trace lost a marker: launches per call not read")
-    out, order = {}, iter(calls)
+    out, device_us, order = {}, {}, iter(calls)
     for e in events:
         if "spin_kernel" in e.name:
             cur = next(order)
-            out[cur] = []
+            out[cur], device_us[cur] = [], defaultdict(float)
         else:
             out[cur].append(e.name)
-    return out
+            device_us[cur][e.name] += e.time_range.elapsed_us()
+    return out, device_us
 
 
 def _check_launches(tag, names, kernel):
@@ -250,14 +278,42 @@ def _walkers(start, n, seed, dtype, dev):
     return torch.tensor(pos, dtype=dtype, device=dev)
 
 
-def _zero_counts(contacts, stream):
+def _zero_counts(contacts, stream, gp):
     contacts.LAUNCHES = contacts.BACKWARD_CALLS = 0
     stream.LAUNCHES = stream.SENS_LAUNCHES = 0
+    gp.LAUNCHES = gp.BACKWARD_LAUNCHES = 0
 
 
-def _counts(contacts, stream):
+def _counts(contacts, stream, gp):
     return {"k1": contacts.LAUNCHES, "k1_bwd": contacts.BACKWARD_CALLS,
-            "k2": stream.LAUNCHES, "k2_sens": stream.SENS_LAUNCHES}
+            "k2": stream.LAUNCHES, "k2_sens": stream.SENS_LAUNCHES,
+            "k3": gp.LAUNCHES, "k3_bwd": gp.BACKWARD_LAUNCHES}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _k3_graph(fn, args, kw):
+    """``fn`` (a segmented_matern32 function) recorded by autograd on
+    ``args`` = (t, y, yerr, sigma2, c): (ln-likelihoods, the leaves y,
+    sigma2 and c)."""
+    import torch
+
+    t, y, yerr, sigma2, c = args
+    leaves = [a.detach().requires_grad_() for a in (y, sigma2, c)]
+    with torch.enable_grad():
+        ll = fn(t, leaves[0], yerr, leaves[1], leaves[2], **kw)
+    return ll, leaves
+
+
+def _k3_grads(fn, args, kw, cot):
+    """The gradients of ``fn`` in y, sigma2 and c for the cotangent
+    ``cot`` of its ln-likelihoods."""
+    import torch
+
+    ll, leaves = _k3_graph(fn, args, kw)
+    return torch.autograd.grad(ll, leaves, cot)
 
 
 def _k2_against_plain(stream, q, rd, x1, n_steps, with_sens):
@@ -293,13 +349,16 @@ def main():
            f"the port was imported from {pkg_root}, not this checkout")
     from lfit_python_tpu_torch.examples import build_model, with_calib_widths
     from lfit_python_tpu_torch.models.cv import CVConfig, cv_fluxes
-    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-    from lfit_python_tpu_torch.ops import _build, contacts, stream
+    from lfit_python_tpu_torch.models.likelihood import (make_ln_prob,
+                                                         make_ln_prob_parts)
+    from lfit_python_tpu_torch.ops import _build, contacts, gp, stream
     from lfit_python_tpu_torch.roche.geometry import xl1
     from lfit_python_tpu_torch.sampling.ensemble import (init_walkers,
                                                          run_sampler)
-    from lfit_python_tpu_torch.sampling.hmc import (init_hmc, run_hmc,
-                                                    warmup_hmc)
+    from lfit_python_tpu_torch.sampling.hmc import (hmc_step, init_hmc,
+                                                    run_hmc, warmup_hmc)
+    from lfit_python_tpu_torch.sampling.nuts import nuts_step
+    from lfit_python_tpu_torch.sampling.pt import init_pt, pt_step
 
     _check("jax" not in sys.modules, "the port imported jax")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -312,24 +371,25 @@ def main():
     print(f"[1 device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:       # one nvcc per source, at once
+    with ThreadPoolExecutor(3) as pool:       # one nvcc per source, at once
         for fut in [pool.submit(contacts._kernel_fn),
-                    pool.submit(stream._kernel)]:
+                    pool.submit(stream._kernel), pool.submit(gp._kernel)]:
             fut.result()
     build_s = time.perf_counter() - t0
-    for name in ("contacts", "stream"):
+    for name in ("contacts", "stream", "gp"):
         nvcc_s = _build.BUILD_SECONDS.get(name)
         print(f"[1 device] {name}.cu nvcc "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}")
         for ln in _build.PTXAS_LOGS[name].read_text().splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
-    print(f"[1 device] K1 and K2 built and loaded in {build_s:.2f} s")
-    frames = _stack_frames(_build.PTXAS_LOGS["stream"].read_text())
-    print("[1 device] K2 stack frames (bytes, ptxas): " + ", ".join(
-        f"{e[:24]}... {b}" for e, b in sorted(frames.items())))
-    _check(len(frames) == 4 and not any(frames.values()),
-           "a K2 instantiation keeps an array in local memory")
+    print(f"[1 device] K1, K2 and K3 built and loaded in {build_s:.2f} s")
+    for tag, name, n_inst in (("K2", "stream", 4), ("K3", "gp", 4)):
+        frames = _stack_frames(_build.PTXAS_LOGS[name].read_text())
+        print(f"[1 device] {tag} stack frames (bytes, ptxas): " + ", ".join(
+            f"{e[:24]}... {b}" for e, b in sorted(frames.items())))
+        _check(len(frames) == n_inst and not any(frames.values()),
+               f"a {tag} instantiation keeps an array in local memory")
 
     # ---- the north-star model and 1024 walkers around its start -------
     t0 = time.perf_counter()
@@ -388,15 +448,85 @@ def main():
         rd = (cvp[..., 6] * x1[:, None]).contiguous()
     n_steps = lp32.stream_steps
     sub = [t[:N_CHAINS] for t in (q, rd, x1)]
-    events = _launches_per_call({
+    # the GP model (the same tree, use_gp on every eclipse) and the series
+    # one evaluation of it hands K3
+    gp_spec = dict(n_eclipses=5, complex_spot=[False] * 5, use_gp=True,
+                   n_points=128, bands=("g", "r"))
+    model_gp = build_model(**gp_spec).compile()
+    start_gp = model_gp.var_start()
+    pos_gp = _walkers(start_gp, N_WALKERS, 0, f32, dev)
+    lp_gp32 = make_ln_prob(model_gp, dtype=f32, device=dev)
+    with mock.patch.object(gp, "segmented_matern32_kernel",
+                           wraps=gp.segmented_matern32_kernel) as rec:
+        lp_gp_kernel = lp_gp32(pos_gp)
+    _check(rec.call_count == 1, f"K3 called {rec.call_count} times per eval")
+    gp_args, gp_kw = rec.call_args.args, rec.call_args.kwargs
+    n_w, n_e, n_p = gp_args[1].shape
+    _check((n_w, n_e, n_p) == (N_WALKERS, 5, 128),
+           f"GP series {n_w} x {n_e} x {n_p}, expected 1024 x 5 x 128")
+    # the GP model with exposure widths, and the series one gradient
+    # evaluation of it hands K3 and its reverse kernel
+    model_gpw = with_calib_widths(build_model(**gp_spec)).compile()
+    lp_gpw = make_ln_prob(model_gpw, dtype=f32, device=dev)
+    pos_gpw = _walkers(start_gp, N_CHAINS, 1, f32, dev)
+    with mock.patch.object(gp, "segmented_matern32_kernel",
+                           wraps=gp.segmented_matern32_kernel) as rec:
+        lp_gpw.value_and_grad(pos_gpw)
+    _check(rec.call_count == 1, "K3 not called once per gradient evaluation")
+    ga = [a.detach() for a in rec.call_args.args]
+    gk = rec.call_args.kwargs
+    _check(tuple(ga[1].shape) == (N_CHAINS, 5, 128) and ga[1].is_cuda,
+           f"gradient GP series {tuple(ga[1].shape)}, expected 256 x 5 x 128")
+    cot_g = torch.ones(ga[1].shape[:2], dtype=f32, device=dev)
+
+    def k3_fwd_bwd():
+        _k3_grads(gp.segmented_matern32_kernel, ga, gk, cot_g)
+
+    events, device_us = _launches_per_call({
+        "K3 with its reverse pass": k3_fwd_bwd,
         "K1": lambda: contacts.element_intervals_kernel(*args),
         "K2": lambda: stream.stream_impacts_kernel(q, rd, x1, n_steps),
         "K2 with sensitivities": lambda: stream.stream_impacts_kernel(
-            *sub, n_steps, with_sens=True)})
+            *sub, n_steps, with_sens=True),
+        "K3": lambda: gp.segmented_matern32_kernel(*gp_args, **gp_kw)})
     k1_launch = _check_launches("K1", events["K1"], "contacts_kernel")
     k2_launch = {sens: _check_launches(tag, events[tag], "stream_kernel")
                  for sens, tag in ((False, "K2"),
                                    (True, "K2 with sensitivities"))}
+    k3_launch = _check_launches("K3", events["K3"], "gp_kernel")
+    ev = events["K3 with its reverse pass"]
+    k3_bwd_launch = [sum(bool(re.search(rf"\b{k}\b", nm)) for nm in ev)
+                     for k in ("gp_kernel", "gp_backward_kernel")]
+    print(f"[2 launches] K3 with its reverse pass, one forward and backward "
+          f"of the wrapper: {k3_bwd_launch[0]} gp_kernel and "
+          f"{k3_bwd_launch[1]} gp_backward_kernel launch, {len(ev)} device "
+          f"events in all (the rest PyTorch's kernels for the angles, the "
+          f"decay and their adjoints), "
+          f"{sum(nm.startswith(('Memcpy', 'Memset')) for nm in ev)} copies "
+          f"or sets")
+    _check(k3_bwd_launch == [1, 1], "a K3 forward and backward is not one "
+           f"launch of each kernel: {[nm[:60] for nm in ev]}")
+
+    def traced_us(call, kernel):
+        return sum(us for nm, us in device_us[call].items()
+                   if re.search(rf"\b{kernel}\b", nm))
+
+    # device time of the kernels alone, as the profiler traced them (a
+    # loop of such short calls timed with events reads the host's pace)
+    k3_us = {"forward": traced_us("K3", "gp_kernel"),
+             "forward_recorded": traced_us("K3 with its reverse pass",
+                                           "gp_kernel"),
+             "backward": traced_us("K3 with its reverse pass",
+                                   "gp_backward_kernel"),
+             "call": sum(device_us["K3"].values()),
+             "forward_backward_call": sum(
+                 device_us["K3 with its reverse pass"].values())}
+    print(f"[2 launches] K3's device time as traced: gp_kernel on {n_w * n_e} "
+          f"series {k3_us['forward']:.1f} us of the call's "
+          f"{k3_us['call']:.1f} us; on {N_CHAINS * 5} series with the state "
+          f"kept {k3_us['forward_recorded']:.1f} us, gp_backward_kernel "
+          f"{k3_us['backward']:.1f} us, of {k3_us['forward_backward_call']:.1f}"
+          f" us for the forward and backward call")
 
     # ---- 3. posterior: kernel path vs plain path ----------------------
     def plain_path(fn):
@@ -486,18 +616,18 @@ def main():
     gen.manual_seed(0)
     start_t = torch.tensor(start, dtype=f32, device=dev)
     scatter = 1e-3 * torch.clamp(start_t.abs(), min=1e-2)
-    _zero_counts(contacts, stream)
+    _zero_counts(contacts, stream, gp)
     t0 = time.perf_counter()
     state = init_walkers(gen, start_t, scatter, lp32, N_WALKERS)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    c_init = _counts(contacts, stream)
+    c_init = _counts(contacts, stream, gp)
     n_ens = 3
     t0 = time.perf_counter()
     state, chain, chain_lp, acc = run_sampler(state, lp32, n_ens, gen)
     torch.cuda.synchronize()
     s_step = (time.perf_counter() - t0) / n_ens
-    c_ens = _counts(contacts, stream)
+    c_ens = _counts(contacts, stream, gp)
     k1_steps = c_ens["k1"] - c_init["k1"]
     k2_steps = c_ens["k2"] - c_init["k2"]
     acc_mean = acc.mean().item()
@@ -553,14 +683,15 @@ def main():
     width = float(np.asarray(model_w.data_width).max())
     posw = _walkers(start, N_CHAINS, 1, f32, dev)
     lpw.value_and_grad(posw)                          # warm the allocator
-    _zero_counts(contacts, stream)
+    _zero_counts(contacts, stream, gp)
     lp_g, g_k = lpw.value_and_grad(posw)
-    c_one = _counts(contacts, stream)
+    c_one = _counts(contacts, stream, gp)
     print(f"[7 grad] widths model (width {width:.6f} cycles), {N_CHAINS} "
           f"chains: one value_and_grad launched K1 {c_one['k1']}, K1 "
           f"backward {c_one['k1_bwd']}, K2 {c_one['k2']} (with "
           f"sensitivities {c_one['k2_sens']})")
-    _check(c_one == {"k1": 1, "k1_bwd": 1, "k2": 1, "k2_sens": 1},
+    _check(c_one == {"k1": 1, "k1_bwd": 1, "k2": 1, "k2_sens": 1, "k3": 0,
+                     "k3_bwd": 0},
            "K1's backward or K2's sensitivities not once per evaluation")
     _check(bool(torch.isfinite(lp_g).all()), "a chain's ln p is not finite")
     _check(bool(torch.isfinite(g_k).all()), "a gradient is not finite")
@@ -655,21 +786,21 @@ def main():
     genh = torch.Generator(device=dev)
     genh.manual_seed(0)
     scat_h = torch.tensor(1e-3 * np.abs(start) + 1e-6, dtype=f32, device=dev)
-    _zero_counts(contacts, stream)
+    _zero_counts(contacts, stream, gp)
     t0 = time.perf_counter()
     hs = init_hmc(genh, start_t, scat_h, lpw, N_CHAINS)
     pos0 = hs.positions.clone()
     hs = warmup_hmc(hs, lpw, 4, genh, n_leapfrog=N_LEAPFROG)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
-    c_warm = _counts(contacts, stream)
+    c_warm = _counts(contacts, stream, gp)
     n_hmc = 3
     t0 = time.perf_counter()
     hs, hchain, hchain_lp, hacc, hdiv = run_hmc(hs, lpw, n_hmc, genh,
                                                 n_leapfrog=N_LEAPFROG)
     torch.cuda.synchronize()
     s_hmc = (time.perf_counter() - t0) / n_hmc
-    c_hmc = _counts(contacts, stream)
+    c_hmc = _counts(contacts, stream, gp)
     per = {k: (c_hmc[k] - c_warm[k]) / n_hmc for k in c_hmc}
     moved = (hs.positions != pos0).any(dim=-1).double().mean().item()
     print(f"[8 hmc] {N_CHAINS} chains x {N_LEAPFROG} leapfrog: init + 4 "
@@ -689,12 +820,464 @@ def main():
     _check(tuple(hchain.shape) == (n_hmc, N_CHAINS, start.size),
            "HMC chain shape")
 
+    # ---- 9. K3 vs plain on the GP model's own series --------------------
+    k3 = {}
+    n_ser = n_w * n_e
+    for dt in (f32, f64):
+        name = str(dt)[6:]
+        t_, y_, yerr_, s2_, c_ = [a.to(dt) for a in gp_args]
+        prep = gp._prepare(t_, y_, yerr_, s2_, c_, gp_kw["reset"],
+                           gp_kw["mask"])
+        t_, yerr_, s2_, c_, reset_, mask_ = prep
+        rec_in = (y_, s2_.contiguous(), *gp._angles_decay(t_, c_), reset_,
+                  yerr_, mask_)
+        call = (t_, y_, yerr_, s2_, c_)
+        ll_k = gp._recursion_kernel(*rec_in)
+        ll_p = gp._recursion_plain(*rec_in)
+        ll_kw = gp.segmented_matern32_kernel(*call, **gp_kw)
+        ll_pw = gp.segmented_matern32_plain(*call, **gp_kw)
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(ll_p).all() & torch.isfinite(ll_pw).all()),
+               "plain GP ln-like not finite")
+        d_abs = max((ll_k - ll_p).abs().max().item(),
+                    (ll_kw - ll_pw).abs().max().item())
+        d_rel = max(((ll_k - ll_p).abs() / ll_p.abs()).max().item(),
+                    ((ll_kw - ll_pw).abs() / ll_pw.abs()).max().item())
+        kernel_ms = _event_ms(lambda: gp._recursion_kernel(*rec_in), 20)
+        ms = _event_ms(lambda: gp.segmented_matern32_kernel(*call, **gp_kw),
+                       20)
+        plain_ms = _event_ms(lambda: gp.segmented_matern32_plain(
+            *call, **gp_kw), 2, 1)
+        isz = y_.element_size()
+        # what the function needs: y, sigma2 and reset per point and c per
+        # series; t, yerr and mask per eclipse point; one ln-likelihood
+        # out per series (the angles and the decay follow from t and c)
+        nbytes = (n_ser * n_p * (2 * isz + 1) + n_ser * isz
+                  + n_e * n_p * (2 * isz + 1) + n_ser * isz)
+        ops = n_ser * n_p * K3_OPS_POINT
+        bound = _bound(ops, nbytes, name)
+        k3[dt] = dict(err=d_abs, rel=d_rel, ms=ms, plain_ms=plain_ms,
+                      kernel_ms=kernel_ms, bound=bound, ops=ops,
+                      nbytes=nbytes)
+        gate = (f"max |d ll| {d_abs:.3e} (limit 1e-5 x {n_p} = "
+                f"{1e-5 * n_p:.2e})" if dt == f32 else
+                f"max relative {d_rel:.3e} (limit 1e-11)")
+        print(f"[9 K3] {name} {n_ser} series x {n_p} points, the recursion "
+              f"alone and the whole wrapper against their plain versions: "
+              f"{gate}; max |ll| {ll_p.abs().max().item():.1f}; the "
+              f"wrapper's call (gp_kernel and its {k3_launch[1] - 1} PyTorch "
+              f"kernels) {ms:.4f} ms, gp_kernel alone {kernel_ms:.4f} ms "
+              f"({kernel_ms / n_p * 1e6:.0f} ns per point), plain "
+              f"{plain_ms:.1f} ms ({plain_ms / ms:.0f}x); bound "
+              f"{bound[0] * 1e3:.2f} us ({ops / 1e9:.3f} G{name} ops, "
+              f"{nbytes / 1e6:.1f} MB, set by {bound[1]}): the call at "
+              f"{bound[0] / ms:.2%} of its bound")
+        _check(d_abs <= 1e-5 * n_p if dt == f32 else d_rel <= 1e-11,
+               f"K3 disagrees with its plain version ({name})")
+
+    # K3's reverse kernel against autograd on the plain loop, on the series
+    # one gradient evaluation hands it
+    k3b = {}
+    n_ser_g = ga[1].shape[0] * ga[1].shape[1]
+    gen_c = torch.Generator(device=dev)
+    gen_c.manual_seed(0)
+    cot64 = torch.randn(ga[1].shape[:2], generator=gen_c, dtype=f64,
+                        device=dev)
+    g_ref = None
+    for dt in (f64, f32):
+        name = str(dt)[6:]
+        call = [a.to(dt) for a in ga]
+        cot = cot64.to(dt)
+        g_k = _k3_grads(gp.segmented_matern32_kernel, call, gk, cot)
+        g_p = _k3_grads(gp.segmented_matern32_plain, call, gk, cot)
+        if dt == f64:
+            g_ref = g_p
+        _check(all(bool(torch.isfinite(g).all()) for g in g_k + g_p),
+               f"a K3 gradient is not finite ({name})")
+        d_abs = [(a - b).abs().max().item() for a, b in zip(g_k, g_p)]
+        scale = [b.abs().max().item() for b in g_p]
+        rel = max(d / sc for d, sc in zip(d_abs, scale))
+        # float32: the plain loop's own distance from float64 as referee
+        d_ref = [(b.double() - r).abs().max().item()
+                 for b, r in zip(g_p, g_ref)]
+        within = all(d <= 1e-3 * sc or d <= dr
+                     for d, sc, dr in zip(d_abs, scale, d_ref))
+        ll_w, leaves_w = _k3_graph(gp.segmented_matern32_kernel, call, gk)
+        ll_pl, leaves_pl = _k3_graph(gp.segmented_matern32_plain, call, gk)
+        t_, yerr_, s2_, c_, reset_, mask_ = gp._prepare(
+            call[0], call[1], call[2], call[3], call[4], gk["reset"],
+            gk["mask"])
+        rec_leaves = [a.detach().requires_grad_() for a in (
+            call[1], s2_.contiguous(), *gp._angles_decay(t_, c_))]
+        with torch.enable_grad():
+            ll_r = gp._recursion_kernel(*rec_leaves, reset_, yerr_, mask_)
+        ms = _event_ms(lambda: torch.autograd.grad(
+            ll_w, leaves_w, cot, retain_graph=True), 20)
+        kernel_ms = _event_ms(lambda: torch.autograd.grad(
+            ll_r, rec_leaves, cot, retain_graph=True), 20)
+        plain_ms = _event_ms(lambda: torch.autograd.grad(
+            ll_pl, leaves_pl, cot, retain_graph=True), 2, 1)
+        fwd_ms = _event_ms(lambda: _k3_graph(gp.segmented_matern32_kernel,
+                                             call, gk), 20)
+        del ll_w, leaves_w, ll_pl, leaves_pl, ll_r, rec_leaves
+        isz = call[1].element_size()
+        # in: y, sigma2, reset per point, c and the cotangent per series,
+        # t, yerr, mask per eclipse point; out: d y, d sigma2 per point
+        # and d c per series
+        nbytes = (n_ser_g * n_p * (2 * isz + 1) + 2 * n_ser_g * isz
+                  + n_e * n_p * (2 * isz + 1)
+                  + n_ser_g * n_p * 2 * isz + n_ser_g * isz)
+        ops = n_ser_g * n_p * K3_BWD_OPS_POINT
+        bound = _bound(ops, nbytes, name)
+        k3b[dt] = dict(err=max(d_abs), rel=rel, ms=ms, kernel_ms=kernel_ms,
+                       plain_ms=plain_ms, fwd_ms=fwd_ms, bound=bound, ops=ops,
+                       nbytes=nbytes)
+        gate = ("limit 1e-9" if dt == f64 else
+                "limit 1e-3, or closer to the plain loop than that is to "
+                f"float64: {within}")
+        print(f"[9 K3 reverse] {name} {n_ser_g} series x {n_p} points, "
+              f"gradients in y, sigma2 and c against autograd on the plain "
+              f"loop: max |d g| / max |g| {rel:.3e} ({gate}); max |d g| "
+              f"{[f'{d:.3e}' for d in d_abs]} at max |g| "
+              f"{[f'{sc:.3e}' for sc in scale]}; the backward pass of the "
+              f"wrapper (gp_backward_kernel and PyTorch's adjoints of the "
+              f"angles and the decay) {ms:.4f} ms, gp_backward_kernel alone "
+              f"{kernel_ms:.4f} ms ({kernel_ms / n_p * 1e6:.0f} ns per "
+              f"point), autograd on the plain loop {plain_ms:.1f} ms "
+              f"({plain_ms / ms:.0f}x); the recorded forward {fwd_ms:.4f} ms; "
+              f"bound {bound[0] * 1e3:.2f} us ({ops / 1e9:.3f} G{name} ops, "
+              f"{nbytes / 1e6:.1f} MB, set by {bound[1]}): the backward at "
+              f"{bound[0] / ms:.2%} of its bound")
+        _check(rel <= 1e-9 if dt == f64 else within,
+               f"K3's reverse kernel disagrees with autograd on the plain "
+               f"loop ({name})")
+
+    # ---- 10. the GP posterior ------------------------------------------
+    def plain_gp(fn):
+        with mock.patch.object(gp, "segmented_matern32_kernel",
+                               gp.segmented_matern32_plain):
+            return fn()
+
+    before = gp.LAUNCHES
+    lp_gp_plain = plain_gp(lambda: lp_gp32(pos_gp))
+    _check(gp.LAUNCHES == before, "the plain GP path launched K3")
+    fin_k, fin_p = torch.isfinite(lp_gp_kernel), torch.isfinite(lp_gp_plain)
+    _check(bool((fin_k == fin_p).all()), "GP finite/-inf pattern differs")
+    _check(int(fin_k.sum()) > N_WALKERS // 2, "most GP walkers are -inf")
+    d_lp = (lp_gp_kernel - lp_gp_plain).abs()[fin_k].max().item()
+    print(f"[10 gp] {int(fin_k.sum())}/{N_WALKERS} walkers finite with K3 "
+          f"and with the plain recursion; max |d ln p| {d_lp:.3e} (limit "
+          f"1e-2: 5 series x 1e-5 x 128 points and the float32 sum at "
+          f"|ln p| ~ {lp_gp_plain[fin_p].abs().max().item():.0f})")
+    _check(d_lp <= 1e-2, "GP posterior: K3 path and plain path disagree")
+    torch.cuda.reset_peak_memory_stats()
+    turns = {"plain": [], "kernel": [], "chi2": []}
+    for path in ("plain", "kernel", "chi2", "chi2", "kernel", "plain"):
+        if path == "chi2":
+            turns[path].append(_sync_time(lambda: lp32(pos), 2))
+        else:
+            def run():
+                return _sync_time(lambda: lp_gp32(pos_gp), 2)
+            turns[path].append(plain_gp(run) if path == "plain" else run())
+    peak_gp = torch.cuda.max_memory_allocated()
+    gp_ms, gp_plain_ms = min(turns["kernel"]), min(turns["plain"])
+    chi2_ms = min(turns["chi2"])
+    busy_us, n_kern, wall_us, _ = _device_kernels(lambda: lp_gp32(pos_gp))
+    _, n_kern_p, _, _ = plain_gp(lambda: _device_kernels(
+        lambda: lp_gp32(pos_gp)))
+    print(f"[10 gp] ms per GP eval at {N_WALKERS} walkers: with K3 "
+          f"{gp_ms:.1f} (turns {turns['kernel'][0]:.1f}, "
+          f"{turns['kernel'][1]:.1f}), with the plain recursion "
+          f"{gp_plain_ms:.1f} (turns {turns['plain'][0]:.1f}, "
+          f"{turns['plain'][1]:.1f}): the plain recursion is "
+          f"{(gp_plain_ms - gp_ms) / gp_plain_ms:.1%} of that evaluation; "
+          f"the chi^2 model in the same turns {chi2_ms:.1f}; peak device "
+          f"memory {peak_gp / 2**30:.2f} GiB; device kernels per eval "
+          f"{n_kern} with K3, {n_kern_p} with the plain recursion; "
+          f"device-busy share {_busy_line(busy_us, n_kern, wall_us)}")
+
+    # the ensemble sampler on the GP model: the GP main path
+    gen_gp = torch.Generator(device=dev)
+    gen_gp.manual_seed(0)
+    start_gp_t = torch.tensor(start_gp, dtype=f32, device=dev)
+    scat_gp = 1e-3 * torch.clamp(start_gp_t.abs(), min=1e-2)
+    _zero_counts(contacts, stream, gp)
+    st_gp = init_walkers(gen_gp, start_gp_t, scat_gp, lp_gp32, N_WALKERS)
+    c_gp_init = _counts(contacts, stream, gp)
+    t0 = time.perf_counter()
+    st_gp, _, _, acc_gp = run_sampler(st_gp, lp_gp32, 2, gen_gp)
+    torch.cuda.synchronize()
+    s_gp_step = (time.perf_counter() - t0) / 2
+    c_gp_ens = _counts(contacts, stream, gp)
+    per = _delta(c_gp_ens, c_gp_init)
+    print(f"[10 gp] ensemble sampler on the GP model: init_walkers "
+          f"{c_gp_init['k3']} K3 launches; 2 steps at {s_gp_step:.3f} "
+          f"s/step, acceptance {acc_gp.mean().item():.3f}; launches in the "
+          f"steps: K1 {per['k1']}, K2 {per['k2']}, K3 {per['k3']} (4 each "
+          f"expected)")
+    _check(per["k1"] == per["k2"] == per["k3"] == 4,
+           "not one K1, K2 and K3 per half-step on the GP model")
+    _check(bool(torch.isfinite(st_gp.log_prob).all()),
+           "non-finite GP log_prob")
+
+    # config 5: 10 complex-spot GP eclipses at 4096 walkers
+    t0 = time.perf_counter()
+    model_c5 = build_model(n_eclipses=10, complex_spot=True, use_gp=True,
+                           n_points=128, bands=("g", "r")).compile()
+    prior_c5, _, lp_c5 = make_ln_prob_parts(model_c5, dtype=f32, device=dev)
+    pos_c5 = _walkers(model_c5.var_start(), 4096, 0, f32, dev)
+    t_build = time.perf_counter() - t0
+    with mock.patch.object(gp, "segmented_matern32_kernel",
+                           wraps=gp.segmented_matern32_kernel) as rec:
+        lp_c5(pos_c5)                                 # warm the allocator
+    c5_args, c5_kw = rec.call_args.args, rec.call_args.kwargs
+    n_ser_c5 = c5_args[1].shape[0] * c5_args[1].shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _zero_counts(contacts, stream, gp)
+    t0 = time.perf_counter()
+    out_c5 = lp_c5(pos_c5)
+    torch.cuda.synchronize()
+    c5_ms = (time.perf_counter() - t0) * 1e3
+    c_gp_c5 = _counts(contacts, stream, gp)
+    peak_c5 = torch.cuda.max_memory_allocated()
+    _check(c_gp_c5 == {"k1": 1, "k1_bwd": 0, "k2": 1, "k2_sens": 0, "k3": 1,
+                       "k3_bwd": 0},
+           f"config-5 evaluation launches: {c_gp_c5}")
+    prior_ok = torch.isfinite(prior_c5(pos_c5))
+    k3_c5_ms = _event_ms(lambda: gp.segmented_matern32_kernel(
+        *c5_args, **c5_kw), 10)
+    print(f"[10 gp] config 5 (10 complex-spot GP eclipses, D = "
+          f"{pos_c5.shape[1]}, 4096 walkers; model built in {t_build:.1f} "
+          f"s): one evaluation {c5_ms:.1f} ms, peak device memory "
+          f"{peak_c5 / 2**30:.2f} GiB; {int(prior_ok.sum())}/4096 walkers "
+          f"with a finite prior, ln p finite exactly there: "
+          f"{bool((torch.isfinite(out_c5) == prior_ok).all())}; K3's call "
+          f"on its {n_ser_c5} series "
+          f"{k3_c5_ms:.4f} ms")
+    _check(tuple(c5_args[1].shape) == (4096, 10, 128), "config-5 GP series")
+    _check(bool((torch.isfinite(out_c5) == prior_ok).all()),
+           "config 5: ln p not finite exactly where the prior is")
+    _check(int(prior_ok.sum()) > 2048, "config 5: most walkers are -inf")
+    del out_c5, c5_args, c5_kw, lp_c5, prior_c5, pos_c5
+
+    # the gradient on the GP model with exposure widths
+    lp_gpw.value_and_grad(pos_gpw)                    # warm the allocator
+    _zero_counts(contacts, stream, gp)
+    lp_gg, g_gp = lp_gpw.value_and_grad(pos_gpw)
+    c_gp_vg = _counts(contacts, stream, gp)
+    _check(c_gp_vg == {"k1": 1, "k1_bwd": 1, "k2": 1, "k2_sens": 1, "k3": 1,
+                       "k3_bwd": 1},
+           f"GP value_and_grad launches: {c_gp_vg}")
+    _check(bool(torch.isfinite(lp_gg).all()), "a GP chain's ln p not finite")
+    _check(bool(torch.isfinite(g_gp).all()), "a GP gradient is not finite")
+    _check(bool((g_gp.abs().amax(dim=-1) > 0).all()), "a zero GP gradient")
+    before = _counts(contacts, stream, gp)
+    _, g_gp_plain = plain_gp(lambda: lp_gpw.value_and_grad(pos_gpw))
+    after = _counts(contacts, stream, gp)
+    _check((after["k3"], after["k3_bwd"]) == (before["k3"], before["k3_bwd"]),
+           "the plain GP gradient path launched K3")
+    cos_kp = torch.nn.functional.cosine_similarity(
+        g_gp.double(), g_gp_plain.double(), dim=-1)
+    print(f"[10 gp] GP gradient with K3 and its reverse kernel against the "
+          f"plain recursion under autograd, {N_CHAINS} chains: cosine min "
+          f"{cos_kp.min().item():.8f} (limit 0.9999)")
+    _check(cos_kp.min().item() >= 0.9999,
+           "GP gradient: K3 path and plain path disagree")
+
+    torch.cuda.reset_peak_memory_stats()
+    turns = {"plain": [], "kernel": [], "chi2": []}
+    for path in ("plain", "kernel", "chi2", "chi2", "kernel", "plain"):
+        if path == "chi2":
+            turns[path].append(_sync_time(
+                lambda: lpw.value_and_grad(posw), 1))
+        else:
+            def run():
+                return _sync_time(lambda: lp_gpw.value_and_grad(pos_gpw), 1)
+            turns[path].append(plain_gp(run) if path == "plain" else run())
+    peak_gg = torch.cuda.max_memory_allocated()
+    gp_vg_ms, gp_vg_plain_ms = min(turns["kernel"]), min(turns["plain"])
+    chi_vg_ms = min(turns["chi2"])
+    rec_share = (gp_vg_plain_ms - gp_vg_ms) / gp_vg_plain_ms
+    k3_share = (k3b[f32]["fwd_ms"] + k3b[f32]["ms"]) / gp_vg_ms
+    print(f"[10 gp] value_and_grad on the GP widths model, {N_CHAINS} "
+          f"chains: with K3 and its reverse kernel {gp_vg_ms:.1f} ms (turns "
+          f"{turns['kernel'][0]:.1f}, {turns['kernel'][1]:.1f}), with the "
+          f"plain recursion under autograd {gp_vg_plain_ms:.1f} ms (turns "
+          f"{turns['plain'][0]:.1f}, {turns['plain'][1]:.1f}): the plain "
+          f"recursion is {rec_share:.1%} of that evaluation; K3's recorded "
+          f"forward and backward (phase 9) are {k3_share:.2%} of the "
+          f"evaluation with K3; the chi^2 widths model in the same turns "
+          f"{chi_vg_ms:.1f} ms; peak device memory "
+          f"{peak_gg / 2**30:.2f} GiB")
+    lp_gpw64 = make_ln_prob(model_gpw, dtype=f64, device=dev)
+    _, g_gp64 = lp_gpw64.value_and_grad(pos_gpw.to(f64))
+    g_gp_d = g_gp.to(f64)
+    cos_gp = ((g_gp_d * g_gp64).sum(-1)
+              / (g_gp_d.norm(dim=-1) * g_gp64.norm(dim=-1)))
+    frac_gp = (cos_gp >= 0.999).double().mean().item()
+    print(f"[10 gp] f32 vs f64 GP gradient at {N_CHAINS} chains: cosine "
+          f"min {cos_gp.min().item():.6f}, median "
+          f"{cos_gp.median().item():.8f}; {frac_gp:.0%} of chains at "
+          f"cosine >= 0.999 (limit 95%)")
+    _check(frac_gp >= 0.95, "f32 GP gradients point away from f64")
+    del lp_gpw64, g_gp64
+
+    # one HMC step on it
+    gen_gh = torch.Generator(device=dev)
+    gen_gh.manual_seed(0)
+    scat_gh = torch.tensor(1e-3 * np.abs(start_gp) + 1e-6, dtype=f32,
+                           device=dev)
+    hs_gp = init_hmc(gen_gh, start_gp_t, scat_gh, lp_gpw, N_CHAINS,
+                     step_size=1e-4)
+    _zero_counts(contacts, stream, gp)
+    t0 = time.perf_counter()
+    hs_gp2, acc_gh, _, div_gh = hmc_step(hs_gp, lp_gpw, gen_gh,
+                                         n_leapfrog=N_LEAPFROG)
+    torch.cuda.synchronize()
+    s_gp_hmc = time.perf_counter() - t0
+    c_gp_hmc = _counts(contacts, stream, gp)
+    # the GP path's launches: the sampler's run, the config-5 evaluation,
+    # one value_and_grad and the HMC step, each read after a run that
+    # started from counts of 0 (not the timing turns)
+    c_gp = {k: c_gp_ens[k] + c_gp_c5[k] + c_gp_vg[k] + c_gp_hmc[k]
+            for k in c_gp_ens}
+    print(f"[10 gp] one hmc_step of {N_LEAPFROG} leapfrog on the GP widths "
+          f"model: {s_gp_hmc:.2f} s; acceptance {acc_gh.item():.3f}, "
+          f"divergences {div_gh.item():.3f}; launches: K1 "
+          f"{c_gp_hmc['k1']}, K1 backward {c_gp_hmc['k1_bwd']}, K2 with "
+          f"sensitivities {c_gp_hmc['k2_sens']}, K3 {c_gp_hmc['k3']}, K3's "
+          f"reverse kernel {c_gp_hmc['k3_bwd']} (16 each expected)")
+    _check(c_gp_hmc == dict.fromkeys(c_gp_hmc, N_LEAPFROG),
+           "GP hmc_step: not one K1, K1 backward, K2, K3 and K3 reverse "
+           "kernel per leapfrog")
+    _check(bool(torch.isfinite(hs_gp2.positions).all()
+                & torch.isfinite(hs_gp2.log_prob).all()),
+           "GP hmc_step: non-finite state")
+    _check(c_gp["k3"] >= 6 + 1 + N_LEAPFROG
+           and c_gp["k3_bwd"] == 1 + N_LEAPFROG,
+           "the GP path did not launch K3 and its reverse kernel")
+    del lp_gpw, hs_gp, hs_gp2
+
+    # ---- 11. parallel tempering on the north-star model ----------------
+    n_temps, w_pt = 4, 256
+    pt_prior, pt_like, post_pt = make_ln_prob_parts(model, dtype=f32,
+                                                    device=dev)
+    gen_pt = torch.Generator(device=dev)
+    gen_pt.manual_seed(0)
+    _zero_counts(contacts, stream, gp)
+    t0 = time.perf_counter()
+    pts = init_pt(gen_pt, start_t, scatter, pt_prior, pt_like, w_pt, n_temps)
+    torch.cuda.synchronize()
+    t_pt_init = time.perf_counter() - t0
+    c_pt_init = _counts(contacts, stream, gp)
+    n_pt = 3
+    accs, rungs = [], []
+    t0 = time.perf_counter()
+    for _ in range(n_pt):
+        pts, (a_pt, rung_ll) = pt_step(pts, pt_prior, pt_like, gen_pt)
+        accs.append(a_pt)
+        rungs.append(rung_ll)
+    torch.cuda.synchronize()
+    s_pt = (time.perf_counter() - t0) / n_pt
+    c_pt = _counts(contacts, stream, gp)
+    per = _delta(c_pt, c_pt_init)
+    acc_pt = torch.stack(accs).mean().item()
+    half = pts.positions[:, :w_pt // 2].reshape(-1, start.size)
+    parts_turns, fused_turns = [], []
+    for _ in range(2):
+        parts_turns.append(_sync_time(lambda: post_pt.parts(half), 2))
+        fused_turns.append(_sync_time(lambda: post_pt(half), 2))
+    parts_ms, fused_ms = min(parts_turns), min(fused_turns)
+    pt_rate = n_temps * w_pt / s_pt
+    fused_rate = N_WALKERS / (ms_kernel / 1e3)
+    print(f"[11 pt] {n_temps} rungs x {w_pt} walkers, betas "
+          f"{[round(b, 4) for b in pts.betas.tolist()]}: init_pt "
+          f"{t_pt_init:.2f} s ({c_pt_init['k1']} K1, {c_pt_init['k2']} K2 "
+          f"launches); {n_pt} steps at {s_pt:.3f} s/step = {pt_rate:.0f} "
+          f"tempered proposals/s; acceptance {acc_pt:.3f}; per-rung mean "
+          f"ln-likelihood {[round(v, 1) for v in rungs[-1].tolist()]}; "
+          f"launches in the steps: K1 {per['k1']}, K2 {per['k2']} (2 each "
+          f"per step expected), K3 {per['k3']}")
+    print(f"[11 pt] cost of a tempered proposal against the fused "
+          f"posterior: on one half's {half.shape[0]} proposals, parts "
+          f"{parts_ms:.1f} ms against the fused ln_prob {fused_ms:.1f} ms = "
+          f"{parts_ms / fused_ms:.3f}x; by the rates (phase 3's "
+          f"{fused_rate:.0f} evals/s at {N_WALKERS} walkers over the "
+          f"steps' {pt_rate:.0f}/s, the reference's pt_cost_vs_fused) "
+          f"{fused_rate / pt_rate:.3f}x")
+    _check(per["k1"] == per["k2"] == 2 * n_pt,
+           "PT: not one K1 and one K2 per half-step")
+    _check(c_pt["k1_bwd"] == 0 and c_pt["k2_sens"] == 0 and c_pt["k3"] == 0,
+           "the PT path ran a gradient or the GP")
+    _check(bool(torch.isfinite(pts.ln_like[0]).all()
+                & torch.isfinite(pts.ln_prior[0]).all()),
+           "PT: non-finite cold rung")
+    _check(0.0 < acc_pt < 1.0, "PT acceptance outside (0, 1)")
+    _check(bool(torch.isfinite(torch.stack(rungs)).all()),
+           "PT: non-finite rung ln-likelihood")
+    _check(tuple(pts.positions.shape) == (n_temps, w_pt, start.size),
+           "PT state shape")
+
+    # ---- 12. NUTS on the widths model, from phase 8's adapted state ----
+    max_depth, n_nuts = 6, 2
+    pos_n0 = hs.positions.clone()
+    _zero_counts(contacts, stream, gp)
+    depths, divs, astats = [], [], []
+    with mock.patch.object(lpw, "value_and_grad",
+                           wraps=lpw.value_and_grad) as rec:
+        t0 = time.perf_counter()
+        ns = hs
+        for _ in range(n_nuts):
+            ns, astat, _, div_n, depth_n = nuts_step(ns, lpw, genh,
+                                                     max_depth=max_depth)
+            depths.append(depth_n)
+            divs.append(div_n)
+            astats.append(astat)
+        torch.cuda.synchronize()
+        s_nuts = (time.perf_counter() - t0) / n_nuts
+        leaves = rec.call_count
+    c_nuts = _counts(contacts, stream, gp)
+    moved_n = (ns.positions != pos_n0).any(dim=-1).double().mean().item()
+    mean_depth = torch.stack(depths).mean().item()
+    print(f"[12 nuts] {N_CHAINS} chains, max_depth {max_depth}, step size "
+          f"{ns.step_size.item():.3e}: {n_nuts} steps at {s_nuts:.2f} "
+          f"s/step ({N_CHAINS / s_nuts:.1f} trajectories/s); mean depth "
+          f"{mean_depth:.2f} (per step "
+          f"{[round(d.item(), 2) for d in depths]}); {leaves} leaves built "
+          f"({leaves / n_nuts:.1f} per step, one gradient evaluation of "
+          f"all chains each); accept statistic "
+          f"{torch.stack(astats).mean().item():.3f}; divergence share "
+          f"{torch.stack(divs).mean().item():.3f}; launches: K1 "
+          f"{c_nuts['k1']}, K1 backward {c_nuts['k1_bwd']}, K2 with "
+          f"sensitivities {c_nuts['k2_sens']}; chains moved {moved_n:.0%}")
+    _check(leaves >= n_nuts, "NUTS built no leaf")
+    _check(c_nuts["k1"] == c_nuts["k1_bwd"] == c_nuts["k2_sens"]
+           == c_nuts["k2"] == leaves,
+           "NUTS: not one K1, K1 backward and K2 per leaf")
+    _check(bool(torch.isfinite(ns.positions).all()
+                & torch.isfinite(ns.log_prob).all()),
+           "NUTS: non-finite state")
+    _check(moved_n > 0.5, "the NUTS chains did not move")
+    _check(ns.step == hs.step + n_nuts, "NUTS step counter")
+
     k2_ms, k2_pms = k2[f32, False][2:]
+    paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
+             "nuts": c_nuts}
+
+    def by_path(key):
+        return {name: c[key] for name, c in paths.items()}
+
+    for key, on in (("k1", paths), ("k2", paths), ("k3", ("gp",)),
+                    ("k3_bwd", ("gp",))):
+        for name in on:
+            _check(paths[name][key] > 0,
+                   f"the {name} path never launched {key.upper()}")
     print(json.dumps({"kernels": [
         {"name": "contacts", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,
-         "launches": c_ens["k1"] + c_hmc["k1"],
-         "launches_by_path": {"ensemble": c_ens["k1"], "hmc": c_hmc["k1"]},
+         "launches": sum(by_path("k1").values()),
+         "launches_by_path": by_path("k1"),
          "device_launches_per_call": k1_launch[0],
          "device_events_per_call": k1_launch[1],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
@@ -707,13 +1290,15 @@ def main():
              "route": "torch.autograd.Function, backward in plain PyTorch "
                       "(lfit_python_tpu_torch/ops/contacts.py)",
              "replaces": K1_GRAD_REPLACES,
-             "backward_calls": c_hmc["k1_bwd"], "backward_ms": k1_bwd_ms,
+             "backward_calls": sum(by_path("k1_bwd").values()),
+             "backward_calls_by_path": by_path("k1_bwd"),
+             "backward_ms": k1_bwd_ms,
              "bound_ms": k1_bwd_bound, "bound_by": k1_bwd_by,
              "ops": bwd_ops, "library_ms": None}},
         {"name": "stream", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES + " (an XLA lax.scan, no pallas_call)",
-         "launches": c_ens["k2"] + c_hmc["k2"],
-         "launches_by_path": {"ensemble": c_ens["k2"], "hmc": c_hmc["k2"]},
+         "launches": sum(by_path("k2").values()),
+         "launches_by_path": by_path("k2"),
          "device_launches_per_call": k2_launch[False][0],
          "device_events_per_call": k2_launch[False][1],
          "max_abs_err": k2[f32, False][0], "ms": k2_ms, "plain_ms": k2_pms,
@@ -723,7 +1308,8 @@ def main():
          "library_ms_reason": NO_LIBRARY.format(
              "a 4352-step RK4 scan with first-crossing records"),
          "sensitivities": {
-             "launches": c_hmc["k2_sens"], "walkers": N_CHAINS,
+             "launches": sum(by_path("k2_sens").values()),
+             "launches_by_path": by_path("k2_sens"), "walkers": N_CHAINS,
              "max_abs_err": k2[f32, True][0],
              "max_abs_err_jacobians": max(k2[f32, True][1]),
              "ms": k2[f32, True][2], "plain_ms": k2[f32, True][3],
@@ -735,6 +1321,60 @@ def main():
              "ms": k2[f64, False][2], "bound_ms": k2_bound[f64, False][0],
              "sens_ms": k2[f64, True][2],
              "sens_bound_ms": k2_bound[f64, True][0]}},
+        {"name": "gp", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES + " (an XLA lax.scan, no pallas_call)",
+         "launches": sum(by_path("k3").values()),
+         "launches_by_path": by_path("k3"),
+         "device_launches_per_call": k3_launch[0],
+         "device_events_per_call": k3_launch[1],
+         "series": n_ser, "points": n_p,
+         "max_abs_err": k3[f32]["err"], "ms": k3[f32]["ms"],
+         "plain_ms": k3[f32]["plain_ms"],
+         "kernel_only_ms": k3[f32]["kernel_ms"],
+         "kernel_only_traced_us": k3_us["forward"],
+         "call_traced_us": k3_us["call"],
+         "ns_per_point_kernel_only": k3_us["forward"] / n_p * 1e3,
+         "bound_ms": k3[f32]["bound"][0], "bound_by": k3[f32]["bound"][1],
+         "ops": k3[f32]["ops"], "bytes": k3[f32]["nbytes"],
+         "library_ms": None,
+         "library_ms_reason": NO_LIBRARY.format(
+             "a semi-separable Cholesky recursion with segment resets"),
+         "config5": {"series": n_ser_c5, "ms": k3_c5_ms},
+         "float64": {
+             "max_rel_err": k3[f64]["rel"], "ms": k3[f64]["ms"],
+             "kernel_only_ms": k3[f64]["kernel_ms"],
+             "plain_ms": k3[f64]["plain_ms"],
+             "bound_ms": k3[f64]["bound"][0],
+             "bound_by": k3[f64]["bound"][1]}},
+        {"name": "gp_backward", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES + " (the reverse of an XLA lax.scan under "
+                     "jax.grad, no pallas_call)",
+         "launches": sum(by_path("k3_bwd").values()),
+         "launches_by_path": by_path("k3_bwd"),
+         "device_launches_per_call": k3_bwd_launch[1],
+         "series": n_ser_g, "points": n_p,
+         "max_abs_err": k3b[f32]["err"], "max_rel_err": k3b[f32]["rel"],
+         "ms": k3b[f32]["ms"], "plain_ms": k3b[f32]["plain_ms"],
+         "kernel_only_ms": k3b[f32]["kernel_ms"],
+         "recorded_forward_ms": k3b[f32]["fwd_ms"],
+         "kernel_only_traced_us": k3_us["backward"],
+         "forward_kernel_keeping_state_traced_us": k3_us["forward_recorded"],
+         "forward_backward_call_traced_us": k3_us["forward_backward_call"],
+         "bound_ms": k3b[f32]["bound"][0], "bound_by": k3b[f32]["bound"][1],
+         "ops": k3b[f32]["ops"], "bytes": k3b[f32]["nbytes"],
+         "library_ms": None,
+         "library_ms_reason": NO_LIBRARY.format(
+             "the adjoint of that recursion"),
+         "value_and_grad_ms": gp_vg_ms,
+         "value_and_grad_plain_recursion_ms": gp_vg_plain_ms,
+         "plain_recursion_share_of_value_and_grad": rec_share,
+         "share_of_value_and_grad": k3_share, "chains": N_CHAINS,
+         "float64": {
+             "max_rel_err": k3b[f64]["rel"], "ms": k3b[f64]["ms"],
+             "kernel_only_ms": k3b[f64]["kernel_ms"],
+             "plain_ms": k3b[f64]["plain_ms"],
+             "bound_ms": k3b[f64]["bound"][0],
+             "bound_by": k3b[f64]["bound"][1]}},
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@
 attribute, so this module imports nothing of JAX — or a dict of the same
 arrays, and returns the port's :class:`~.models.tree.CompiledModel`, so
 both packages evaluate the same posterior on the same data.
-``state_from_numpy`` and ``hmc_state_from_numpy`` carry sampler states
-across as arrays.
+``state_from_numpy``, ``hmc_state_from_numpy`` and ``pt_state_from_numpy``
+carry sampler states across as arrays.
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ from .models.priors import PriorTable
 from .models.tree import CompiledModel
 from .sampling.ensemble import EnsembleState
 from .sampling.hmc import HMCState
+from .sampling.pt import PTState
 
-__all__ = ["from_jax_model", "state_from_numpy", "hmc_state_from_numpy"]
+__all__ = ["from_jax_model", "state_from_numpy", "hmc_state_from_numpy",
+           "pt_state_from_numpy"]
 
 _ARRAYS = ("full_start", "var_idx", "var_pos", "scatter", "cv_idx",
            "cv_const", "gp_idx", "gp_mask", "data_phase", "data_flux",
@@ -76,3 +78,19 @@ def hmc_state_from_numpy(state, dtype=torch.float64, device=None) -> HMCState:
     return HMCState(arr("positions"), arr("log_prob"), arr("grad"),
                     arr("step_size"), arr("inv_mass"),
                     int(np.asarray(_get(state, "step"))))
+
+
+def pt_state_from_numpy(state, dtype=torch.float64, device=None) -> PTState:
+    """The port's parallel-tempering state from a JAX-package ``PTState``
+    (read by attribute) or a dict of its fields: positions (T, W, D),
+    ln_like (T, W), ln_prior (T, W), betas (T,) and step.  The PRNG key
+    does not carry over: the port draws from a ``torch.Generator``.  On
+    ``device``, the CUDA card unless given (raises without one)."""
+    device = resolve_device(device)
+
+    def arr(name):
+        return torch.tensor(np.asarray(_get(state, name)), dtype=dtype,
+                            device=device)
+
+    return PTState(arr("positions"), arr("ln_like"), arr("ln_prior"),
+                   arr("betas"), int(np.asarray(_get(state, "step"))))

@@ -1,8 +1,9 @@
 """Where the port's entry points put their tensors.
 
-The port is written for the card: ``make_ln_prob``, ``Posterior``,
-``convert.state_from_numpy`` and ``convert.hmc_state_from_numpy`` put
-their tensors on the CUDA device unless the caller names another one.
+The port is written for the card: ``make_ln_prob``, ``make_ln_prob_parts``,
+``Posterior``, ``convert.state_from_numpy``, ``convert.hmc_state_from_numpy``
+and ``convert.pt_state_from_numpy`` put their tensors on the CUDA device
+unless the caller names another one.
 Without a card they raise rather than carry on on the CPU; a caller who
 wants the CPU (the CPU tests, a machine without a card) passes
 ``device="cpu"``.

@@ -1,11 +1,16 @@
-"""Posterior evaluation: priors + physical validity + per-eclipse chi^2.
+"""Posterior evaluation: priors + physical validity + per-eclipse
+likelihood (chi^2, or the GP "flickering" likelihood).
 
-Port of the chi^2 branch of ``lfit_python_tpu/models/likelihood.py``.
-:func:`make_ln_prob` returns a :class:`Posterior`, a batched function
-``(W, D) -> (W,)`` of sampled vectors.  One call evaluates every walker
-and every eclipse at once: the core-node geometry (L1, inclination, the
-gas-stream integration, the donor grid) is solved once per walker, and
-the per-eclipse work runs on ``(W, E, ...)`` tensors.
+Port of ``lfit_python_tpu/models/likelihood.py``.  :func:`make_ln_prob`
+returns a :class:`Posterior`, a batched function ``(W, D) -> (W,)`` of
+sampled vectors.  One call evaluates every walker and every eclipse at
+once: the core-node geometry (L1, inclination, the gas-stream
+integration, the donor grid) is solved once per walker, and the
+per-eclipse work runs on ``(W, E, ...)`` tensors.
+
+:meth:`Posterior.ln_prior`, :meth:`Posterior.ln_like` and
+:meth:`Posterior.parts` split the posterior for the tempered sampler
+(:func:`make_ln_prob_parts`): ``ln p_beta = ln prior + beta ln like``.
 
 :meth:`Posterior.value_and_grad` differentiates the same evaluation for
 the gradient samplers: every root solve carries its implicit-function-
@@ -22,15 +27,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.gp import segmented_matern32_ln_like
 from ..ops.stream import stream_impacts
-from ..roche.geometry import findi, l1_potential, xl1
+from ..roche.geometry import (findi, l1_potential, origin_shadow_distance,
+                              xl1)
 from ..roche.stream import stream_steps_for
 from .components import donor_grid
 from .cv import CVConfig, CVGeometry, cv_physical_ok, cv_total_flux
 from .priors import ln_prior_table
 from .tree import CompiledModel
 
-__all__ = ["Posterior", "make_ln_prob"]
+__all__ = ["Posterior", "make_ln_prob", "make_ln_prob_parts",
+           "gp_flicker_ln_like", "wd_contact_extension"]
 
 
 def _q_prior_floor(model: CompiledModel) -> float:
@@ -58,8 +66,68 @@ def _chi2_ln_like(model_flux, flux, err, mask):
     return torch.where(mask, per, torch.zeros_like(per)).sum(dim=-1)
 
 
+def wd_contact_extension(q, incl, dphi, rwd, x1, pl1):
+    """Phase half-duration of the WD limb's ingress / egress crossing,
+    broadcast over its arguments.
+
+    The WD centre crosses the shadow terminator at phase +/- dphi/2 by
+    definition of dphi; the limb's first and last contacts solve
+    d(phi) = rwd, with d the signed sky-plane distance of the centre from
+    the terminator (:func:`~..roche.geometry.origin_shadow_distance`).
+    Two damped Newton iterations on that root with a secant slope; where
+    a slope is not finite and positive (an infeasible geometry) the
+    extension is 0."""
+    eps = 1e-4
+    phi = 0.5 * dphi
+    ext = torch.zeros_like(phi + rwd)
+    good = torch.ones_like(ext, dtype=torch.bool)
+    for _ in range(2):
+        ph = torch.stack([phi + ext, phi + ext + eps])
+        d, _ = origin_shadow_distance(q, incl, ph, x1, pl1)
+        slope = (d[1] - d[0]) / eps
+        good = good & torch.isfinite(slope) & (slope > 1e-9)
+        step = (rwd - d[0]) / torch.where(good, slope,
+                                          torch.ones_like(slope))
+        ext = torch.clamp(
+            ext + torch.where(good, step, torch.zeros_like(step)), 0.0, 0.1)
+    return torch.where(good, ext, torch.zeros_like(ext))
+
+
+def gp_flicker_ln_like(cv_pars, model_flux, gp_pars, geom: CVGeometry,
+                       phase, flux, err, mask):
+    """GP "flickering" ln-likelihood of every eclipse: (W, E).
+
+    The residuals (data - model) are a Matern-3/2 GP whose amplitude
+    switches between exp(ln_ampin_gp) inside the white-dwarf eclipse and
+    exp(ln_ampout_gp) outside, with the common timescale exp(ln_tau_gp)
+    in phase units.  The changepoints are the WD limb's first and last
+    contact phases, +/-(dphi/2 + ext); segment boundaries reset the
+    recursion, which makes the segments independent GPs.
+
+    ``cv_pars`` (W, E, 18), ``model_flux`` (W, E, P), ``gp_pars``
+    (W, E, 3) = (ln_ampin, ln_ampout, ln_tau); ``phase``, ``flux``,
+    ``err``, ``mask`` (E, P).  The changepoints are comparisons, so they
+    carry no gradient: they are found under ``no_grad``."""
+    ln_ampin, ln_ampout, ln_tau = gp_pars.unbind(dim=-1)
+    q, dphi, rwd = cv_pars[..., 4], cv_pars[..., 5], cv_pars[..., 8]
+    phi0 = cv_pars[..., 13]
+    with torch.no_grad():
+        ext = wd_contact_extension(q, geom.incl, dphi, rwd, geom.x1,
+                                   geom.pl1)
+        wrapped = torch.remainder(phase - phi0[..., None] + 0.5, 1.0) - 0.5
+        in_ecl = wrapped.abs() <= (0.5 * dphi + ext)[..., None]
+        reset = torch.cat([torch.zeros_like(in_ecl[..., :1]),
+                           in_ecl[..., 1:] != in_ecl[..., :-1]], dim=-1)
+    resid = flux - model_flux
+    sigma2 = torch.where(in_ecl, torch.exp(2.0 * ln_ampin)[..., None],
+                         torch.exp(2.0 * ln_ampout)[..., None])
+    c = math.sqrt(3.0) / torch.exp(ln_tau)
+    return segmented_matern32_ln_like(phase, resid, err, sigma2, c,
+                                      reset=reset, mask=mask)
+
+
 class Posterior:
-    """The north-star posterior of one compiled model, with its data on
+    """The posterior of one compiled model, with its data on
     ``device`` in ``dtype``.  Call it on a ``(W, D)`` tensor of sampled
     vectors for the ``(W,)`` ln-probabilities (-inf where a prior or the
     physical validity fails).  ``device=None`` is the CUDA card, and
@@ -67,9 +135,6 @@ class Posterior:
 
     def __init__(self, model: CompiledModel, config: CVConfig | None = None,
                  dtype=torch.float64, device=None):
-        if model.any_gp:
-            raise NotImplementedError(
-                "the GP flickering likelihood is not ported yet")
         if config is None:
             config = CVConfig()
         # the tree always emits 18-slot vectors -> the complex path
@@ -90,38 +155,67 @@ class Posterior:
         self.width = dev(model.data_width) \
             if np.any(model.data_width) else None
         self.stream_steps = stream_steps_for(_q_prior_floor(model))
+        # GP eclipses: the full-vector slots of (ln_ampin, ln_ampout,
+        # ln_tau) per eclipse, and which eclipses use the GP likelihood
+        self.gp_idx = dev(model.gp_idx, torch.int64)
+        self.gp_mask = dev(model.gp_mask, torch.bool)
 
-    def _terms(self, var):
-        """(ln prior (W,), physical validity (W, E), model flux
-        (W, E, P)) of sampled vectors ``var`` (W, D)."""
-        model, cfg = self.model, self.config
+    def _core(self, var):
+        """The part of an evaluation the prior needs: (full vectors
+        (W, n_full), prior table sum (W,), CV parameters (W, E, 18),
+        geometry, physical validity (W, E)) of sampled vectors ``var``
+        (W, D).  The core-node geometry is solved once per walker."""
+        model = self.model
         full = model.full_from_var(var.to(self.dtype))
         lp = ln_prior_table(full, model.prior_table)
         cvp = model.cv_params(full)                          # (W, E, 18)
-        # core-node geometry, once per walker
         q, dphi = cvp[:, 0, 4], cvp[:, 0, 5]
         x1 = xl1(q)
         pl1 = l1_potential(q, x1)
         incl = findi(q, dphi, x1, pl1)
         rdisc = cvp[..., 6] * x1[:, None]
         impacts = stream_impacts(q, rdisc, x1, n_steps=self.stream_steps)
-        dgrid = donor_grid(q[:, None], x1[:, None], pl1[:, None],
-                           cfg.n_donor_lat, cfg.n_donor_lon)
         geom = CVGeometry(x1[:, None], pl1[:, None], incl[:, None], rdisc,
                           impacts)
-        ok = cv_physical_ok(cvp, geom)
-        mflux = cv_total_flux(cvp, self.phase, self.width, cfg,
-                              geometry=geom, donor=dgrid)
-        return lp, ok, mflux
+        return full, lp, cvp, geom, cv_physical_ok(cvp, geom)
+
+    def _flux(self, cvp, geom):
+        """Model flux (W, E, P) on the solved geometry."""
+        cfg = self.config
+        dgrid = donor_grid(cvp[:, :1, 4], geom.x1, geom.pl1,
+                           cfg.n_donor_lat, cfg.n_donor_lon)
+        return cv_total_flux(cvp, self.phase, self.width, cfg,
+                             geometry=geom, donor=dgrid)
+
+    def _terms(self, var):
+        """(prior table sum (W,), physical validity (W, E), ln-likelihood
+        per eclipse (W, E)) of sampled vectors ``var`` (W, D): chi^2, or
+        the GP likelihood for the eclipses flagged ``use_gp``.  Where the
+        model has no GP eclipse nothing of the GP runs."""
+        full, lp, cvp, geom, ok = self._core(var)
+        mflux = self._flux(cvp, geom)
+        ll = _chi2_ln_like(mflux, self.flux, self.err, self.mask)
+        if self.model.any_gp:
+            gp_val = gp_flicker_ln_like(cvp, mflux, full[:, self.gp_idx],
+                                        geom, self.phase, self.flux,
+                                        self.err, self.mask)
+            ll = torch.where(self.gp_mask, gp_val, ll)
+        return lp, ok, ll
 
     def model_flux(self, var):
         """Total model flux (W, E, P) of sampled vectors ``var`` (W, D)."""
         with torch.inference_mode():
-            return self._terms(var)[2]
+            _, _, cvp, geom, _ = self._core(var)
+            return self._flux(cvp, geom)
+
+    @staticmethod
+    def _prior_of(lp, ok):
+        zero = torch.zeros_like(lp)
+        phys = torch.where(ok, zero[:, None], zero[:, None] - math.inf)
+        return lp + phys.sum(dim=-1)
 
     def _ln_prob(self, var):
-        lp, ok, mflux = self._terms(var)
-        ll = _chi2_ln_like(mflux, self.flux, self.err, self.mask)
+        lp, ok, ll = self._terms(var)
         ll = torch.where(ok, ll, torch.full_like(ll, -math.inf))
         total = lp + ll.sum(dim=-1)
         return torch.where(torch.isfinite(total), total,
@@ -130,6 +224,27 @@ class Posterior:
     def __call__(self, var):
         with torch.inference_mode():
             return self._ln_prob(var)
+
+    def ln_prior(self, var):
+        """Prior table plus the physical-validity checks, (W,): the
+        geometry and one stream integration, no flux model."""
+        with torch.inference_mode():
+            _, lp, _, _, ok = self._core(var)
+            return self._prior_of(lp, ok)
+
+    def ln_like(self, var):
+        """The summed ln-likelihood (W,), without the validity mask (it
+        may be NaN where the geometry is infeasible: the prior is -inf
+        there)."""
+        with torch.inference_mode():
+            return self._terms(var)[2].sum(dim=-1)
+
+    def parts(self, var):
+        """``(ln_prior(var), ln_like(var))`` from one shared pass: one
+        geometry solve and one stream integration for both."""
+        with torch.inference_mode():
+            lp, ok, ll = self._terms(var)
+            return self._prior_of(lp, ok), ll.sum(dim=-1)
 
     def value_and_grad(self, var):
         """``(ln p (W,), d ln p / d var (W, D))`` of sampled vectors
@@ -151,3 +266,13 @@ def make_ln_prob(model: CompiledModel, config: CVConfig | None = None,
     sampled vector, evaluated in ``dtype`` on ``device`` (the CUDA card
     unless given; raises without one)."""
     return Posterior(model, config, dtype, device)
+
+
+def make_ln_prob_parts(model: CompiledModel, config: CVConfig | None = None,
+                       dtype=torch.float64, device=None):
+    """``(ln_prior_fn, ln_like_fn, posterior)``, each batched
+    ``(W, D) -> (W,)``, for the tempered sampler: the first two are the
+    :class:`Posterior`'s bound methods, so a caller that holds both can
+    evaluate them in one pass through ``posterior.parts``."""
+    post = Posterior(model, config, dtype, device)
+    return post.ln_prior, post.ln_like, post

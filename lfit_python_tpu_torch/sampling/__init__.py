@@ -1,1 +1,1 @@
-"""Ensemble sampler."""
+"""Samplers: stretch-move ensemble, parallel tempering, HMC, NUTS."""

@@ -1,6 +1,6 @@
-"""The CUDA kernels K1 (contacts) and K2 (gas stream) on the card, against
-their plain PyTorch versions, and the posterior and its gradient through
-them.
+"""The CUDA kernels K1 (contacts), K2 (gas stream) and K3 (GP recursion)
+on the card, against their plain PyTorch versions, and the posterior and
+its gradient through them.
 
 Every test here needs a CUDA card (the kernels have no CPU form) and skips
 without one.  The file imports nothing of JAX, so on a machine with the
@@ -18,7 +18,7 @@ import torch
 from lfit_python_tpu_torch.examples import build_model, with_calib_widths
 from lfit_python_tpu_torch.models.cv import CVConfig
 from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-from lfit_python_tpu_torch.ops import contacts, stream
+from lfit_python_tpu_torch.ops import contacts, gp, stream
 from lfit_python_tpu_torch.roche import geometry as tg
 
 pytestmark = pytest.mark.cuda
@@ -298,3 +298,175 @@ def test_posterior_gradient_kernel_path_matches_plain_path(cuda):
     assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(ga).all())
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(ga, gb, rtol=2e-3, atol=1e-5)
+
+
+def gp_series(dev, dtype, case, W=5, E=3, P=50, seed=3):
+    """(W, E) residual series around an eclipse, as gp_flicker_ln_like
+    hands them to K3, with the edge cases of the recursion's masks."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(-0.15, 0.15, (E, P)), axis=-1)
+    yerr = rng.uniform(1e-3, 3e-3, (E, P))
+    y = 0.01 * np.sin(40 * t)[None] + 0.002 * rng.standard_normal((W, E, P))
+    half = rng.uniform(0.02, 0.06, (W, E, 1))
+    in_ecl = np.abs(t[None]) <= half
+    if case == "no in-eclipse point":
+        in_ecl[1] = False
+    sigma2 = np.where(in_ecl, rng.uniform(5e-4, 2e-3, (W, E, 1)) ** 2,
+                      rng.uniform(2e-3, 8e-3, (W, E, 1)) ** 2)
+    reset = np.zeros((W, E, P), bool)
+    reset[..., 1:] = in_ecl[..., 1:] != in_ecl[..., :-1]
+    mask = np.ones((E, P), bool)
+    if case == "padded points":
+        mask[1, -9:] = False
+        mask[2, -1:] = False
+    elif case == "reset at first and last point":
+        reset[..., 0] = True
+        reset[:, 0, -1] = True
+    c = np.sqrt(3.0) / rng.uniform(0.01, 0.1, (W, E))
+
+    def f(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return (f(t), f(y), f(yerr), f(sigma2), f(c),
+            torch.tensor(reset, device=dev), torch.tensor(mask, device=dev))
+
+
+@pytest.mark.parametrize("case", ["segments", "padded points",
+                                  "reset at first and last point",
+                                  "no in-eclipse point"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-5)])
+def test_gp_kernel_matches_plain(cuda, dtype, tol, case):
+    """K3 repeats the plain loop's arithmetic op for op (built without
+    contracted multiply-adds); the bound leaves room for the device's
+    log against PyTorch's: 1e-11 relative in float64, 1e-5 per point
+    absolute in float32."""
+    t, y, yerr, sigma2, c, reset, mask = gp_series(cuda, dtype, case)
+    before = gp.LAUNCHES
+    k = gp.segmented_matern32_ln_like(t, y, yerr, sigma2, c, reset=reset,
+                                      mask=mask)
+    assert gp.LAUNCHES == before + 1
+    p = gp.segmented_matern32_plain(t, y, yerr, sigma2, c, reset=reset,
+                                    mask=mask)
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES == before + 1
+    assert k.shape == (5, 3) and bool(torch.isfinite(k).all())
+    d = (k - p).abs()
+    if dtype == torch.float64:
+        assert float((d / p.abs()).max()) <= tol
+    else:
+        assert float(d.max()) <= tol * y.shape[-1]
+    # against the float64 plain loop on the CPU
+    ref = gp.segmented_matern32_plain(*[
+        a.cpu().double() if a.is_floating_point() else a.cpu()
+        for a in (t, y, yerr, sigma2, c)], reset=reset.cpu(),
+        mask=mask.cpu())
+    rel = 1e-9 if dtype == torch.float64 else 2e-3
+    assert float(((k.cpu().double() - ref) / ref).abs().max()) <= rel
+
+
+@pytest.mark.parametrize("case", ["segments", "padded points",
+                                  "reset at first and last point",
+                                  "no in-eclipse point"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_gp_reverse_kernel_matches_autograd_of_plain(cuda, dtype, tol, case):
+    """K3's reverse kernel against autograd on the plain loop, through
+    the amplitudes and the timescale as the GP likelihood reaches them:
+    each gradient within ``tol`` of its largest entry (the two sum in
+    different orders), one forward and one backward launch."""
+    t, y, yerr, sigma2, c, reset, mask = gp_series(cuda, dtype, case)
+    cot = torch.tensor(np.random.default_rng(5).standard_normal((5, 3)),
+                       dtype=dtype, device=cuda)
+    grads = {}
+    for name, fn in (("kernel", gp.segmented_matern32_ln_like),
+                     ("plain", gp.segmented_matern32_plain)):
+        leaves = [a.clone().requires_grad_()
+                  for a in (y, sigma2.log(), c.log())]
+        before = (gp.LAUNCHES, gp.BACKWARD_LAUNCHES)
+        ll = fn(t, leaves[0], yerr, leaves[1].exp(), leaves[2].exp(),
+                reset=reset, mask=mask)
+        grads[name] = torch.autograd.grad(ll, leaves, cot)
+        n = int(name == "kernel")
+        assert (gp.LAUNCHES, gp.BACKWARD_LAUNCHES) == (before[0] + n,
+                                                       before[1] + n)
+    for k, p in zip(grads["kernel"], grads["plain"]):
+        assert k.shape == p.shape and bool(torch.isfinite(k).all())
+        assert float(p.abs().max()) > 0
+        assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+
+def test_gp_kernel_routing_and_input_checks(cuda):
+    t, y, yerr, sigma2, c, reset, mask = gp_series(cuda, torch.float32,
+                                                   "segments")
+    # a gradient is required: still the kernel, and its reverse kernel
+    before = gp.LAUNCHES
+    before_bwd = gp.BACKWARD_LAUNCHES
+    yg = y.clone().requires_grad_()
+    ll = gp.segmented_matern32_ln_like(t, yg, yerr, sigma2, c, reset=reset,
+                                       mask=mask)
+    g, = torch.autograd.grad(ll.sum(), yg)
+    assert gp.LAUNCHES == before + 1 and bool(torch.isfinite(g).all())
+    assert gp.BACKWARD_LAUNCHES == before_bwd + 1
+    with pytest.raises(ValueError):
+        gp.segmented_matern32_ln_like(t, y, yerr.clone().requires_grad_(),
+                                      sigma2, c)
+    before = gp.LAUNCHES
+    # broadcast arguments: a scalar amplitude, no reset, no mask
+    k = gp.segmented_matern32_kernel(t, y, yerr, 1e-5, c)
+    p = gp.segmented_matern32_plain(t, y, yerr, 1e-5, c)
+    assert gp.LAUNCHES == before + 1
+    assert float((k - p).abs().max()) <= 1e-5 * y.shape[-1]
+    with pytest.raises(TypeError):
+        gp.segmented_matern32_kernel(t.double(), y, yerr, sigma2, c)
+    with pytest.raises(TypeError):
+        gp.segmented_matern32_kernel(t, y.half(), yerr.half(),
+                                     sigma2.half(), c.half())
+    with pytest.raises(TypeError):
+        gp.segmented_matern32_kernel(t, y, yerr, sigma2, c,
+                                     reset=reset.float())
+    with pytest.raises(ValueError):
+        gp.segmented_matern32_kernel(t, y[0], yerr, sigma2, c)
+    with pytest.raises((ValueError, RuntimeError)):
+        gp.segmented_matern32_kernel(t, y, yerr, sigma2.cpu(), c)
+
+
+def test_gp_posterior_kernel_path_matches_plain_path(cuda):
+    """float32 on the card: a mixed GP / chi^2 posterior through K3
+    against the same posterior with the plain recursion."""
+    model = build_model(n_eclipses=3, complex_spot=[False, True, False],
+                        use_gp=[True, True, False], n_points=24,
+                        bands=("g",)).compile()
+    lp = make_ln_prob(model, CVConfig(**TINY), dtype=torch.float32,
+                      device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(3)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((8, start.size)),
+                       dtype=torch.float32, device=cuda)
+    before = gp.LAUNCHES
+    a = lp(pos)
+    assert gp.LAUNCHES == before + 1
+    with mock.patch.object(gp, "segmented_matern32_kernel",
+                           gp.segmented_matern32_plain):
+        b = lp(pos)
+    assert gp.LAUNCHES == before + 1
+    assert bool(torch.isfinite(a).all())
+    assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    assert float((a - b).abs().max()) <= 3 * 1e-5 * 24
+    # the gradient path: K3 forward and its reverse kernel, once each,
+    # against the plain recursion under autograd
+    before_bwd = gp.BACKWARD_LAUNCHES
+    lp_g, g = lp.value_and_grad(pos)
+    assert gp.LAUNCHES == before + 2
+    assert gp.BACKWARD_LAUNCHES == before_bwd + 1
+    assert bool(torch.isfinite(g).all())
+    torch.testing.assert_close(lp_g, a, rtol=1e-5, atol=3 * 1e-5 * 24)
+    with mock.patch.object(gp, "segmented_matern32_kernel",
+                           gp.segmented_matern32_plain):
+        _, g_plain = lp.value_and_grad(pos)
+    assert (gp.LAUNCHES, gp.BACKWARD_LAUNCHES) == (before + 2,
+                                                   before_bwd + 1)
+    cos = torch.nn.functional.cosine_similarity(g.double(),
+                                                g_plain.double(), dim=-1)
+    assert float(cos.min()) >= 0.9999

@@ -12,7 +12,8 @@ import torch
 from lfit_python_tpu_torch import convert
 from lfit_python_tpu_torch.device import resolve_device
 from lfit_python_tpu_torch.examples import build_model
-from lfit_python_tpu_torch.models.likelihood import Posterior, make_ln_prob
+from lfit_python_tpu_torch.models.likelihood import (Posterior, make_ln_prob,
+                                                     make_ln_prob_parts)
 
 
 @pytest.fixture(scope="module")
@@ -24,6 +25,10 @@ HMC_FIELDS = dict(positions=np.zeros((2, 3)), log_prob=np.zeros(2),
                   grad=np.zeros((2, 3)), step_size=0.1,
                   inv_mass=np.ones(3), step=4)
 
+PT_FIELDS = dict(positions=np.zeros((2, 4, 3)), ln_like=np.zeros((2, 4)),
+                 ln_prior=np.zeros((2, 4)), betas=np.array([1.0, 0.5]),
+                 step=3)
+
 ENTRY_POINTS = {
     "make_ln_prob": lambda m, **kw: make_ln_prob(m, **kw).phase,
     "Posterior": lambda m, **kw: Posterior(m, **kw).flux,
@@ -31,6 +36,10 @@ ENTRY_POINTS = {
         np.ones((4, 3)), np.zeros(4), 0, **kw).positions,
     "hmc_state_from_numpy": lambda m, **kw: convert.hmc_state_from_numpy(
         HMC_FIELDS, **kw).grad,
+    "make_ln_prob_parts": lambda m, **kw: make_ln_prob_parts(
+        m, **kw)[2].gp_mask,
+    "pt_state_from_numpy": lambda m, **kw: convert.pt_state_from_numpy(
+        PT_FIELDS, **kw).betas,
 }
 
 

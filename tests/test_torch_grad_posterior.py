@@ -102,3 +102,54 @@ class TestPosteriorGradient:
         lp, g = tlp.value_and_grad(torch.tensor(walkers(m, 1, 3)))
         assert contacts.BACKWARD_CALLS == before
         assert bool(torch.isfinite(lp).all() & torch.isfinite(g).all())
+
+
+@pytest.fixture(scope="module")
+def gp_widths_model():
+    """One GP eclipse with exposure widths: the reference's
+    value_and_grad over 2 walkers and the port's."""
+    spec = with_calib_widths(build_model(n_eclipses=1, use_gp=True,
+                                         n_points=16))
+    jm = jax_twin(spec)
+    jlp = jmake(jm, config=JCfg(n_donor_quad=0, pallas_contacts=False,
+                                **TINY))
+    tm = from_jax_model(jm)
+    tlp = make_ln_prob(tm, CVConfig(**TINY), device="cpu")
+    pos = walkers(tm, 2, 5)
+    ref = jax.jit(jax.vmap(jax.value_and_grad(jlp)))(pos)
+    return tm, tlp, pos, [np.asarray(r) for r in ref]
+
+
+class TestGPPosteriorGradient:
+    def test_matches_jax_grad(self, gp_widths_model):
+        """The GP branch's gradient flows through the residuals, the
+        amplitudes and the timescale (the plain recursion under
+        autograd), not through the changepoints."""
+        tm, tlp, pos, (lp_ref, g_ref) = gp_widths_model
+        with torch.enable_grad():
+            v = torch.tensor(pos, requires_grad=True)
+            total = tlp._ln_prob(v)
+            raw, = torch.autograd.grad(total.sum(), v)
+        assert bool(torch.isfinite(raw).all())       # nothing to zero
+        lp, g = tlp.value_and_grad(torch.tensor(pos))
+        np.testing.assert_array_equal(g.numpy(), raw.numpy())
+        np.testing.assert_allclose(lp.numpy(), lp_ref, rtol=1e-9)
+        np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-7,
+                                   atol=1e-9 * np.abs(g_ref).max())
+        names = tm.var_names()
+        for n in ("ln_ampin_gp_ecl0", "ln_ampout_gp_ecl0", "ln_tau_gp_ecl0"):
+            assert np.all(g.numpy()[:, names.index(n)] != 0.0), n
+
+    def test_prior_table_gradient_is_finite_on_gp_priors(self,
+                                                         gp_widths_model):
+        """uniform(lo, 0) GP priors have p2 = 0, a degenerate sigma for
+        the gauss families evaluated beside them: the validity masks keep
+        their NaN out of the gradient."""
+        from lfit_python_tpu_torch.models.priors import ln_prior_table
+
+        tm, _, pos, _ = gp_widths_model
+        assert (tm.prior_table.p2 == 0.0).any()
+        full = torch.tensor(tm.full_from_var(pos), requires_grad=True)
+        lp = ln_prior_table(full, tm.prior_table)
+        g, = torch.autograd.grad(lp.sum(), full)
+        assert bool(torch.isfinite(lp).all() & torch.isfinite(g).all())

@@ -17,10 +17,13 @@ from lfit_python_tpu.models import priors as jpr
 from lfit_python_tpu.models import tree as jtree
 from lfit_python_tpu.models.cv import CVConfig as JCfg
 from lfit_python_tpu.models.likelihood import make_ln_prob as jmake
+from lfit_python_tpu.models.likelihood import (
+    make_ln_prob_parts as jmake_parts)
 from lfit_python_tpu_torch.convert import from_jax_model
 from lfit_python_tpu_torch.examples import build_model
 from lfit_python_tpu_torch.models.cv import CVConfig
-from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+from lfit_python_tpu_torch.models.likelihood import (make_ln_prob,
+                                                     make_ln_prob_parts)
 
 TINY = dict(n_disc_rad=5, n_disc_az=8, n_spot=8, n_donor_lat=6,
             n_donor_lon=8)
@@ -116,6 +119,95 @@ class TestLnProb:
         assert float(rel.median()) < 1e-6
 
     def test_gp_models_are_refused(self):
+        """No longer refused: a GP model builds and evaluates, with its GP
+        eclipses flagged (it raised NotImplementedError while the GP
+        likelihood was missing; the test keeps the name it had then)."""
         m = build_model(n_eclipses=1, use_gp=True, n_points=8).compile()
-        with pytest.raises(NotImplementedError):
-            make_ln_prob(m)
+        assert m.any_gp
+        lp = make_ln_prob(m, CVConfig(**TINY), device="cpu")
+        assert lp.gp_mask.tolist() == [True]
+        assert bool(torch.isfinite(lp(torch.tensor(walkers(m, 1, 0)))).all())
+
+
+GP_MODELS = {
+    "one GP eclipse": dict(n_eclipses=1, use_gp=True),
+    "two GP eclipses": dict(n_eclipses=2, complex_spot=[False, True],
+                            use_gp=True),
+    "GP and chi^2 mixed": dict(n_eclipses=2, use_gp=[True, False]),
+}
+
+
+@pytest.fixture(scope="module")
+def mixed_gp_parts():
+    """The mixed GP / chi^2 model: the reference's (ln_prior, ln_like,
+    ln_prob), jitted over walkers, and the port's three and its
+    posterior."""
+    spec = build_model(n_points=16, bands=("g",),
+                       **GP_MODELS["GP and chi^2 mixed"])
+    jm = jax_twin(spec)
+    jfns = [jax.jit(jax.vmap(f)) for f in jmake_parts(jm, config=JCfg(
+        n_donor_quad=0, pallas_contacts=False, **TINY))]
+    tm = from_jax_model(jm)
+    pos = walkers(tm, 5, 4)
+    names = tm.var_names()
+    pos[3, names.index("ln_tau_gp_ecl0")] = 2.5          # outside its prior
+    pos[4, names.index("dphi_core")] = 0.19          # no inclination fits
+    return jfns, make_ln_prob_parts(tm, CVConfig(**TINY), device="cpu"), pos
+
+
+class TestGPPosterior:
+    @pytest.mark.parametrize("name", ["one GP eclipse", "two GP eclipses"])
+    def test_gp_model_matches_jax(self, name):
+        jm, jlp, tm, tlp = both_posteriors(build_model(
+            n_points=16, bands=("g",), **GP_MODELS[name]))
+        assert tm.any_gp and tm.gp_mask.all()
+        pos = walkers(tm, 4, 2)
+        names = tm.var_names()
+        pos[2, names.index("ln_ampin_gp_ecl0")] = 0.5    # outside its prior
+        pos[3, names.index("dphi_core")] = 0.19      # no inclination fits
+        ok = assert_same_posterior(jlp, tlp, pos)
+        assert ok.tolist() == [True, True, False, False]
+        # the GP is what was evaluated: the amplitudes move the posterior
+        moved = pos[:1].copy()
+        moved[0, names.index("ln_ampout_gp_ecl0")] = -6.0
+        assert float(tlp(torch.tensor(moved))) < float(
+            tlp(torch.tensor(pos[:1])))
+
+    def test_mixed_model_matches_jax(self, mixed_gp_parts):
+        (_, _, jprob), (_, _, post), pos = mixed_gp_parts
+        assert post.gp_mask.tolist() == [True, False]
+        ok = assert_same_posterior(jprob, post, pos)
+        assert ok.tolist() == [True, True, True, False, False]
+
+    def test_prior_and_like_match_jax(self, mixed_gp_parts):
+        (jprior, jlike, _), (tprior, tlike, _), pos = mixed_gp_parts
+        tpos = torch.tensor(pos)
+        ref_p, ref_l = np.asarray(jprior(pos)), np.asarray(jlike(pos))
+        got_p, got_l = tprior(tpos).numpy(), tlike(tpos).numpy()
+        np.testing.assert_array_equal(np.isfinite(got_p), np.isfinite(ref_p))
+        assert np.isfinite(ref_p).tolist() == [True] * 3 + [False] * 2
+        ok = np.isfinite(ref_p)
+        np.testing.assert_allclose(got_p[ok], ref_p[ok], rtol=1e-9)
+        np.testing.assert_allclose(got_l[ok], ref_l[ok], rtol=1e-9)
+        assert (got_p[~ok] == -np.inf).all()
+
+    def test_parts_is_prior_and_like_in_one_pass(self, mixed_gp_parts):
+        _, (tprior, tlike, post), pos = mixed_gp_parts
+        tpos = torch.tensor(pos)
+        lp, ll = post.parts(tpos)
+        np.testing.assert_array_equal(lp.numpy(), tprior(tpos).numpy())
+        np.testing.assert_array_equal(ll.numpy(), tlike(tpos).numpy())
+        ok = torch.isfinite(lp)
+        np.testing.assert_allclose((lp + ll)[ok].numpy(),
+                                   post(tpos)[ok].numpy(), rtol=1e-12)
+
+    def test_no_gp_model_runs_nothing_of_the_gp(self, mixed):
+        from unittest import mock
+
+        from lfit_python_tpu_torch.models import likelihood
+
+        _, _, tm, tlp = mixed
+        assert not tm.any_gp
+        with mock.patch.object(likelihood, "gp_flicker_ln_like") as rec:
+            tlp(torch.tensor(walkers(tm, 1, 0)))
+        assert rec.call_count == 0

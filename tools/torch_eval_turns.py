@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one checkout's north-star posterior evaluation, gradient
-evaluation and CUDA kernels on one CUDA card, for comparing two
-checkouts in turns.
+evaluation, GP evaluation and CUDA kernels on one CUDA card, for
+comparing two checkouts in turns.
 
     python3 tools/torch_eval_turns.py CHECKOUT_ROOT
 
@@ -11,10 +11,15 @@ line:
 - ms per ln_prob evaluation at 1024 walkers (the north-star model,
   float32) and ms per value_and_grad at 256 chains (the same model with
   .calib exposure widths), three host-clock turns each after a warm-up;
+  where the checkout has the GP likelihood, ms per ln_prob evaluation of
+  the same tree with use_gp on every eclipse, at 1024 walkers;
 - ms per call of the checkout's kernels, through its own wrappers and
   timed with CUDA events: K1 on the contact rows one evaluation hands it
   (5120 x 512), K2 on that evaluation's stream inputs (primal at 1024
-  walkers, with sensitivities at 256; float32 and float64);
+  walkers, with sensitivities at 256; float32 and float64), K3 on the
+  GP evaluation's series (5120 x 128 points; float32 and float64) and,
+  where the checkout has it, K3's recorded forward and its backward pass
+  on the same series' first 256 walkers;
 - a SHA-256 of each kernel's outputs, so that two checkouts whose
   kernels give the same bits print the same digests.
 
@@ -123,7 +128,60 @@ def main():
                 "ms": event_ms(k2, 5), "sha256": digest(k2())}
     print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
                       "eval_ms": ev, "value_and_grad_ms": vg,
+                      "gp_eval_ms": gp_turns(spec, pos, kernels),
                       "kernels": kernels}))
+
+
+def gp_turns(spec, pos, kernels):
+    """ms per GP evaluation (three turns), adding K3's time and digest
+    to ``kernels``; None for a checkout without the GP likelihood."""
+    try:
+        from lfit_python_tpu_torch.ops import gp
+    except ImportError:
+        return None
+    from lfit_python_tpu_torch.examples import build_model
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+
+    lp = make_ln_prob(build_model(use_gp=True, **spec).compile(), dtype=F32,
+                      device=DEV)
+    pos = walkers(lp.model.var_start(), pos.shape[0], 0)
+    with mock.patch.object(gp, "segmented_matern32_kernel",
+                           wraps=gp.segmented_matern32_kernel) as rec:
+        lp(pos)
+    out = turns(lambda: lp(pos))
+    # copies: the evaluation made its tensors in inference mode, and
+    # autograd records none of those
+    args = [t.clone() for t in rec.call_args.args]
+    kw = {k: v.clone() for k, v in rec.call_args.kwargs.items()}
+    for dt in (F32, F64):
+        a = [t.to(dt) for t in args]
+
+        def k3():
+            return gp.segmented_matern32_kernel(*a, **kw)
+        kernels[f"k3_{str(dt)[6:]}"] = {"ms": event_ms(k3, 20),
+                                        "sha256": digest([k3()])}
+        if not hasattr(gp, "BACKWARD_LAUNCHES"):
+            continue
+        # the gradient path's width: y, sigma2 and c of 256 walkers
+        t, y, yerr, sigma2, c = a
+        leaves = [v[:256].detach().requires_grad_() for v in (y, sigma2, c)]
+        kw256 = {k: v[:256] if v.dim() == 3 else v for k, v in kw.items()}
+
+        def k3_forward():
+            with torch.enable_grad():
+                return gp.segmented_matern32_kernel(
+                    t, leaves[0], yerr, leaves[1], leaves[2], **kw256)
+
+        ll = k3_forward()
+        cot = torch.ones_like(ll)
+
+        def k3_backward():
+            return torch.autograd.grad(ll, leaves, cot, retain_graph=True)
+        kernels[f"k3_backward_{str(dt)[6:]}"] = {
+            "forward_ms": event_ms(k3_forward, 20),
+            "ms": event_ms(k3_backward, 20),
+            "sha256": digest(k3_backward())}
+    return out
 
 
 if __name__ == "__main__":
