@@ -15,15 +15,17 @@ complex-spot GP eclipses at 4096 walkers; parallel tempering at 4 rungs
 x 256 walkers.  Phases:
 
   1. device: the card, its power limit, the builds of K1 (contacts.cu),
-     K2 (stream.cu) and K3 (gp.cu) from lfit_python_tpu_torch/ops/csrc/,
-     in parallel, with each K2 and K3 instantiation's stack frame from
-     ptxas (must be 0: no array in local memory; K3's are the forward
-     and the reverse kernel in both dtypes);
+     K1's backward (contacts_backward.cu), K2 (stream.cu) and K3 (gp.cu)
+     from lfit_python_tpu_torch/ops/csrc/, in parallel, with the stack
+     frame of each instantiation of K1's backward, K2 and K3 from ptxas
+     (must be 0: nothing in local memory; K3's are the forward and the
+     reverse kernel in both dtypes);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
-     device launches of one call of each wrapper (K1, K2, K2 with
-     sensitivities, K3, K3 with its reverse pass), read by the profiler;
+     device launches of one call of each wrapper (K1, K1 with its
+     backward kernel, K2, K2 with sensitivities, K3, K3 with its reverse
+     pass), read by the profiler;
   3. the posterior with K1 against the same posterior with the plain
      contact solver, at the same 1024 walkers, timed in turns; ms per
      evaluation, the stream scan (K2) alone, peak device memory, and the
@@ -36,11 +38,13 @@ x 256 walkers.  Phases:
      for bit: the primal at 1024 walkers, with sensitivities at 256,
      float32 and float64; its bound and its time per RK4 step;
   7. the gradient on the widths model at 256 chains: ms per
-     value_and_grad, peak memory, K1's backward and K2's sensitivity
-     launch counted once per evaluation, the backward's operations
-     (counted by hand) and bound, the K1 path against the plain
-     contact path with the float64 gradient as referee, float32 against
-     float64, and where the device time goes;
+     value_and_grad, peak memory, K1's backward kernel and K2's
+     sensitivity launch counted once per evaluation; K1's backward kernel
+     against its plain version (autograd on the edge residual) on that
+     evaluation's contact rows, float64 and float32, its time, operations
+     (counted by hand) and bound; the K1 path against the plain contact
+     path with the float64 gradient as referee, float32 against float64,
+     and where the device time goes;
   8. HMC on the widths model: init_hmc, warmup_hmc (4 steps) and run_hmc
      (3 steps) at 256 chains x 16 leapfrog steps, with the counts read
      around the run;
@@ -94,6 +98,7 @@ N_LEAPFROG = 16
 K1_SOURCE = "lfit_python_tpu_torch/ops/csrc/contacts.cu"
 K1_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:352"
 K1_GRAD_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:448"
+K1_BWD_SOURCE = "lfit_python_tpu_torch/ops/csrc/contacts_backward.cu"
 K2_SOURCE = "lfit_python_tpu_torch/ops/csrc/stream.cu"
 K2_REPLACES = "lfit_python_tpu/roche/stream.py:278"
 K3_SOURCE = "lfit_python_tpu_torch/ops/csrc/gp.cu"
@@ -108,18 +113,28 @@ K1_OPS_ELEMENT = 287
 K1_OPS_ECLIPSED = 3401
 K2_OPS_STEP = 180
 K2_OPS_STEP_COLUMN = 248
-# K1's backward per eclipsed element and edge: the residual at its root
-# (33 for the setup, 2 + 3 x 56 for the clamped Newton steps in t, 3 x 24
-# for the end values, 6 selects, 40 for dc/dphi) and its partials in the
-# six inputs at the root's t (envelope theorem, ~85); per element, the
-# never-eclipsed phase's atan2 gradient and the masks
+# K1's backward.  What the function needs per eclipsed edge: the residual
+# at its root once (33 for the setup, 2 + 3 x 56 for the clamped Newton
+# steps in t, 3 x 24 for the end values, 6 selects: 281, and 40 for
+# dc/dphi) and the cheapest exact adjoint of those 281, a reverse sweep at
+# twice their count (the Newton iterate's own tangent is kept: nothing is
+# dropped on the strength of the envelope theorem); per element, the
+# never-eclipsed phase's atan2 gradient and the masks.  What
+# contacts_backward_kernel executes, counted from its source with every
+# tangent operation: forward mode carries 5 tangents, 3168 per edge (291
+# setup, 3 x 649 Newton steps, 3 x 268 end values, 68 selects, 41 dc/dphi,
+# 17 for the coefficient and the sums) on every element's edges, eclipsed
+# or not, and 100 per element
 # K3 per point of a series (the divide, the log and each select as one);
 # its reverse kernel per point: the step's forward again without the log
-# (42) and the adjoint (112)
+# (42), the adjoint (112) and the angles' and the decay's adjoints folded
+# into d c (10)
 K3_OPS_POINT = 64
-K3_BWD_OPS_POINT = 154
-K1_BWD_OPS_EDGE = 406
+K3_BWD_OPS_POINT = 164
+K1_BWD_OPS_EDGE = 321 + 2 * 281
 K1_BWD_OPS_ELEMENT = 15
+K1_BWD_EXECUTED_EDGE = 3168
+K1_BWD_EXECUTED_ELEMENT = 100
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -214,6 +229,16 @@ def _stack_frames(ptxas_log):
     return frames
 
 
+def _short_entry(entry):
+    """``kernel<f32>`` for a mangled template kernel's entry name."""
+    m = re.search(r"\d([a-z_]+_kernel)I([fd])(?:Lb([01]))?", entry)
+    if not m:
+        return entry[-44:]
+    name, typ, flag = m.groups()
+    return (f"{name}<{'f32' if typ == 'f' else 'f64'}"
+            f"{'' if flag is None else ', ' + flag}>")
+
+
 def _launches_per_call(calls):
     """The device events of one warmed-up call of each of ``calls``
     ({name: fn}), in one profiled window, each call after a spin kernel
@@ -280,12 +305,14 @@ def _walkers(start, n, seed, dtype, dev):
 
 def _zero_counts(contacts, stream, gp):
     contacts.LAUNCHES = contacts.BACKWARD_CALLS = 0
+    contacts.BACKWARD_LAUNCHES = 0
     stream.LAUNCHES = stream.SENS_LAUNCHES = 0
     gp.LAUNCHES = gp.BACKWARD_LAUNCHES = 0
 
 
 def _counts(contacts, stream, gp):
     return {"k1": contacts.LAUNCHES, "k1_bwd": contacts.BACKWARD_CALLS,
+            "k1_bwd_kernel": contacts.BACKWARD_LAUNCHES,
             "k2": stream.LAUNCHES, "k2_sens": stream.SENS_LAUNCHES,
             "k3": gp.LAUNCHES, "k3_bwd": gp.BACKWARD_LAUNCHES}
 
@@ -371,23 +398,26 @@ def main():
     print(f"[1 device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:       # one nvcc per source, at once
+    with ThreadPoolExecutor(4) as pool:       # one nvcc per source, at once
         for fut in [pool.submit(contacts._kernel_fn),
+                    pool.submit(contacts._backward_kernel_fn),
                     pool.submit(stream._kernel), pool.submit(gp._kernel)]:
             fut.result()
     build_s = time.perf_counter() - t0
-    for name in ("contacts", "stream", "gp"):
+    for name in ("contacts", "contacts_backward", "stream", "gp"):
         nvcc_s = _build.BUILD_SECONDS.get(name)
         print(f"[1 device] {name}.cu nvcc "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}")
         for ln in _build.PTXAS_LOGS[name].read_text().splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
-    print(f"[1 device] K1, K2 and K3 built and loaded in {build_s:.2f} s")
-    for tag, name, n_inst in (("K2", "stream", 4), ("K3", "gp", 4)):
+    print(f"[1 device] K1, K1's backward, K2 and K3 built and loaded in "
+          f"{build_s:.2f} s")
+    for tag, name, n_inst in (("K1's backward", "contacts_backward", 2),
+                              ("K2", "stream", 4), ("K3", "gp", 4)):
         frames = _stack_frames(_build.PTXAS_LOGS[name].read_text())
         print(f"[1 device] {tag} stack frames (bytes, ptxas): " + ", ".join(
-            f"{e[:24]}... {b}" for e, b in sorted(frames.items())))
+            f"{_short_entry(e)} {b}" for e, b in sorted(frames.items())))
         _check(len(frames) == n_inst and not any(frames.values()),
                f"a {tag} instantiation keeps an array in local memory")
 
@@ -470,11 +500,28 @@ def main():
     lp_gpw = make_ln_prob(model_gpw, dtype=f32, device=dev)
     pos_gpw = _walkers(start_gp, N_CHAINS, 1, f32, dev)
     with mock.patch.object(gp, "segmented_matern32_kernel",
-                           wraps=gp.segmented_matern32_kernel) as rec:
+                           wraps=gp.segmented_matern32_kernel) as rec, \
+            mock.patch.object(contacts, "element_intervals_diff",
+                              wraps=contacts.element_intervals_diff) as rec_c:
         lp_gpw.value_and_grad(pos_gpw)
     _check(rec.call_count == 1, "K3 not called once per gradient evaluation")
+    _check(rec_c.call_count == 1, "element_intervals_diff not called once")
     ga = [a.detach() for a in rec.call_args.args]
     gk = rec.call_args.kwargs
+    # that evaluation's contact rows, for one forward and backward of K1
+    crow_p = [a.detach() for a in rec_c.call_args.args]
+    _check(tuple(crow_p[2].shape) == (N_CHAINS * 5, 512) and crow_p[2].is_cuda,
+           f"gradient contact rows {tuple(crow_p[2].shape)}, expected "
+           f"1280 x 512")
+    leaves_p = [a.requires_grad_() for a in crow_p[:6]]
+    cot_p = torch.ones_like(crow_p[2])
+
+    def k1_fwd_bwd():
+        with torch.enable_grad():
+            pin, pout, _ = contacts.element_intervals_diff(*leaves_p,
+                                                           crow_p[6])
+        torch.autograd.grad([pin, pout], leaves_p, [cot_p, cot_p])
+
     _check(tuple(ga[1].shape) == (N_CHAINS, 5, 128) and ga[1].is_cuda,
            f"gradient GP series {tuple(ga[1].shape)}, expected 256 x 5 x 128")
     cot_g = torch.ones(ga[1].shape[:2], dtype=f32, device=dev)
@@ -484,6 +531,7 @@ def main():
 
     events, device_us = _launches_per_call({
         "K3 with its reverse pass": k3_fwd_bwd,
+        "K1 with its backward": k1_fwd_bwd,
         "K1": lambda: contacts.element_intervals_kernel(*args),
         "K2": lambda: stream.stream_impacts_kernel(q, rd, x1, n_steps),
         "K2 with sensitivities": lambda: stream.stream_impacts_kernel(
@@ -494,18 +542,36 @@ def main():
                  for sens, tag in ((False, "K2"),
                                    (True, "K2 with sensitivities"))}
     k3_launch = _check_launches("K3", events["K3"], "gp_kernel")
+    ev = events["K1 with its backward"]
+    k1_bwd_launch = [sum(bool(re.search(rf"\b{k}\b", nm)) for nm in ev)
+                     for k in ("contacts_kernel", "contacts_backward_kernel")]
+    k1_bwd_events = len(ev)
+    k1_bwd_copies = sum(nm.startswith(("Memcpy", "Memset")) for nm in ev)
+    print(f"[2 launches] K1 with its backward, one forward and backward of "
+          f"element_intervals_diff: {k1_bwd_launch[0]} contacts_kernel and "
+          f"{k1_bwd_launch[1]} contacts_backward_kernel launch, "
+          f"{k1_bwd_events} device events in all, {k1_bwd_copies} copies or "
+          f"sets; the events: "
+          + ", ".join(f"{nm[:48]} {us:.1f} us" for nm, us in
+                      device_us["K1 with its backward"].items()))
+    _check(k1_bwd_launch == [1, 1] and k1_bwd_copies == 0,
+           "a K1 forward and backward is not one launch of each kernel "
+           f"without copies: {[nm[:60] for nm in ev]}")
     ev = events["K3 with its reverse pass"]
     k3_bwd_launch = [sum(bool(re.search(rf"\b{k}\b", nm)) for nm in ev)
                      for k in ("gp_kernel", "gp_backward_kernel")]
     print(f"[2 launches] K3 with its reverse pass, one forward and backward "
           f"of the wrapper: {k3_bwd_launch[0]} gp_kernel and "
           f"{k3_bwd_launch[1]} gp_backward_kernel launch, {len(ev)} device "
-          f"events in all (the rest PyTorch's kernels for the angles, the "
-          f"decay and their adjoints), "
+          f"events in all (limit: fewer than 25; the rest PyTorch's kernels "
+          f"for the angles and the decay and its sum of d sigma2), "
           f"{sum(nm.startswith(('Memcpy', 'Memset')) for nm in ev)} copies "
           f"or sets")
     _check(k3_bwd_launch == [1, 1], "a K3 forward and backward is not one "
            f"launch of each kernel: {[nm[:60] for nm in ev]}")
+    _check(len(ev) < 25, f"a K3 forward and backward is {len(ev)} device "
+           "events, not fewer than 25")
+    k3_bwd_events = len(ev)
 
     def traced_us(call, kernel):
         return sum(us for nm, us in device_us[call].items()
@@ -521,6 +587,12 @@ def main():
              "call": sum(device_us["K3"].values()),
              "forward_backward_call": sum(
                  device_us["K3 with its reverse pass"].values())}
+    k1_bwd_us = traced_us("K1 with its backward", "contacts_backward_kernel")
+    print(f"[2 launches] K1's backward as traced: contacts_backward_kernel "
+          f"{k1_bwd_us:.1f} us, contacts_kernel "
+          f"{traced_us('K1 with its backward', 'contacts_kernel'):.1f} us, of "
+          f"{sum(device_us['K1 with its backward'].values()):.1f} us for the "
+          f"forward and backward call")
     print(f"[2 launches] K3's device time as traced: gp_kernel on {n_w * n_e} "
           f"series {k3_us['forward']:.1f} us of the call's "
           f"{k3_us['call']:.1f} us; on {N_CHAINS * 5} series with the state "
@@ -531,7 +603,9 @@ def main():
     # ---- 3. posterior: kernel path vs plain path ----------------------
     def plain_path(fn):
         with mock.patch.object(contacts, "element_intervals_kernel",
-                               contacts.element_intervals_plain):
+                               contacts.element_intervals_plain), \
+                mock.patch.object(contacts, "contact_backward_kernel",
+                                  contacts._contact_backward_plain):
             return fn()
 
     lp_plain = plain_path(lambda: lp32(pos))
@@ -639,7 +713,8 @@ def main():
     _check(0.0 < acc_mean < 1.0, "acceptance fraction outside (0, 1)")
     _check(k1_steps == 2 * n_ens, "K1 did not launch once per half-step")
     _check(k2_steps == 2 * n_ens, "K2 did not launch once per half-step")
-    _check(c_ens["k1_bwd"] == 0 and c_ens["k2_sens"] == 0,
+    _check(c_ens["k1_bwd"] == 0 and c_ens["k1_bwd_kernel"] == 0
+           and c_ens["k2_sens"] == 0,
            "the ensemble path ran a gradient")
     _check(tuple(chain.shape) == (n_ens, N_WALKERS, start.size),
            "chain shape")
@@ -688,11 +763,13 @@ def main():
     c_one = _counts(contacts, stream, gp)
     print(f"[7 grad] widths model (width {width:.6f} cycles), {N_CHAINS} "
           f"chains: one value_and_grad launched K1 {c_one['k1']}, K1 "
-          f"backward {c_one['k1_bwd']}, K2 {c_one['k2']} (with "
+          f"backward {c_one['k1_bwd']} (its kernel "
+          f"{c_one['k1_bwd_kernel']}), K2 {c_one['k2']} (with "
           f"sensitivities {c_one['k2_sens']})")
-    _check(c_one == {"k1": 1, "k1_bwd": 1, "k2": 1, "k2_sens": 1, "k3": 0,
-                     "k3_bwd": 0},
-           "K1's backward or K2's sensitivities not once per evaluation")
+    _check(c_one == {"k1": 1, "k1_bwd": 1, "k1_bwd_kernel": 1, "k2": 1,
+                     "k2_sens": 1, "k3": 0, "k3_bwd": 0},
+           "K1's backward kernel or K2's sensitivities not once per "
+           "evaluation")
     _check(bool(torch.isfinite(lp_g).all()), "a chain's ln p is not finite")
     _check(bool(torch.isfinite(g_k).all()), "a gradient is not finite")
     _check(bool((g_k.abs().amax(dim=-1) > 0).all()), "a zero gradient row")
@@ -725,24 +802,112 @@ def main():
 
     k1_bwd_ms = _event_ms(lambda: k1_fwd(True), 5) - _event_ms(
         lambda: k1_fwd(False), 5)
-    n_ecl_g = int(contacts.element_intervals_kernel(*crow)[2].sum().item())
-    bwd_ops = (2 * n_ecl_g * K1_BWD_OPS_EDGE
-               + crow[2].numel() * K1_BWD_OPS_ELEMENT)
+    k1_ecl = contacts.element_intervals_kernel(*crow)
+    n_ecl_g = int(k1_ecl[2].sum().item())
+    n_el_g = crow[2].numel()
+    bwd_ops = 2 * n_ecl_g * K1_BWD_OPS_EDGE + n_el_g * K1_BWD_OPS_ELEMENT
+    bwd_ops_run = n_el_g * (2 * K1_BWD_EXECUTED_EDGE
+                            + K1_BWD_EXECUTED_ELEMENT)
     # px, py, both phases, both cotangents and the flags in; d px, d py out
-    bwd_bytes = crow[2].numel() * (6 * 4 + 1 + 2 * 4)
+    bwd_bytes = n_el_g * (6 * 4 + 1 + 2 * 4)
     k1_bwd_bound, k1_bwd_by = _bound(bwd_ops, bwd_bytes)
+    k1_bwd_run_bound, _ = _bound(bwd_ops_run, bwd_bytes)
+
+    # the backward kernel against its plain version (autograd on the edge
+    # residual) on those rows, at the roots K1 found, with that cotangent
+    # on both edges: float64 (the kernel's arithmetic), then float32 (what
+    # the main paths run) with the float64 plain backward as referee
+    b32 = [*crow[:6], k1_ecl[0], k1_ecl[1], k1_ecl[2], cot, cot]
+    b64 = [a if a.dtype == torch.bool else a.double() for a in b32]
+    before = contacts.BACKWARD_LAUNCHES
+    kb64 = contacts.contact_backward_kernel(*b64)
+    kb32 = contacts.contact_backward_kernel(*b32)
+    kb32_again = contacts.contact_backward_kernel(*b32)
+    _check(contacts.BACKWARD_LAUNCHES == before + 3,
+           "K1's backward wrapper did not launch its kernel")
+    pb64 = contacts._contact_backward_plain(*b64)
+    pb32 = contacts._contact_backward_plain(*b32)
+    torch.cuda.synchronize()
+    names = ("q", "incl", "px", "py", "x1", "pl1")
+    rel64 = {}
+    for nm, k, pl in zip(names, kb64, pb64):
+        scale = pl.abs().max().item()
+        rel64[nm] = ((k - pl).abs().max().item() / scale if scale > 0
+                     else (k - pl).abs().max().item())
+    print(f"[7 K1 backward] float64 kernel vs autograd on the edge residual, "
+          f"{crow[2].shape[0]} x {crow[2].shape[1]} contacts: max |d g| / "
+          f"max |g| " + ", ".join(f"{nm} {v:.2e}" for nm, v in rel64.items())
+          + " (limit 1e-9 each)")
+    _check(all(v <= 1e-9 for v in rel64.values()),
+           "K1's float64 backward kernel disagrees with autograd")
+    # Two float32 evaluations that round their angles differently (the
+    # kernel takes sincospi(2 phi), PyTorch sin(2 pi phi)) differ by about
+    # as much as each errs against float64, most at near-grazing elements
+    # where 1 / dcdphi is large: an entry outside the bound must be no
+    # farther from the float64 plain backward than 3x the plain float32
+    # backward's largest distance from it in that output
+    k1_bwd_err, worst32 = 0.0, {}
+    for nm, k, pl, ref, again in zip(names, kb32, pb32, pb64, kb32_again):
+        _check(bool((torch.isfinite(k) == torch.isfinite(pl)).all()),
+               f"K1's backward: non-finite pattern of d {nm} differs")
+        _check(torch.equal(k, again),
+               f"K1's backward: d {nm} differs from run to run")
+        d = (k.double() - pl.double()).abs()
+        lim = 1e-5 + 2e-3 * pl.double().abs()
+        e_k, e_p = (k.double() - ref).abs(), (pl.double() - ref).abs()
+        fails = (d > lim) & (e_k > 3.0 * e_p.max())
+        worst32[nm] = dict(
+            ratio=(d / lim).max().item(), outside=int((d > lim).sum()),
+            coin=int(((d > lim) & (d > e_p)).sum()), fails=int(fails.sum()),
+            rms_k=e_k.square().mean().sqrt().item(),
+            rms_p=e_p.square().mean().sqrt().item(),
+            max_k=e_k.max().item(), max_p=e_p.max().item())
+        k1_bwd_err = max(k1_bwd_err, d.max().item())
+    print(f"[7 K1 backward] float32 kernel vs the plain float32 backward, "
+          f"per output: max |d g| / (1e-5 + 2e-3 |g|), entries outside it, "
+          f"of those farther from plain than plain is from float64, and of "
+          f"those farther from float64 than 3x plain's largest distance "
+          f"from it (limit 0); rms and max distance from the float64 plain "
+          f"backward, kernel / plain float32: "
+          + "; ".join(
+              f"{nm} {w['ratio']:.3f}, {w['outside']}, {w['coin']}, "
+              f"{w['fails']}; rms {w['rms_k']:.3e} / {w['rms_p']:.3e}, max "
+              f"{w['max_k']:.3e} / {w['max_p']:.3e}"
+              for nm, w in worst32.items())
+          + "; equal bits from run to run")
+    _check(all(w["fails"] == 0 for w in worst32.values()),
+           "K1's float32 backward kernel disagrees with the plain backward")
+    k1_bwd_kernel_ms = _event_ms(
+        lambda: contacts.contact_backward_kernel(*b32), 20)
+    k1_bwd_kernel64_ms = _event_ms(
+        lambda: contacts.contact_backward_kernel(*b64), 20)
+    k1_bwd_plain_ms = _event_ms(
+        lambda: contacts._contact_backward_plain(*b32), 3, 1)
     print(f"[7 grad] K1's backward on {crow[2].shape[0]} x "
-          f"{crow[2].shape[1]} contacts: {k1_bwd_ms:.3f} ms = "
-          f"{k1_bwd_ms / vg_ms:.1%} of a gradient evaluation; "
-          f"{n_ecl_g} eclipsed; {bwd_ops / 1e9:.3f} GFLOP "
-          f"({K1_BWD_OPS_EDGE} per eclipsed edge + {K1_BWD_OPS_ELEMENT} per "
-          f"element), {bwd_bytes / 1e6:.1f} MB: bound "
-          f"{k1_bwd_bound * 1e3:.1f} us (set by {k1_bwd_by}), "
-          f"{k1_bwd_bound / k1_bwd_ms:.2%} of it")
+          f"{crow[2].shape[1]} contacts: the backward pass of "
+          f"element_intervals_diff {k1_bwd_ms:.3f} ms = "
+          f"{k1_bwd_ms / vg_ms:.2%} of a gradient evaluation; "
+          f"contacts_backward_kernel alone {k1_bwd_kernel_ms:.4f} ms in an "
+          f"event-timed loop ({k1_bwd_us:.1f} us traced in phase 2), float64 "
+          f"{k1_bwd_kernel64_ms:.4f} ms; its plain version "
+          f"{k1_bwd_plain_ms:.2f} ms ({k1_bwd_plain_ms / k1_bwd_kernel_ms:.0f}"
+          f"x); {n_ecl_g} eclipsed; the function needs {bwd_ops / 1e9:.3f} "
+          f"GFLOP ({K1_BWD_OPS_EDGE} per eclipsed edge + "
+          f"{K1_BWD_OPS_ELEMENT} per element), {bwd_bytes / 1e6:.1f} MB: "
+          f"bound {k1_bwd_bound * 1e3:.1f} us (set by {k1_bwd_by}), the "
+          f"kernel at {k1_bwd_bound / k1_bwd_kernel_ms:.2%} of it; the "
+          f"kernel executes {bwd_ops_run / 1e9:.3f} GFLOP "
+          f"({K1_BWD_EXECUTED_EDGE} per edge in forward mode + "
+          f"{K1_BWD_EXECUTED_ELEMENT} per element), "
+          f"{k1_bwd_run_bound * 1e3:.1f} us at the peak rate: "
+          f"{k1_bwd_run_bound / k1_bwd_kernel_ms:.1%} of that")
 
     # the gradient on the K1 path against the plain contact path, with
     # the float64 gradient (plain contact solver) as referee
+    before = contacts.BACKWARD_LAUNCHES
     _, g_p = plain_path(lambda: lpw.value_and_grad(posw))
+    _check(contacts.BACKWARD_LAUNCHES == before,
+           "the plain contact path launched K1's backward kernel")
     lpw64 = make_ln_prob(model_w, dtype=f64, device=dev)
     _, g64 = lpw64.value_and_grad(posw.to(f64))
     g_k64, g_p64 = g_k.to(f64), g_p.to(f64)
@@ -753,7 +918,9 @@ def main():
     # own error there: the chi^2 gradient is a sum of large cancelling
     # terms, and its float32 rounding, not K1, sets the small entries
     unexplained = outside & (d_kp > (g_p64 - g64).abs())
-    print(f"[7 grad] K1 path vs plain contact path, {g_k.numel()} entries: "
+    print(f"[7 grad] K1 path (the kernel and its backward kernel) vs plain "
+          f"contact path (plain solver, plain backward), {g_k.numel()} "
+          f"entries: "
           f"{int(outside.sum())} outside |dg| <= 1e-5 + 2e-3 |g|, max "
           f"|dg| / bound {(d_kp / bound).max().item():.3f}; "
           f"of those, {int(unexplained.sum())} (limit 0) farther apart "
@@ -809,10 +976,12 @@ def main():
           f"acceptance {hacc.mean().item():.3f}; divergences "
           f"{hdiv.mean().item():.3f}; adapted step size "
           f"{hs.step_size.item():.3e}; per step: K1 {per['k1']:.0f}, K1 "
-          f"backward {per['k1_bwd']:.0f}, K2 {per['k2']:.0f} (16 each "
+          f"backward {per['k1_bwd']:.0f} (its kernel "
+          f"{per['k1_bwd_kernel']:.0f}), K2 {per['k2']:.0f} (16 each "
           f"expected); chains moved {moved:.0%}")
-    _check(per["k1"] == per["k1_bwd"] == per["k2"] == per["k2_sens"]
-           == N_LEAPFROG, "not one K1, K1 backward and K2 per leapfrog")
+    _check(per["k1"] == per["k1_bwd"] == per["k1_bwd_kernel"] == per["k2"]
+           == per["k2_sens"] == N_LEAPFROG,
+           "not one K1, K1 backward kernel and K2 per leapfrog")
     _check(bool(torch.isfinite(hs.positions).all()), "non-finite positions")
     _check(bool(torch.isfinite(hs.log_prob).all()), "non-finite log_prob")
     _check(bool(torch.isfinite(hchain_lp).all()), "non-finite chain_lp")
@@ -907,19 +1076,21 @@ def main():
         t_, yerr_, s2_, c_, reset_, mask_ = gp._prepare(
             call[0], call[1], call[2], call[3], call[4], gk["reset"],
             gk["mask"])
-        rec_leaves = [a.detach().requires_grad_() for a in (
-            call[1], s2_.contiguous(), *gp._angles_decay(t_, c_))]
-        with torch.enable_grad():
-            ll_r = gp._recursion_kernel(*rec_leaves, reset_, yerr_, mask_)
+        # the reverse kernel alone: its launch on a forward's kept state
+        tensors = gp._checked(call[1], s2_, *gp._angles_decay(t_, c_),
+                              reset_, yerr_, mask_)
+        state = torch.empty((5, n_p, n_ser_g), dtype=dt, device=dev)
+        gp._forward(tensors, state)
+        t_c = t_.contiguous()
         ms = _event_ms(lambda: torch.autograd.grad(
             ll_w, leaves_w, cot, retain_graph=True), 20)
-        kernel_ms = _event_ms(lambda: torch.autograd.grad(
-            ll_r, rec_leaves, cot, retain_graph=True), 20)
+        kernel_ms = _event_ms(lambda: gp._backward(tensors, t_c, state, cot),
+                              20)
         plain_ms = _event_ms(lambda: torch.autograd.grad(
             ll_pl, leaves_pl, cot, retain_graph=True), 2, 1)
         fwd_ms = _event_ms(lambda: _k3_graph(gp.segmented_matern32_kernel,
                                              call, gk), 20)
-        del ll_w, leaves_w, ll_pl, leaves_pl, ll_r, rec_leaves
+        del ll_w, leaves_w, ll_pl, leaves_pl, tensors, state
         isz = call[1].element_size()
         # in: y, sigma2, reset per point, c and the cotangent per series,
         # t, yerr, mask per eclipse point; out: d y, d sigma2 per point
@@ -940,8 +1111,9 @@ def main():
               f"loop: max |d g| / max |g| {rel:.3e} ({gate}); max |d g| "
               f"{[f'{d:.3e}' for d in d_abs]} at max |g| "
               f"{[f'{sc:.3e}' for sc in scale]}; the backward pass of the "
-              f"wrapper (gp_backward_kernel and PyTorch's adjoints of the "
-              f"angles and the decay) {ms:.4f} ms, gp_backward_kernel alone "
+              f"wrapper (gp_backward_kernel, which writes d c itself, and "
+              f"autograd's sum of d sigma2 over what came in broadcast) "
+              f"{ms:.4f} ms, gp_backward_kernel alone "
               f"{kernel_ms:.4f} ms ({kernel_ms / n_p * 1e6:.0f} ns per "
               f"point), autograd on the plain loop {plain_ms:.1f} ms "
               f"({plain_ms / ms:.0f}x); the recorded forward {fwd_ms:.4f} ms; "
@@ -1041,8 +1213,8 @@ def main():
     c5_ms = (time.perf_counter() - t0) * 1e3
     c_gp_c5 = _counts(contacts, stream, gp)
     peak_c5 = torch.cuda.max_memory_allocated()
-    _check(c_gp_c5 == {"k1": 1, "k1_bwd": 0, "k2": 1, "k2_sens": 0, "k3": 1,
-                       "k3_bwd": 0},
+    _check(c_gp_c5 == {"k1": 1, "k1_bwd": 0, "k1_bwd_kernel": 0, "k2": 1,
+                       "k2_sens": 0, "k3": 1, "k3_bwd": 0},
            f"config-5 evaluation launches: {c_gp_c5}")
     prior_ok = torch.isfinite(prior_c5(pos_c5))
     k3_c5_ms = _event_ms(lambda: gp.segmented_matern32_kernel(
@@ -1066,8 +1238,8 @@ def main():
     _zero_counts(contacts, stream, gp)
     lp_gg, g_gp = lp_gpw.value_and_grad(pos_gpw)
     c_gp_vg = _counts(contacts, stream, gp)
-    _check(c_gp_vg == {"k1": 1, "k1_bwd": 1, "k2": 1, "k2_sens": 1, "k3": 1,
-                       "k3_bwd": 1},
+    _check(c_gp_vg == {"k1": 1, "k1_bwd": 1, "k1_bwd_kernel": 1, "k2": 1,
+                       "k2_sens": 1, "k3": 1, "k3_bwd": 1},
            f"GP value_and_grad launches: {c_gp_vg}")
     _check(bool(torch.isfinite(lp_gg).all()), "a GP chain's ln p not finite")
     _check(bool(torch.isfinite(g_gp).all()), "a GP gradient is not finite")
@@ -1145,12 +1317,13 @@ def main():
     print(f"[10 gp] one hmc_step of {N_LEAPFROG} leapfrog on the GP widths "
           f"model: {s_gp_hmc:.2f} s; acceptance {acc_gh.item():.3f}, "
           f"divergences {div_gh.item():.3f}; launches: K1 "
-          f"{c_gp_hmc['k1']}, K1 backward {c_gp_hmc['k1_bwd']}, K2 with "
+          f"{c_gp_hmc['k1']}, K1 backward {c_gp_hmc['k1_bwd']} (its kernel "
+          f"{c_gp_hmc['k1_bwd_kernel']}), K2 with "
           f"sensitivities {c_gp_hmc['k2_sens']}, K3 {c_gp_hmc['k3']}, K3's "
           f"reverse kernel {c_gp_hmc['k3_bwd']} (16 each expected)")
     _check(c_gp_hmc == dict.fromkeys(c_gp_hmc, N_LEAPFROG),
-           "GP hmc_step: not one K1, K1 backward, K2, K3 and K3 reverse "
-           "kernel per leapfrog")
+           "GP hmc_step: not one K1, K1 backward kernel, K2, K3 and K3 "
+           "reverse kernel per leapfrog")
     _check(bool(torch.isfinite(hs_gp2.positions).all()
                 & torch.isfinite(hs_gp2.log_prob).all()),
            "GP hmc_step: non-finite state")
@@ -1208,7 +1381,8 @@ def main():
           f"{fused_rate / pt_rate:.3f}x")
     _check(per["k1"] == per["k2"] == 2 * n_pt,
            "PT: not one K1 and one K2 per half-step")
-    _check(c_pt["k1_bwd"] == 0 and c_pt["k2_sens"] == 0 and c_pt["k3"] == 0,
+    _check(c_pt["k1_bwd"] == 0 and c_pt["k1_bwd_kernel"] == 0
+           and c_pt["k2_sens"] == 0 and c_pt["k3"] == 0,
            "the PT path ran a gradient or the GP")
     _check(bool(torch.isfinite(pts.ln_like[0]).all()
                 & torch.isfinite(pts.ln_prior[0]).all()),
@@ -1249,12 +1423,13 @@ def main():
           f"all chains each); accept statistic "
           f"{torch.stack(astats).mean().item():.3f}; divergence share "
           f"{torch.stack(divs).mean().item():.3f}; launches: K1 "
-          f"{c_nuts['k1']}, K1 backward {c_nuts['k1_bwd']}, K2 with "
+          f"{c_nuts['k1']}, K1 backward {c_nuts['k1_bwd']} (its kernel "
+          f"{c_nuts['k1_bwd_kernel']}), K2 with "
           f"sensitivities {c_nuts['k2_sens']}; chains moved {moved_n:.0%}")
     _check(leaves >= n_nuts, "NUTS built no leaf")
-    _check(c_nuts["k1"] == c_nuts["k1_bwd"] == c_nuts["k2_sens"]
-           == c_nuts["k2"] == leaves,
-           "NUTS: not one K1, K1 backward and K2 per leaf")
+    _check(c_nuts["k1"] == c_nuts["k1_bwd"] == c_nuts["k1_bwd_kernel"]
+           == c_nuts["k2_sens"] == c_nuts["k2"] == leaves,
+           "NUTS: not one K1, K1 backward kernel and K2 per leaf")
     _check(bool(torch.isfinite(ns.positions).all()
                 & torch.isfinite(ns.log_prob).all()),
            "NUTS: non-finite state")
@@ -1269,7 +1444,8 @@ def main():
         return {name: c[key] for name, c in paths.items()}
 
     for key, on in (("k1", paths), ("k2", paths), ("k3", ("gp",)),
-                    ("k3_bwd", ("gp",))):
+                    ("k3_bwd", ("gp",)),
+                    ("k1_bwd_kernel", ("hmc", "gp", "nuts"))):
         for name in on:
             _check(paths[name][key] > 0,
                    f"the {name} path never launched {key.upper()}")
@@ -1287,14 +1463,34 @@ def main():
              "a fixed-iteration safeguarded Newton solve of each element's "
              "eclipse contact phases"),
          "gradient": {
-             "route": "torch.autograd.Function, backward in plain PyTorch "
-                      "(lfit_python_tpu_torch/ops/contacts.py)",
+             "route": "torch.autograd.Function whose backward launches "
+                      "the kernel contacts_backward (listed below)",
              "replaces": K1_GRAD_REPLACES,
              "backward_calls": sum(by_path("k1_bwd").values()),
              "backward_calls_by_path": by_path("k1_bwd"),
-             "backward_ms": k1_bwd_ms,
-             "bound_ms": k1_bwd_bound, "bound_by": k1_bwd_by,
-             "ops": bwd_ops, "library_ms": None}},
+             "backward_ms": k1_bwd_ms}},
+        {"name": "contacts_backward", "route": "cuda",
+         "source": K1_BWD_SOURCE,
+         "replaces": K1_GRAD_REPLACES + " (contacts_op_diff: a plain-XLA "
+                     "JVP around the pallas_call)",
+         "launches": sum(by_path("k1_bwd_kernel").values()),
+         "launches_by_path": by_path("k1_bwd_kernel"),
+         "device_launches_per_call": k1_bwd_launch[1],
+         "device_events_per_forward_backward": k1_bwd_events,
+         "rows": crow[2].shape[0], "elements": crow[2].shape[1],
+         "max_abs_err": k1_bwd_err, "max_rel_err_float64": max(
+             rel64.values()),
+         "ms": k1_bwd_kernel_ms, "plain_ms": k1_bwd_plain_ms,
+         "kernel_only_traced_us": k1_bwd_us,
+         "backward_pass_ms": k1_bwd_ms,
+         "bound_ms": k1_bwd_bound, "bound_by": k1_bwd_by, "ops": bwd_ops,
+         "bytes": bwd_bytes, "ops_executed": bwd_ops_run,
+         "executed_ops_at_peak_ms": k1_bwd_run_bound,
+         "library_ms": None,
+         "library_ms_reason": NO_LIBRARY.format(
+             "the implicit-function-theorem gradient of those contact "
+             "phases through a clamped Newton residual"),
+         "float64": {"ms": k1_bwd_kernel64_ms}},
         {"name": "stream", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES + " (an XLA lax.scan, no pallas_call)",
          "launches": sum(by_path("k2").values()),
@@ -1352,6 +1548,7 @@ def main():
          "launches": sum(by_path("k3_bwd").values()),
          "launches_by_path": by_path("k3_bwd"),
          "device_launches_per_call": k3_bwd_launch[1],
+         "device_events_per_forward_backward": k3_bwd_events,
          "series": n_ser_g, "points": n_p,
          "max_abs_err": k3b[f32]["err"], "max_rel_err": k3b[f32]["rel"],
          "ms": k3b[f32]["ms"], "plain_ms": k3b[f32]["plain_ms"],

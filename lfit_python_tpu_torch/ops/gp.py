@@ -30,8 +30,8 @@ The angles' cosines and sines and the decay factors are made by PyTorch
 in; the kernel walks the points.  Under autograd the forward kernel also
 keeps the state each series enters each point with, and the backward is
 a second kernel that walks each series back (the adjoint of the loop,
-written out by hand); the angles' and the decay's own gradients are
-PyTorch's.
+written out by hand) and folds the angles' and the decay's adjoints into
+the one gradient of each series' ``c`` as it goes.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ def _kernel():
         fwd, bwd = lib.gp_launch, lib.gp_backward_launch
         fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+        bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fwd.restype = bwd.restype = ctypes.c_int
         _fns = fwd, bwd
@@ -187,60 +187,89 @@ def _launch(which, y, pointers):
                            f"failed: cudaError {err}")
 
 
+def _forward(tensors, save=None):
+    """One launch of ``gp_kernel`` on the checked inputs of the recursion:
+    the ln-likelihoods (W, E).  ``save`` (5, P, W * E), if given, receives
+    the state each series enters each point with."""
+    global LAUNCHES
+    y = tensors[0]
+    W, E, _ = y.shape
+    out = torch.empty((W, E), dtype=y.dtype, device=y.device)
+    if W and E:
+        _launch(0, y, [a.data_ptr() for a in tensors]
+                + [out.data_ptr(), None if save is None else save.data_ptr()])
+        LAUNCHES += 1
+    return out
+
+
+def _backward(tensors, t, save, g):
+    """One launch of ``gp_backward_kernel``: the cotangents of ``y`` and
+    ``sigma2`` (W, E, P) and of ``c`` (W, E) for the cotangent ``g`` of the
+    ln-likelihoods, from the forward's inputs and its ``save``."""
+    global BACKWARD_LAUNCHES
+    y = tensors[0]
+    gy, gsigma2 = torch.empty_like(y), torch.empty_like(y)
+    gc = torch.empty(y.shape[:2], dtype=y.dtype, device=y.device)
+    if y.numel():
+        g = g.to(y.dtype).contiguous()
+        _launch(1, y, [a.data_ptr() for a in tensors]
+                + [t.data_ptr(), save.data_ptr(), g.data_ptr(),
+                   gy.data_ptr(), gsigma2.data_ptr(), gc.data_ptr()])
+        BACKWARD_LAUNCHES += 1
+    else:
+        gc.zero_()
+    return gy, gsigma2, gc
+
+
+def _recursion_kernel(y, sigma2, cd, sd, phi, reset, yerr, mask):
+    """The recursion alone on the card, from angles and decay made
+    elsewhere: one launch of ``gp_kernel``, no gradient.  float32 or
+    float64 CUDA tensors of one dtype."""
+    return _forward(_checked(y, sigma2, cd, sd, phi, reset, yerr, mask))
+
+
 class _Recursion(torch.autograd.Function):
-    """K3 on the card: the forward kernel and, for the cotangents of
-    ``y``, ``sigma2``, ``cd``, ``sd`` and ``phi``, the reverse kernel.
-    One launch each, one thread per (walker, eclipse) series.  The
-    forward keeps the per-point state (5 x P x series numbers) only when
-    one of those five requires a gradient."""
+    """K3 on the card, from the prepared inputs ``t``, ``yerr``, ``mask``
+    (E, P), ``y``, ``sigma2``, ``reset`` (W, E, P) and ``c`` (W, E): the
+    angles and the decay in PyTorch, then the forward kernel; for the
+    cotangents of ``y``, ``sigma2`` and ``c``, the reverse kernel.  One
+    launch each, one thread per (walker, eclipse) series.  The forward
+    keeps the per-point state (5 x P x series numbers) only when one of
+    those three requires a gradient; ``t`` and ``yerr`` get none."""
 
     @staticmethod
-    def forward(ctx, y, sigma2, cd, sd, phi, reset, yerr, mask):
-        global LAUNCHES
+    def forward(ctx, t, y, yerr, sigma2, c, reset, mask):
+        if t.dtype != y.dtype:
+            raise TypeError(f"K3 takes float32 or float64 of one dtype, got "
+                            f"t: {t.dtype}, y: {y.dtype}")
+        cd, sd, phi = _angles_decay(t, c)
         tensors = _checked(y, sigma2, cd, sd, phi, reset, yerr, mask)
         W, E, P = y.shape
-        out = torch.empty((W, E), dtype=y.dtype, device=y.device)
         save = None
-        if any(ctx.needs_input_grad[:5]):
+        if any(ctx.needs_input_grad[i] for i in (1, 3, 4)):
             save = torch.empty((5, P, W * E), dtype=y.dtype, device=y.device)
-        if W and E:
-            _launch(0, y, [a.data_ptr() for a in tensors]
-                    + [out.data_ptr(), None if save is None
-                       else save.data_ptr()])
-            LAUNCHES += 1
+        out = _forward(tensors, save)
         if save is not None:
-            ctx.save_for_backward(*tensors, save)
+            ctx.save_for_backward(*tensors, t.contiguous(), save)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        global BACKWARD_LAUNCHES
-        *tensors, save = ctx.saved_tensors
-        y = tensors[0]
-        grads = [torch.empty_like(y) for _ in range(5)]
-        if y.numel():
-            g = g.to(y.dtype).contiguous()
-            _launch(1, y, [a.data_ptr() for a in tensors]
-                    + [save.data_ptr(), g.data_ptr()]
-                    + [a.data_ptr() for a in grads])
-            BACKWARD_LAUNCHES += 1
-        return (*[d if need else None
-                  for d, need in zip(grads, ctx.needs_input_grad[:5])],
-                None, None, None)
-
-
-def _recursion_kernel(y, sigma2, cd, sd, phi, reset, yerr, mask):
-    """K3 on the card (:class:`_Recursion`).  float32 or float64 CUDA
-    tensors of one dtype."""
-    return _Recursion.apply(y, sigma2, cd, sd, phi, reset, yerr, mask)
+        *tensors, t, save = ctx.saved_tensors
+        gy, gsigma2, gc = _backward(tensors, t, save, g)
+        need = ctx.needs_input_grad
+        return (None, gy if need[1] else None, None,
+                gsigma2 if need[3] else None, gc if need[4] else None,
+                None, None)
 
 
 def segmented_matern32_kernel(t, y, yerr, sigma2, c, reset=None, mask=None):
     """:func:`segmented_matern32_ln_like` through K3: one launch for all
     series, and one of the reverse kernel on a backward pass.  float32 or
     float64 CUDA tensors (raises otherwise); tensors on the CPU take the
-    plain version.  ``yerr`` gets no gradient (raises if it asks)."""
+    plain version.  ``t`` and ``yerr`` get no gradient (raises if one
+    asks)."""
     if y.device.type == "cpu":
         return segmented_matern32_plain(t, y, yerr, sigma2, c, reset, mask)
     if y.device.type != "cuda":
@@ -248,13 +277,13 @@ def segmented_matern32_kernel(t, y, yerr, sigma2, c, reset=None, mask=None):
     if y.dim() != 3:
         raise ValueError(f"K3: y has shape {tuple(y.shape)}, expected "
                          "(W, E, P)")
-    if isinstance(yerr, torch.Tensor) and yerr.requires_grad \
-            and torch.is_grad_enabled():
-        raise ValueError("K3 has no gradient for yerr")
+    for name, a in (("t", t), ("yerr", yerr)):
+        if isinstance(a, torch.Tensor) and a.requires_grad \
+                and torch.is_grad_enabled():
+            raise ValueError(f"K3 has no gradient for {name}")
     t, yerr, sigma2, c, reset, mask = _prepare(t, y, yerr, sigma2, c, reset,
                                                mask)
-    cd, sd, phi = _angles_decay(t, c)
-    return _recursion_kernel(y, sigma2, cd, sd, phi, reset, yerr, mask)
+    return _Recursion.apply(t, y, yerr, sigma2, c, reset, mask)
 
 
 def segmented_matern32_ln_like(t, y, yerr, sigma2, c, reset=None, mask=None):

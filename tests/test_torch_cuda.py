@@ -1,6 +1,6 @@
-"""The CUDA kernels K1 (contacts), K2 (gas stream) and K3 (GP recursion)
-on the card, against their plain PyTorch versions, and the posterior and
-its gradient through them.
+"""The CUDA kernels K1 (contacts) and its backward, K2 (gas stream) and K3
+(GP recursion) and its reverse kernel on the card, against their plain
+PyTorch versions, and the posterior and its gradient through them.
 
 Every test here needs a CUDA card (the kernels have no CPU form) and skips
 without one.  The file imports nothing of JAX, so on a machine with the
@@ -142,6 +142,147 @@ def test_kernel_checks_inputs(cuda):
     strided = torch.stack([args[2], args[2]], dim=-1)[..., 0]
     with pytest.raises(ValueError):
         contacts.element_intervals_kernel(*args[:2], strided, *args[3:])
+
+
+def backward_rows(dev, dtype, case):
+    """The arguments of K1's backward: rows solved by the port's own
+    forward with random cotangents on both edges, at the edges of the
+    kernel's block (one row, one element, 37, 300 and 992 elements), an
+    infeasible row, and rows over the whole parameter range with phases
+    off the roots, which take every branch of the residual."""
+    if case == "every branch":
+        rng = np.random.default_rng(11)
+        rows, n = 6, 203
+
+        def f(a):
+            return torch.tensor(a, dtype=dtype, device=dev)
+
+        q = f(rng.uniform(0.08, 0.8, rows))
+        x1 = tg.xl1(q)
+        pl1 = tg.l1_potential(q, x1)
+        incl = f(rng.uniform(60, 89.9, rows))
+        r = rng.uniform(0.02, 0.95, (rows, n))
+        th = rng.uniform(0, 2 * np.pi, (rows, n))
+        px, py = f(r * np.cos(th)), f(r * np.sin(th))
+        phi_c = torch.atan2(py, 1 - px) / (2 * np.pi)
+        pin = phi_c - f(rng.uniform(0, 0.2, (rows, n)))
+        pout = phi_c + f(rng.uniform(0, 0.2, (rows, n)))
+        ecl = torch.tensor(rng.uniform(size=(rows, n)) < 0.8, device=dev)
+        g = f(rng.standard_normal((2, rows, n)))
+        return [q, incl, px, py, x1, pl1, pin, pout, ecl, g[0], g[1]]
+    shape = {"R = 1": (1, 160), "N = 1": (5, 1), "N = 37": (9, 37),
+             "N = 300": (7, 300), "N = 992": (3, 992),
+             "infeasible row": (5, 160)}[case]
+    args = contact_rows(dev, *shape, seed=len(case))
+    if case == "infeasible row":
+        args[1] = args[1].clone()
+        args[1][2] = float("nan")
+    pin, pout, ecl = contacts.element_intervals_kernel(*args)
+    rng = np.random.default_rng(2)
+    g = torch.tensor(rng.standard_normal((2, *shape)), dtype=torch.float32,
+                     device=dev)
+    out = [*args[:6], pin, pout, ecl, g[0].contiguous(), g[1].contiguous()]
+    return [a if a.dtype == torch.bool else a.to(dtype) for a in out]
+
+
+BACKWARD_CASES = ["R = 1", "N = 1", "N = 37", "N = 300", "N = 992",
+                  "infeasible row", "every branch"]
+
+
+def feasible(case, grads):
+    """The gradients' rows with finite inputs; checks the infeasible row
+    (NaN inclination) of that case on the way.  There the plain backward
+    gives NaN in q, incl, px and py, and 0 in x1 and pl1, whose paths
+    through clamps and selects autograd masks to exact zeros.  The kernel
+    gives the same but NaN in x1: in forward mode the NaN values multiply
+    x1's zero tangents.  (The posterior zeroes non-finite gradients.)"""
+    if case != "infeasible row":
+        return grads
+    for name, g in zip(("q", "incl", "px", "py", "x1", "pl1"), grads):
+        if name == "pl1":
+            assert float(g[2]) == 0.0
+        elif name == "x1":
+            assert bool(torch.isnan(g[2])) or float(g[2]) == 0.0
+        else:
+            assert bool(torch.isnan(g[2]).all()), name
+    return [g[[0, 1, 3, 4]] for g in grads]
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_backward_kernel_f64_matches_autograd(cuda, case):
+    """The float64 instantiation of K1's backward kernel against autograd
+    on the edge residual: each of the six gradients within 1e-9 of its
+    largest entry, one launch."""
+    args = backward_rows(cuda, torch.float64, case)
+    before = contacts.BACKWARD_LAUNCHES
+    k = contacts.contact_backward_kernel(*args)
+    p = contacts._contact_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert contacts.BACKWARD_LAUNCHES == before + 1
+    for a, b in zip(feasible(case, k), feasible(case, p)):
+        assert a.shape == b.shape
+        assert bool(torch.isfinite(a).all() & torch.isfinite(b).all())
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_backward_kernel_f32_matches_plain(cuda, case):
+    """float32, what the main paths run: each entry within 1e-5 + 2e-3 |g|
+    of the plain float32 backward, or no farther from the float64 plain
+    backward than 3x the plain float32 backward's largest distance from it
+    in that output (the two round their angles differently, and differ by
+    about as much as each errs where 1 / dcdphi is large); the same bits
+    on a second launch (the row sums use no atomics)."""
+    a32 = backward_rows(cuda, torch.float32, case)
+    a64 = [a if a.dtype == torch.bool else a.double() for a in a32]
+    k = contacts.contact_backward_kernel(*a32)
+    again = contacts.contact_backward_kernel(*a32)
+    p = contacts._contact_backward_plain(*a32)
+    ref = contacts._contact_backward_plain(*a64)
+    torch.cuda.synchronize()
+    for a, a2 in zip(k, again):
+        assert torch.equal(torch.isnan(a), torch.isnan(a2))
+        assert torch.equal(a.nan_to_num(), a2.nan_to_num())
+    for a, b, r in zip(feasible(case, k), feasible(case, p),
+                       feasible(case, ref)):
+        assert bool(torch.isfinite(a).all() & torch.isfinite(b).all())
+        d = (a.double() - b.double()).abs()
+        e_k, e_p = (a.double() - r).abs(), (b.double() - r).abs()
+        ok = (d <= 1e-5 + 2e-3 * b.double().abs()) | (e_k <= 3 * e_p.max())
+        assert bool(ok.all())
+
+
+def test_backward_kernel_routing_and_input_checks(cuda):
+    """float32 on the card: the backward of element_intervals_diff is one
+    launch of the kernel; float64 takes the plain backward; the wrapper
+    raises on what the kernel does not take."""
+    args = backward_rows(cuda, torch.float32, "N = 300")
+    for dtype, launches in ((torch.float32, 1), (torch.float64, 0)):
+        rows = [a.to(dtype) for a in contact_rows(cuda, 7, 300, seed=7)]
+        leaves = [a.clone().requires_grad_() for a in rows[:6]]
+        before = (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES)
+        pin, pout, _ = contacts.element_intervals_diff(*leaves, rows[6])
+        grads = torch.autograd.grad((pout - pin).sum(), leaves)
+        assert (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES) == (
+            before[0] + 1, before[1] + launches)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with pytest.raises(TypeError):
+        contacts.contact_backward_kernel(args[0].double(), *args[1:])
+    with pytest.raises(TypeError):
+        contacts.contact_backward_kernel(*[
+            a if a.dtype == torch.bool else a.half() for a in args])
+    with pytest.raises(TypeError):
+        contacts.contact_backward_kernel(*args[:8], args[8].float(),
+                                         *args[9:])
+    with pytest.raises(ValueError):
+        contacts.contact_backward_kernel(args[0][:-1], *args[1:])
+    with pytest.raises(ValueError):
+        contacts.contact_backward_kernel(args[0].cpu(), *args[1:])
+    # a strided cotangent is made contiguous, not refused
+    wide = torch.stack([args[9], args[9]], dim=-1)[..., 0]
+    a = contacts.contact_backward_kernel(*args[:9], wide, args[10])
+    b = contacts.contact_backward_kernel(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_posterior_kernel_path_matches_plain_path(cuda):
@@ -396,6 +537,30 @@ def test_gp_reverse_kernel_matches_autograd_of_plain(cuda, dtype, tol, case):
         assert float((k - p).abs().max()) <= tol * float(p.abs().max())
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_gp_reverse_kernel_gradient_of_broadcast_c(cuda, dtype, tol):
+    """The reverse kernel writes d c itself; where one amplitude and one
+    timescale per walker came in broadcast over eclipses and points, as
+    matern32_gp_ln_like calls K3, autograd sums the kernel's gradients
+    back to their shapes."""
+    t, y, yerr, sigma2, c, _, mask = gp_series(cuda, dtype, "padded points")
+    cot = torch.tensor(np.random.default_rng(5).standard_normal((5, 3)),
+                       dtype=dtype, device=cuda)
+    grads = {}
+    for name, fn in (("kernel", gp.segmented_matern32_ln_like),
+                     ("plain", gp.segmented_matern32_plain)):
+        leaves = [sigma2[:, :1, :1].clone().requires_grad_(),
+                  c[:, :1].clone().requires_grad_()]
+        ll = fn(t, y, yerr, leaves[0], leaves[1], mask=mask)
+        grads[name] = torch.autograd.grad(ll, leaves, cot)
+    for k, p, shape in zip(grads["kernel"], grads["plain"],
+                           ((5, 1, 1), (5, 1))):
+        assert tuple(k.shape) == tuple(p.shape) == shape
+        assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0
+        assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+
 def test_gp_kernel_routing_and_input_checks(cuda):
     t, y, yerr, sigma2, c, reset, mask = gp_series(cuda, torch.float32,
                                                    "segments")
@@ -410,6 +575,9 @@ def test_gp_kernel_routing_and_input_checks(cuda):
     assert gp.BACKWARD_LAUNCHES == before_bwd + 1
     with pytest.raises(ValueError):
         gp.segmented_matern32_ln_like(t, y, yerr.clone().requires_grad_(),
+                                      sigma2, c)
+    with pytest.raises(ValueError):
+        gp.segmented_matern32_ln_like(t.clone().requires_grad_(), y, yerr,
                                       sigma2, c)
     before = gp.LAUNCHES
     # broadcast arguments: a scalar amplitude, no reset, no mask

@@ -9,6 +9,12 @@ against the reference and the dense oracle's own 1e-8 (its Cholesky is
 O(n^3) rounding), 1e-9 for ``wd_contact_extension``.
 """
 
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,6 +195,181 @@ class TestGradient:
             want = np.asarray(want)
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-8,
                                        atol=1e-10 * np.abs(want).max())
+
+
+class TestAnglesFoldedIntoTheReverseKernel:
+    """K3's reverse kernel turns the cotangents of cos(eps c t),
+    sin(eps c t) and exp(-c dt) into the one gradient of each series' c
+    itself: sum_n eps t (gsd cd - gcd sd) - dt phi gphi."""
+
+    @pytest.mark.parametrize("broadcast_c", [False, True])
+    def test_closed_form_matches_autograd_through_the_angles(self, batch,
+                                                             broadcast_c):
+        rng = np.random.default_rng(7)
+        t = t64(batch["t"])
+        c = t64(batch["c"][:, :1] if broadcast_c else batch["c"])
+        c.requires_grad_()
+        cd, sd, phi = gp._angles_decay(t, c.expand(W, E))
+        gcd, gsd, gphi = t64(rng.standard_normal((3, W, E, P)))
+        # a reset or padded point's decay is replaced: no cotangent
+        held = torch.tensor(batch["reset"] | ~batch["mask"])
+        gphi = torch.where(held, torch.zeros_like(gphi), gphi)
+        assert 0 < int(held.sum()) < held.numel()
+        ref, = torch.autograd.grad([cd, sd, phi], c, [gcd, gsd, gphi])
+        dt = torch.diff(t, dim=-1, prepend=t[..., :1])
+        with torch.no_grad():
+            gc = (gp._EPS * t * (gsd * cd - gcd * sd)
+                  - dt * phi * gphi).sum(-1)
+            if broadcast_c:                 # autograd's adjoint of expand
+                gc = gc.sum(-1, keepdim=True)
+        assert gc.shape == ref.shape
+        np.testing.assert_allclose(gc.numpy(), ref.numpy(), rtol=1e-10)
+
+
+_GP_SHIM = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(n)
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static dim3 blockIdx, threadIdx, blockDim;
+typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
+static inline int cudaGetLastError() { return 0; }
+// one thread after another: the kernels' threads share nothing
+template <typename F, typename... A>
+static void launch_host(dim3 grid, dim3 block, F kernel, A... args) {
+  blockDim = block;
+  for (unsigned b = 0; b < grid.x; ++b)
+    for (unsigned t = 0; t < block.x; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      kernel(args...);
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def compiled_k3(tmp_path_factory):
+    """``ops/csrc/gp.cu`` built by g++ behind a shim header, its two
+    launches rewritten to loops over blocks and threads: a stand-in for
+    ``gp._launch`` that runs K3 and its reverse kernel on CPU tensors."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel source")
+    build = tmp_path_factory.mktemp("gp_host")
+    (build / "cuda_runtime.h").write_text(_GP_SHIM)
+    src = (Path(gp.__file__).resolve().parent / "csrc" / "gp.cu").read_text()
+    src, n = re.subn(
+        r"(gp_(?:backward_)?kernel<\w+>)<<<grid, block, 0, st>>>\(",
+        r"launch_host(grid, block, \1, ", src)
+    assert n == 4
+    (build / "gp_host.cpp").write_text(src)
+    so = build / "libgp_host.so"
+    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
+                    "-shared", "-fPIC", f"-I{build}", "-o", str(so),
+                    str(build / "gp_host.cpp")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    fns = lib.gp_launch, lib.gp_backward_launch
+    for fn, n_ptr in zip(fns, (10, 14)):
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+    def launch(which, y, pointers):
+        n_w, n_e, n_p = y.shape
+        assert fns[which](int(y.dtype == torch.float64), *pointers, n_w, n_e,
+                          n_p, None) == 0
+
+    return launch
+
+
+class TestKernelSourceOnTheCpu:
+    """The autograd.Function of K3 with the compiled kernel source in the
+    launches' place, against the plain loop and autograd on it."""
+
+    def _args(self, batch, dtype, case):
+        def f(k):
+            return torch.tensor(batch[k], dtype=dtype)
+        reset, mask = torch.tensor(batch["reset"]), torch.tensor(batch["mask"])
+        if case == "as matern32_gp_ln_like calls it":
+            # one amplitude and timescale per walker, no reset, no mask
+            return ([f("t"), f("y"), f("yerr"), f("sigma2")[:, :1, :1],
+                     f("c")[:, :1]], {})
+        return ([f("t"), f("y"), f("yerr"), f("sigma2"), f("c")],
+                {"reset": reset, "mask": mask})
+
+    def _through_the_function(self, args, kw):
+        t, y, yerr, sigma2, c = args
+        prep = gp._prepare(t, y, yerr, sigma2, c, kw.get("reset"),
+                           kw.get("mask"))
+        t_, yerr_, sigma2_, c_, reset_, mask_ = prep
+        return gp._Recursion.apply(t_, y, yerr_, sigma2_, c_, reset_, mask_)
+
+    @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                            (torch.float32, 1e-5)])
+    def test_forward_matches_the_plain_loop(self, batch, compiled_k3,
+                                            monkeypatch, dtype, rtol):
+        monkeypatch.setattr(gp, "_launch", compiled_k3)
+        args, kw = self._args(batch, dtype, "segments")
+        before = gp.LAUNCHES
+        got = self._through_the_function(args, kw)
+        assert gp.LAUNCHES == before + 1
+        ref = gp.segmented_matern32_plain(*args, **kw)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=rtol)
+
+    @pytest.mark.parametrize("case", ["segments",
+                                      "as matern32_gp_ln_like calls it"])
+    @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                           (torch.float32, 1e-3)])
+    def test_reverse_kernel_matches_autograd_of_the_plain_loop(
+            self, batch, compiled_k3, monkeypatch, dtype, tol, case):
+        """The gradients in y, sigma2 and c, the last two also where they
+        came in broadcast, within ``tol`` of each one's largest entry (the
+        card's gate); one launch of each kernel."""
+        monkeypatch.setattr(gp, "_launch", compiled_k3)
+        args, kw = self._args(batch, dtype, case)
+        cot = torch.tensor(np.random.default_rng(5).standard_normal((W, E)),
+                           dtype=dtype)
+        grads = {}
+        for name in ("kernel", "plain"):
+            leaves = [a.clone().requires_grad_()
+                      for a in (args[1], args[3], args[4])]
+            call = [args[0], leaves[0], args[2], leaves[1], leaves[2]]
+            before = (gp.LAUNCHES, gp.BACKWARD_LAUNCHES)
+            ll = (self._through_the_function(call, kw) if name == "kernel"
+                  else gp.segmented_matern32_plain(*call, **kw))
+            grads[name] = torch.autograd.grad(ll, leaves, cot)
+            n = int(name == "kernel")
+            assert (gp.LAUNCHES, gp.BACKWARD_LAUNCHES) == (before[0] + n,
+                                                           before[1] + n)
+        for k, p, leaf in zip(grads["kernel"], grads["plain"],
+                              (args[1], args[3], args[4])):
+            assert k.shape == p.shape == leaf.shape
+            assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0
+            assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+    def test_no_state_is_kept_without_a_gradient(self, batch, compiled_k3,
+                                                 monkeypatch):
+        seen = []
+
+        def launch(which, y, pointers):
+            seen.append((which, pointers[-1]))
+            compiled_k3(which, y, pointers)
+
+        monkeypatch.setattr(gp, "_launch", launch)
+        args, kw = self._args(batch, torch.float64, "segments")
+        self._through_the_function(args, kw)
+        assert seen == [(0, None)]
+        with pytest.raises(TypeError):
+            self._through_the_function([args[0].float(), *args[1:]], kw)
 
 
 class TestChangepoints:

@@ -15,13 +15,16 @@ line:
   the same tree with use_gp on every eclipse, at 1024 walkers;
 - ms per call of the checkout's kernels, through its own wrappers and
   timed with CUDA events: K1 on the contact rows one evaluation hands it
-  (5120 x 512), K2 on that evaluation's stream inputs (primal at 1024
-  walkers, with sensitivities at 256; float32 and float64), K3 on the
-  GP evaluation's series (5120 x 128 points; float32 and float64) and,
-  where the checkout has it, K3's recorded forward and its backward pass
-  on the same series' first 256 walkers;
-- a SHA-256 of each kernel's outputs, so that two checkouts whose
-  kernels give the same bits print the same digests.
+  (5120 x 512), K1's backward on the contact rows one gradient evaluation
+  hands it (1280 x 512; the backward pass of element_intervals_diff, as a
+  forward and backward less a forward), K2 on the evaluation's stream
+  inputs (primal at 1024 walkers, with sensitivities at 256; float32 and
+  float64), K3 on the GP evaluation's series (5120 x 128 points; float32
+  and float64) and, where the checkout has it, K3's recorded forward and
+  its backward pass on the same series' first 256 walkers;
+- a SHA-256 of each kernel's outputs (for K1's backward, of its six
+  gradients), so that two checkouts whose kernels give the same bits
+  print the same digests.
 
 The evaluations are host-bound, so compare two checkouts only within one
 call, each in its own process, in the order a, b, b, a:
@@ -105,13 +108,17 @@ def main():
     lpw = make_ln_prob(with_calib_widths(build_model(**spec)).compile(),
                        dtype=F32, device=DEV)
     posw = walkers(model.var_start(), 256, 1)
-    lpw.value_and_grad(posw)
+    with mock.patch.object(contacts, "element_intervals_diff",
+                           wraps=contacts.element_intervals_diff) as rec_d:
+        lpw.value_and_grad(posw)
     vg = turns(lambda: lpw.value_and_grad(posw), reps=1)
 
     k1_args = rec.call_args.args
     kernels = {"k1": {"ms": event_ms(
         lambda: contacts.element_intervals_kernel(*k1_args), 20),
         "sha256": digest(contacts.element_intervals_kernel(*k1_args))}}
+    kernels["k1_backward"] = k1_backward(
+        contacts, [a.detach() for a in rec_d.call_args.args])
     with torch.inference_mode():
         cvp = model.cv_params(model.full_from_var(pos))
         q = cvp[:, 0, 4].contiguous()
@@ -130,6 +137,27 @@ def main():
                       "eval_ms": ev, "value_and_grad_ms": vg,
                       "gp_eval_ms": gp_turns(spec, pos, kernels),
                       "kernels": kernels}))
+
+
+def k1_backward(contacts, rows):
+    """ms of the backward pass of ``element_intervals_diff`` on ``rows``
+    (a forward and backward less a forward) and a digest of its six
+    gradients, for a seeded cotangent on both edges."""
+    cot = torch.randn(rows[2].shape, generator=torch.Generator(
+        device=DEV).manual_seed(1), dtype=F32, device=DEV)
+
+    def run(backward):
+        leaves = [a.clone().requires_grad_() for a in rows[:6]]
+        with torch.enable_grad():
+            pin, pout, _ = contacts.element_intervals_diff(*leaves, rows[6])
+        if backward:
+            return torch.autograd.grad([pin, pout], leaves, [cot, cot],
+                                       allow_unused=True)
+
+    grads = [torch.zeros(()) if g is None else g for g in run(True)]
+    return {"ms": event_ms(lambda: run(True), 5)
+            - event_ms(lambda: run(False), 5),
+            "rows": list(rows[2].shape), "sha256": digest(grads)}
 
 
 def gp_turns(spec, pos, kernels):
