@@ -17,15 +17,17 @@ x 256 walkers.  Phases:
   1. device: the card, its power limit, the builds of K1 (contacts.cu),
      K1's backward (contacts_backward.cu), K2 (stream.cu) and K3 (gp.cu)
      from lfit_python_tpu_torch/ops/csrc/, in parallel, with the stack
-     frame of each instantiation of K1's backward, K2 and K3 from ptxas
-     (must be 0: nothing in local memory; K3's are the forward and the
-     reverse kernel in both dtypes);
+     frame and registers of each instantiation of K1's backward (one pass
+     each in float32 and float64), K2 and K3 from ptxas (the frame must be
+     0: nothing in local memory; K3's are the forward kernel with and
+     without the kept state and the reverse kernel, in both dtypes);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
      device launches of one call of each wrapper (K1, K1 with its
-     backward kernel, K2, K2 with sensitivities, K3, K3 with its reverse
-     pass), read by the profiler;
+     backward kernel, K2, K2 with sensitivities, K3 (one gp_kernel and no
+     other device event), K3 with its reverse pass (at most 3 events)),
+     read by the profiler;
   3. the posterior with K1 against the same posterior with the plain
      contact solver, at the same 1024 walkers, timed in turns; ms per
      evaluation, the stream scan (K2) alone, peak device memory, and the
@@ -49,8 +51,9 @@ x 256 walkers.  Phases:
      (3 steps) at 256 chains x 16 leapfrog steps, with the counts read
      around the run;
   9. K3 against its plain version on the series one evaluation of the GP
-     model hands it (5120 series x 128 points), float32 and float64; its
-     time, the plain loop's, its bound; K3's reverse kernel against
+     model hands it (5120 series x 128 points), float32 (the float64 plain
+     loop as referee) and float64; its time, the plain loop's, its bound
+     and its chain floor; K3's reverse kernel against
      autograd on the plain loop on the series one gradient evaluation
      hands it (1280 series x 128 points), both dtypes, its time and bound;
  10. the GP posterior: at 1024 walkers with K3 and with the plain
@@ -120,21 +123,32 @@ K2_OPS_STEP_COLUMN = 248
 # twice their count (the Newton iterate's own tangent is kept: nothing is
 # dropped on the strength of the envelope theorem); per element, the
 # never-eclipsed phase's atan2 gradient and the masks.  What
-# contacts_backward_kernel executes, counted from its source with every
-# tangent operation: forward mode carries 5 tangents, 3168 per edge (291
-# setup, 3 x 649 Newton steps, 3 x 268 end values, 68 selects, 41 dc/dphi,
-# 17 for the coefficient and the sums) on every element's edges, eclipsed
-# or not, and 100 per element
-# K3 per point of a series (the divide, the log and each select as one);
-# its reverse kernel per point: the step's forward again without the log
-# (42), the adjoint (112) and the angles' and the decay's adjoints folded
+# contacts_backward_kernel executes, counted from its source: a reverse
+# sweep on each eclipsed element's two edges (those of the others are
+# skipped), 1188 per edge (216 for the forward's chord and 3 Newton steps,
+# 133 for the end values, dc/dphi and the adjoint w, 839 for the sweep:
+# the selects, 3 x 64 for the end values, 3 x 183 for the Newton steps
+# with their terms recomputed, 82 for the chord and the angles), and 47
+# per element
+# K3 per point of a series (the divide, the log, sincospi, exp and each
+# select as one): the recursion's 64 and the angle's and the decay's 7; its
+# reverse kernel per point: the step's forward again without the log (42),
+# the adjoint (112), the angle and the decay (7) and their adjoints folded
 # into d c (10)
-K3_OPS_POINT = 64
-K3_BWD_OPS_POINT = 164
+K3_OPS_POINT = 64 + 7
+K3_BWD_OPS_POINT = 171
+# K3's dependent chain per point, in cycles, counted from gp.cu's gp_step
+# with assumed latencies (a float32 add or multiply 4 cycles, a float64 one
+# 8, a select or clamp 4-8, the reciprocal estimate 20 / 28): the decay (2),
+# S U (2), D (3) and its clamp, the reciprocal and its Newton step (2 /
+# 4), the quotient and its correction (3), the update (3) and the mask's
+# select.  P times that over the SM clock is the chain floor, a model
+# number beside the measured time, not a measurement
+K3_CHAIN_CYCLES = {"float32": 92, "float64": 172}
 K1_BWD_OPS_EDGE = 321 + 2 * 281
 K1_BWD_OPS_ELEMENT = 15
-K1_BWD_EXECUTED_EDGE = 3168
-K1_BWD_EXECUTED_ELEMENT = 100
+K1_BWD_EXECUTED_EDGE = 1188
+K1_BWD_EXECUTED_ELEMENT = 47
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -216,7 +230,8 @@ def _bound(ops, nbytes, dtype="float32"):
 
 
 def _stack_frames(ptxas_log):
-    """{kernel entry: stack-frame bytes} from an ``-Xptxas -v`` report."""
+    """{kernel entry: (stack-frame bytes, registers)} from an ``-Xptxas
+    -v`` report."""
     frames, entry = {}, None
     for ln in ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -224,19 +239,31 @@ def _stack_frames(ptxas_log):
             entry = m.group(1)
         m = re.search(r"(\d+) bytes stack frame", ln)
         if m and entry is not None:
-            frames[entry] = int(m.group(1))
+            frames[entry] = [int(m.group(1)), None]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry in frames:
+            frames[entry][1] = int(m.group(1))
             entry = None
-    return frames
+    return {e: tuple(v) for e, v in frames.items()}
+
+
+def _sm_clock_hz():
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
 
 
 def _short_entry(entry):
     """``kernel<f32>`` for a mangled template kernel's entry name."""
-    m = re.search(r"\d([a-z_]+_kernel)I([fd])(?:Lb([01]))?", entry)
+    m = re.search(r"\d([a-z_]+_kernel)I([fd])(?:Lb([01])|Li(\d+)ELi(\d+))?",
+                  entry)
     if not m:
         return entry[-44:]
-    name, typ, flag = m.groups()
-    return (f"{name}<{'f32' if typ == 'f' else 'f64'}"
-            f"{'' if flag is None else ', ' + flag}>")
+    name, typ, flag, threads, blocks = m.groups()
+    extra = ("" if flag is None else ", " + flag) + (
+        "" if threads is None else f", {threads} threads, {blocks} blocks")
+    return f"{name}<{'f32' if typ == 'f' else 'f64'}{extra}>"
 
 
 def _launches_per_call(calls):
@@ -413,12 +440,16 @@ def main():
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
     print(f"[1 device] K1, K1's backward, K2 and K3 built and loaded in "
           f"{build_s:.2f} s")
+    registers = {}
     for tag, name, n_inst in (("K1's backward", "contacts_backward", 2),
-                              ("K2", "stream", 4), ("K3", "gp", 4)):
+                              ("K2", "stream", 4), ("K3", "gp", 6)):
         frames = _stack_frames(_build.PTXAS_LOGS[name].read_text())
-        print(f"[1 device] {tag} stack frames (bytes, ptxas): " + ", ".join(
-            f"{_short_entry(e)} {b}" for e, b in sorted(frames.items())))
-        _check(len(frames) == n_inst and not any(frames.values()),
+        registers[name] = {_short_entry(e): r for e, (_, r) in frames.items()}
+        print(f"[1 device] {tag} stack frames (bytes) and registers, ptxas: "
+              + ", ".join(f"{_short_entry(e)} {b} bytes, {r} registers"
+                          for e, (b, r) in sorted(frames.items())))
+        _check(len(frames) == n_inst
+               and not any(b for b, _ in frames.values()),
                f"a {tag} instantiation keeps an array in local memory")
 
     # ---- the north-star model and 1024 walkers around its start -------
@@ -542,6 +573,8 @@ def main():
                  for sens, tag in ((False, "K2"),
                                    (True, "K2 with sensitivities"))}
     k3_launch = _check_launches("K3", events["K3"], "gp_kernel")
+    _check(k3_launch[1] == 1, "a K3 call runs device kernels besides "
+           f"gp_kernel: {[nm[:60] for nm in events['K3']]}")
     ev = events["K1 with its backward"]
     k1_bwd_launch = [sum(bool(re.search(rf"\b{k}\b", nm)) for nm in ev)
                      for k in ("contacts_kernel", "contacts_backward_kernel")]
@@ -563,14 +596,14 @@ def main():
     print(f"[2 launches] K3 with its reverse pass, one forward and backward "
           f"of the wrapper: {k3_bwd_launch[0]} gp_kernel and "
           f"{k3_bwd_launch[1]} gp_backward_kernel launch, {len(ev)} device "
-          f"events in all (limit: fewer than 25; the rest PyTorch's kernels "
-          f"for the angles and the decay and its sum of d sigma2), "
+          f"events in all (limit 3: the kernels make the angles and the "
+          f"decay themselves; the rest PyTorch's), "
           f"{sum(nm.startswith(('Memcpy', 'Memset')) for nm in ev)} copies "
-          f"or sets")
+          f"or sets: " + ", ".join(nm[:40] for nm in ev))
     _check(k3_bwd_launch == [1, 1], "a K3 forward and backward is not one "
            f"launch of each kernel: {[nm[:60] for nm in ev]}")
-    _check(len(ev) < 25, f"a K3 forward and backward is {len(ev)} device "
-           "events, not fewer than 25")
+    _check(len(ev) <= 3, f"a K3 forward and backward is {len(ev)} device "
+           "events, more than 3")
     k3_bwd_events = len(ev)
 
     def traced_us(call, kernel):
@@ -806,8 +839,17 @@ def main():
     n_ecl_g = int(k1_ecl[2].sum().item())
     n_el_g = crow[2].numel()
     bwd_ops = 2 * n_ecl_g * K1_BWD_OPS_EDGE + n_el_g * K1_BWD_OPS_ELEMENT
-    bwd_ops_run = n_el_g * (2 * K1_BWD_EXECUTED_EDGE
-                            + K1_BWD_EXECUTED_ELEMENT)
+    # the kernel sweeps the edges of eclipsed elements and of those with a
+    # non-finite input
+    row_ok = (torch.isfinite(crow[0]) & torch.isfinite(crow[1])
+              & torch.isfinite(crow[4]))[:, None]
+    swept = k1_ecl[2] | ~(row_ok & torch.isfinite(crow[2])
+                          & torch.isfinite(crow[3])
+                          & torch.isfinite(k1_ecl[0])
+                          & torch.isfinite(k1_ecl[1]))
+    n_swept = int(swept.sum().item())
+    bwd_ops_run = (2 * n_swept * K1_BWD_EXECUTED_EDGE
+                   + n_el_g * K1_BWD_EXECUTED_ELEMENT)
     # px, py, both phases, both cotangents and the flags in; d px, d py out
     bwd_bytes = n_el_g * (6 * 4 + 1 + 2 * 4)
     k1_bwd_bound, k1_bwd_by = _bound(bwd_ops, bwd_bytes)
@@ -895,10 +937,13 @@ def main():
           f"GFLOP ({K1_BWD_OPS_EDGE} per eclipsed edge + "
           f"{K1_BWD_OPS_ELEMENT} per element), {bwd_bytes / 1e6:.1f} MB: "
           f"bound {k1_bwd_bound * 1e3:.1f} us (set by {k1_bwd_by}), the "
-          f"kernel at {k1_bwd_bound / k1_bwd_kernel_ms:.2%} of it; the "
+          f"kernel at {k1_bwd_bound / k1_bwd_kernel_ms:.2%} of it "
+          f"({k1_bwd_bound * 1e3 / max(k1_bwd_us, 1e-9):.2%} of its traced "
+          f"time); the "
           f"kernel executes {bwd_ops_run / 1e9:.3f} GFLOP "
-          f"({K1_BWD_EXECUTED_EDGE} per edge in forward mode + "
-          f"{K1_BWD_EXECUTED_ELEMENT} per element), "
+          f"({K1_BWD_EXECUTED_EDGE} per edge of the {n_swept} elements it "
+          f"sweeps in reverse mode + {K1_BWD_EXECUTED_ELEMENT} per element), "
+          f"ptxas registers {registers['contacts_backward']}, "
           f"{k1_bwd_run_bound * 1e3:.1f} us at the peak rate: "
           f"{k1_bwd_run_bound / k1_bwd_kernel_ms:.1%} of that")
 
@@ -992,16 +1037,23 @@ def main():
     # ---- 9. K3 vs plain on the GP model's own series --------------------
     k3 = {}
     n_ser = n_w * n_e
+    sm_hz = _sm_clock_hz()
+    # the float64 plain loop, from which the float32 paths' distances are
+    # printed
+    ll_ref = gp.segmented_matern32_plain(*[a.double() for a in gp_args],
+                                         **gp_kw)
     for dt in (f32, f64):
         name = str(dt)[6:]
         t_, y_, yerr_, s2_, c_ = [a.to(dt) for a in gp_args]
         prep = gp._prepare(t_, y_, yerr_, s2_, c_, gp_kw["reset"],
                            gp_kw["mask"])
         t_, yerr_, s2_, c_, reset_, mask_ = prep
-        rec_in = (y_, s2_.contiguous(), *gp._angles_decay(t_, c_), reset_,
-                  yerr_, mask_)
+        # the kernel on the prepared inputs, against the plain loop on the
+        # angles and the decay PyTorch makes from the same t and c
+        rec_k = (t_, y_, yerr_, s2_, c_, reset_, mask_)
+        rec_in = (y_, s2_, *gp._angles_decay(t_, c_), reset_, yerr_, mask_)
         call = (t_, y_, yerr_, s2_, c_)
-        ll_k = gp._recursion_kernel(*rec_in)
+        ll_k = gp._recursion_kernel(*rec_k)
         ll_p = gp._recursion_plain(*rec_in)
         ll_kw = gp.segmented_matern32_kernel(*call, **gp_kw)
         ll_pw = gp.segmented_matern32_plain(*call, **gp_kw)
@@ -1012,7 +1064,12 @@ def main():
                     (ll_kw - ll_pw).abs().max().item())
         d_rel = max(((ll_k - ll_p).abs() / ll_p.abs()).max().item(),
                     ((ll_kw - ll_pw).abs() / ll_pw.abs()).max().item())
-        kernel_ms = _event_ms(lambda: gp._recursion_kernel(*rec_in), 20)
+        # float32, printed beside the gate: each path's largest distance
+        # from the float64 plain loop
+        far = torch.maximum((ll_k.double() - ll_ref).abs(),
+                            (ll_kw.double() - ll_ref).abs()).max().item()
+        plain_far = (ll_pw.double() - ll_ref).abs().max().item()
+        kernel_ms = _event_ms(lambda: gp._recursion_kernel(*rec_k), 20)
         ms = _event_ms(lambda: gp.segmented_matern32_kernel(*call, **gp_kw),
                        20)
         plain_ms = _event_ms(lambda: gp.segmented_matern32_plain(
@@ -1025,22 +1082,28 @@ def main():
                   + n_e * n_p * (2 * isz + 1) + n_ser * isz)
         ops = n_ser * n_p * K3_OPS_POINT
         bound = _bound(ops, nbytes, name)
+        chain_ms = n_p * K3_CHAIN_CYCLES[name] / sm_hz * 1e3
         k3[dt] = dict(err=d_abs, rel=d_rel, ms=ms, plain_ms=plain_ms,
                       kernel_ms=kernel_ms, bound=bound, ops=ops,
                       nbytes=nbytes)
         gate = (f"max |d ll| {d_abs:.3e} (limit 1e-5 x {n_p} = "
-                f"{1e-5 * n_p:.2e})" if dt == f32 else
-                f"max relative {d_rel:.3e} (limit 1e-11)")
-        print(f"[9 K3] {name} {n_ser} series x {n_p} points, the recursion "
-              f"alone and the whole wrapper against their plain versions: "
-              f"{gate}; max |ll| {ll_p.abs().max().item():.1f}; the "
-              f"wrapper's call (gp_kernel and its {k3_launch[1] - 1} PyTorch "
-              f"kernels) {ms:.4f} ms, gp_kernel alone {kernel_ms:.4f} ms "
+                f"{1e-5 * n_p:.2e}); from the float64 plain loop the kernel "
+                f"{far:.3e}, the float32 plain loop {plain_far:.3e}"
+                if dt == f32 else f"max relative {d_rel:.3e} (limit 1e-11)")
+        print(f"[9 K3] {name} {n_ser} series x {n_p} points, the kernel on "
+              f"the prepared inputs and the whole wrapper against their "
+              f"plain versions: {gate}; max |ll| "
+              f"{ll_p.abs().max().item():.1f}; the wrapper's call "
+              f"({k3_launch[1]} device event) {ms:.4f} ms, the kernel on "
+              f"the prepared inputs {kernel_ms:.4f} ms "
               f"({kernel_ms / n_p * 1e6:.0f} ns per point), plain "
               f"{plain_ms:.1f} ms ({plain_ms / ms:.0f}x); bound "
               f"{bound[0] * 1e3:.2f} us ({ops / 1e9:.3f} G{name} ops, "
               f"{nbytes / 1e6:.1f} MB, set by {bound[1]}): the call at "
-              f"{bound[0] / ms:.2%} of its bound")
+              f"{bound[0] / ms:.2%} of its bound; the chain floor "
+              f"{chain_ms * 1e3:.2f} us ({n_p} x {K3_CHAIN_CYCLES[name]} "
+              f"cycles at {sm_hz / 1e6:.0f} MHz, a model); ptxas registers "
+              f"{registers['gp']}")
         _check(d_abs <= 1e-5 * n_p if dt == f32 else d_rel <= 1e-11,
                f"K3 disagrees with its plain version ({name})")
 
@@ -1077,15 +1140,12 @@ def main():
             call[0], call[1], call[2], call[3], call[4], gk["reset"],
             gk["mask"])
         # the reverse kernel alone: its launch on a forward's kept state
-        tensors = gp._checked(call[1], s2_, *gp._angles_decay(t_, c_),
-                              reset_, yerr_, mask_)
+        tensors = gp._checked(t_, call[1], yerr_, s2_, c_, reset_, mask_)
         state = torch.empty((5, n_p, n_ser_g), dtype=dt, device=dev)
         gp._forward(tensors, state)
-        t_c = t_.contiguous()
         ms = _event_ms(lambda: torch.autograd.grad(
             ll_w, leaves_w, cot, retain_graph=True), 20)
-        kernel_ms = _event_ms(lambda: gp._backward(tensors, t_c, state, cot),
-                              20)
+        kernel_ms = _event_ms(lambda: gp._backward(tensors, state, cot), 20)
         plain_ms = _event_ms(lambda: torch.autograd.grad(
             ll_pl, leaves_pl, cot, retain_graph=True), 2, 1)
         fwd_ms = _event_ms(lambda: _k3_graph(gp.segmented_matern32_kernel,
@@ -1486,6 +1546,8 @@ def main():
          "bound_ms": k1_bwd_bound, "bound_by": k1_bwd_by, "ops": bwd_ops,
          "bytes": bwd_bytes, "ops_executed": bwd_ops_run,
          "executed_ops_at_peak_ms": k1_bwd_run_bound,
+         "elements_swept": n_swept,
+         "registers": registers["contacts_backward"],
          "library_ms": None,
          "library_ms_reason": NO_LIBRARY.format(
              "the implicit-function-theorem gradient of those contact "
@@ -1532,6 +1594,7 @@ def main():
          "ns_per_point_kernel_only": k3_us["forward"] / n_p * 1e3,
          "bound_ms": k3[f32]["bound"][0], "bound_by": k3[f32]["bound"][1],
          "ops": k3[f32]["ops"], "bytes": k3[f32]["nbytes"],
+         "registers": registers["gp"],
          "library_ms": None,
          "library_ms_reason": NO_LIBRARY.format(
              "a semi-separable Cholesky recursion with segment resets"),

@@ -21,12 +21,12 @@ exists, does it run the plain version.
 ``contacts_op_diff``, ``pallas_contacts.py:448-494``): the same forward,
 and a backward that takes the implicit-function-theorem gradient of the
 contact phases at the solved roots of ``roche.geometry._edge_residual``.
-By the same dtype rule the backward of float32 goes to
-:func:`contact_backward_kernel`, which launches the hand-written CUDA
-kernel ``csrc/contacts_backward.cu`` for CUDA tensors (and raises on a
-build or launch failure), and float64 to :func:`_contact_backward_plain`,
-autograd on the residual in plain PyTorch, as the reference's backward is
-plain XLA.
+The backward of both dtypes goes to :func:`contact_backward_kernel`,
+which launches the hand-written CUDA kernel ``csrc/contacts_backward.cu``
+(a reverse sweep of the residual, one pass in float32 and in float64) for
+CUDA tensors and raises on a build or launch failure; only tensors on the
+CPU take :func:`_contact_backward_plain`, autograd on the residual in
+plain PyTorch, as the reference's backward is plain XLA.
 """
 
 from __future__ import annotations
@@ -176,9 +176,9 @@ def contact_backward_kernel(q, incl, px, py, x1, pl1, phi_in, phi_out, ecl,
                             g_in, g_out):
     """:func:`_contact_backward_plain` on the card: one launch of
     ``contacts_backward_kernel`` for all rows, both edges of an element in
-    one thread, the per-row sums in a fixed order.  float32 or float64
-    CUDA tensors of one dtype (raises otherwise); tensors on the CPU take
-    the plain version."""
+    one thread (a reverse sweep of the residual), the per-row sums in a
+    fixed order.  float32 or float64 CUDA tensors of one dtype (raises
+    otherwise); tensors on the CPU take the plain version."""
     global BACKWARD_LAUNCHES
     if px.device.type == "cpu":
         return _contact_backward_plain(q, incl, px, py, x1, pl1, phi_in,
@@ -230,9 +230,9 @@ class _ContactIntervals(torch.autograd.Function):
     phi* of c(phi; theta) = 0, dphi*/dtheta = -(dc/dtheta) / (dc/dphi):
     the backward evaluates the residual at the detached roots of both
     edges, takes dc/dphi's value (non-finite coefficients zeroed) and the
-    VJP of c in (q, incl, px, py, x1, pl1): float32 through
-    :func:`contact_backward_kernel`, float64 through
-    :func:`_contact_backward_plain`.  Non-eclipsed elements carry
+    VJP of c in (q, incl, px, py, x1, pl1), in either dtype through
+    :func:`contact_backward_kernel` (the kernel for CUDA tensors, the
+    plain backward for CPU ones).  Non-eclipsed elements carry
     phi_c = atan2(py, 1 - px) / 2 pi and its gradient; ``r_ins`` shapes
     only the bracket and gets none."""
 
@@ -250,10 +250,8 @@ class _ContactIntervals(torch.autograd.Function):
     def backward(ctx, g_in, g_out, _):
         global BACKWARD_CALLS
         BACKWARD_CALLS += 1
-        px = ctx.saved_tensors[2]
-        fn = (contact_backward_kernel if px.dtype == torch.float32
-              else _contact_backward_plain)
-        return (*fn(*ctx.saved_tensors, g_in, g_out), None)
+        return (*contact_backward_kernel(*ctx.saved_tensors, g_in, g_out),
+                None)
 
 
 def element_intervals_diff(q, incl, px, py, x1, pl1, r_ins):

@@ -13,41 +13,58 @@
 // (row, element) and each of its two edges the kernel evaluates the
 // envelope residual c at the solved root as _edge_residual does (chord
 // ends from the enclosing sphere, 3 clamped Newton steps in the ray
-// parameter t, the end-point selects, the no-occultation branch), its
-// phase derivative dc/dphi, and the whole row of its Jacobian dc/dtheta,
-// and adds g * (-1 / dcdphi) * dc/dtheta to the gradients (a non-finite
-// coefficient counts as 0).  A never-eclipsed element carries phi_c =
-// atan2(py, 1 - px) / 2 pi and that function's gradient.  d px and d py are
-// per element; d q, d incl, d x1 and d pl1 are sums over the row.
+// parameter t, the end-point selects, the no-occultation branch) and its
+// phase derivative dc/dphi, and passes the adjoint w = g * (-1 / dcdphi)
+// (a non-finite coefficient counts as 0) back through c into the gradients.
+// A never-eclipsed element carries phi_c = atan2(py, 1 - px) / 2 pi and
+// that function's gradient.  d px and d py are per element; d q, d incl,
+// d x1 and d pl1 are sums over the row.
 //
-// How dc/dtheta is taken: forward mode.  c is one number per edge and
-// theta five (pl1 enters as -1), so the tangents are carried beside every
-// value through the unrolled Newton steps (struct Dual).  Each rule below
-// is the linear map whose transpose is PyTorch's backward of the same
-// operation, also where that is a convention and not calculus: clamp
-// passes a tangent where x >= its floor, minimum / maximum pass the
-// smaller / larger side's and half of each at a tie (with a NaN on either
-// side, both), where() passes the selected side's.  The chord ends reach c
-// only through such clamps and selects, which is why d c / d x1 is exactly
-// 0 wherever the Newton iterate stays inside the chord: nothing is dropped
-// on the strength of the envelope theorem, the rules make it so.  float32
-// carries all five tangents in one pass; float64, at two registers a
-// number, would spill them, and takes (q, incl, x1) and (px, py) in two
-// passes over the same templates (struct Slots).
+// How dc/dtheta is taken: reverse mode.  c is one number per edge, so an
+// edge runs the residual's forward once, keeping its chord, its end values
+// and its 4 Newton iterates (struct Edge), then sweeps back from c with one
+// adjoint, recomputing each Newton step's terms from its iterate (struct
+// Step) rather than keeping them.  The sweep's rules are PyTorch's backward
+// rules themselves, also where they are a convention and not calculus:
+// clamp passes the adjoint where x >= its floor; minimum / maximum pass it
+// to the smaller / larger side, half to each at a tie and all to both with
+// a NaN on either side; where() passes it to the selected side (the
+// guarded Newton step's other branch gets 0, which still meets the divide's
+// rule, as in autograd).  The chord ends reach c only through such clamps
+// and selects, which is why d c / d x1 is exactly 0 wherever the Newton
+// iterate stays inside the chord.  The row's inputs enter as mu, sin(incl)
+// and the sphere's radius; their adjoints are summed over the row first and
+// mapped to q, incl and x1 once, as autograd does at a broadcast.
+//
+// Skipped work.  A non-eclipsed element's edges have cotangent 0 (the
+// plain backward masks g by the flag), so their residual is not evaluated:
+// the plain backward gives exactly 0 there as long as its partials are
+// finite, which they are for finite inputs (short of a ray through a
+// star's centre).  Where an input of the element or its row is not finite,
+// the edges run with adjoint 0, and the NaNs reach the sums as they do in
+// autograd.
 //
 // What bounds it on the card: instructions, not bytes.  An element moves 33
 // bytes (px, py, two phases, two cotangents and a flag in, d px and d py
-// out) against a few thousand operations for its two edges; the bytes of
-// the main path's 1280 x 512 call are 0.006 ms at 3.35 TB/s.
+// out) against ~1,500 operations for its two edges; the bytes of the main
+// path's 1280 x 512 call are 0.006 ms at 3.35 TB/s.
 //
 // What the design does about it: one thread owns one element at a time
 // and does both of its edges in registers; nothing is indexed at run time,
-// so nothing lives in local memory (ptxas: 0 bytes stack frame).  One
-// block of 128 threads owns one row and strides over its elements (any
-// n >= 1), so the four row sums are one block's: each thread adds its own
-// elements in order, a warp adds its lanes by shuffles, and threads 0-3
-// each add one sum's four warp totals from shared memory.  No atomics: the same inputs
-// give the same bits on every run.
+// so nothing lives in local memory (ptxas: 0 bytes stack frame in both
+// dtypes, one pass each).  One block owns one row and strides over its
+// elements (any n >= 1).  The block's shape follows the register count,
+// measured on an H100 against the 1280 x 512 rows of the main path
+// (PERF.md): float32 needs 142 registers unbounded, and 118 with no spill
+// when asked for 4 blocks of 128 threads an SM, so a row is 128 threads of
+// 4 elements each and 528 rows are resident at once (1280 rows in 2.4
+// waves: 89.8 us); blocks of 64 with 8 an SM (1.2 waves, the second a
+// fifth full) took 106.7 us, one warp a row 108.8 us, and 96 registers
+// (all rows in one wave) spill 72-80 bytes.  float64 takes 32 threads a
+// row at 244-254 registers, no spill.  The four row sums are the block's:
+// each thread adds its own elements in order, a warp adds its lanes by
+// shuffles, and thread 0 adds the warp totals from shared memory in order.
+// No atomics: the same inputs give the same bits on every run.
 //
 // Closeness to the plain version: not bit for bit.  The sums run in
 // another order, and the angles come from sincospi(2 phi) and
@@ -55,14 +72,10 @@
 // carry one with a local-memory array) and round the angle once less than
 // sin(2 pi phi).  Two float32 evaluations that round their angles
 // differently differ by about as much as each errs against float64, most
-// where 1 / dcdphi is large (near-grazing elements): measured on an H100,
-// the kernel is as close to the float64 plain backward as the plain
-// float32 backward is, and up to 1.4x that far from the latter (PERF.md).
-// Built with --fmad=false like K1.  The float64 instantiation exists for
-// the tests and chip_smoke.py, which hold it to autograd at 1e-9; the
-// main paths run float32.  A row with a NaN input gives NaN in all its
-// gradients but d pl1 (the plain backward, whose masks yield exact zeros,
-// also leaves 0 in d x1); the posterior zeroes non-finite gradients.
+// where 1 / dcdphi is large (near-grazing elements), which is what the
+// float32 gate of PERF.md allows.  Built with --fmad=false like K1.  A row
+// with a NaN input gives NaN in all its gradients but d pl1; the posterior
+// zeroes non-finite gradients.
 //
 // Arrays, row-major: q, incl, x1 (R,) of T (pl1 enters c as -pl1: its
 // value is not needed); px, py, phi_in, phi_out, g_in, g_out (R, N) of T;
@@ -76,20 +89,11 @@
 
 namespace {
 
-// Which of the five inputs a pass differentiates, and in which tangent
-// slot each sits (-1: not in this pass).  float32 takes all five in one
-// pass.  float64 holds two registers a number, and all five spill (ptxas:
-// a 64-byte stack frame); it takes the row's inputs and the element's in
-// two passes over the same arithmetic.
-template <int Q, int I, int PX, int PY, int X1, int N_> struct Slots {
-  static constexpr int q = Q, incl = I, px = PX, py = PY, x1 = X1, n = N_;
-};
-using AllSlots = Slots<0, 1, 2, 3, 4, 5>;
-using RowSlots = Slots<0, 1, -1, -1, 2, 3>;
-using ElemSlots = Slots<-1, -1, 0, 1, -1, 2>;
-
 constexpr int kTNewton = 3;       // lockstep with geometry._EDGE_T_NEWTON
-constexpr int kBlock = 128;
+constexpr int kThreadsF32 = 128;  // threads per row (one block), float32
+constexpr int kThreadsF64 = 32;   // and float64
+constexpr int kMinBlocksF32 = 4;  // resident blocks an SM asked of ptxas
+constexpr int kMinBlocksF64 = 1;
 
 KB_FN float rsqrt_(float v) { return rsqrtf(v); }
 KB_FN double rsqrt_(double v) { return rsqrt(v); }
@@ -100,336 +104,357 @@ KB_FN void sincospi_(float v, float& s, float& c) { sincospif(v, &s, &c); }
 KB_FN void sincospi_(double v, double& s, double& c) { sincospi(v, &s, &c); }
 template <typename T> KB_FN bool finite_(T v) { return v - v == (T)0; }
 
-// a value and its derivatives in N directions
-template <typename T, int N> struct Dual {
-  T v;
-  T d[N];
+// torch.clamp(min=lo), torch.minimum, torch.maximum: NaN propagates
+template <typename T> KB_FN T clamp_min(T v, T lo) { return v < lo ? lo : v; }
+template <typename T> KB_FN T tmin(T a, T b) { return (a < b || a != a) ? a : b; }
+template <typename T> KB_FN T tmax(T a, T b) { return (a > b || a != a) ? a : b; }
+template <typename T> KB_FN T clip(T x, T lo, T hi) { return tmin(tmax(x, lo), hi); }
+
+// PyTorch's backward of minimum(a, b) / maximum(a, b) for the adjoint g:
+// the losing side gets 0, a tie halves g, a NaN on either side passes g
+// to both
+template <typename T> KB_FN void min_adj(T a, T b, T g, T& ga, T& gb) {
+  const T h = a == b ? g * (T)0.5 : g;
+  ga = a > b ? (T)0 : h;
+  gb = a < b ? (T)0 : h;
+}
+template <typename T> KB_FN void max_adj(T a, T b, T g, T& ga, T& gb) {
+  const T h = a == b ? g * (T)0.5 : g;
+  ga = a < b ? (T)0 : h;
+  gb = a > b ? (T)0 : h;
+}
+
+// the row's scalars: mu = q / (1 + q), sin and cos of the inclination,
+// the enclosing sphere's radius 1 - x1
+template <typename T> struct Row { T mu, one_mu, si, ci, rad; };
+// the element's: px, py, w = (1, 0) - p, |w|^2, |p|^2
+template <typename T> struct Elem { T px, py, wx, wy, ww, c1; };
+
+// what an edge's forward keeps for its reverse sweep (the chord is made
+// again at its end, by chord(), rather than kept)
+template <typename T> struct Edge {
+  T sn, cs, ex, ey, t_lo, t_hi, b1, b2, ee;
+  T t[kTNewton + 1];              // t[0] the clipped start, t[k + 1] step k's
+  bool no_occ;
 };
 
-template <int N, typename T> KB_FN Dual<T, N> lift(T v) {
-  Dual<T, N> r;
-  r.v = v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = (T)0;
-  return r;
-}
+// the ray's chord of the enclosing sphere: its closest approach tstar,
+// disc = rad^2 - |w - tstar e|^2, half = sqrt(clamp(disc, 1e-30)) and the
+// far end tstar + half before its clamp
+template <typename T> struct Chord { T tstar, disc, half, hi_raw; };
 
-// the input of slot K, or a function of it alone with derivative dv; an
-// input that has no slot in this pass (K < 0) is a constant
-template <int N, int K, typename T> KB_FN Dual<T, N> seed(T v, T dv) {
-  Dual<T, N> r = lift<N>(v);
-  if constexpr (K >= 0) r.d[K] = dv;
-  return r;
-}
+// the adjoints one edge's sweep gathers before they reach the element's
+// and the row's; those of px, py, |p|^2, |w|^2 and mu go straight to the
+// element's (g.px, ...) and the row's (g.mu) sums
+template <typename T> struct Adj { T t_lo, t_hi, b1, b2, ex, ey, ee; };
 
-template <typename T, int N> KB_FN Dual<T, N> operator+(const Dual<T, N>& a, const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] + b.d[k];
-  return r;
-}
+// an element's adjoints of px, py, wx, wy, ww, c1, and the row's of mu
+template <typename T> struct Sink { T px, py, wx, wy, ww, c1, mu; };
 
-template <typename T, int N> KB_FN Dual<T, N> operator-(const Dual<T, N>& a, const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] - b.d[k];
-  return r;
-}
+// a thread's running sums of the row's adjoints: mu, sin(incl), the
+// sphere's radius, pl1
+template <typename T> struct RowAcc { T mu, si, rad, pl1; };
 
-template <typename T, int N> KB_FN Dual<T, N> operator-(const Dual<T, N>& a) {
-  Dual<T, N> r;
-  r.v = -a.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = -a.d[k];
-  return r;
-}
+// the terms of one Newton step at the iterate t
+template <typename T> struct Step { T i1, i2, u1, u2, i13, i23, cx, cy, g1, g2; };
 
-template <typename T, int N> KB_FN Dual<T, N> operator*(const Dual<T, N>& a, const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
-  return r;
+template <typename T>
+KB_FN Step<T> newton_terms(const Row<T>& r, const Elem<T>& el,
+                           const Edge<T>& e, T t) {
+  Step<T> s;
+  s.i1 = rsqrt_(t * t + (T)2 * e.b1 * t + el.c1);
+  s.i2 = rsqrt_(t * t + (T)2 * e.b2 * t + el.ww);
+  s.u1 = t + e.b1;
+  s.u2 = t + e.b2;
+  s.i13 = s.i1 * s.i1 * s.i1;
+  s.i23 = s.i2 * s.i2 * s.i2;
+  s.cx = el.px - r.mu + t * e.ex;
+  s.cy = el.py + t * e.ey;
+  s.g1 = r.one_mu * s.u1 * s.i13 + r.mu * s.u2 * s.i23
+         - (s.cx * e.ex + s.cy * e.ey);
+  s.g2 = r.one_mu * (s.i13 - (T)3 * s.u1 * s.u1 * s.i13 * s.i1 * s.i1)
+         + r.mu * (s.i23 - (T)3 * s.u2 * s.u2 * s.i23 * s.i2 * s.i2) - e.ee;
+  return s;
 }
-
-// a constant and a Dual
-template <typename T, int N> KB_FN Dual<T, N> cadd(T c, const Dual<T, N>& a) {
-  Dual<T, N> r = a;
-  r.v = c + a.v;
-  return r;
-}
-template <typename T, int N> KB_FN Dual<T, N> csub(T c, const Dual<T, N>& a) {
-  Dual<T, N> r = -a;
-  r.v = c - a.v;
-  return r;
-}
-template <typename T, int N> KB_FN Dual<T, N> cmul(T c, const Dual<T, N>& a) {
-  Dual<T, N> r;
-  r.v = c * a.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = c * a.d[k];
-  return r;
-}
-
-template <typename T, int N> KB_FN Dual<T, N> operator/(const Dual<T, N>& a, const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = a.v / b.v;
-  const T rb = (T)1 / b.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) * rb;
-  return r;
-}
-
-template <typename T, int N> KB_FN Dual<T, N> rsqrt_(const Dual<T, N>& a) {
-  Dual<T, N> r;
-  r.v = rsqrt_(a.v);
-  const T f = (T)-0.5 * (r.v * r.v * r.v);
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = f * a.d[k];
-  return r;
-}
-
-template <typename T, int N> KB_FN Dual<T, N> sqrt_(const Dual<T, N>& a) {
-  Dual<T, N> r;
-  r.v = sqrt_(a.v);
-  const T f = (T)0.5 / r.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = f * a.d[k];
-  return r;
-}
-
-// torch.clamp(min=lo): NaN passes through; a tangent passes where v >= lo
-template <typename T, int N> KB_FN Dual<T, N> clamp_min(const Dual<T, N>& a, T lo) {
-  Dual<T, N> r;
-  r.v = a.v < lo ? lo : a.v;
-  const bool pass = a.v >= lo;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.d[k] = pass ? a.d[k] : (T)0;
-  return r;
-}
-
-// torch.maximum / torch.minimum: NaN propagates; the tangent of the side
-// that loses is dropped, a tie takes half of each
-template <typename T, int N> KB_FN Dual<T, N> dmax(const Dual<T, N>& a, const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = (a.v > b.v || a.v != a.v) ? a.v : b.v;
-  const bool drop_a = a.v < b.v, drop_b = a.v > b.v, tie = a.v == b.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const T s = (drop_a ? (T)0 : a.d[k]) + (drop_b ? (T)0 : b.d[k]);
-    r.d[k] = tie ? (T)0.5 * s : s;
-  }
-  return r;
-}
-
-template <typename T, int N> KB_FN Dual<T, N> dmin(const Dual<T, N>& a, const Dual<T, N>& b) {
-  Dual<T, N> r;
-  r.v = (a.v < b.v || a.v != a.v) ? a.v : b.v;
-  const bool drop_a = a.v > b.v, drop_b = a.v < b.v, tie = a.v == b.v;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const T s = (drop_a ? (T)0 : a.d[k]) + (drop_b ? (T)0 : b.d[k]);
-    r.d[k] = tie ? (T)0.5 * s : s;
-  }
-  return r;
-}
-
-template <typename T, int N>
-KB_FN Dual<T, N> clip(const Dual<T, N>& x, const Dual<T, N>& lo, const Dual<T, N>& hi) {
-  return dmin(dmax(x, lo), hi);
-}
-
-// what an element's two edges share
-template <typename T, int N> struct Elem {
-  Dual<T, N> mu, si, rad, px, py, wx, wy, ww, c1;
-  T ci;
-};
 
 // g(t) = Phi(p + t e) along the ray
-template <typename T, int N>
-KB_FN Dual<T, N> g_val(const Elem<T, N>& s, const Dual<T, N>& t,
-                       const Dual<T, N>& ex, const Dual<T, N>& ey,
-                       const Dual<T, N>& b1, const Dual<T, N>& b2) {
-  const Dual<T, N> i1 = rsqrt_(t * t + cmul((T)2, b1) * t + s.c1);
-  const Dual<T, N> i2 = rsqrt_(t * t + cmul((T)2, b2) * t + s.ww);
-  const Dual<T, N> cx = s.px - s.mu + t * ex;
-  const Dual<T, N> cy = s.py + t * ey;
-  return -csub((T)1, s.mu) * i1 - s.mu * i2
-         - cmul((T)0.5, cx * cx + cy * cy);
+template <typename T>
+KB_FN T g_val(const Row<T>& r, const Elem<T>& el, const Edge<T>& e, T t) {
+  const T i1 = rsqrt_(t * t + (T)2 * e.b1 * t + el.c1);
+  const T i2 = rsqrt_(t * t + (T)2 * e.b2 * t + el.ww);
+  const T cx = el.px - r.mu + t * e.ex;
+  const T cy = el.py + t * e.ey;
+  return -r.one_mu * i1 - r.mu * i2 - (T)0.5 * (cx * cx + cy * cy);
 }
 
-// One edge: the residual's derivatives dc[k] in the pass's N directions
-// and in pl1 (dc_pl1), and the value of dc/dphi, at the phase ``phi``.
-template <typename T, int N>
-KB_FN void edge_residual(const Elem<T, N>& s, T phi, T (&dc)[N], T& dc_pl1,
-                         T& dcdphi) {
-  const T two_pi = (T)6.283185307179586;
-  T sn, cs;
-  sincospi_((T)2 * phi, sn, cs);
-  const Dual<T, N> ex = cmul(cs, s.si);
-  const Dual<T, N> ey = -cmul(sn, s.si);
-  const Dual<T, N> tstar = s.wx * ex + s.wy * ey;
-  const Dual<T, N> disc = s.rad * s.rad - (s.ww - tstar * tstar);
-  const Dual<T, N> half = sqrt_(clamp_min(disc, (T)1e-30));
-  const Dual<T, N> hi_raw = tstar + half;
-  const Dual<T, N> t_lo = clamp_min(tstar - half, (T)0);
-  const Dual<T, N> t_hi = clamp_min(hi_raw, (T)0);
-  const bool no_occ = disc.v <= (T)0 || hi_raw.v <= (T)1e-9;
-  const Dual<T, N> b1 = s.px * ex + s.py * ey;
-  const Dual<T, N> b2 = b1 - ex;
-  const Dual<T, N> one_mu = csub((T)1, s.mu);
-  const Dual<T, N> ee = ex * ex + ey * ey;
+template <typename T>
+KB_FN Chord<T> chord(const Row<T>& r, const Elem<T>& el, T ex, T ey) {
+  Chord<T> h;
+  h.tstar = el.wx * ex + el.wy * ey;
+  h.disc = r.rad * r.rad - (el.ww - h.tstar * h.tstar);
+  h.half = sqrt_(clamp_min(h.disc, (T)1e-30));
+  h.hi_raw = h.tstar + h.half;
+  return h;
+}
 
-  Dual<T, N> t = clip(tstar, t_lo, t_hi);
+// The forward of one edge at the phase phi: the chord's clamped ends, the
+// no-occultation flag and the Newton iterates.
+template <typename T>
+KB_FN Edge<T> edge_forward(const Row<T>& r, const Elem<T>& el, T phi) {
+  Edge<T> e;
+  sincospi_((T)2 * phi, e.sn, e.cs);
+  e.ex = r.si * e.cs;
+  e.ey = -r.si * e.sn;
+  const Chord<T> h = chord(r, el, e.ex, e.ey);
+  e.t_lo = clamp_min(h.tstar - h.half, (T)0);
+  e.t_hi = clamp_min(h.hi_raw, (T)0);
+  e.no_occ = h.disc <= (T)0 || h.hi_raw <= (T)1e-9;
+  e.b1 = el.px * e.ex + el.py * e.ey;
+  e.b2 = e.b1 - e.ex;
+  e.ee = e.ex * e.ex + e.ey * e.ey;
+  e.t[0] = clip(h.tstar, e.t_lo, e.t_hi);
 #pragma unroll
-  for (int it = 0; it < kTNewton; ++it) {
-    const Dual<T, N> i1 = rsqrt_(t * t + cmul((T)2, b1) * t + s.c1);
-    const Dual<T, N> i2 = rsqrt_(t * t + cmul((T)2, b2) * t + s.ww);
-    const Dual<T, N> u1 = t + b1, u2 = t + b2;
-    const Dual<T, N> i13 = i1 * i1 * i1, i23 = i2 * i2 * i2;
-    const Dual<T, N> cx = s.px - s.mu + t * ex;
-    const Dual<T, N> cy = s.py + t * ey;
-    const Dual<T, N> g1 = one_mu * u1 * i13 + s.mu * u2 * i23
-                          - (cx * ex + cy * ey);
-    const Dual<T, N> g2 =
-        one_mu * (i13 - cmul((T)3, u1) * u1 * i13 * i1 * i1)
-        + s.mu * (i23 - cmul((T)3, u2) * u2 * i23 * i2 * i2) - ee;
+  for (int k = 0; k < kTNewton; ++k) {
+    const Step<T> s = newton_terms(r, el, e, e.t[k]);
     // where(g2 > 1e-12, g1 / clamp(g2, 1e-12), 0)
-    Dual<T, N> step = lift<N>((T)0);
-    if (g2.v > (T)1e-12) step = g1 / clamp_min(g2, (T)1e-12);
-    t = clip(t - step, t_lo, t_hi);
+    const T step = s.g2 > (T)1e-12 ? s.g1 / clamp_min(s.g2, (T)1e-12) : (T)0;
+    e.t[k + 1] = clip(e.t[k] - step, e.t_lo, e.t_hi);
   }
-  Dual<T, N> val = g_val(s, t, ex, ey, b1, b2);
-  const Dual<T, N> v_lo = g_val(s, t_lo, ex, ey, b1, b2);
-  const Dual<T, N> v_hi = g_val(s, t_hi, ex, ey, b1, b2);
-  T tv = t.v;                          // the minimiser: its value is all
-  tv = v_lo.v < val.v ? t_lo.v : tv;   // dc/dphi needs
-  val = dmin(val, v_lo);
-  tv = v_hi.v < val.v ? t_hi.v : tv;
-  val = dmin(val, v_hi);
-  // c = where(no_occ, clear, val - pl1)
-#pragma unroll
-  for (int k = 0; k < N; ++k) dc[k] = no_occ ? (T)0 : val.d[k];
-  dc_pl1 = no_occ ? (T)0 : (T)-1;
+  return e;
+}
+
+// The adjoints of i1 = rsqrt(t^2 + 2 b1 t + c1), i2 = rsqrt(t^2 + 2 b2 t
+// + ww), cx = px - mu + t ex and cy = py + t ey at t, passed on to what
+// they are made of; returns the part that reaches t.
+template <typename T>
+KB_FN T ray_adj(const Edge<T>& e, T t, T i1, T i2, T g_i1, T g_i2, T g_cx,
+                T g_cy, Adj<T>& a, Sink<T>& k) {
+  const T g_a1 = (T)-0.5 * g_i1 * (i1 * i1 * i1);
+  const T g_a2 = (T)-0.5 * g_i2 * (i2 * i2 * i2);
+  k.c1 += g_a1;
+  k.ww += g_a2;
+  a.b1 += (T)2 * t * g_a1;
+  a.b2 += (T)2 * t * g_a2;
+  k.px += g_cx;
+  k.mu -= g_cx;
+  a.ex += t * g_cx;
+  k.py += g_cy;
+  a.ey += t * g_cy;
+  return ((T)2 * t + (T)2 * e.b1) * g_a1 + ((T)2 * t + (T)2 * e.b2) * g_a2
+         + e.ex * g_cx + e.ey * g_cy;
+}
+
+// g(t) in reverse for its adjoint g: returns the adjoint of t
+template <typename T>
+KB_FN T g_val_adj(const Row<T>& r, const Elem<T>& el, const Edge<T>& e, T t,
+                  T g, Adj<T>& a, Sink<T>& k) {
+  const T i1 = rsqrt_(t * t + (T)2 * e.b1 * t + el.c1);
+  const T i2 = rsqrt_(t * t + (T)2 * e.b2 * t + el.ww);
+  const T cx = el.px - r.mu + t * e.ex;
+  const T cy = el.py + t * e.ey;
+  k.mu += g * (i1 - i2);
+  return ray_adj(e, t, i1, i2, -g * r.one_mu, -g * r.mu, -g * cx, -g * cy, a,
+                 k);
+}
+
+// Newton step k, t -> clip(t - step, t_lo, t_hi), in reverse: its terms
+// again from the iterate t, then the adjoint g of the next iterate back to
+// t (returned) and to what the step is made of.
+template <typename T>
+KB_FN T newton_adj(const Row<T>& r, const Elem<T>& el, const Edge<T>& e, T t,
+                   T g, Adj<T>& a, Sink<T>& k) {
+  const Step<T> s = newton_terms(r, el, e, t);
+  const bool ok = s.g2 > (T)1e-12;
+  const T g2c = clamp_min(s.g2, (T)1e-12);
+  const T quot = s.g1 / g2c;
+  const T x = t - (ok ? quot : (T)0);
+  T g_m, g_x, g_lo, g_hi;
+  min_adj(tmax(x, e.t_lo), e.t_hi, g, g_m, g_hi);
+  max_adj(x, e.t_lo, g_m, g_x, g_lo);
+  a.t_lo += g_lo;
+  a.t_hi += g_hi;
+  // the where() passes -g_x to the quotient only where it was taken
+  const T g_q = ok ? -g_x : (T)0;
+  const T g_g1 = g_q / g2c;
+  const T g_g2 = s.g2 >= (T)1e-12 ? -g_q * (quot / g2c) : (T)0;
+  // g1 and g2 back to their terms
+  const T i12 = s.i1 * s.i1, i22 = s.i2 * s.i2;
+  const T h1 = s.i13 - (T)3 * s.u1 * s.u1 * s.i13 * i12;
+  const T h2 = s.i23 - (T)3 * s.u2 * s.u2 * s.i23 * i22;
+  const T g_u1 = r.one_mu * s.i13 * (g_g1 - (T)6 * s.u1 * i12 * g_g2);
+  const T g_u2 = r.mu * s.i23 * (g_g1 - (T)6 * s.u2 * i22 * g_g2);
+  const T g_i1 = (T)3 * r.one_mu * i12
+                 * (s.u1 * g_g1 + ((T)1 - (T)5 * s.u1 * s.u1 * i12) * g_g2);
+  const T g_i2 = (T)3 * r.mu * i22
+                 * (s.u2 * g_g1 + ((T)1 - (T)5 * s.u2 * s.u2 * i22) * g_g2);
+  k.mu += (s.u2 * s.i23 - s.u1 * s.i13) * g_g1 + (h2 - h1) * g_g2;
+  a.ex -= s.cx * g_g1;
+  a.ey -= s.cy * g_g1;
+  a.ee -= g_g2;
+  a.b1 += g_u1;
+  a.b2 += g_u2;
+  return g_x + g_u1 + g_u2
+         + ray_adj(e, t, s.i1, s.i2, g_i1, g_i2, -e.ex * g_g1, -e.ey * g_g1, a,
+                   k);
+}
+
+// One edge at the phase phi with the cotangent g of that phase: the
+// residual's forward, dc/dphi, and the reverse sweep of w = g * (-1 /
+// dcdphi) into the element's adjoints and the thread's row sums (k, acc).
+template <typename T>
+KB_FN void edge_grad(const Row<T>& r, const Elem<T>& el, T phi, T g,
+                     Sink<T>& k, RowAcc<T>& acc) {
+  const Edge<T> e = edge_forward(r, el, phi);
+  const T t3 = e.t[kTNewton];
+  const T val = g_val(r, el, e, t3);
+  const T v_lo = g_val(r, el, e, e.t_lo);
+  const T v_hi = g_val(r, el, e, e.t_hi);
+  T tv = v_lo < val ? e.t_lo : t3;       // the minimiser: its value is all
+  const T m1 = tmin(val, v_lo);          // dc/dphi needs
+  tv = v_hi < m1 ? e.t_hi : tv;
 
   // the envelope derivative dc/dphi at the minimiser, values only
-  const T mu = s.mu.v, exv = ex.v, eyv = ey.v;
-  const T rx = s.px.v + tv * exv, ry = s.py.v + tv * eyv, rz = tv * s.ci;
+  const T mu = r.mu;
+  const T rx = el.px + tv * e.ex, ry = el.py + tv * e.ey, rz = tv * r.ci;
   const T j1 = rsqrt_(rx * rx + ry * ry + rz * rz);
   const T dx = rx - (T)1;
   const T j2 = rsqrt_(dx * dx + ry * ry + rz * rz);
   const T j13 = j1 * j1 * j1, j23 = j2 * j2 * j2;
   const T gx = ((T)1 - mu) * rx * j13 + mu * dx * j23 - (rx - mu);
   const T gy = ry * (((T)1 - mu) * j13 + mu * j23 - (T)1);
-  dcdphi = tv * two_pi * (gx * eyv - gy * exv);
+  const T dcdphi = tv * (T)6.283185307179586 * (gx * e.ey - gy * e.ex);
+  T coeff = (T)-1 / dcdphi;
+  coeff = finite_(coeff) ? coeff : (T)0;
+  // c = where(no_occ, clear, min(min(val, v_lo), v_hi) - pl1)
+  const T w = e.no_occ ? (T)0 : g * coeff;
+  acc.pl1 -= w;
+
+  Adj<T> a = {};
+  T g_m1, g_val3, g_lo, g_hi;
+  min_adj(m1, v_hi, w, g_m1, g_hi);
+  min_adj(val, v_lo, g_m1, g_val3, g_lo);
+  a.t_lo += g_val_adj(r, el, e, e.t_lo, g_lo, a, k);
+  a.t_hi += g_val_adj(r, el, e, e.t_hi, g_hi, a, k);
+  T gt = g_val_adj(r, el, e, t3, g_val3, a, k);
+#pragma unroll
+  for (int i = kTNewton - 1; i >= 0; --i)
+    gt = newton_adj(r, el, e, e.t[i], gt, a, k);
+  // t[0] = clip(tstar, t_lo, t_hi)
+  const Chord<T> h = chord(r, el, e.ex, e.ey);
+  T g_m0, g_ts;
+  min_adj(tmax(h.tstar, e.t_lo), e.t_hi, gt, g_m0, g_hi);
+  max_adj(h.tstar, e.t_lo, g_m0, g_ts, g_lo);
+  a.t_lo += g_lo;
+  a.t_hi += g_hi;
+  // the chord: t_lo = clamp(tstar - half, 0), t_hi = clamp(tstar + half,
+  // 0), half = sqrt(clamp(disc, 1e-30)), disc = rad^2 - (ww - tstar^2)
+  const T g_lraw = h.tstar - h.half >= (T)0 ? a.t_lo : (T)0;
+  const T g_hraw = h.hi_raw >= (T)0 ? a.t_hi : (T)0;
+  const T g_half = g_hraw - g_lraw;
+  const T g_disc = h.disc >= (T)1e-30 ? g_half / ((T)2 * h.half) : (T)0;
+  g_ts += g_lraw + g_hraw + (T)2 * h.tstar * g_disc;
+  acc.rad += (T)2 * r.rad * g_disc;
+  // tstar = w . e, ee = e . e, b2 = b1 - ex, b1 = p . e
+  const T g_b1 = a.b1 + a.b2;
+  const T g_ex = a.ex + el.wx * g_ts + (T)2 * e.ex * a.ee - a.b2
+                 + el.px * g_b1;
+  const T g_ey = a.ey + el.wy * g_ts + (T)2 * e.ey * a.ee + el.py * g_b1;
+  // ex = si cos(2 pi phi), ey = -si sin(2 pi phi)
+  acc.si += e.cs * g_ex - e.sn * g_ey;
+  k.px += e.ex * g_b1;
+  k.py += e.ey * g_b1;
+  k.wx += e.ex * g_ts;
+  k.wy += e.ey * g_ts;
+  k.ww -= g_disc;
 }
 
-// The row's scalars as Duals: mu = q / (1 + q), sin and cos of the
-// inclination (degrees), the enclosing sphere's radius 1 - x1.
-template <typename S, typename T>
-KB_FN void row_setup(T q, T incl, T x1, Elem<T, S::n>& s) {
-  const Dual<T, S::n> qd = seed<S::n, S::q>(q, (T)1);
-  s.mu = qd / cadd((T)1, qd);
-  T sn, cs;
-  sincospi_(incl / (T)180, sn, cs);
-  s.si = seed<S::n, S::incl>(sn, cs * (T)0.017453292519943295);
-  s.ci = cs;
-  s.rad = seed<S::n, S::x1>((T)1 - x1, (T)-1);
+template <typename T> KB_FN Row<T> row_setup(T q, T incl, T x1) {
+  Row<T> r;
+  r.mu = q / ((T)1 + q);
+  r.one_mu = (T)1 - r.mu;
+  sincospi_(incl / (T)180, r.si, r.ci);
+  r.rad = (T)1 - x1;
+  return r;
 }
 
-// One element in the pass S: its gradient in px and py (added to dpx, dpy)
-// and its share of the row's four sums (added to aq, ai, ax1, apl1), each
-// by the pass that holds its input; d pl1 goes with q, the never-eclipsed
-// phase's gradient with px.
-template <typename S, typename T>
-KB_FN void element_grad(Elem<T, S::n>& s, T px, T py, T phi_in, T phi_out,
-                        T g_in, T g_out, bool ecl, T& dpx, T& dpy, T& aq,
-                        T& ai, T& ax1, T& apl1) {
-  constexpr int N = S::n;
-  s.px = seed<N, S::px>(px, (T)1);
-  s.py = seed<N, S::py>(py, (T)1);
-  s.wx = csub((T)1, s.px);
-  s.wy = -s.py;
-  s.ww = s.wx * s.wx + s.wy * s.wy;
-  s.c1 = s.px * s.px + s.py * s.py;
-#pragma unroll 1
-  for (int edge = 0; edge < 2; ++edge) {
-    const T phi = edge ? phi_out : phi_in;
-    const T g = ecl ? (edge ? g_out : g_in) : (T)0;
-    T dc[N], dc_pl1, dcdphi;
-    edge_residual(s, phi, dc, dc_pl1, dcdphi);
-    T coeff = (T)-1 / dcdphi;
-    coeff = finite_(coeff) ? coeff : (T)0;
-    const T w = g * coeff;
-    if constexpr (S::q >= 0) {
-      aq += w * dc[S::q];
-      apl1 += w * dc_pl1;
-    }
-    if constexpr (S::incl >= 0) ai += w * dc[S::incl];
-    if constexpr (S::px >= 0) dpx += w * dc[S::px];
-    if constexpr (S::py >= 0) dpy += w * dc[S::py];
-    if constexpr (S::x1 >= 0) ax1 += w * dc[S::x1];
+// one element's inputs
+template <typename T> struct ElemIn {
+  T px, py, phi_in, phi_out, g_in, g_out;
+  bool ecl;
+};
+
+// One element: its gradient in px and py (returned in dpx, dpy) and its
+// share of the row's sums (added to acc).
+template <typename T>
+KB_FN void element_grad(const Row<T>& r, bool row_finite, const ElemIn<T>& in,
+                        T& dpx, T& dpy, RowAcc<T>& acc) {
+  Elem<T> el;
+  el.px = in.px;
+  el.py = in.py;
+  el.wx = (T)1 - in.px;
+  el.wy = -in.py;
+  el.ww = el.wx * el.wx + el.wy * el.wy;
+  el.c1 = in.px * in.px + in.py * in.py;
+  Sink<T> k = {(T)0, (T)0, (T)0, (T)0, (T)0, (T)0, (T)0};
+  const bool finite = row_finite && finite_(in.px) && finite_(in.py)
+                      && finite_(in.phi_in) && finite_(in.phi_out);
+  if (in.ecl || !finite) {
+    edge_grad(r, el, in.phi_in, in.ecl ? in.g_in : (T)0, k, acc);
+    edge_grad(r, el, in.phi_out, in.ecl ? in.g_out : (T)0, k, acc);
   }
-  if constexpr (S::px >= 0) {
-    // never eclipsed: phi_in = phi_out = atan2(py, 1 - px) / 2 pi
-    const T g_c = (ecl ? (T)0 : g_in + g_out) / (T)6.283185307179586;
-    const T wx = (T)1 - px;
-    const T r2 = wx * wx + py * py;
-    dpx += g_c * py / r2;
-    dpy += g_c * wx / r2;
-  }
+  acc.mu += k.mu;
+  const T g_wx = k.wx + (T)2 * el.wx * k.ww;
+  const T g_wy = k.wy + (T)2 * el.wy * k.ww;
+  dpx = k.px + (T)2 * in.px * k.c1 - g_wx;
+  dpy = k.py + (T)2 * in.py * k.c1 - g_wy;
+  // never eclipsed: phi_in = phi_out = atan2(py, 1 - px) / 2 pi
+  const T g_c = (in.ecl ? (T)0 : in.g_in + in.g_out) / (T)6.283185307179586;
+  const T r2 = el.wx * el.wx + in.py * in.py;
+  dpx += g_c * in.py / r2;
+  dpy += g_c * el.wx / r2;
 }
 
-// One row's elements j0, j0 + stride, ... in the pass S.
-template <typename S, typename T>
-KB_FN void row_pass(T q, T incl, T x1, const T* __restrict__ px,
-                    const T* __restrict__ py, const T* __restrict__ phi_in,
-                    const T* __restrict__ phi_out,
-                    const T* __restrict__ g_in, const T* __restrict__ g_out,
-                    const unsigned char* __restrict__ eclipsed,
-                    T* __restrict__ dpx, T* __restrict__ dpy, int j0,
-                    int stride, int n, T& aq, T& ai, T& ax1, T& apl1) {
-  Elem<T, S::n> s;
-  row_setup<S>(q, incl, x1, s);
+// One thread's elements j0, j0 + stride, ... of a row: d px and d py
+// written, the row's adjoints added to acc.
+template <typename T>
+KB_FN void row_thread(T q, T incl, T x1, const T* __restrict__ px,
+                      const T* __restrict__ py, const T* __restrict__ phi_in,
+                      const T* __restrict__ phi_out,
+                      const T* __restrict__ g_in, const T* __restrict__ g_out,
+                      const unsigned char* __restrict__ eclipsed,
+                      T* __restrict__ dpx, T* __restrict__ dpy, int j0,
+                      int stride, int n, RowAcc<T>& acc) {
+  const Row<T> r = row_setup(q, incl, x1);
+  const bool row_finite = finite_(q) && finite_(incl) && finite_(x1);
 #pragma unroll 1
   for (int j = j0; j < n; j += stride) {
-    T gx = (T)0, gy = (T)0;
-    element_grad<S>(s, px[j], py[j], phi_in[j], phi_out[j], g_in[j],
-                    g_out[j], eclipsed[j] != 0, gx, gy, aq, ai, ax1, apl1);
-    if constexpr (S::px >= 0) {
-      dpx[j] = gx;
-      dpy[j] = gy;
-    }
+    const ElemIn<T> in = {px[j], py[j], phi_in[j], phi_out[j], g_in[j],
+                          g_out[j], eclipsed[j] != 0};
+    T gx, gy;
+    element_grad(r, row_finite, in, gx, gy, acc);
+    dpx[j] = gx;
+    dpy[j] = gy;
   }
 }
 
-// One row's elements j0, j0 + stride, ...: one pass in float32, two in
-// float64.
+// The row's four gradients from its summed adjoints s = (mu, sin(incl),
+// radius, pl1): mu = q / (1 + q), sin of incl in degrees, radius 1 - x1.
 template <typename T>
-KB_FN void row_grad(T q, T incl, T x1, const T* __restrict__ px,
-                    const T* __restrict__ py, const T* __restrict__ phi_in,
-                    const T* __restrict__ phi_out,
-                    const T* __restrict__ g_in, const T* __restrict__ g_out,
-                    const unsigned char* __restrict__ eclipsed,
-                    T* __restrict__ dpx, T* __restrict__ dpy, int j0,
-                    int stride, int n, T& aq, T& ai, T& ax1, T& apl1) {
-  if constexpr (sizeof(T) == 4) {
-    row_pass<AllSlots>(q, incl, x1, px, py, phi_in, phi_out, g_in, g_out,
-                       eclipsed, dpx, dpy, j0, stride, n, aq, ai, ax1, apl1);
-  } else {
-    row_pass<RowSlots>(q, incl, x1, px, py, phi_in, phi_out, g_in, g_out,
-                       eclipsed, dpx, dpy, j0, stride, n, aq, ai, ax1, apl1);
-    row_pass<ElemSlots>(q, incl, x1, px, py, phi_in, phi_out, g_in, g_out,
-                        eclipsed, dpx, dpy, j0, stride, n, aq, ai, ax1, apl1);
-  }
+KB_FN void row_finish(T q, T incl, const T (&s)[4], T& dq, T& dincl, T& dx1,
+                      T& dpl1) {
+  const T den = (T)1 + q;
+  dq = s[0] / den - s[0] * (q / den / den);
+  T sn, cs;
+  sincospi_(incl / (T)180, sn, cs);
+  dincl = s[1] * cs * (T)0.017453292519943295;
+  dx1 = -s[2];
+  dpl1 = s[3];
 }
 
 // ---- kernel and launcher ------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
+template <typename T, int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 contacts_backward_kernel(const T* __restrict__ q, const T* __restrict__ incl,
                          const T* __restrict__ x1, const T* __restrict__ px,
                          const T* __restrict__ py,
@@ -440,34 +465,40 @@ contacts_backward_kernel(const T* __restrict__ q, const T* __restrict__ incl,
                          const unsigned char* __restrict__ eclipsed,
                          T* __restrict__ dpx, T* __restrict__ dpy,
                          T* __restrict__ drow, int rows, int n) {
+  constexpr int kWarps = kThreads / 32;
   const int row = blockIdx.x;
   const size_t k0 = (size_t)row * n;
-  T aq = (T)0, ai = (T)0, ax1 = (T)0, apl1 = (T)0;
-  row_grad(q[row], incl[row], x1[row], px + k0, py + k0, phi_in + k0,
-           phi_out + k0, g_in + k0, g_out + k0, eclipsed + k0, dpx + k0,
-           dpy + k0, (int)threadIdx.x, kBlock, n, aq, ai, ax1, apl1);
+  RowAcc<T> acc = {(T)0, (T)0, (T)0, (T)0};
+  row_thread(q[row], incl[row], x1[row], px + k0, py + k0, phi_in + k0,
+             phi_out + k0, g_in + k0, g_out + k0, eclipsed + k0, dpx + k0,
+             dpy + k0, (int)threadIdx.x, kThreads, n, acc);
   // the row's sums, in a fixed order: lanes by shuffles, then the warps
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    aq += __shfl_down_sync(0xffffffffu, aq, off);
-    ai += __shfl_down_sync(0xffffffffu, ai, off);
-    ax1 += __shfl_down_sync(0xffffffffu, ax1, off);
-    apl1 += __shfl_down_sync(0xffffffffu, apl1, off);
+    acc.mu += __shfl_down_sync(0xffffffffu, acc.mu, off);
+    acc.si += __shfl_down_sync(0xffffffffu, acc.si, off);
+    acc.rad += __shfl_down_sync(0xffffffffu, acc.rad, off);
+    acc.pl1 += __shfl_down_sync(0xffffffffu, acc.pl1, off);
   }
-  __shared__ T part[4 * (kBlock / 32)];
+  __shared__ T part[4][kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
-    part[4 * warp] = aq;
-    part[4 * warp + 1] = ai;
-    part[4 * warp + 2] = ax1;
-    part[4 * warp + 3] = apl1;
+    part[0][warp] = acc.mu;
+    part[1][warp] = acc.si;
+    part[2][warp] = acc.rad;
+    part[3][warp] = acc.pl1;
   }
   __syncthreads();
-  if (threadIdx.x < 4) {
-    T sum = part[threadIdx.x];
+  if (threadIdx.x == 0) {
+    T s[4];
 #pragma unroll
-    for (int w = 1; w < kBlock / 32; ++w) sum += part[4 * w + threadIdx.x];
-    drow[(size_t)threadIdx.x * rows + row] = sum;
+    for (int i = 0; i < 4; ++i) {
+      s[i] = part[i][0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) s[i] += part[i][w];
+    }
+    row_finish(q[row], incl[row], s, drow[row], drow[(size_t)rows + row],
+               drow[2 * (size_t)rows + row], drow[3 * (size_t)rows + row]);
   }
 }
 
@@ -477,25 +508,25 @@ contacts_backward_kernel(const T* __restrict__ q, const T* __restrict__ incl,
 // is_double selects float64 (1) or float32 (0) for every float array.
 extern "C" int contacts_backward_launch(
     int is_double, const void* q, const void* incl, const void* x1,
-    const void* px, const void* py, const void* phi_in, const void* phi_out, const void* g_in, const void* g_out,
-    const void* eclipsed, void* dpx, void* dpy, void* drow, int rows, int n,
-    void* stream) {
+    const void* px, const void* py, const void* phi_in, const void* phi_out,
+    const void* g_in, const void* g_out, const void* eclipsed, void* dpx,
+    void* dpy, void* drow, int rows, int n, void* stream) {
   if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned char* e = (const unsigned char*)eclipsed;
   if (is_double)
-    contacts_backward_kernel<double><<<rows, kBlock, 0, st>>>(
+    contacts_backward_kernel<double, kThreadsF64, kMinBlocksF64>
+        <<<rows, kThreadsF64, 0, st>>>(
         (const double*)q, (const double*)incl, (const double*)x1,
-        (const double*)px, (const double*)py,
-        (const double*)phi_in, (const double*)phi_out, (const double*)g_in,
-        (const double*)g_out, e, (double*)dpx, (double*)dpy, (double*)drow,
-        rows, n);
+        (const double*)px, (const double*)py, (const double*)phi_in,
+        (const double*)phi_out, (const double*)g_in, (const double*)g_out, e,
+        (double*)dpx, (double*)dpy, (double*)drow, rows, n);
   else
-    contacts_backward_kernel<float><<<rows, kBlock, 0, st>>>(
+    contacts_backward_kernel<float, kThreadsF32, kMinBlocksF32>
+        <<<rows, kThreadsF32, 0, st>>>(
         (const float*)q, (const float*)incl, (const float*)x1,
-        (const float*)px, (const float*)py,
-        (const float*)phi_in, (const float*)phi_out, (const float*)g_in,
-        (const float*)g_out, e, (float*)dpx, (float*)dpy, (float*)drow, rows,
-        n);
+        (const float*)px, (const float*)py, (const float*)phi_in,
+        (const float*)phi_out, (const float*)g_in, (const float*)g_out, e,
+        (float*)dpx, (float*)dpy, (float*)drow, rows, n);
   return (int)cudaGetLastError();
 }

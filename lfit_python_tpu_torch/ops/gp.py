@@ -25,13 +25,14 @@ be given in any shape that broadcasts to ``(W, E, P)``.
 
 K3 (``csrc/gp.cu``) is a kernel of the port's own: on the TPU the
 recursion was an XLA ``lax.scan`` (``lfit_python_tpu/ops/gp.py:88-109``).
-The angles' cosines and sines and the decay factors are made by PyTorch
-(:func:`_angles_decay`, a handful of elementwise launches) and passed
-in; the kernel walks the points.  Under autograd the forward kernel also
-keeps the state each series enters each point with, and the backward is
-a second kernel that walks each series back (the adjoint of the loop,
-written out by hand) and folds the angles' and the decay's adjoints into
-the one gradient of each series' ``c`` as it goes.
+It takes ``t`` and ``c`` and makes the angles' cosines and sines and the
+decay factors itself, point by point, so a call is one launch; the plain
+version makes them with PyTorch (:func:`_angles_decay`) before its loop.
+Under autograd the forward kernel also keeps the state each series
+enters each point with, and the backward is a second kernel that walks
+each series back (the adjoint of the loop, written out by hand), makes
+the same angles and decay with the same device function, and folds their
+adjoints into the one gradient of each series' ``c`` as it goes.
 """
 
 from __future__ import annotations
@@ -71,9 +72,9 @@ def _kernel():
 
         lib = load_library("gp")
         fwd, bwd = lib.gp_launch, lib.gp_backward_launch
-        fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+        fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
+        bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fwd.restype = bwd.restype = ctypes.c_int
         _fns = fwd, bwd
@@ -81,9 +82,10 @@ def _kernel():
 
 
 def _recursion_plain(y, sigma2, cd, sd, phi, reset, yerr, mask):
-    """The recursion over the P points on (W, E) tensors; the arithmetic
-    K3 repeats op for op.  ``y``, ``sigma2``, ``cd``, ``sd``, ``phi``,
-    ``reset``: (W, E, P); ``yerr``, ``mask``: (E, P)."""
+    """The recursion over the P points on (W, E) tensors, the steps K3
+    repeats (K3 makes ``cd``, ``sd`` and ``phi`` itself).  ``y``,
+    ``sigma2``, ``cd``, ``sd``, ``phi``, ``reset``: (W, E, P); ``yerr``,
+    ``mask``: (E, P)."""
     # segment resets: no correlation across the boundary; padded points:
     # do not advance the decay state
     phi = torch.where(reset, torch.zeros_like(phi), phi)
@@ -146,12 +148,13 @@ def segmented_matern32_plain(t, y, yerr, sigma2, c, reset=None, mask=None):
     return _recursion_plain(y, sigma2, cd, sd, phi, reset, yerr, mask)
 
 
-def _checked(y, sigma2, cd, sd, phi, reset, yerr, mask):
-    """The recursion's inputs, checked and contiguous."""
+def _checked(t, y, yerr, sigma2, c, reset, mask):
+    """The kernels' inputs, checked and contiguous, in their order: y,
+    sigma2, t, c, reset, yerr, mask."""
     W, E, P = y.shape
     for name, a, shape in (("y", y, (W, E, P)), ("sigma2", sigma2, (W, E, P)),
-                           ("cd", cd, (W, E, P)), ("sd", sd, (W, E, P)),
-                           ("phi", phi, (W, E, P)), ("yerr", yerr, (E, P))):
+                           ("t", t, (E, P)), ("c", c, (W, E)),
+                           ("yerr", yerr, (E, P))):
         if a.dtype not in (torch.float32, torch.float64) \
                 or a.dtype != y.dtype:
             raise TypeError(f"K3 takes float32 or float64 of one dtype, "
@@ -166,8 +169,7 @@ def _checked(y, sigma2, cd, sd, phi, reset, yerr, mask):
         if tuple(a.shape) != shape:
             raise ValueError(f"K3: {name} has shape {tuple(a.shape)}, "
                              f"expected {shape}")
-    tensors = [a.contiguous() for a in (y, sigma2, cd, sd, phi, reset, yerr,
-                                        mask)]
+    tensors = [a.contiguous() for a in (y, sigma2, t, c, reset, yerr, mask)]
     for a in tensors:
         if a.device != y.device:
             raise ValueError(f"K3: a tensor on {a.device}, y on {y.device}")
@@ -202,7 +204,7 @@ def _forward(tensors, save=None):
     return out
 
 
-def _backward(tensors, t, save, g):
+def _backward(tensors, save, g):
     """One launch of ``gp_backward_kernel``: the cotangents of ``y`` and
     ``sigma2`` (W, E, P) and of ``c`` (W, E) for the cotangent ``g`` of the
     ln-likelihoods, from the forward's inputs and its ``save``."""
@@ -213,25 +215,25 @@ def _backward(tensors, t, save, g):
     if y.numel():
         g = g.to(y.dtype).contiguous()
         _launch(1, y, [a.data_ptr() for a in tensors]
-                + [t.data_ptr(), save.data_ptr(), g.data_ptr(),
-                   gy.data_ptr(), gsigma2.data_ptr(), gc.data_ptr()])
+                + [save.data_ptr(), g.data_ptr(), gy.data_ptr(),
+                   gsigma2.data_ptr(), gc.data_ptr()])
         BACKWARD_LAUNCHES += 1
     else:
         gc.zero_()
     return gy, gsigma2, gc
 
 
-def _recursion_kernel(y, sigma2, cd, sd, phi, reset, yerr, mask):
-    """The recursion alone on the card, from angles and decay made
-    elsewhere: one launch of ``gp_kernel``, no gradient.  float32 or
+def _recursion_kernel(t, y, yerr, sigma2, c, reset, mask):
+    """K3 on the prepared inputs (:func:`_prepare`'s shapes), outside
+    autograd: one launch of ``gp_kernel``, no gradient.  float32 or
     float64 CUDA tensors of one dtype."""
-    return _forward(_checked(y, sigma2, cd, sd, phi, reset, yerr, mask))
+    return _forward(_checked(t, y, yerr, sigma2, c, reset, mask))
 
 
 class _Recursion(torch.autograd.Function):
     """K3 on the card, from the prepared inputs ``t``, ``yerr``, ``mask``
     (E, P), ``y``, ``sigma2``, ``reset`` (W, E, P) and ``c`` (W, E): the
-    angles and the decay in PyTorch, then the forward kernel; for the
+    forward kernel (which makes the angles and the decay itself); for the
     cotangents of ``y``, ``sigma2`` and ``c``, the reverse kernel.  One
     launch each, one thread per (walker, eclipse) series.  The forward
     keeps the per-point state (5 x P x series numbers) only when one of
@@ -239,25 +241,21 @@ class _Recursion(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, y, yerr, sigma2, c, reset, mask):
-        if t.dtype != y.dtype:
-            raise TypeError(f"K3 takes float32 or float64 of one dtype, got "
-                            f"t: {t.dtype}, y: {y.dtype}")
-        cd, sd, phi = _angles_decay(t, c)
-        tensors = _checked(y, sigma2, cd, sd, phi, reset, yerr, mask)
+        tensors = _checked(t, y, yerr, sigma2, c, reset, mask)
         W, E, P = y.shape
         save = None
         if any(ctx.needs_input_grad[i] for i in (1, 3, 4)):
             save = torch.empty((5, P, W * E), dtype=y.dtype, device=y.device)
         out = _forward(tensors, save)
         if save is not None:
-            ctx.save_for_backward(*tensors, t.contiguous(), save)
+            ctx.save_for_backward(*tensors, save)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        *tensors, t, save = ctx.saved_tensors
-        gy, gsigma2, gc = _backward(tensors, t, save, g)
+        *tensors, save = ctx.saved_tensors
+        gy, gsigma2, gc = _backward(tensors, save, g)
         need = ctx.needs_input_grad
         return (None, gy if need[1] else None, None,
                 gsigma2 if need[3] else None, gc if need[4] else None,

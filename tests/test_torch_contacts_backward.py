@@ -1,20 +1,24 @@
 """K1's backward kernel (``ops/csrc/contacts_backward.cu``) on the CPU.
 
 The kernel takes the contact phases' implicit-function-theorem gradient
-by carrying five tangents (q, incl, px, py, x1) through the edge residual
-in forward mode, with one rule per operation that is the transpose of
-PyTorch's backward of it.  Two stand-ins for the kernel run here:
+as a reverse sweep: each edge runs the residual's forward once, keeping
+its Newton iterates, then carries one adjoint back through it with
+PyTorch's own backward rules (clamp, minimum / maximum at ties and NaNs,
+where).  Two stand-ins for the kernel run here:
 
 - ``mirror_backward``, the kernel's arithmetic step by step in PyTorch;
 - the kernel source's own arithmetic, compiled as C++ with ``g++`` behind
   a shim header (``__device__`` and friends as empty macros) and driven by
-  a host loop over rows and elements (skipped where there is no ``g++``).
+  a host loop over rows and threads that sums each row in the kernel's
+  order for the block of each dtype (skipped where there is no ``g++``).
 
 Both are held to the plain backward (autograd on
 ``roche.geometry._edge_residual``) at rtol 1e-9 in float64, on the
-contact batch of tests/test_torch_grad.py and on rows that hit every
-branch of the residual, and to ``jax.grad`` through the JAX package at
-the tolerances tests/test_torch_grad.py states.
+contact batch of tests/test_torch_grad.py, on rows that hit every branch
+of the residual and on rows with non-finite inputs at non-eclipsed
+elements (whose edges the kernel skips only where the inputs are
+finite), and to ``jax.grad`` through the JAX package at the tolerances
+tests/test_torch_grad.py states.
 """
 
 import ctypes
@@ -34,95 +38,51 @@ from lfit_python_tpu.roche import geometry as jg
 from lfit_python_tpu_torch.ops import contacts
 from lfit_python_tpu_torch.roche import geometry as tg
 
-K = 5                                   # q, incl, px, py, x1
 NAMES = ("q", "incl", "px", "py", "x1", "pl1")
 SOURCE = (Path(contacts.__file__).resolve().parent / "csrc"
           / "contacts_backward.cu")
+N_NEWTON = 3
 
 
-class Dual:
-    """A value and its derivatives in the five directions: the twin of
-    the kernel's ``struct Dual``, rule for rule."""
+# ---- the kernel's rules, in PyTorch --------------------------------------
 
-    def __init__(self, v, d=None):
-        self.v = v
-        self.d = (torch.zeros(v.shape + (K,), dtype=v.dtype) if d is None
-                  else d)
-
-    @staticmethod
-    def seed(v, k, dv):
-        out = Dual(v)
-        out.d[..., k] = dv
-        return out
-
-    def __add__(self, o):
-        return Dual(self.v + o.v, self.d + o.d)
-
-    def __sub__(self, o):
-        return Dual(self.v - o.v, self.d - o.d)
-
-    def __neg__(self):
-        return Dual(-self.v, -self.d)
-
-    def __mul__(self, o):
-        return Dual(self.v * o.v,
-                    self.d * o.v[..., None] + self.v[..., None] * o.d)
-
-    def __truediv__(self, o):
-        v = self.v / o.v
-        return Dual(v, (self.d - v[..., None] * o.d) * (1.0 / o.v)[..., None])
+def tmin(a, b):
+    return torch.minimum(a, b)
 
 
-def cadd(c, a):
-    return Dual(c + a.v, a.d)
-
-
-def csub(c, a):
-    return Dual(c - a.v, -a.d)
-
-
-def cmul(c, a):
-    c = torch.as_tensor(c, dtype=a.v.dtype)
-    return Dual(c * a.v, c[..., None] * a.d)
-
-
-def rsqrt(a):
-    v = torch.rsqrt(a.v)
-    return Dual(v, (-0.5 * (v * v * v))[..., None] * a.d)
-
-
-def sqrt(a):
-    v = torch.sqrt(a.v)
-    return Dual(v, (0.5 / v)[..., None] * a.d)
-
-
-def clamp_min(a, lo):
-    return Dual(torch.clamp(a.v, min=lo),
-                torch.where((a.v >= lo)[..., None], a.d,
-                            torch.zeros_like(a.d)))
-
-
-def _pick(a, b, drop_a, drop_b, v):
-    z = torch.zeros_like(a.d)
-    s = (torch.where(drop_a[..., None], z, a.d)
-         + torch.where(drop_b[..., None], z, b.d))
-    return Dual(v, torch.where((a.v == b.v)[..., None], 0.5 * s, s))
-
-
-def dmax(a, b):
-    return _pick(a, b, a.v < b.v, a.v > b.v, torch.maximum(a.v, b.v))
-
-
-def dmin(a, b):
-    return _pick(a, b, a.v > b.v, a.v < b.v, torch.minimum(a.v, b.v))
+def tmax(a, b):
+    return torch.maximum(a, b)
 
 
 def clip(x, lo, hi):
-    return dmin(dmax(x, lo), hi)
+    return tmin(tmax(x, lo), hi)
 
 
-def where(c, a, b):
-    return Dual(torch.where(c, a.v, b.v), torch.where(c[..., None], a.d, b.d))
+def min_adj(a, b, g):
+    """PyTorch's backward of minimum(a, b) for the adjoint g."""
+    h = torch.where(a == b, g * 0.5, g)
+    z = torch.zeros_like(g)
+    return torch.where(a > b, z, h), torch.where(a < b, z, h)
+
+
+def max_adj(a, b, g):
+    h = torch.where(a == b, g * 0.5, g)
+    z = torch.zeros_like(g)
+    return torch.where(a < b, z, h), torch.where(a > b, z, h)
+
+
+def pick(c, a, b):
+    return torch.where(c, a, b)
+
+
+class Adj:
+    """The adjoints one edge's sweep gathers (the kernel's ``struct
+    Adj``)."""
+
+    def __init__(self, like):
+        for k in ("t_lo", "t_hi", "b1", "b2", "ex", "ey", "ee", "mu", "px",
+                  "py", "c1", "ww"):
+            setattr(self, k, torch.zeros_like(like))
 
 
 def mirror_backward(q, incl, px, py, x1, pl1, phi_in, phi_out, ecl, g_in,
@@ -131,98 +91,179 @@ def mirror_backward(q, incl, px, py, x1, pl1, phi_in, phi_out, ecl, g_in,
     rest (R, N).  Returns the six gradients; ``flags`` collects, per edge,
     which branches each element took."""
     R, N = px.shape
-    dt = px.dtype
 
     def col(a):
-        return a[:, None].expand(R, N).contiguous()
+        return a[:, None].expand(R, N)
 
-    qd = Dual.seed(col(q), 0, 1.0)
-    mu = qd / cadd(1.0, qd)
+    mu = col(q) / (1.0 + col(q))
+    one_mu = 1.0 - mu
     ir = col(incl) / 180.0
-    sn, cs = torch.sin(math.pi * ir), torch.cos(math.pi * ir)
-    si = Dual.seed(sn, 1, cs * 0.017453292519943295)
-    ci = cs
-    rad = Dual.seed(1.0 - col(x1), 4, -1.0)
-    pxd, pyd = Dual.seed(px, 2, 1.0), Dual.seed(py, 3, 1.0)
-    wx, wy = csub(1.0, pxd), -pyd
+    si, ci = torch.sin(math.pi * ir), torch.cos(math.pi * ir)
+    rad = 1.0 - col(x1)
+    wx, wy = 1.0 - px, -py
     ww = wx * wx + wy * wy
-    c1 = pxd * pxd + pyd * pyd
-    two_pi = 6.283185307179586
+    c1 = px * px + py * py
+    finite = (torch.isfinite(col(q)) & torch.isfinite(col(incl))
+              & torch.isfinite(col(x1)) & torch.isfinite(px)
+              & torch.isfinite(py) & torch.isfinite(phi_in)
+              & torch.isfinite(phi_out))
+    run = ecl | ~finite
+    zero = torch.zeros_like(px)
+    ge = [zero] * 6                   # px, py, wx, wy, ww, c1
+    acc = {k: zero for k in ("mu", "si", "rad", "pl1")}
 
-    def g_val(t, ex, ey, b1, b2):
-        i1 = rsqrt(t * t + cmul(2.0, b1) * t + c1)
-        i2 = rsqrt(t * t + cmul(2.0, b2) * t + ww)
-        cx = pxd - mu + t * ex
-        cy = pyd + t * ey
-        return -csub(1.0, mu) * i1 - mu * i2 - cmul(0.5, cx * cx + cy * cy)
-
-    grads = torch.zeros((R, N, K + 1), dtype=dt)
     for phi, g in ((phi_in, g_in), (phi_out, g_out)):
-        g = torch.where(ecl, g, torch.zeros_like(g))
-        s_, c_ = (torch.sin(math.pi * (2.0 * phi)),
-                  torch.cos(math.pi * (2.0 * phi)))
-        ex, ey = cmul(c_, si), -cmul(s_, si)
+        g = torch.where(ecl, g, zero)
+        sn, cs = torch.sin(math.pi * (2.0 * phi)), torch.cos(math.pi * (2.0 * phi))
+        ex, ey = si * cs, -si * sn
         tstar = wx * ex + wy * ey
         disc = rad * rad - (ww - tstar * tstar)
-        half = sqrt(clamp_min(disc, 1e-30))
+        half = torch.sqrt(torch.clamp(disc, min=1e-30))
         hi_raw = tstar + half
-        t_lo = clamp_min(tstar - half, 0.0)
-        t_hi = clamp_min(hi_raw, 0.0)
-        no_occ = (disc.v <= 0.0) | (hi_raw.v <= 1e-9)
-        b1 = pxd * ex + pyd * ey
+        t_lo = torch.clamp(tstar - half, min=0.0)
+        t_hi = torch.clamp(hi_raw, min=0.0)
+        no_occ = (disc <= 0.0) | (hi_raw <= 1e-9)
+        b1 = px * ex + py * ey
         b2 = b1 - ex
-        one_mu = csub(1.0, mu)
         ee = ex * ex + ey * ey
-        t = clip(tstar, t_lo, t_hi)
-        guard = torch.zeros_like(ecl)
-        for _ in range(3):
-            i1 = rsqrt(t * t + cmul(2.0, b1) * t + c1)
-            i2 = rsqrt(t * t + cmul(2.0, b2) * t + ww)
+
+        def terms(t):
+            i1 = torch.rsqrt(t * t + 2.0 * b1 * t + c1)
+            i2 = torch.rsqrt(t * t + 2.0 * b2 * t + ww)
             u1, u2 = t + b1, t + b2
             i13, i23 = i1 * i1 * i1, i2 * i2 * i2
-            cx = pxd - mu + t * ex
-            cy = pyd + t * ey
+            cx = px - mu + t * ex
+            cy = py + t * ey
             g1 = one_mu * u1 * i13 + mu * u2 * i23 - (cx * ex + cy * ey)
-            g2 = (one_mu * (i13 - cmul(3.0, u1) * u1 * i13 * i1 * i1)
-                  + mu * (i23 - cmul(3.0, u2) * u2 * i23 * i2 * i2) - ee)
-            ok = g2.v > 1e-12
+            g2 = (one_mu * (i13 - 3.0 * u1 * u1 * i13 * i1 * i1)
+                  + mu * (i23 - 3.0 * u2 * u2 * i23 * i2 * i2) - ee)
+            return i1, i2, u1, u2, i13, i23, cx, cy, g1, g2
+
+        def g_val(t):
+            i1, i2, *_, cx, cy, _, _ = terms(t)
+            return -one_mu * i1 - mu * i2 - 0.5 * (cx * cx + cy * cy)
+
+        def ray_adj(t, i1, i2, g_i1, g_i2, g_cx, g_cy, a):
+            g_a1 = -0.5 * g_i1 * (i1 * i1 * i1)
+            g_a2 = -0.5 * g_i2 * (i2 * i2 * i2)
+            a.c1 = a.c1 + g_a1
+            a.ww = a.ww + g_a2
+            a.b1 = a.b1 + 2.0 * t * g_a1
+            a.b2 = a.b2 + 2.0 * t * g_a2
+            a.px = a.px + g_cx
+            a.mu = a.mu - g_cx
+            a.ex = a.ex + t * g_cx
+            a.py = a.py + g_cy
+            a.ey = a.ey + t * g_cy
+            return ((2.0 * t + 2.0 * b1) * g_a1 + (2.0 * t + 2.0 * b2) * g_a2
+                    + ex * g_cx + ey * g_cy)
+
+        def g_val_adj(t, gb, a):
+            i1, i2, *_, cx, cy, _, _ = terms(t)
+            a.mu = a.mu + gb * (i1 - i2)
+            return ray_adj(t, i1, i2, -gb * one_mu, -gb * mu, -gb * cx,
+                           -gb * cy, a)
+
+        ts = [clip(tstar, t_lo, t_hi)]
+        guard = torch.zeros_like(ecl)
+        for _ in range(N_NEWTON):
+            *_, g1, g2 = terms(ts[-1])
+            ok = g2 > 1e-12
             guard |= ~ok
-            step = where(ok, g1 / clamp_min(g2, 1e-12),
-                         Dual(torch.zeros_like(g2.v)))
-            t = clip(t - step, t_lo, t_hi)
-        val = g_val(t, ex, ey, b1, b2)
-        v_lo, v_hi = g_val(t_lo, ex, ey, b1, b2), g_val(t_hi, ex, ey, b1, b2)
-        tv = torch.where(v_lo.v < val.v, t_lo.v, t.v)
-        val = dmin(val, v_lo)
-        tv = torch.where(v_hi.v < val.v, t_hi.v, tv)
-        val = dmin(val, v_hi)
-        dc = torch.where(no_occ[..., None], torch.zeros_like(val.d), val.d)
-        dc_pl1 = torch.where(no_occ, 0.0, -1.0).to(dt)
-        rx, ry, rz = px + tv * ex.v, py + tv * ey.v, tv * ci
+            step = pick(ok, g1 / torch.clamp(g2, min=1e-12), zero)
+            ts.append(clip(ts[-1] - step, t_lo, t_hi))
+        t3 = ts[-1]
+        val, v_lo, v_hi = g_val(t3), g_val(t_lo), g_val(t_hi)
+        tv = pick(v_lo < val, t_lo, t3)
+        m1 = tmin(val, v_lo)
+        tv = pick(v_hi < m1, t_hi, tv)
+        rx, ry, rz = px + tv * ex, py + tv * ey, tv * ci
         j1 = torch.rsqrt(rx * rx + ry * ry + rz * rz)
         dx = rx - 1.0
         j2 = torch.rsqrt(dx * dx + ry * ry + rz * rz)
         j13, j23 = j1 * j1 * j1, j2 * j2 * j2
-        gx = (1.0 - mu.v) * rx * j13 + mu.v * dx * j23 - (rx - mu.v)
-        gy = ry * ((1.0 - mu.v) * j13 + mu.v * j23 - 1.0)
-        dcdphi = tv * two_pi * (gx * ey.v - gy * ex.v)
+        gx = (1.0 - mu) * rx * j13 + mu * dx * j23 - (rx - mu)
+        gy = ry * ((1.0 - mu) * j13 + mu * j23 - 1.0)
+        dcdphi = tv * 6.283185307179586 * (gx * ey - gy * ex)
         coeff = -1.0 / dcdphi
         bad = ~torch.isfinite(coeff)
-        coeff = torch.where(bad, torch.zeros_like(coeff), coeff)
-        w = g * coeff
-        grads[..., :K] += w[..., None] * dc
-        grads[..., K] += w * dc_pl1
+        coeff = pick(bad, zero, coeff)
+        w = pick(no_occ, zero, g * coeff)
+
+        a = Adj(px)
+        g_m1, g_hi = min_adj(m1, v_hi, w)
+        g_val3, g_lo = min_adj(val, v_lo, g_m1)
+        a.t_lo = a.t_lo + g_val_adj(t_lo, g_lo, a)
+        a.t_hi = a.t_hi + g_val_adj(t_hi, g_hi, a)
+        gt = g_val_adj(t3, g_val3, a)
+        for t in reversed(ts[:-1]):
+            i1, i2, u1, u2, i13, i23, cx, cy, g1, g2 = terms(t)
+            ok = g2 > 1e-12
+            g2c = torch.clamp(g2, min=1e-12)
+            quot = g1 / g2c
+            x = t - pick(ok, quot, zero)
+            g_m, g_hi = min_adj(tmax(x, t_lo), t_hi, gt)
+            g_x, g_lo = max_adj(x, t_lo, g_m)
+            a.t_lo = a.t_lo + g_lo
+            a.t_hi = a.t_hi + g_hi
+            g_q = pick(ok, -g_x, zero)
+            g_g1 = g_q / g2c
+            g_g2 = pick(g2 >= 1e-12, -g_q * (quot / g2c), zero)
+            i12, i22 = i1 * i1, i2 * i2
+            h1 = i13 - 3.0 * u1 * u1 * i13 * i12
+            h2 = i23 - 3.0 * u2 * u2 * i23 * i22
+            g_u1 = one_mu * i13 * (g_g1 - 6.0 * u1 * i12 * g_g2)
+            g_u2 = mu * i23 * (g_g1 - 6.0 * u2 * i22 * g_g2)
+            g_i1 = 3.0 * one_mu * i12 * (u1 * g_g1
+                                         + (1.0 - 5.0 * u1 * u1 * i12) * g_g2)
+            g_i2 = 3.0 * mu * i22 * (u2 * g_g1
+                                     + (1.0 - 5.0 * u2 * u2 * i22) * g_g2)
+            a.mu = a.mu + (u2 * i23 - u1 * i13) * g_g1 + (h2 - h1) * g_g2
+            a.ex = a.ex - cx * g_g1
+            a.ey = a.ey - cy * g_g1
+            a.ee = a.ee - g_g2
+            a.b1 = a.b1 + g_u1
+            a.b2 = a.b2 + g_u2
+            gt = g_x + g_u1 + g_u2 + ray_adj(t, i1, i2, g_i1, g_i2,
+                                              -ex * g_g1, -ey * g_g1, a)
+        g_m0, g_hi = min_adj(tmax(tstar, t_lo), t_hi, gt)
+        g_ts, g_lo = max_adj(tstar, t_lo, g_m0)
+        a.t_lo = a.t_lo + g_lo
+        a.t_hi = a.t_hi + g_hi
+        g_lraw = pick(tstar - half >= 0.0, a.t_lo, zero)
+        g_hraw = pick(hi_raw >= 0.0, a.t_hi, zero)
+        g_half = g_hraw - g_lraw
+        g_disc = pick(disc >= 1e-30, g_half / (2.0 * half), zero)
+        g_ts = g_ts + g_lraw + g_hraw + 2.0 * tstar * g_disc
+        g_b1 = a.b1 + a.b2
+        g_ex = a.ex + wx * g_ts + 2.0 * ex * a.ee - a.b2 + px * g_b1
+        g_ey = a.ey + wy * g_ts + 2.0 * ey * a.ee + py * g_b1
+        # the kernel skips a non-eclipsed element whose inputs are finite
+        contrib = {"mu": a.mu, "si": cs * g_ex - sn * g_ey,
+                   "rad": 2.0 * rad * g_disc, "pl1": -w}
+        for k, v in contrib.items():
+            acc[k] = acc[k] + pick(run, v, zero)
+        for i, v in enumerate((a.px + ex * g_b1, a.py + ey * g_b1, ex * g_ts,
+                               ey * g_ts, a.ww - g_disc, a.c1)):
+            ge[i] = ge[i] + pick(run, v, zero)
         if flags is not None:
-            flags.append({"clamped at t_lo": (t.v == t_lo.v) & ~no_occ,
-                          "clamped at t_hi": (t.v == t_hi.v) & ~no_occ,
+            flags.append({"clamped at t_lo": (t3 == t_lo) & ~no_occ,
+                          "clamped at t_hi": (t3 == t_hi) & ~no_occ,
                           "no_occ": no_occ, "g2 <= 1e-12": guard,
                           "non-finite coeff": bad})
-    g_c = torch.where(ecl, torch.zeros_like(g_in), g_in + g_out) / two_pi
-    wxv = 1.0 - px
-    r2 = wxv * wxv + py * py
-    return (grads[..., 0].sum(-1), grads[..., 1].sum(-1),
-            grads[..., 2] + g_c * py / r2, grads[..., 3] + g_c * wxv / r2,
-            grads[..., 4].sum(-1), grads[..., 5].sum(-1))
+    g_wx = ge[2] + 2.0 * wx * ge[4]
+    g_wy = ge[3] + 2.0 * wy * ge[4]
+    dpx = ge[0] + 2.0 * px * ge[5] - g_wx
+    dpy = ge[1] + 2.0 * py * ge[5] - g_wy
+    g_c = torch.where(ecl, zero, g_in + g_out) / 6.283185307179586
+    r2 = wx * wx + py * py
+    dpx = dpx + g_c * py / r2
+    dpy = dpy + g_c * wx / r2
+    s = {k: v.sum(-1) for k, v in acc.items()}
+    den = 1.0 + q
+    return (s["mu"] / den - s["mu"] * (q / den / den),
+            s["si"] * torch.cos(math.pi * (incl / 180.0)) * 0.017453292519943295,
+            dpx, dpy, -s["rad"], s["pl1"])
 
 
 # ---- the kernel source's arithmetic, compiled as C++ --------------------
@@ -234,7 +275,7 @@ _SHIM = r"""
 #define __device__
 #define __global__
 #define __forceinline__ inline __attribute__((always_inline))
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 static inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
 static inline double rsqrt(double v) { return 1.0 / std::sqrt(v); }
 static inline void sincospi(double v, double* s, double* c) {
@@ -250,49 +291,66 @@ static inline void sincospif(float v, float* s, float* c) {
 _HOST = r"""
 }  // namespace
 
-// passes: 0 as the kernel routes its dtype, 1 one pass, 2 two passes
+#include <vector>
+
+// threads: 1 for one thread a row, 0 for the block the kernel gives the
+// dtype, whose threads stride over the row and whose sums are added in the
+// kernel's order (a warp's lanes by the shuffle tree, then the warps)
 template <typename T>
-static void host_rows(int passes, const T* q, const T* incl, const T* x1,
+static void host_rows(int threads, const T* q, const T* incl, const T* x1,
                       const T* px, const T* py, const T* phi_in,
                       const T* phi_out, const T* g_in, const T* g_out,
                       const unsigned char* ecl, T* dpx, T* dpy, T* drow,
                       int rows, int n) {
+  const int nt = threads ? threads
+                         : (sizeof(T) == 4 ? kThreadsF32 : kThreadsF64);
+  std::vector<T> acc[4];
+  for (auto& a : acc) a.resize(nt);
   for (int row = 0; row < rows; ++row) {
     const size_t k = (size_t)row * n;
-    T a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-#define ROW(fn) fn(q[row], incl[row], x1[row], px + k, py + k, phi_in + k, \
-                   phi_out + k, g_in + k, g_out + k, ecl + k, dpx + k,     \
-                   dpy + k, 0, 1, n, a0, a1, a2, a3)
-    if (passes == 0) {
-      ROW(row_grad);
-    } else if (passes == 1) {
-      ROW(row_pass<AllSlots>);
-    } else {
-      ROW(row_pass<RowSlots>);
-      ROW(row_pass<ElemSlots>);
+    for (int t = 0; t < nt; ++t) {
+      RowAcc<T> a = {0, 0, 0, 0};
+      row_thread(q[row], incl[row], x1[row], px + k, py + k, phi_in + k,
+                 phi_out + k, g_in + k, g_out + k, ecl + k, dpx + k, dpy + k,
+                 t, nt, n, a);
+      acc[0][t] = a.mu;
+      acc[1][t] = a.si;
+      acc[2][t] = a.rad;
+      acc[3][t] = a.pl1;
     }
-#undef ROW
-    drow[row] = a0;
-    drow[(size_t)rows + row] = a1;
-    drow[2 * (size_t)rows + row] = a2;
-    drow[3 * (size_t)rows + row] = a3;
+    T s[4];
+    for (int i = 0; i < 4; ++i) {
+      if (nt == 1) {
+        s[i] = acc[i][0];
+        continue;
+      }
+      for (int w = 0; w < nt / 32; ++w) {
+        T* v = acc[i].data() + 32 * w;
+        for (int off = 16; off > 0; off >>= 1)
+          for (int lane = 0; lane + off < 32; ++lane) v[lane] += v[lane + off];
+      }
+      s[i] = acc[i][0];
+      for (int w = 1; w < nt / 32; ++w) s[i] += acc[i][32 * w];
+    }
+    row_finish(q[row], incl[row], s, drow[row], drow[(size_t)rows + row],
+               drow[2 * (size_t)rows + row], drow[3 * (size_t)rows + row]);
   }
 }
 
 extern "C" void contacts_backward_host(
-    int is_double, int passes, const void* q, const void* incl,
+    int is_double, int threads, const void* q, const void* incl,
     const void* x1, const void* px, const void* py, const void* phi_in,
     const void* phi_out, const void* g_in, const void* g_out,
     const void* ecl, void* dpx, void* dpy, void* drow, int rows, int n) {
   const unsigned char* e = (const unsigned char*)ecl;
   if (is_double)
-    host_rows<double>(passes, (const double*)q, (const double*)incl,
+    host_rows<double>(threads, (const double*)q, (const double*)incl,
                       (const double*)x1, (const double*)px, (const double*)py,
                       (const double*)phi_in, (const double*)phi_out,
                       (const double*)g_in, (const double*)g_out, e,
                       (double*)dpx, (double*)dpy, (double*)drow, rows, n);
   else
-    host_rows<float>(passes, (const float*)q, (const float*)incl,
+    host_rows<float>(threads, (const float*)q, (const float*)incl,
                      (const float*)x1, (const float*)px, (const float*)py,
                      (const float*)phi_in, (const float*)phi_out,
                      (const float*)g_in, (const float*)g_out, e, (float*)dpx,
@@ -304,9 +362,10 @@ extern "C" void contacts_backward_host(
 @pytest.fixture(scope="module")
 def compiled(tmp_path_factory):
     """The kernel source up to its ``__global__`` kernel, built by g++ with
-    a host loop in the kernel's place: ``run(passes)`` gives a function
-    with ``_contact_backward_plain``'s signature that takes the inputs in
-    one pass (1), in two (2), or as the kernel routes their dtype (0)."""
+    a host loop in the kernel's place: ``run(threads)`` gives a function
+    with ``_contact_backward_plain``'s signature that takes each row on one
+    thread (1), or on a block of ``threads`` threads that sums in the
+    kernel's order (0: the block the kernel gives the inputs' dtype)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source's arithmetic")
     build = tmp_path_factory.mktemp("contacts_backward")
@@ -325,7 +384,7 @@ def compiled(tmp_path_factory):
                    + [ctypes.c_int, ctypes.c_int])
     fn.restype = None
 
-    def run(passes):
+    def run(threads):
         def backward(q, incl, px, py, x1, pl1, phi_in, phi_out, ecl, g_in,
                      g_out):
             rows, n = px.shape
@@ -333,7 +392,7 @@ def compiled(tmp_path_factory):
                                             phi_out, g_in, g_out, ecl)]
             dpx, dpy = torch.empty_like(px), torch.empty_like(py)
             drow = torch.empty((4, rows), dtype=px.dtype)
-            fn(int(px.dtype == torch.float64), passes,
+            fn(int(px.dtype == torch.float64), threads,
                *[a.data_ptr() for a in ins], dpx.data_ptr(), dpy.data_ptr(),
                drow.data_ptr(), rows, n)
             return drow[0], drow[1], dpx, dpy, drow[2], drow[3]
@@ -342,16 +401,18 @@ def compiled(tmp_path_factory):
     return run
 
 
-STAND_INS = {"mirror": None, "compiled source": 0,
-             "compiled source, one pass": 1,
-             "compiled source, two passes": 2}
+STAND_INS = {"mirror": None,
+             "compiled source, one thread a row": 1,
+             "compiled source, the block of the dtype": 0,
+             "compiled source, a block of 64": 64}
 
 
 @pytest.fixture(params=list(STAND_INS))
 def stand_in(request):
     """The kernel's stand-ins on the CPU: the mirror, and the compiled
-    source as the kernel routes each dtype and in each pass structure (on
-    the card float32 runs one pass and float64 two; here both run both)."""
+    source with each row on one thread, on the block the kernel gives each
+    dtype (128 threads in float32, 32 in float64: the card's order of the
+    row sums), and on a block of 64 (another order of the sums)."""
     if request.param == "mirror":
         return mirror_backward
     return request.getfixturevalue("compiled")(STAND_INS[request.param])
@@ -416,6 +477,39 @@ def test_f64_matches_autograd_on_the_residual(stand_in, batch):
         np.testing.assert_allclose(
             g.numpy(), r.numpy(), rtol=1e-9,
             atol=1e-12 * max(float(r.abs().max()), 1e-300), err_msg=name)
+
+
+def nonfinite_rows(dtype):
+    """The branch rows with non-finite inputs: NaN px and an infinite
+    phase at non-eclipsed elements (rows 0 and 1), a NaN q (row 2), and
+    a NaN cotangent at a non-eclipsed element (row 3)."""
+    args = [a.clone() for a in branch_rows(dtype)]
+    q, px, phi_in, ecl, g_in = args[0], args[2], args[6], args[8], args[9]
+    off = torch.nonzero(~ecl)
+    (r0, j0), (r1, j1), (r3, j3) = (off[off[:, 0] == r][0] for r in (0, 1, 3))
+    px[r0, j0] = float("nan")
+    phi_in[r1, j1] = float("inf")
+    q[2] = float("nan")
+    g_in[r3, j3] = float("nan")
+    return args
+
+
+def test_f64_non_finite_inputs_at_non_eclipsed_elements(stand_in):
+    """A non-eclipsed element's edges are skipped only where its inputs
+    are finite: where one is not, the plain backward's zero cotangent
+    meets NaN partials, and the kernel's sums must carry the same NaNs.
+    Non-finite pattern equal to the plain backward's, the rest within
+    rtol 1e-9."""
+    args = nonfinite_rows(torch.float64)
+    ref = contacts._contact_backward_plain(*args)
+    got = stand_in(*args)
+    for g, r, name in zip(got, ref, NAMES):
+        fin = torch.isfinite(r)
+        assert torch.equal(torch.isfinite(g), fin), name
+        assert not bool(fin.all()) or name == "pl1", name
+        np.testing.assert_allclose(
+            g[fin].numpy(), r[fin].numpy(), rtol=1e-9,
+            atol=1e-12 * float(r[fin].abs().max()), err_msg=name)
 
 
 def test_branch_rows_take_every_branch():
@@ -542,6 +636,26 @@ def test_f32_matches_contacts_op_diff_interpret(stand_in, contact_batch):
                           ("q", "incl", "x1", "pl1")):
         np.testing.assert_allclose(g.numpy(), np.atleast_1d(np.asarray(r)),
                                    rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_autograd_function_on_the_cpu_takes_the_plain_backward(dtype):
+    """Both dtypes go to the kernel's wrapper, which on CPU tensors is the
+    plain backward: the gradients equal it bit for bit, one backward call
+    is counted, and no kernel launch."""
+    args = solved_rows(dtype, rows=2, n=24)
+    q, incl, px, py, x1, pl1 = args[:6]
+    leaves = [a.clone().requires_grad_() for a in (q, incl, px, py, x1, pl1)]
+    before = (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES)
+    pin, pout, _ = contacts.element_intervals_diff(
+        *leaves, tg.inscribed_radius(q, x1, pl1))
+    grads = torch.autograd.grad((pin * args[9] + pout * args[10]).sum(),
+                                leaves)
+    assert (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES) == (
+        before[0] + 1, before[1])
+    for a, b in zip(grads, contacts._contact_backward_plain(*args)):
+        assert a.dtype == dtype
+        assert torch.equal(a, b)
 
 
 def test_wrapper_on_the_cpu_is_the_plain_backward():

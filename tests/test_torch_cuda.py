@@ -193,16 +193,14 @@ def feasible(case, grads):
     """The gradients' rows with finite inputs; checks the infeasible row
     (NaN inclination) of that case on the way.  There the plain backward
     gives NaN in q, incl, px and py, and 0 in x1 and pl1, whose paths
-    through clamps and selects autograd masks to exact zeros.  The kernel
-    gives the same but NaN in x1: in forward mode the NaN values multiply
-    x1's zero tangents.  (The posterior zeroes non-finite gradients.)"""
+    through clamps and selects autograd masks to exact zeros; the kernel's
+    reverse sweep applies the same masks and gives the same.  (The
+    posterior zeroes non-finite gradients.)"""
     if case != "infeasible row":
         return grads
     for name, g in zip(("q", "incl", "px", "py", "x1", "pl1"), grads):
-        if name == "pl1":
-            assert float(g[2]) == 0.0
-        elif name == "x1":
-            assert bool(torch.isnan(g[2])) or float(g[2]) == 0.0
+        if name in ("x1", "pl1"):
+            assert float(g[2]) == 0.0, name
         else:
             assert bool(torch.isnan(g[2]).all()), name
     return [g[[0, 1, 3, 4]] for g in grads]
@@ -253,18 +251,18 @@ def test_backward_kernel_f32_matches_plain(cuda, case):
 
 
 def test_backward_kernel_routing_and_input_checks(cuda):
-    """float32 on the card: the backward of element_intervals_diff is one
-    launch of the kernel; float64 takes the plain backward; the wrapper
-    raises on what the kernel does not take."""
+    """On the card the backward of element_intervals_diff is one launch of
+    the kernel in either dtype; the wrapper raises on what the kernel does
+    not take."""
     args = backward_rows(cuda, torch.float32, "N = 300")
-    for dtype, launches in ((torch.float32, 1), (torch.float64, 0)):
+    for dtype in (torch.float32, torch.float64):
         rows = [a.to(dtype) for a in contact_rows(cuda, 7, 300, seed=7)]
         leaves = [a.clone().requires_grad_() for a in rows[:6]]
         before = (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES)
         pin, pout, _ = contacts.element_intervals_diff(*leaves, rows[6])
         grads = torch.autograd.grad((pout - pin).sum(), leaves)
         assert (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES) == (
-            before[0] + 1, before[1] + launches)
+            before[0] + 1, before[1] + 1)
         assert all(bool(torch.isfinite(g).all()) for g in grads)
     with pytest.raises(TypeError):
         contacts.contact_backward_kernel(args[0].double(), *args[1:])
@@ -283,6 +281,29 @@ def test_backward_kernel_routing_and_input_checks(cuda):
     a = contacts.contact_backward_kernel(*args[:9], wide, args[10])
     b = contacts.contact_backward_kernel(*args)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_backward_kernel_takes_float64_on_the_card(cuda):
+    """One float64 forward and backward of element_intervals_diff on the
+    card (the plain solver's roots, as the JAX package solves float64) is
+    one launch of the backward kernel, and its gradients are autograd's on
+    the edge residual within 1e-9 of each one's largest entry."""
+    rows = [a.double() for a in contact_rows(cuda, 9, 256, seed=3)]
+    leaves = [a.clone().requires_grad_() for a in rows[:6]]
+    before = (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES)
+    pin, pout, ecl = contacts.element_intervals_diff(*leaves, rows[6])
+    cot = torch.randn(pin.shape, dtype=torch.float64, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(0))
+    grads = torch.autograd.grad((cot * pin + pout).sum(), leaves)
+    assert (contacts.BACKWARD_CALLS, contacts.BACKWARD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    ref = contacts._contact_backward_plain(
+        *rows[:6], pin.detach(), pout.detach(), ecl, cot,
+        torch.ones_like(cot))
+    assert contacts.BACKWARD_LAUNCHES == before[1] + 1
+    for g, r in zip(grads, ref):
+        assert g.dtype == torch.float64 and bool(torch.isfinite(g).all())
+        assert float((g - r).abs().max()) <= 1e-9 * float(r.abs().max())
 
 
 def test_posterior_kernel_path_matches_plain_path(cuda):
@@ -478,10 +499,10 @@ def gp_series(dev, dtype, case, W=5, E=3, P=50, seed=3):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
                                        (torch.float32, 1e-5)])
 def test_gp_kernel_matches_plain(cuda, dtype, tol, case):
-    """K3 repeats the plain loop's arithmetic op for op (built without
-    contracted multiply-adds); the bound leaves room for the device's
-    log against PyTorch's: 1e-11 relative in float64, 1e-5 per point
-    absolute in float32."""
+    """K3 repeats the plain loop's arithmetic (built without contracted
+    multiply-adds) but makes its angles with sincospi, which rounds them
+    once more than PyTorch's cos and sin: 1e-11 relative in float64, 1e-5
+    per point absolute in float32."""
     t, y, yerr, sigma2, c, reset, mask = gp_series(cuda, dtype, case)
     before = gp.LAUNCHES
     k = gp.segmented_matern32_ln_like(t, y, yerr, sigma2, c, reset=reset,
@@ -493,15 +514,15 @@ def test_gp_kernel_matches_plain(cuda, dtype, tol, case):
     assert gp.LAUNCHES == before + 1
     assert k.shape == (5, 3) and bool(torch.isfinite(k).all())
     d = (k - p).abs()
-    if dtype == torch.float64:
-        assert float((d / p.abs()).max()) <= tol
-    else:
-        assert float(d.max()) <= tol * y.shape[-1]
     # against the float64 plain loop on the CPU
     ref = gp.segmented_matern32_plain(*[
         a.cpu().double() if a.is_floating_point() else a.cpu()
         for a in (t, y, yerr, sigma2, c)], reset=reset.cpu(),
         mask=mask.cpu())
+    if dtype == torch.float64:
+        assert float((d / p.abs()).max()) <= tol
+    else:
+        assert float(d.max()) <= tol * y.shape[-1]
     rel = 1e-9 if dtype == torch.float64 else 2e-3
     assert float(((k.cpu().double() - ref) / ref).abs().max()) <= rel
 
@@ -559,6 +580,29 @@ def test_gp_reverse_kernel_gradient_of_broadcast_c(cuda, dtype, tol):
         assert tuple(k.shape) == tuple(p.shape) == shape
         assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0
         assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gp_kernel_series_without_points(cuda, dtype):
+    """P = 0: one launch of the forward kernel, which reads no point and
+    gives each series the plain loop's ln-likelihood 0; the context stays
+    usable."""
+    t, y, yerr, sigma2, c, reset, mask = gp_series(cuda, dtype, "segments")
+    before = gp.LAUNCHES
+    k = gp.segmented_matern32_ln_like(t[..., :0], y[..., :0], yerr[..., :0],
+                                      sigma2[..., :0], c,
+                                      reset=reset[..., :0],
+                                      mask=mask[..., :0])
+    torch.cuda.synchronize()
+    assert gp.LAUNCHES == before + 1
+    p = gp.segmented_matern32_plain(t[..., :0], y[..., :0], yerr[..., :0],
+                                    sigma2[..., :0], c, reset=reset[..., :0],
+                                    mask=mask[..., :0])
+    assert k.shape == p.shape == (5, 3)
+    assert torch.equal(k, p) and not bool(k.any())
+    k = gp.segmented_matern32_ln_like(t, y, yerr, sigma2, c, reset=reset,
+                                      mask=mask)
+    assert bool(torch.isfinite(k).all())
 
 
 def test_gp_kernel_routing_and_input_checks(cuda):

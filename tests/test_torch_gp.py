@@ -242,6 +242,19 @@ static dim3 blockIdx, threadIdx, blockDim;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 static inline int cudaGetLastError() { return 0; }
+static inline void sincospi(double v, double* s, double* c) {
+  *s = std::sin(M_PI * v);
+  *c = std::cos(M_PI * v);
+}
+static inline void sincospif(float v, float* s, float* c) {
+  *s = (float)std::sin(M_PI * (double)v);
+  *c = (float)std::cos(M_PI * (double)v);
+}
+// the kernel's branch-free quotient is the IEEE one where it is used
+static inline float recip_(float d) { return 1.0f / d; }
+static inline double recip_(double d) { return 1.0 / d; }
+static inline float quot_(float x, float d, float) { return x / d; }
+static inline double quot_(double x, double d, double) { return x / d; }
 // one thread after another: the kernels' threads share nothing
 template <typename F, typename... A>
 static void launch_host(dim3 grid, dim3 block, F kernel, A... args) {
@@ -258,8 +271,8 @@ static void launch_host(dim3 grid, dim3 block, F kernel, A... args) {
 
 @pytest.fixture(scope="module")
 def compiled_k3(tmp_path_factory):
-    """``ops/csrc/gp.cu`` built by g++ behind a shim header, its two
-    launches rewritten to loops over blocks and threads: a stand-in for
+    """``ops/csrc/gp.cu`` built by g++ behind a shim header, its launches
+    rewritten to loops over blocks and threads: a stand-in for
     ``gp._launch`` that runs K3 and its reverse kernel on CPU tensors."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source")
@@ -267,18 +280,20 @@ def compiled_k3(tmp_path_factory):
     (build / "cuda_runtime.h").write_text(_GP_SHIM)
     src = (Path(gp.__file__).resolve().parent / "csrc" / "gp.cu").read_text()
     src, n = re.subn(
-        r"(gp_(?:backward_)?kernel<\w+>)<<<grid, block, 0, st>>>\(",
+        r"(gp_(?:backward_)?kernel<[\w, ]+>)<<<grid, block, 0, st>>>\(",
         r"launch_host(grid, block, \1, ", src)
-    assert n == 4
+    assert n == 6
     (build / "gp_host.cpp").write_text(src)
     so = build / "libgp_host.so"
-    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
+    # unoptimised: the stand-in makes every load the source makes, also one
+    # whose value goes unused (an out-of-bounds read then faults here too)
+    subprocess.run(["g++", "-O0", "-std=c++17", "-ffp-contract=off",
                     "-shared", "-fPIC", f"-I{build}", "-o", str(so),
                     str(build / "gp_host.cpp")], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     fns = lib.gp_launch, lib.gp_backward_launch
-    for fn, n_ptr in zip(fns, (10, 14)):
+    for fn, n_ptr in zip(fns, (9, 12)):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -289,6 +304,33 @@ def compiled_k3(tmp_path_factory):
                           n_p, None) == 0
 
     return launch
+
+
+def series(n_w, n_e, n_p, seed):
+    """The batch fixture's kind of series at another shape: (t, y, yerr,
+    sigma2, c) float64 and (reset, mask)."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(-0.15, 0.15, (n_e, n_p)), axis=-1)
+    yerr = rng.uniform(1e-3, 3e-3, (n_e, n_p))
+    y = 0.01 * np.sin(40 * t)[None] + 0.002 * rng.standard_normal(
+        (n_w, n_e, n_p))
+    in_ecl = np.abs(t[None]) <= rng.uniform(0.02, 0.06, (n_w, n_e, 1))
+    sigma2 = np.where(in_ecl, rng.uniform(5e-4, 2e-3, (n_w, n_e, 1)) ** 2,
+                      rng.uniform(2e-3, 8e-3, (n_w, n_e, 1)) ** 2)
+    reset = np.zeros((n_w, n_e, n_p), bool)
+    reset[..., 1:] = in_ecl[..., 1:] != in_ecl[..., :-1]
+    mask = np.ones((n_e, n_p), bool)
+    mask[-1, -5:] = False
+    c = np.sqrt(3.0) / rng.uniform(0.01, 0.1, (n_w, n_e))
+    return ([t64(a) for a in (t, y, yerr, sigma2, c)],
+            {"reset": torch.tensor(reset), "mask": torch.tensor(mask)})
+
+
+# (W, E, P): 16-byte loads of 4-point groups in 2 blocks, the second part
+# full; and rows loaded point by point, P no multiple of the group, W * E
+# no multiple of the 32-series block
+SHAPES = {"P 64, 35 series": (7, 5, 64), "P 37, 12 series": (4, 3, 37),
+          "P 61, 45 series": (9, 5, 61)}
 
 
 class TestKernelSourceOnTheCpu:
@@ -355,6 +397,79 @@ class TestKernelSourceOnTheCpu:
             assert k.shape == p.shape == leaf.shape
             assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0
             assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+    @pytest.mark.parametrize("shape", list(SHAPES))
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    def test_in_kernel_angles_and_decay_match_the_plain_loop(
+            self, compiled_k3, monkeypatch, shape, dtype):
+        """The kernel makes cos(eps c t), sin(eps c t) and exp(-c dt)
+        itself; against _angles_decay and the plain loop: float64 within
+        1e-11 relative; float32 per series within 1e-5 per point of the
+        plain float32 loop, or no farther from the float64 plain loop than
+        3x the plain float32 loop's largest distance from it (the
+        recursion turns a one-ulp difference in an angle into ~1e-3 of ll
+        at P = 64: two float32 evaluations that round their angles
+        differently differ by about as much as each errs); one launch."""
+        monkeypatch.setattr(gp, "_launch", compiled_k3)
+        (t, y, yerr, sigma2, c), kw = series(*SHAPES[shape], seed=4)
+        args = [a.to(dtype) for a in (t, y, yerr, sigma2, c)]
+        before = gp.LAUNCHES
+        got = self._through_the_function(args, kw)
+        assert gp.LAUNCHES == before + 1
+        t_, yerr_, s2_, c_, reset_, mask_ = gp._prepare(*args, **kw)
+        ref = gp._recursion_plain(args[1], s2_, *gp._angles_decay(t_, c_),
+                                  reset_, yerr_, mask_)
+        assert got.shape == ref.shape == y.shape[:2]
+        d = (got - ref).abs()
+        if dtype == torch.float64:
+            assert float((d / ref.abs()).max()) <= 1e-11
+        else:
+            ref64 = gp.segmented_matern32_plain(t, y, yerr, sigma2, c, **kw)
+            far = (got.double() - ref64).abs()
+            plain_far = float((ref.double() - ref64).abs().max())
+            assert bool(((d <= 1e-5 * y.shape[-1])
+                         | (far <= 3 * plain_far)).all())
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                           (torch.float32, 1e-3)])
+    def test_reverse_kernel_on_a_staged_forward(self, compiled_k3,
+                                                monkeypatch, dtype, tol):
+        """The state a forward on 16-byte loads (two blocks) keeps drives
+        the reverse kernel to autograd's gradients on the plain loop,
+        within ``tol`` of each one's largest entry."""
+        monkeypatch.setattr(gp, "_launch", compiled_k3)
+        (t, y, yerr, sigma2, c), kw = series(*SHAPES["P 64, 35 series"],
+                                             seed=6)
+        cot = torch.tensor(np.random.default_rng(2).standard_normal(
+            y.shape[:2]), dtype=dtype)
+        grads = {}
+        for name in ("kernel", "plain"):
+            leaves = [a.to(dtype).requires_grad_() for a in (y, sigma2, c)]
+            call = [t.to(dtype), leaves[0], yerr.to(dtype), leaves[1],
+                    leaves[2]]
+            ll = (self._through_the_function(call, kw) if name == "kernel"
+                  else gp.segmented_matern32_plain(*call, **kw))
+            grads[name] = torch.autograd.grad(ll, leaves, cot)
+        for k, p in zip(grads["kernel"], grads["plain"]):
+            assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0
+            assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    def test_series_without_points(self, compiled_k3, monkeypatch, dtype):
+        """P = 0: one launch, whose threads read nothing (the empty rows
+        have no storage) and write each series' ln-likelihood 0, as the
+        plain loop gives."""
+        monkeypatch.setattr(gp, "_launch", compiled_k3)
+        (t, y, yerr, sigma2, c), kw = series(4, 3, 1, seed=1)
+        args = [a[..., :0].to(dtype) for a in (t, y, yerr, sigma2)]
+        kw = {k: v[..., :0] for k, v in kw.items()}
+        args.append(c.to(dtype))
+        before = gp.LAUNCHES
+        got = self._through_the_function(args, kw)
+        assert gp.LAUNCHES == before + 1
+        ref = gp.segmented_matern32_plain(*args, **kw)
+        assert got.shape == ref.shape == (4, 3)
+        assert torch.equal(got, ref) and not bool(ref.any())
 
     def test_no_state_is_kept_without_a_gradient(self, batch, compiled_k3,
                                                  monkeypatch):

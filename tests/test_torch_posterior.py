@@ -118,10 +118,9 @@ class TestLnProb:
         rel = ((f.double() - f64).abs() / f64.abs().amax()).flatten()
         assert float(rel.median()) < 1e-6
 
-    def test_gp_models_are_refused(self):
-        """No longer refused: a GP model builds and evaluates, with its GP
-        eclipses flagged (it raised NotImplementedError while the GP
-        likelihood was missing; the test keeps the name it had then)."""
+    def test_gp_models_evaluate(self):
+        """A GP model builds and evaluates on the CPU, with its GP eclipses
+        flagged and a finite ln-probability."""
         m = build_model(n_eclipses=1, use_gp=True, n_points=8).compile()
         assert m.any_gp
         lp = make_ln_prob(m, CVConfig(**TINY), device="cpu")

@@ -17,11 +17,14 @@ line:
   timed with CUDA events: K1 on the contact rows one evaluation hands it
   (5120 x 512), K1's backward on the contact rows one gradient evaluation
   hands it (1280 x 512; the backward pass of element_intervals_diff, as a
-  forward and backward less a forward), K2 on the evaluation's stream
+  forward and backward less a forward, and the backward kernel's wrapper
+  alone in float32 and float64), K2 on the evaluation's stream
   inputs (primal at 1024 walkers, with sensitivities at 256; float32 and
   float64), K3 on the GP evaluation's series (5120 x 128 points; float32
   and float64) and, where the checkout has it, K3's recorded forward and
-  its backward pass on the same series' first 256 walkers;
+  its backward pass on the same series' first 256 walkers; and the device
+  time of the backward kernel and of K3's forward kernel alone, as the
+  profiler traces them (the least of 5 calls);
 - a SHA-256 of each kernel's outputs (for K1's backward, of its six
   gradients), so that two checkouts whose kernels give the same bits
   print the same digests.
@@ -34,6 +37,7 @@ call, each in its own process, in the order a, b, b, a:
 
 import hashlib
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -76,6 +80,25 @@ def event_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def traced_us(fn, kernel):
+    """The least device time of ``kernel`` over 5 profiled calls of
+    ``fn``, in us (None where the trace has no such kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and re.search(rf"\b{kernel}\b", e.name)]
+    return min(times) if times else None
 
 
 def digest(tensors):
@@ -155,9 +178,22 @@ def k1_backward(contacts, rows):
                                        allow_unused=True)
 
     grads = [torch.zeros(()) if g is None else g for g in run(True)]
+    pin, pout, ecl = contacts.element_intervals(*rows[:7])
+    b32 = [*rows[:6], pin, pout, ecl, cot, cot]
+    b64 = [a if a.dtype == torch.bool else a.double() for a in b32]
+
+    def kernel32():
+        return contacts.contact_backward_kernel(*b32)
+
     return {"ms": event_ms(lambda: run(True), 5)
             - event_ms(lambda: run(False), 5),
-            "rows": list(rows[2].shape), "sha256": digest(grads)}
+            "rows": list(rows[2].shape), "sha256": digest(grads),
+            "kernel_ms": event_ms(kernel32, 20),
+            "kernel64_ms": event_ms(
+                lambda: contacts.contact_backward_kernel(*b64), 20),
+            "kernel_traced_us": traced_us(kernel32,
+                                          "contacts_backward_kernel"),
+            "kernel_sha256": digest(kernel32())}
 
 
 def gp_turns(spec, pos, kernels):
@@ -187,6 +223,8 @@ def gp_turns(spec, pos, kernels):
         def k3():
             return gp.segmented_matern32_kernel(*a, **kw)
         kernels[f"k3_{str(dt)[6:]}"] = {"ms": event_ms(k3, 20),
+                                        "traced_us": traced_us(k3,
+                                                               "gp_kernel"),
                                         "sha256": digest([k3()])}
         if not hasattr(gp, "BACKWARD_LAUNCHES"):
             continue
