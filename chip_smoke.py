@@ -65,7 +65,19 @@ x 256 walkers.  Phases:
  11. parallel tempering on the north-star model: init_pt and 3 pt_steps
      at 4 rungs x 256 walkers, each half's proposals one shared pass;
  12. NUTS on the widths model: 2 nuts_steps at max_depth 6 from phase
-     8's adapted state, one gradient evaluation of all chains per leaf.
+     8's adapted state, one gradient evaluation of all chains per leaf;
+ 13. the fit command, as a user runs it: lfit_python_tpu_torch.cli's
+     main on examples/demo_input.dat (one simple-spot eclipse, 151
+     points, its 1024 walkers, full resolution, float32) with --nburn 20
+     --nprod 40 --checkpoint-every 20 into build/chip_fit/, then resumed
+     to --nprod 60; the chain file's rows, the checkpoint steps, K1 and
+     K2 twice per ensemble step, the last kept row's ln_prob column
+     against the posterior evaluated afresh on those walkers, seconds
+     per step and ln-prob evaluations per second; then those walkers
+     and their first half (a half-step's 512) through the kernel path
+     and the plain contact path (phase 3's limits), and K1 and K2 on the
+     inputs the half's evaluation hands them against their plain
+     versions (phase 2's and phase 6's limits).
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -388,6 +400,181 @@ def _k2_against_plain(stream, q, rd, x1, n_steps, with_sens):
     ms = _event_ms(lambda: stream.stream_impacts_kernel(
         q, rd, x1, n_steps, with_sens=with_sens), 5)
     return imp_err, jac_err, ms, plain_ms
+
+
+def _fit_phase(dev, smi, contacts, stream, gp, plain_path):
+    """Phase 13: the fit command on the demo input, and its resume; then
+    K1 and K2 at the fit's own shapes against their plain versions
+    (``plain_path(fn)`` runs ``fn`` with the plain contact solver).
+    Returns the launch counts of the two runs together."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from lfit_python_tpu_torch import cli
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+    from lfit_python_tpu_torch.sampling import ensemble
+    from lfit_python_tpu_torch.utils.chains import read_chain
+    from lfit_python_tpu_torch.utils.config import (build_model_from_config,
+                                                    parse_input_dat)
+
+    demo = ROOT / "examples" / "demo_input.dat"
+    out_dir = ROOT / "build" / "chip_fit"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_burn, n_prod, n_more, every = 20, 40, 60, 20
+    cfg = parse_input_dat(demo)
+    n_walk = int(cfg.get("nwalkers"))
+    step_launches = {"k1": 0, "k2": 0, "steps": 0}
+    real_step = ensemble.ensemble_step
+
+    def counted_step(*a, **kw):
+        k1, k2 = contacts.LAUNCHES, stream.LAUNCHES
+        out = real_step(*a, **kw)
+        step_launches["k1"] += contacts.LAUNCHES - k1
+        step_launches["k2"] += stream.LAUNCHES - k2
+        step_launches["steps"] += 1
+        return out
+
+    def fit(*extra):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with mock.patch.object(ensemble, "ensemble_step", counted_step), \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(["fit", str(demo), "--outdir", str(out_dir),
+                           "--nburn", str(n_burn), "--checkpoint-every",
+                           str(every), "--quiet", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        total = re.search(r"^total ([\d.]+)s, ~(\d+) ln-prob evals/s$",
+                          text, re.M)
+        _check(rc == 0, f"fit {' '.join(extra)} exited {rc}: {text[-2000:]}")
+        _check(total is not None, "the fit printed no total line")
+        return wall, float(total.group(1)), int(total.group(2)), text
+
+    _zero_counts(contacts, stream, gp)
+    wall1, tot1, rate1, _ = fit("--nprod", str(n_prod))
+    steps_first = step_launches["steps"]
+    wall2, tot2, rate2, text2 = fit("--nprod", str(n_more), "--resume")
+    c_fit = _counts(contacts, stream, gp)
+    _check(f"at step {n_prod}" in text2, "the resume did not start at the "
+           "last checkpoint")
+    n_steps = step_launches["steps"]
+    _check(steps_first == n_burn + n_prod and n_steps == n_burn + n_more,
+           f"{steps_first} and {n_steps} ensemble steps, expected "
+           f"{n_burn + n_prod} and {n_burn + n_more}")
+    _check(step_launches["k1"] == 2 * n_steps
+           and step_launches["k2"] == 2 * n_steps,
+           f"K1 {step_launches['k1']}, K2 {step_launches['k2']} launches in "
+           f"{n_steps} ensemble steps; 2 each per step expected")
+    _check(c_fit["k1_bwd"] == c_fit["k1_bwd_kernel"] == c_fit["k2_sens"]
+           == c_fit["k3"] == 0, "the fit ran a gradient or the GP")
+    ckpts = sorted(int(p.stem.split("_")[1])
+                   for p in out_dir.glob("checkpoint_*.npz"))
+    _check(ckpts == [20, 40, 60], f"checkpoint steps {ckpts}")
+    chain, lp, names = read_chain(out_dir / "chain_prod.txt")
+    _check(chain.shape == (n_more, n_walk, len(names)),
+           f"chain file of {chain.shape}, expected ({n_more}, {n_walk}, "
+           f"{len(names)})")
+    _check(bool(np.isfinite(lp).all()), "a non-finite ln_prob in the chain")
+    # the last kept row's ln_prob column against a fresh evaluation: the
+    # file keeps 11 significant digits (float32 positions exactly), and
+    # float32 batches of other sizes round otherwise
+    model = build_model_from_config(cfg).compile()
+    post = make_ln_prob(model, dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        fresh = post(torch.tensor(chain[-1], dtype=torch.float32,
+                                  device=dev)).double().cpu().numpy()
+    d_lp = np.abs(fresh - lp[-1])
+    lim = 1e-5 * np.maximum(1.0, np.abs(lp[-1]))
+    times = {}
+    for ln in (out_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(ln)
+        times.setdefault((rec["stage"], rec["step"]), []).append(rec["t"])
+    # production seconds per step between the first run's two segment
+    # ends (a segment's 20 steps, its chain rows and its checkpoint)
+    s_step = (times["prod", 40][0] - times["prod", 20][0]) / (40 - 20)
+    print(f"[13 fit] demo_input.dat: {n_walk} walkers, D = {len(names)}, "
+          f"float32, full resolution: fit --nburn {n_burn} --nprod {n_prod} "
+          f"--checkpoint-every {every} exited 0 in {wall1:.1f} s (its "
+          f"total {tot1:.1f} s, ~{rate1} ln-prob evals/s); --resume --nprod "
+          f"{n_more} exited 0 in {wall2:.1f} s (total {tot2:.1f} s, ~{rate2} "
+          f"evals/s); {smi}")
+    print(f"[13 fit] production {s_step:.3f} s per step, "
+          f"{n_walk / s_step:.0f} ln-prob evals/s ({smi}); {n_steps} ensemble "
+          f"steps launched K1 {step_launches['k1']} and K2 "
+          f"{step_launches['k2']} times (2 each per step); the two runs "
+          f"in all: K1 {c_fit['k1']}, K2 {c_fit['k2']} (inits included); "
+          f"checkpoint steps {ckpts}; chain file {chain.shape[0]} x "
+          f"{chain.shape[1]} rows")
+    print(f"[13 fit] last kept row's ln_prob vs a fresh evaluation: max "
+          f"|d| {d_lp.max():.3e} (limit 1e-5 x max(1, |ln p|), at most "
+          f"{lim.max():.3e})")
+    _check(bool((d_lp <= lim).all()),
+           "the chain's ln_prob column disagrees with the posterior")
+
+    # the same walkers, and their first half (a half-step's 512), through
+    # the kernel path and the plain contact path: phase 3's limits
+    pos_fit = torch.tensor(chain[-1], dtype=torch.float32, device=dev)
+    half = pos_fit[:n_walk // 2]
+    for tag, p in ((f"{n_walk} walkers", pos_fit),
+                   (f"{len(half)} walkers (a half-step)", half)):
+        with torch.inference_mode():
+            lk, fk = post(p), post.model_flux(p)
+            k1_before = contacts.LAUNCHES
+            lpl, fpl = plain_path(lambda: (post(p), post.model_flux(p)))
+        _check(contacts.LAUNCHES == k1_before, "the plain path launched K1")
+        fin = torch.isfinite(lk)
+        _check(bool((fin == torch.isfinite(lpl)).all()),
+               f"fit, {tag}: finite/-inf pattern differs between the paths")
+        dflux = (fk - fpl).abs()[fin]
+        f_max, f_med = dflux.max().item(), dflux.median().item()
+        d_pl = (lk - lpl).abs()[fin].max().item()
+        print(f"[13 fit] last kept row, {tag}: {int(fin.sum())} finite in "
+              f"both paths; model flux |kernel - plain| max {f_max:.3e} "
+              f"(limit 2e-4), median {f_med:.3e} (limit 1e-6); ln p "
+              f"|kernel - plain| max {d_pl:.3e}")
+        _check(f_max <= 2e-4 and f_med <= 1e-6,
+               f"fit, {tag}: the kernel path's fluxes disagree with the "
+               f"plain path's")
+    # K1 and K2 on the inputs the half's evaluation hands them: phase 2's
+    # and phase 6's limits
+    with mock.patch.object(contacts, "element_intervals_kernel",
+                           wraps=contacts.element_intervals_kernel) as r1, \
+            mock.patch.object(stream, "stream_impacts_kernel",
+                              wraps=stream.stream_impacts_kernel) as r2, \
+            torch.inference_mode():
+        post(half)
+    _check(r1.call_count == 1 and r2.call_count == 1,
+           f"K1 {r1.call_count}, K2 {r2.call_count} calls in one evaluation")
+    a1, a2 = r1.call_args.args, r2.call_args.args
+    rows, n = a1[2].shape
+    _check((rows, n) == (len(half), 512),
+           f"fit contact rows {rows} x {n}, expected {len(half)} x 512")
+    k_out = contacts.element_intervals_kernel(*a1)
+    p_out = contacts.element_intervals_plain(*a1)
+    flag_diff = (k_out[2] != p_out[2]).float().mean().item()
+    both = k_out[2] & p_out[2]
+    k1_err = max((k_out[i] - p_out[i]).abs()[both].max().item()
+                 for i in (0, 1)) if bool(both.any()) else 0.0
+    print(f"[13 fit] K1 on the half-step's {rows} x {n} contacts "
+          f"({int(both.sum())} eclipsed in both) against its plain version: "
+          f"flag disagreement {flag_diff:.3e} (limit 1e-4), max |dphi| "
+          f"{k1_err:.3e} cycles (limit 1e-5)")
+    _check(flag_diff <= 1e-4 and k1_err <= 1e-5,
+           "K1 disagrees with its plain version at the fit's shapes")
+    _check(len(a2) == 5 and a2[3] == post.stream_steps
+           and a2[4] == stream.plain._DT, f"K2 called with {a2[3:]}")
+    imp_err, _, k2_ms, k2_pms = _k2_against_plain(stream, *a2[:4], False)
+    print(f"[13 fit] K2 on the half-step's {a2[0].shape[0]} walkers x "
+          f"{a2[1].shape[1]} radii, {a2[3]} steps, against its plain "
+          f"version: max |d impact| {imp_err:.2e} (limit 0: bit for bit); "
+          f"kernel {k2_ms:.4f} ms, plain {k2_pms:.1f} ms")
+    _check(imp_err == 0.0, "K2 differs from its plain version at the fit's "
+           "shapes")
+    return c_fit
 
 
 def main():
@@ -1496,9 +1683,12 @@ def main():
     _check(moved_n > 0.5, "the NUTS chains did not move")
     _check(ns.step == hs.step + n_nuts, "NUTS step counter")
 
+    # ---- 13. the fit command on the demo input, and its resume --------
+    c_fit = _fit_phase(dev, smi, contacts, stream, gp, plain_path)
+
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
-             "nuts": c_nuts}
+             "nuts": c_nuts, "fit": c_fit}
 
     def by_path(key):
         return {name: c[key] for name, c in paths.items()}

@@ -17,12 +17,11 @@ __all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the CUDA card,
-    and raises ``RuntimeError`` where there is none."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card.  A
+    CUDA device raises ``RuntimeError`` where there is no card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port's entry points run on the card by "
             "default; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return device

@@ -63,6 +63,55 @@ class Lightcurve:
     width: Optional[np.ndarray] = None
     name: str = ""
 
+    @classmethod
+    def from_file(cls, path, name=None, trim=None):
+        """Load a 3- or 4-column whitespace text file (phase flux err
+        [width]); ``trim=(lo, hi)`` masks to a phase range."""
+        arr = np.loadtxt(path, dtype=np.float64)
+        if arr.ndim != 2 or arr.shape[1] < 3:
+            raise ValueError(f"{path}: expected >=3 columns (phase flux err)")
+        width = arr[:, 3] if arr.shape[1] > 3 else None
+        lc = cls(arr[:, 0], arr[:, 1], arr[:, 2], width,
+                 name or str(path))
+        return lc.trimmed(trim)
+
+    @classmethod
+    def from_calib(cls, path, name=None, trim=None, t0=None, period=None):
+        """Load calibrated photometry: 3 columns (phase-or-time, flux,
+        err) and no exposure-width column.  The width is the median sample
+        spacing (contiguous exposures: the cadence is the exposure time).
+        With an ephemeris ``(t0, period)``, column 0 is absolute time and
+        is folded to orbital phase in [-0.5, 0.5) and sorted."""
+        arr = np.loadtxt(path, dtype=np.float64)
+        if arr.ndim == 1:
+            arr = arr[None]
+        if arr.shape[1] < 3:
+            raise ValueError(
+                f"{path}: expected >=3 columns (phase-or-time flux err)")
+        x, flux, err = arr[:, 0], arr[:, 1], arr[:, 2]
+        if (t0 is None) != (period is None):
+            raise ValueError("from_calib: give both t0 and period or neither")
+        if t0 is not None:
+            x = ((x - t0) / period + 0.5) % 1.0 - 0.5
+            order = np.argsort(x)
+            x, flux, err = x[order], flux[order], err[order]
+        if len(x) > 1:
+            width = np.full_like(x, np.median(np.abs(np.diff(x))))
+        else:
+            width = None
+        lc = cls(x, flux, err, width, name or str(path))
+        return lc.trimmed(trim)
+
+    def trimmed(self, trim):
+        """Mask to the phase range ``trim=(lo, hi)``; ``None`` returns
+        self unchanged."""
+        if trim is None:
+            return self
+        m = (self.phase >= trim[0]) & (self.phase <= trim[1])
+        return type(self)(
+            self.phase[m], self.flux[m], self.err[m],
+            None if self.width is None else self.width[m], self.name)
+
     def __len__(self):
         return len(self.phase)
 
@@ -76,6 +125,7 @@ class EclipseSpec:
     params: Dict[str, Param]
     complex_spot: bool = False
     use_gp: bool = False
+    plot: bool = True   # the input file's plot_<k> flag
 
 
 @dataclass
@@ -115,6 +165,10 @@ class CompiledModel:
     data_mask: np.ndarray     # (E, P) bool
     any_complex: bool
     any_gp: bool
+    # the tree node (core, band, eclipse) of each full slot, and which
+    # eclipses to plot; None where the model was carried across without them
+    param_labels: Optional[List[str]] = None
+    plot_mask: Optional[np.ndarray] = None   # (E,) bool
 
     @property
     def n_eclipses(self) -> int:
@@ -136,6 +190,14 @@ class CompiledModel:
 
     def var_names(self):
         return [self.param_names[i] for i in self.var_idx]
+
+    def var_groups(self):
+        """Sampled-parameter positions grouped by tree node, in tree
+        order: ``[(label, [positions])]``."""
+        groups: Dict[str, List[int]] = {}
+        for pos, i in enumerate(self.var_idx):
+            groups.setdefault(self.param_labels[i], []).append(pos)
+        return list(groups.items())
 
     def full_from_var(self, var_vec):
         """Place a sampled ``(..., n_var)`` vector into the full template
@@ -168,10 +230,12 @@ def _compile(spec: HierarchicalModel) -> CompiledModel:
     """The numpy index maps and stacked data of ``spec``."""
     names: List[str] = []
     params: List[Param] = []
+    labels: List[str] = []
 
     def add(p: Param, label: str):
         names.append(f"{p.name}_{label}")
         params.append(p)
+        labels.append(label)
 
     for n in CORE_NAMES:
         add(spec.core[n], "core")
@@ -241,4 +305,6 @@ def _compile(spec: HierarchicalModel) -> CompiledModel:
         data_width=data_width, data_mask=data_mask,
         any_complex=any(e.complex_spot for e in spec.eclipses),
         any_gp=any(e.use_gp for e in spec.eclipses),
+        param_labels=labels,
+        plot_mask=np.asarray([e.plot for e in spec.eclipses], bool),
     )

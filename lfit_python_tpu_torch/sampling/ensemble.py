@@ -11,15 +11,20 @@ accepted with probability min(1, z^(D-1) exp(ln p(y) - ln p(x_k))).
 
 The posterior is batched, ``(W, D) -> (W,)``, and every random draw comes
 from an explicit ``torch.Generator`` on the ensemble's device.
+
+:func:`run_sampler` keeps its chain on the device; :func:`run_chunked`,
+which the command line runs, keeps the same rows on the host.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["EnsembleState", "init_walkers", "ensemble_step", "run_sampler"]
+__all__ = ["EnsembleState", "init_walkers", "ensemble_step", "run_sampler",
+           "run_chunked"]
 
 
 class EnsembleState(NamedTuple):
@@ -127,3 +132,49 @@ def run_sampler(state: EnsembleState, ln_prob_fn, n_steps, generator,
     chain_lp = torch.stack(kept_lp) if kept_lp else like.new_empty((0, W))
     acc_t = torch.stack(acc) if acc else like.new_empty((0,))
     return state, chain, chain_lp, acc_t
+
+
+@torch.inference_mode()
+def run_chunked(state: EnsembleState, step_fn, n_steps, thin=1,
+                chunk_size=64,
+                progress: Optional[Callable[[int, float], None]] = None):
+    """Run ``step_fn(state) -> (state, accept fraction)`` ``n_steps`` times,
+    keeping, as :func:`run_sampler` does, the steps whose global number
+    ``state.step`` is a multiple of ``thin`` (the phase follows the global
+    counter, so the spacing stays regular across checkpoint segments).
+    Each kept row is copied to the host as it is made.
+
+    ``progress(done, mean accept)`` is called where the JAX package's
+    driver ends a chunk, so a fit's metrics lines fall on the same steps:
+    after the steps up to the first kept row, then every ``chunk_size //
+    thin`` kept rows, after the last kept row, and at the end.
+
+    Returns (final state, chain (n_kept, W, D), chain_lp (n_kept, W),
+    accept fractions (n_steps,)), the last three as numpy arrays.
+    """
+    thin = max(int(thin), 1)
+    step0 = int(state.step)
+    W, D = state.positions.shape
+    dtype = state.positions[:0].cpu().numpy().dtype
+    n_kept = (step0 + n_steps) // thin - step0 // thin
+    chain = np.empty((n_kept, W, D), dtype)
+    chain_lp = np.empty((n_kept, W), dtype)
+    acc = np.empty(n_steps, dtype)
+    first = min((-step0) % thin, n_steps)
+    last = n_steps - (n_steps - first) % thin
+    span = max(chunk_size // thin, 1) * thin
+    ends = {first, last, n_steps, *range(first + span, last, span)} - {0}
+    k, lo, fracs = 0, 0, []
+    for i in range(1, n_steps + 1):
+        state, frac = step_fn(state)
+        fracs.append(frac)
+        if state.step % thin == 0:
+            chain[k] = state.positions.cpu().numpy()
+            chain_lp[k] = state.log_prob.cpu().numpy()
+            k += 1
+        if i in ends:
+            acc[lo:i] = torch.stack(fracs).cpu().numpy()
+            if progress is not None:
+                progress(i, float(acc[lo:i].mean()))
+            lo, fracs = i, []
+    return state, chain, chain_lp, acc

@@ -1,0 +1,186 @@
+"""The port's ``fit`` command on the CPU, at a size the CPU can run: the
+demo input with 8 walkers, 2 burn-in and 4 production steps, float64, the
+low-resolution element grids.
+
+One fit is shared by the tests that read its files.  Its chain file's
+ln_prob column must equal the port's posterior re-evaluated on the last
+checkpoint's walkers (relative 1e-9: the file keeps 11 significant
+digits), the checkpoint's walkers must be the chain's last rows, and a
+fit stopped at step 2 and resumed must write the same chain file.  Every
+option or input key the port does not run yet exits with code 2 and a
+message naming what it waits for; without a card and without
+``--device cpu`` the command exits non-zero.
+"""
+
+import contextlib
+import io
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lfit_python_tpu.utils import chains as jchains
+from lfit_python_tpu_torch import cli
+from lfit_python_tpu_torch.models.cv import CVConfig
+from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+from lfit_python_tpu_torch.utils import checkpoints
+from lfit_python_tpu_torch.utils.config import (build_model_from_config,
+                                                parse_input_dat)
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+W, N_BURN, N_PROD = 8, 2, 4
+CPU = ["--device", "cpu", "--x64", "--resolution", "low", "--quiet"]
+LOW = CVConfig(n_disc_rad=5, n_disc_az=8, n_spot=8, n_donor_lat=6,
+               n_donor_lon=8)
+
+
+def demo_copy(d, extra=""):
+    """The demo input at 8 walkers (plus ``extra`` lines) in ``d``."""
+    d.mkdir(parents=True, exist_ok=True)
+    text = (EXAMPLES / "demo_input.dat").read_text().replace(
+        "nwalkers = 1024", f"nwalkers = {W}")
+    path = d / "input.dat"
+    path.write_text(text + extra)
+    shutil.copy(EXAMPLES / "demo_ecl0.txt", d)
+    return path
+
+
+def run(*argv):
+    """``cli.main(argv)`` -> (exit code, stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    return rc, out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def fit(tmp_path_factory):
+    d = tmp_path_factory.mktemp("fit")
+    inp = demo_copy(d)
+    rc, out = run("fit", inp, "--outdir", d / "out", "--nburn", N_BURN,
+                  "--nprod", N_PROD, "--checkpoint-every", 2, *CPU)
+    return d, inp, rc, out
+
+
+def test_fit_writes_its_files(fit):
+    d, _, rc, out = fit
+    assert rc == 0, out
+    out_dir = d / "out"
+    assert sorted(p.name for p in out_dir.iterdir()) == [
+        "chain_prod.txt", "checkpoint_0000002.npz", "checkpoint_0000004.npz",
+        "metrics.jsonl", "params.json"]
+    chain, lp, names = jchains.read_chain(out_dir / "chain_prod.txt")
+    assert chain.shape == (N_PROD, W, 13) and lp.shape == (N_PROD, W)
+    assert names[0] == "q_core" and names[-1] == "phi0_ecl0"
+    assert np.isfinite(lp).all()
+    table = json.loads((out_dir / "params.json").read_text())
+    assert [r["name"] for r in table] == names
+    assert all(set(r) == {"name", "median", "upper", "lower"} for r in table)
+    recs = [json.loads(ln) for ln in
+            (out_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [(r["stage"], r["step"]) for r in recs] == [
+        ("burn", 2), ("prod", 2), ("prod", 4)]
+    assert all(0.0 <= r["accept"] <= 1.0 for r in recs)
+    assert "ln-prob evals/s" in out and out.startswith("total ")
+    assert "max split-R-hat" in out and "plots: not made" in out
+
+
+def test_chain_ln_prob_is_the_posterior(fit):
+    d, inp, _, _ = fit
+    state, _, meta = checkpoints.load_checkpoint(
+        d / "out" / "checkpoint_0000004.npz", "cpu")
+    assert state.step == N_PROD and meta["stage"] == "prod"
+    chain, lp, _ = jchains.read_chain(d / "out" / "chain_prod.txt")
+    pos = state.positions.numpy()
+    np.testing.assert_allclose(chain[-1], pos, rtol=1e-10, atol=0)
+    model = build_model_from_config(parse_input_dat(inp)).compile()
+    ln_prob = make_ln_prob(model, LOW, dtype=torch.float64, device="cpu")
+    with torch.inference_mode():
+        fresh = ln_prob(state.positions).numpy()
+    np.testing.assert_allclose(state.log_prob.numpy(), fresh, rtol=1e-12)
+    np.testing.assert_allclose(lp[-1], fresh, rtol=1e-9, atol=0)
+
+
+def test_resume_gives_the_same_chain(fit, tmp_path):
+    d, _, _, _ = fit
+    inp = demo_copy(tmp_path)
+    common = ["--outdir", tmp_path / "out", "--nburn", N_BURN,
+              "--checkpoint-every", 2, *CPU]
+    assert run("fit", inp, "--nprod", 2, *common)[0] == 0
+    rc, out = run("fit", inp, "--nprod", N_PROD, "--resume", *common)
+    assert rc == 0
+    assert "resumed from" in out and "at step 2" in out
+    assert (tmp_path / "out" / "chain_prod.txt").read_text() == \
+        (d / "out" / "chain_prod.txt").read_text()
+    assert sorted(p.name for p in (tmp_path / "out").glob("checkpoint_*")) \
+        == ["checkpoint_0000002.npz", "checkpoint_0000004.npz"]
+
+
+ITEM3, ITEM4, ITEM6, ITEM7 = (f"ROADMAP queue 1 item {k}" for k in "3467")
+BY_DTYPE = "routes the contact solve by dtype"
+REFUSED = {
+    "sampler_hmc": (["--sampler", "hmc"], "", ITEM3),
+    "sampler_nuts": (["--sampler", "nuts"], "", ITEM3),
+    "hmc_leapfrog": (["--hmc-leapfrog", "8"], "", ITEM3),
+    "nuts_max_depth": (["--nuts-max-depth", "4"], "", ITEM3),
+    "usePT": ([], "usePT = 1\nntemps = 2\n", ITEM3),
+    "precise": (["--precise"], "", ITEM4),
+    "pallas": (["--pallas"], "", BY_DTYPE),
+    "no_pallas": (["--no-pallas"], "", BY_DTYPE),
+    "shard": (["--shard"], "", ITEM7),
+    "profile": (["--profile", "trace"], "", ITEM6),
+    "notify_cmd": (["--notify-cmd", "true"], "", ITEM6),
+    "notify_file": (["--notify-file", "n.jsonl"], "", ITEM6),
+    "notify_key": ([], "notify = 1\n", ITEM6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_refused_options_exit_2(case, tmp_path, capsys):
+    flags, extra, why = REFUSED[case]
+    inp = demo_copy(tmp_path, extra)
+    rc = cli.main(["fit", str(inp), "--outdir", str(tmp_path / "out"),
+                   *flags, *CPU])
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert why in err
+    assert not (tmp_path / "out").exists()
+
+
+def test_wdparams_is_refused(capsys):
+    assert cli.main(["wdparams", "wd_input.dat", "--nburn", "5"]) == 2
+    assert ITEM6 in capsys.readouterr().err
+
+
+def test_resuming_a_jax_checkpoint_is_refused(tmp_path, capsys):
+    import jax
+    import jax.numpy as jnp
+
+    from lfit_python_tpu.sampling.ensemble import EnsembleState
+    from lfit_python_tpu.utils import checkpoints as jck
+
+    inp = demo_copy(tmp_path)
+    (tmp_path / "out").mkdir()
+    jck.save_checkpoint(tmp_path / "out" / "checkpoint_0000002.npz",
+                        EnsembleState(jax.random.PRNGKey(0),
+                                      jnp.zeros((W, 13)), jnp.zeros(W),
+                                      jnp.asarray(2, jnp.int32)))
+    rc = cli.main(["fit", str(inp), "--outdir", str(tmp_path / "out"),
+                   "--resume", *CPU])
+    assert rc == 2
+    assert "no torch.Generator state" in capsys.readouterr().err
+
+
+def test_without_a_card_the_default_device_fails(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device runs")
+    inp = demo_copy(tmp_path)
+    for device in ([], ["--device", "cuda"]):
+        rc = cli.main(["fit", str(inp), "--outdir", str(tmp_path / "out"),
+                       "--resolution", "low", *device])
+        assert rc != 0
+        assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "out").exists()

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (contacts) and its backward, K2 (gas stream) and K3
 (GP recursion) and its reverse kernel on the card, against their plain
-PyTorch versions, and the posterior and its gradient through them.
+PyTorch versions, the posterior and its gradient through them, and the
+fit command, its chunked sampling loop and its checkpoints on the card.
 
 Every test here needs a CUDA card (the kernels have no CPU form) and skips
 without one.  The file imports nothing of JAX, so on a machine with the
@@ -682,3 +683,81 @@ def test_gp_posterior_kernel_path_matches_plain_path(cuda):
     cos = torch.nn.functional.cosine_similarity(g.double(),
                                                 g_plain.double(), dim=-1)
     assert float(cos.min()) >= 0.9999
+
+
+# ---- the fit command and its host IO on the card ----------------------------
+
+def test_fit_on_the_demo(cuda, tmp_path):
+    from pathlib import Path
+
+    from lfit_python_tpu_torch import cli
+    from lfit_python_tpu_torch.utils.chains import read_chain
+
+    demo = Path(__file__).resolve().parent.parent / "examples/demo_input.dat"
+    before = contacts.LAUNCHES, stream.LAUNCHES
+    rc = cli.main(["fit", str(demo), "--outdir", str(tmp_path), "--nburn",
+                   "2", "--nprod", "4", "--checkpoint-every", "2",
+                   "--quiet"])
+    assert rc == 0
+    chain, lp, names = read_chain(tmp_path / "chain_prod.txt")
+    assert chain.shape == (4, 1024, 13) and np.isfinite(lp).all()
+    assert sorted(p.name for p in tmp_path.glob("checkpoint_*")) == [
+        "checkpoint_0000002.npz", "checkpoint_0000004.npz"]
+    assert (tmp_path / "params.json").exists()
+    # init and 6 steps of 2 evaluations: K1 and K2 on every one
+    assert contacts.LAUNCHES - before[0] >= 13
+    assert stream.LAUNCHES - before[1] >= 13
+
+
+def _gauss(x):
+    return -0.5 * (x * x).sum(dim=-1)
+
+
+def _gauss_start(dev, seed=9):
+    from lfit_python_tpu_torch.sampling import ensemble as ens
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    start = torch.linspace(-1.0, 1.0, 5, dtype=torch.float32, device=dev)
+    state = ens.init_walkers(gen, start, torch.full_like(start, 0.5),
+                             _gauss, 64)
+    return state, gen
+
+
+def test_checkpoint_resume_of_a_cuda_generator(cuda, tmp_path):
+    from lfit_python_tpu_torch.sampling import ensemble as ens
+    from lfit_python_tpu_torch.utils import checkpoints
+
+    def step(gen):
+        return lambda s: ens.ensemble_step(s, _gauss, gen)
+
+    state, gen = _gauss_start(cuda)
+    whole = ens.run_chunked(state, step(gen), 9, thin=2, chunk_size=4)
+    state, gen = _gauss_start(cuda)
+    first = ens.run_chunked(state, step(gen), 5, thin=2, chunk_size=4)
+    path = checkpoints.save_checkpoint(tmp_path / "c.npz", first[0], gen)
+    back, gen2, _ = checkpoints.load_checkpoint(path, cuda)
+    assert gen2.device.type == "cuda" and back.positions.is_cuda
+    assert torch.equal(gen2.get_state(), gen.get_state())
+    assert torch.equal(back.positions, first[0].positions)
+    second = ens.run_chunked(back, step(gen2), 4, thin=2, chunk_size=4)
+    assert torch.equal(second[0].positions, whole[0].positions)
+    assert torch.equal(second[0].log_prob, whole[0].log_prob)
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(
+            np.concatenate([first[i], second[i]]), whole[i])
+    with pytest.raises(ValueError, match="cuda generator"):
+        checkpoints.load_checkpoint(path, "cpu")
+
+
+def test_run_chunked_on_the_card_keeps_run_samplers_rows(cuda):
+    from lfit_python_tpu_torch.sampling import ensemble as ens
+
+    state, gen = _gauss_start(cuda)
+    twin = torch.Generator(device=cuda)
+    twin.set_state(gen.get_state())
+    out = ens.run_chunked(state, lambda s: ens.ensemble_step(s, _gauss, gen),
+                          13, thin=3, chunk_size=4)
+    ref = ens.run_sampler(state, _gauss, 13, twin, thin=3)
+    assert torch.equal(out[0].positions, ref[0].positions)
+    for got, want in zip(out[1:], ref[1:]):
+        np.testing.assert_array_equal(got, want.cpu().numpy())

@@ -7,7 +7,10 @@ acceptance uniforms) come from numpy or from a replayed generator and go
 into both.  Sampler statistics are not tested here.
 """
 
+from typing import NamedTuple
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -164,3 +167,124 @@ class TestDriver:
         assert acc.shape == (6,) and bool(((acc > 0) & (acc <= 1)).all())
         assert torch.equal(chain[-1], state.positions) == (6 % thin == 0)
         assert bool(((chain > 0) & (chain < 1)).all())
+
+
+def gauss_ln_prob(x):
+    return -0.5 * (x * x).sum(dim=-1)
+
+
+class _JCounter(NamedTuple):
+    positions: jax.Array
+    log_prob: jax.Array
+    step: jax.Array
+
+
+_OFFSETS = np.arange(12 * 3, dtype=np.float64).reshape(12, 3) / 100.0
+
+
+def _accept_of(step):
+    return ((step * 7) % 5) / 8.0 + 0.0625
+
+
+def _jax_counter_step(s):
+    """A deterministic step for the JAX driver: the positions and ln-probs
+    encode the global step, and so does the accept fraction."""
+    step = s.step + 1
+    pos = jnp.asarray(_OFFSETS) + step
+    return _JCounter(pos, -pos[:, 0], step), _accept_of(step) * 1.0
+
+
+def _torch_counter_step(s):
+    step = s.step + 1
+    pos = torch.from_numpy(_OFFSETS) + step
+    return (ens.EnsembleState(pos, -pos[:, 0], step),
+            torch.tensor(_accept_of(step), dtype=torch.float64))
+
+
+class TestRunChunked:
+    """run_chunked keeps the rows run_sampler keeps (the steps whose
+    global number is a multiple of thin), with the same draws, and the
+    rows, accept fractions and progress calls of the JAX package's
+    run_chunked."""
+
+    @pytest.mark.parametrize("chunk", [4, 64])
+    @pytest.mark.parametrize("thin", [1, 3, 4])
+    @pytest.mark.parametrize("step0", [0, 2, 5])
+    def test_same_as_the_jax_driver(self, step0, thin, chunk):
+        from lfit_python_tpu.sampling import ensemble as jens
+
+        n = 13
+        pos0 = _OFFSETS + step0
+        seen, jseen = [], []
+        out = ens.run_chunked(
+            ens.EnsembleState(torch.from_numpy(pos0),
+                              torch.from_numpy(-pos0[:, 0]), step0),
+            _torch_counter_step, n, thin=thin, chunk_size=chunk,
+            progress=lambda done, acc: seen.append((done, acc)))
+        ref = jens.run_chunked(
+            _JCounter(jnp.asarray(pos0), jnp.asarray(-pos0[:, 0]),
+                      jnp.asarray(step0, jnp.int32)),
+            _jax_counter_step, n, thin=thin, chunk_size=chunk,
+            progress=lambda done, acc: jseen.append((done, acc)))
+        assert out[0].step == int(ref[0].step) == step0 + n
+        kept = [s for s in range(step0 + 1, step0 + n + 1) if s % thin == 0]
+        assert out[1].shape == (len(kept), 12, 3)
+        np.testing.assert_array_equal(out[1][:, 0, 0], kept)
+        for got, want in zip(out[1:], ref[1:]):
+            assert isinstance(got, np.ndarray) and got.dtype == np.float64
+            np.testing.assert_array_equal(got, np.asarray(want))
+        assert seen == jseen and seen[-1][0] == n
+
+    @pytest.mark.parametrize("step0", [0, 2])
+    def test_same_rows_as_run_sampler(self, step0):
+        start = torch.linspace(-1.0, 1.0, 3, dtype=torch.float64)
+        gen = torch.Generator().manual_seed(11)
+        state = ens.init_walkers(gen, start, torch.full_like(start, 0.3),
+                                 gauss_ln_prob, 12)._replace(step=step0)
+        twin = torch.Generator()
+        twin.set_state(gen.get_state())
+        seen = []
+        out = ens.run_chunked(
+            state, lambda s: ens.ensemble_step(s, gauss_ln_prob, gen), 13,
+            thin=3, chunk_size=4,
+            progress=lambda done, acc: seen.append((done, acc)))
+        ref = ens.run_sampler(state, gauss_ln_prob, 13, twin, thin=3)
+        assert out[0].step == ref[0].step == step0 + 13
+        assert torch.equal(out[0].positions, ref[0].positions)
+        kept = [s for s in range(step0 + 1, step0 + 14) if s % 3 == 0]
+        assert out[1].shape == (len(kept), 12, 3)
+        assert out[2].shape == (len(kept), 12)
+        for got, want in zip(out[1:], ref[1:]):
+            assert isinstance(got, np.ndarray)
+            np.testing.assert_array_equal(got, want.numpy())
+        # one progress call a chunk, with the mean accept of its steps
+        ends = [d for d, _ in seen]
+        assert ends == sorted(ends) and ends[-1] == 13
+        lo = 0
+        for done, acc in seen:
+            assert acc == float(ref[3][lo:done].numpy().mean())
+            lo = done
+
+    def test_a_short_segment_keeps_only_multiples_of_thin(self):
+        """A segment that ends before the next multiple of thin keeps
+        nothing, and the next segment keeps that multiple."""
+        pos0 = _OFFSETS + 1
+        state = ens.EnsembleState(torch.from_numpy(pos0),
+                                  torch.from_numpy(-pos0[:, 0]), 1)
+        seen = []
+        state, chain, chain_lp, acc = ens.run_chunked(
+            state, _torch_counter_step, 2, thin=5,
+            progress=lambda done, a: seen.append(done))
+        assert chain.shape == (0, 12, 3) and chain_lp.shape == (0, 12)
+        assert acc.tolist() == [_accept_of(2), _accept_of(3)] and seen == [2]
+        state, chain, _, _ = ens.run_chunked(state, _torch_counter_step, 4,
+                                             thin=5)
+        assert state.step == 7 and chain[:, 0, 0].tolist() == [5.0]
+
+    def test_no_steps(self):
+        start = torch.zeros(2, dtype=torch.float64)
+        state = ens.EnsembleState(start[None].repeat(4, 1),
+                                  torch.zeros(4, dtype=torch.float64), 0)
+        out = ens.run_chunked(state, None, 0)
+        assert out[0] is state
+        assert out[1].shape == (0, 4, 2) and out[3].shape == (0,)
