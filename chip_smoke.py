@@ -17,10 +17,11 @@ x 256 walkers.  Phases:
   1. device: the card, its power limit, the builds of K1 (contacts.cu),
      K1's backward (contacts_backward.cu), K2 (stream.cu) and K3 (gp.cu)
      from lfit_python_tpu_torch/ops/csrc/, in parallel, with the stack
-     frame and registers of each instantiation of K1's backward (one pass
-     each in float32 and float64), K2 and K3 from ptxas (the frame must be
-     0: nothing in local memory; K3's are the forward kernel with and
-     without the kept state and the reverse kernel, in both dtypes);
+     frame and registers of each instantiation from ptxas: K1's three
+     (float32, float64, mixed precision; reported), and K1's backward (one
+     pass each in float32 and float64), K2 and K3, whose frame must be 0:
+     nothing in local memory (K3's are the forward kernel with and without
+     the kept state and the reverse kernel, in both dtypes);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
@@ -77,7 +78,33 @@ x 256 walkers.  Phases:
      and their first half (a half-step's 512) through the kernel path
      and the plain contact path (phase 3's limits), and K1 and K2 on the
      inputs the half's evaluation hands them against their plain
-     versions (phase 2's and phase 6's limits).
+     versions (phase 2's and phase 6's limits);
+ 14. K1 in float64 and in mixed precision: the contact rows one
+     evaluation of the float64 north-star posterior and of the precise
+     float32 one (CVConfig.mixed_precision) hands K1 at 1024 walkers
+     (5120 x 512), each instantiation against the plain version of its
+     mode (phase 2's limits; the median and p99 printed), its time, the
+     plain version's, its operations (float32 and float64 apart in the
+     mixed mode) and bound; each posterior through K1 (one launch of its
+     mode per evaluation) and through the plain solver, timed in turns
+     (phase 3's limits), with its device-busy share; and the precise
+     float32 fluxes through the mixed K1 against tests/golden/
+     golden_v1.npz (every component within 1e-6 of the largest total,
+     the JAX package's gate);
+ 15. the fit command's other branches through lfit_python_tpu_torch.cli's
+     main, on copies of examples/demo_input.dat at full resolution under
+     build/chip_fit_branches/: usePT = 1 with 4 rungs x 256 walkers
+     (--nburn 4 --nprod 8 --checkpoint-every 4, resumed to 12; its
+     evidence.json; K1 and K2 twice per PT step); --sampler hmc at 256
+     chains (--nburn 4 --nprod 4 --checkpoint-every 2, resumed to 6) and
+     --sampler nuts --nuts-max-depth 4 (--nburn 2 --nprod 2) on the demo
+     light curve with exposure widths (K1, K1's backward kernel and K2
+     with sensitivities once per gradient evaluation); --precise and
+     --x64 at the demo's 1024 walkers (10 + 10 steps; K1 in that mode
+     twice per step, K1 in float32 never); each exits 0, and its chain's
+     last row's ln_prob agrees with a fresh evaluation (phase 13's limit);
+     seconds per production step and evaluations (gradient evaluations,
+     trajectories) per second.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -113,6 +140,10 @@ N_LEAPFROG = 16
 K1_SOURCE = "lfit_python_tpu_torch/ops/csrc/contacts.cu"
 K1_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:352"
 K1_GRAD_REPLACES = "lfit_python_tpu/ops/pallas_contacts.py:448"
+# float64 and --precise take the JAX package's plain XLA solver
+K1_MODE_REPLACES = ("lfit_python_tpu/ops/pallas_contacts.py:352 (the "
+                    "JAX package runs float64 and --precise on "
+                    "lfit_python_tpu/roche/geometry.py:259)")
 K1_BWD_SOURCE = "lfit_python_tpu_torch/ops/csrc/contacts_backward.cu"
 K2_SOURCE = "lfit_python_tpu_torch/ops/csrc/stream.cu"
 K2_REPLACES = "lfit_python_tpu/roche/stream.py:278"
@@ -126,6 +157,17 @@ PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 # step for the primal and for each of its two tangent columns
 K1_OPS_ELEMENT = 287
 K1_OPS_ECLIPSED = 3401
+# K1 in mixed precision per eclipsed element, beside K1_OPS_ELEMENT for
+# its float32 setup and conjunction test, counted from contacts.cu with
+# every arithmetic operation, compare and select as one (an edge step is
+# 240 so): float32, the bracket and edge start (68), 10 edge steps
+# (2400) and per edge the tail's start (12) and 4 iterations of the ray
+# minimum with its 3 Newton steps and 3 end values, the phase's sin and
+# cos and the envelope derivative (339 each); float64, the element's
+# position terms (8) and per edge 4 iterations of c with its sin and cos
+# and the phase update (62 each)
+K1_MIXED_OPS_ECLIPSED_F32 = 68 + 10 * 240 + 2 * (12 + 4 * 339)
+K1_MIXED_OPS_ECLIPSED_F64 = 8 + 2 * 4 * 62
 K2_OPS_STEP = 180
 K2_OPS_STEP_COLUMN = 248
 # K1's backward.  What the function needs per eclipsed edge: the residual
@@ -271,7 +313,8 @@ def _short_entry(entry):
     m = re.search(r"\d([a-z_]+_kernel)I([fd])(?:Lb([01])|Li(\d+)ELi(\d+))?",
                   entry)
     if not m:
-        return entry[-44:]
+        m = re.search(r"\d([a-z_]+_kernel)E", entry)
+        return m.group(1) if m else entry[-44:]
     name, typ, flag, threads, blocks = m.groups()
     extra = ("" if flag is None else ", " + flag) + (
         "" if threads is None else f", {threads} threads, {blocks} blocks")
@@ -345,12 +388,15 @@ def _walkers(start, n, seed, dtype, dev):
 def _zero_counts(contacts, stream, gp):
     contacts.LAUNCHES = contacts.BACKWARD_CALLS = 0
     contacts.BACKWARD_LAUNCHES = 0
+    contacts.F64_LAUNCHES = contacts.MIXED_LAUNCHES = 0
     stream.LAUNCHES = stream.SENS_LAUNCHES = 0
     gp.LAUNCHES = gp.BACKWARD_LAUNCHES = 0
 
 
 def _counts(contacts, stream, gp):
-    return {"k1": contacts.LAUNCHES, "k1_bwd": contacts.BACKWARD_CALLS,
+    return {"k1": contacts.LAUNCHES, "k1_f64": contacts.F64_LAUNCHES,
+            "k1_mixed": contacts.MIXED_LAUNCHES,
+            "k1_bwd": contacts.BACKWARD_CALLS,
             "k1_bwd_kernel": contacts.BACKWARD_LAUNCHES,
             "k2": stream.LAUNCHES, "k2_sens": stream.SENS_LAUNCHES,
             "k3": gp.LAUNCHES, "k3_bwd": gp.BACKWARD_LAUNCHES}
@@ -577,6 +623,361 @@ def _fit_phase(dev, smi, contacts, stream, gp, plain_path):
     return c_fit
 
 
+def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
+    """Phase 14: K1 in float64 and in mixed precision on the contact rows
+    one north-star evaluation at ``pos``' walkers hands it, against the
+    plain version of each mode; each mode's posterior through K1 and
+    through the plain solver; the precise fluxes through the mixed K1
+    against golden_v1.npz.  Returns ({mode: results for the kernels
+    line}, {path: launch counts})."""
+    import torch
+
+    from lfit_python_tpu_torch.models.cv import CVConfig, cv_fluxes
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+
+    f32, f64 = torch.float32, torch.float64
+    modes = {
+        "float64": (make_ln_prob(model, dtype=f64, device=dev), pos.to(f64),
+                    "element_intervals_kernel", "k1_f64", "posterior_f64"),
+        "mixed_precision": (
+            make_ln_prob(model, CVConfig(mixed_precision=True), dtype=f32,
+                         device=dev), pos, "element_intervals_mixed_kernel",
+            "k1_mixed", "posterior_precise")}
+    results, paths = {}, {}
+    for mode, (post, p, wrapper, key, path) in modes.items():
+        kernel = getattr(contacts, wrapper)
+        with mock.patch.object(contacts, wrapper, wraps=kernel) as rec, \
+                torch.inference_mode():
+            post(p)
+        _check(rec.call_count == 1,
+               f"{mode}: K1 called {rec.call_count} times per evaluation")
+        args = rec.call_args.args
+        rows, n = args[2].shape
+        _check((rows, n) == (len(p) * 5, 512),
+               f"{mode}: contact rows {rows} x {n}, expected "
+               f"{len(p) * 5} x 512")
+        k_out = kernel(*args)
+        p_out = contacts.element_intervals_plain(*args)
+        torch.cuda.synchronize()
+        flag_diff = (k_out[2] != p_out[2]).float().mean().item()
+        both = k_out[2] & p_out[2]
+        err = torch.cat([(k_out[i] - p_out[i]).abs()[both].double()
+                         for i in (0, 1)])
+        e_max, e_med = err.max().item(), err.median().item()
+        e_p99 = torch.quantile(err[torch.randperm(
+            err.numel(), device=dev)[:1 << 24]], 0.99).item()
+        print(f"[14 {mode}] {rows} x {n} contacts, {int(both.sum())} "
+              f"eclipsed in both; flag disagreement {flag_diff:.3e} (limit "
+              f"1e-4); |dphi| median {e_med:.3e}, p99 {e_p99:.3e}, max "
+              f"{e_max:.3e} cycles (limit 1e-5)")
+        _check(flag_diff <= 1e-4 and e_max <= 1e-5,
+               f"K1 ({mode}) disagrees with its plain version")
+        ms = _event_ms(lambda: kernel(*args), 20)
+        plain_ms = _event_ms(lambda: contacts.element_intervals_plain(*args),
+                             3)
+        n_el, n_ecl = rows * n, int(k_out[2].sum().item())
+        # per element: px, py in (and their float64 pair in the mixed
+        # mode), two phases and a flag out; per row its scalars
+        if mode == "float64":
+            ops = {"float64": n_el * K1_OPS_ELEMENT
+                   + n_ecl * K1_OPS_ECLIPSED}
+            nbytes = n_el * (8 + 8 + 8 + 8 + 1) + rows * 6 * 8
+        else:
+            ops = {"float32": n_el * K1_OPS_ELEMENT
+                   + n_ecl * K1_MIXED_OPS_ECLIPSED_F32,
+                   "float64": n_ecl * K1_MIXED_OPS_ECLIPSED_F64}
+            nbytes = (n_el * (4 + 4 + 8 + 8 + 4 + 4 + 1)
+                      + rows * (6 * 4 + 3 * 8))
+        # the float32 and float64 units work side by side: the least time
+        # is the larger of the two, or of the bytes
+        bounds = [_bound(v, nbytes, dt) for dt, v in ops.items()]
+        bound, by = max(bounds)
+        print(f"[14 {mode}] time per call: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); eclipsed share "
+              f"{n_ecl / n_el:.6f}; operations "
+              + ", ".join(f"{v / 1e9:.3f} G {dt}" for dt, v in ops.items())
+              + f", {nbytes / 1e6:.1f} MB; bound {bound * 1e3:.1f} us (set "
+              f"by {by}); the kernel at {bound / ms:.1%} of its bound; "
+              f"{smi}")
+
+        # the posterior through K1 and through the plain solver
+        _zero_counts(contacts, stream, gp)
+        with torch.inference_mode():
+            lk = post(p)
+        c = _counts(contacts, stream, gp)
+        paths[path] = c
+        _check(c[key] == 1 and c["k1"] == 0 and c["k2"] == 1,
+               f"{mode}: one evaluation launched {c}")
+        with torch.inference_mode():
+            fk = post.model_flux(p)
+            lpl, fpl = plain_path(lambda: (post(p), post.model_flux(p)))
+        _check(contacts.LAUNCHES + contacts.F64_LAUNCHES
+               + contacts.MIXED_LAUNCHES == 2,
+               "the plain path launched K1")
+        fin = torch.isfinite(lk)
+        _check(bool((fin == torch.isfinite(lpl)).all()),
+               f"{mode}: finite/-inf pattern differs between the paths")
+        _check(int(fin.sum()) > len(p) // 2, f"{mode}: most walkers -inf")
+        dflux = (fk - fpl).abs()[fin]
+        f_max, f_med = dflux.max().item(), dflux.median().item()
+        turns = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            def timed():
+                return _sync_time(lambda: post(p), 2)
+            turns[which].append(plain_path(timed) if which == "plain"
+                                else timed())
+        busy_us, n_kern, wall_us, _ = _device_kernels(lambda: post(p))
+        print(f"[14 {mode}] posterior at {len(p)} walkers: "
+              f"{int(fin.sum())} finite in both paths; model flux |kernel - "
+              f"plain| max {f_max:.3e} (limit 2e-4), median {f_med:.3e} "
+              f"(limit 1e-6); one evaluation: K1 ({mode}) {c[key]} launch, "
+              f"K2 {c['k2']}; ms per eval in turns (plain, kernel, kernel, "
+              f"plain): kernel path "
+              f"{', '.join(f'{t:.1f}' for t in turns['kernel'])}, plain "
+              f"path {', '.join(f'{t:.1f}' for t in turns['plain'])}; "
+              f"device-busy "
+              f"share {_busy_line(busy_us, n_kern, wall_us)}; {smi}")
+        _check(f_max <= 2e-4 and f_med <= 1e-6,
+               f"{mode}: the kernel path's fluxes disagree with the plain "
+               f"path's")
+        results[mode] = {
+            "rows": rows, "elements": n, "flag_disagreement": flag_diff,
+            "max_abs_err": e_max, "median_abs_err": e_med,
+            "p99_abs_err": e_p99, "ms": ms, "plain_ms": plain_ms,
+            "ops": ops, "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+            "posterior_ms": min(turns["kernel"]),
+            "posterior_plain_path_ms": min(turns["plain"]),
+            "posterior_flux_max_abs_diff": f_max}
+
+    # the precise float32 fluxes through the mixed K1 against the golden
+    # float64 values: the JAX package's gate (tests/test_golden.py)
+    golden = np.load(ROOT / "tests" / "golden" / "golden_v1.npz")
+    cfg = CVConfig(n_disc_rad=8, n_disc_az=12, n_spot=12, n_donor_lat=8,
+                   n_donor_lon=12, mixed_precision=True)
+    simple = [0.1, 0.05, 0.08, 0.03, 0.15, 0.04, 0.44, 0.3, 0.01, 0.02,
+              160.0, 0.2, 1.5, 0.0]
+    phases = torch.linspace(-0.15, 0.15, 61, dtype=f64, device=dev).to(f32)
+    worst = {}
+    for tag, pars, cplx in (("simple", simple, False),
+                            ("complex", simple + [2.0, 1.3, 80.0, 15.0],
+                             True)):
+        before = contacts.MIXED_LAUNCHES
+        with torch.inference_mode():
+            out = cv_fluxes(torch.tensor(pars, dtype=f32, device=dev),
+                            phases, config=cfg._replace(complex_spot=cplx))
+        _check(contacts.MIXED_LAUNCHES == before + 1,
+               "the precise cv_fluxes did not launch the mixed K1 once")
+        scale = float(np.max(np.abs(golden[f"{tag}_total"])))
+        for name in ("total", "ywd", "ydisc", "yspot", "ysec"):
+            got = getattr(out, name).double().cpu().numpy()
+            worst[f"{tag}.{name}"] = float(
+                np.max(np.abs(got - golden[f"{tag}_{name}"])) / scale)
+    print(f"[14 golden] float32 cv_fluxes in mixed precision (the mixed K1) "
+          f"against golden_v1.npz, relative to the largest total: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + " (limit 1e-6 each)")
+    _check(max(worst.values()) < 1e-6,
+           "the precise float32 fluxes miss the 1e-6 golden gate")
+    results["mixed_precision"]["golden_max_rel_err"] = max(worst.values())
+    return results, paths
+
+
+def _fit_branches_phase(dev, smi, contacts, stream, gp):
+    """Phase 15: the fit command's tempered, HMC, NUTS, --precise and --x64
+    branches on copies of the demo input (full resolution), through
+    cli.main, each with its launch counts and its chain's last row against
+    a fresh evaluation.  Returns {path: launch counts}."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from lfit_python_tpu_torch import cli
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.models.likelihood import (Posterior,
+                                                         make_ln_prob)
+    from lfit_python_tpu_torch.sampling import ensemble, pt
+    from lfit_python_tpu_torch.utils.chains import read_chain
+    from lfit_python_tpu_torch.utils.config import (build_model_from_config,
+                                                    parse_input_dat)
+
+    base = ROOT / "build" / "chip_fit_branches"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    demo = (ROOT / "examples" / "demo_input.dat").read_text()
+    shutil.copy(ROOT / "examples" / "demo_ecl0.txt", base)
+    # the demo light curve with exposure widths (the median sample
+    # spacing, as a .calib file gets them): the gradient samplers'
+    # contact phases then carry gradients, through K1's backward
+    lc = np.loadtxt(ROOT / "examples" / "demo_ecl0.txt")
+    width = np.median(np.abs(np.diff(lc[:, 0])))
+    np.savetxt(base / "demo_ecl0_widths.txt",
+               np.column_stack([lc, np.full(len(lc), width)]), fmt="%.17e")
+
+    def write_input(name, walkers, extra="", data=None):
+        text = demo.replace("nwalkers = 1024", f"nwalkers = {walkers}")
+        if data is not None:
+            text = text.replace("file_0 = demo_ecl0.txt", f"file_0 = {data}")
+        path = base / f"{name}.dat"
+        path.write_text(text + extra)
+        return path
+
+    step_counts = {"k1": 0, "k1_f64": 0, "k1_mixed": 0, "k2": 0, "steps": 0,
+                   "grad_evals": 0}
+    real = {"ens": ensemble.ensemble_step, "pt": pt.pt_step,
+            "vg": Posterior.value_and_grad}
+
+    def counting(fn, steps=True):
+        def wrapped(*a, **kw):
+            before = _counts(contacts, stream, gp)
+            out = fn(*a, **kw)
+            after = _counts(contacts, stream, gp)
+            for k in ("k1", "k1_f64", "k1_mixed", "k2"):
+                step_counts[k] += after[k] - before[k]
+            step_counts["steps" if steps else "grad_evals"] += 1
+            return out
+        return wrapped
+
+    def fit(inp, out_dir, *extra):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with mock.patch.object(ensemble, "ensemble_step",
+                               counting(real["ens"])), \
+                mock.patch.object(pt, "pt_step", counting(real["pt"])), \
+                mock.patch.object(Posterior, "value_and_grad",
+                                  counting(real["vg"], steps=False)), \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(["fit", str(inp), "--outdir", str(out_dir),
+                           "--quiet", *extra])
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        _check(rc == 0, f"fit {' '.join(extra)} exited {rc}: {text[-2000:]}")
+        return time.perf_counter() - t0, text
+
+    def prod_seconds_per_step(out_dir, a, b):
+        t = {}
+        for ln in (out_dir / "metrics.jsonl").read_text().splitlines():
+            rec = json.loads(ln)
+            t.setdefault((rec["stage"], rec["step"]), rec["t"])
+        return (t["prod", b] - t["prod", a]) / (b - a)
+
+    def last_row_check(tag, inp, out_dir, config, dtype, rows):
+        chain, lp, names = read_chain(out_dir / "chain_prod.txt")
+        _check(chain.shape == (rows,) + chain.shape[1:] and bool(
+            np.isfinite(lp).all()), f"{tag}: chain file {chain.shape}, "
+            "or a non-finite ln_prob")
+        model = build_model_from_config(parse_input_dat(inp)).compile()
+        post = make_ln_prob(model, config, dtype=dtype, device=dev)
+        with torch.inference_mode():
+            fresh = post(torch.tensor(chain[-1], dtype=dtype, device=dev))
+        fresh = fresh.double().cpu().numpy()
+        d = np.abs(fresh - lp[-1])
+        lim = 1e-5 * np.maximum(1.0, np.abs(lp[-1]))
+        _check(bool((d <= lim).all()), f"{tag}: the chain's ln_prob column "
+               "disagrees with the posterior")
+        return chain.shape, d.max()
+
+    paths, full = {}, CVConfig()
+
+    # ---- tempered: 4 rungs x 256 walkers, resumed
+    inp = write_input("pt", 256, "usePT = 1\nntemps = 4\n")
+    out_dir = base / "pt"
+    _zero_counts(contacts, stream, gp)
+    for k in step_counts:
+        step_counts[k] = 0
+    wall1, _ = fit(inp, out_dir, "--nburn", "4", "--nprod", "8",
+                   "--checkpoint-every", "4")
+    s_step = prod_seconds_per_step(out_dir, 4, 8)
+    ev = json.loads((out_dir / "evidence.json").read_text())
+    wall2, text = fit(inp, out_dir, "--nburn", "4", "--nprod", "12",
+                      "--checkpoint-every", "4", "--resume")
+    paths["fit_pt"] = c = _counts(contacts, stream, gp)
+    n = step_counts["steps"]
+    _check("resumed from" in text and n == 4 + 8 + 4,
+           f"PT: {n} steps, or no resume")
+    _check(step_counts["k1"] == step_counts["k2"] == 2 * n,
+           f"PT: K1 {step_counts['k1']}, K2 {step_counts['k2']} in {n} steps")
+    _check(np.isfinite(ev["ln_evidence"]) and len(ev["betas"]) == 4,
+           f"evidence.json: {ev}")
+    shape, d = last_row_check("PT", inp, out_dir, full, torch.float32, 12)
+    print(f"[15 fit pt] usePT = 1, 4 rungs x 256 walkers: --nburn 4 --nprod 8 "
+          f"--checkpoint-every 4 exited 0 in {wall1:.1f} s, resumed to 12 "
+          f"in {wall2:.1f} s; {s_step:.3f} s per production step "
+          f"({4 * 256 / s_step:.0f} tempered proposals/s); {n} PT steps "
+          f"launched K1 {step_counts['k1']}, K2 {step_counts['k2']} times (2 "
+          f"each per step); ln evidence {ev['ln_evidence']:.3f} +- "
+          f"{ev['dln_evidence']:.3f}; cold chain {shape}, last row vs a "
+          f"fresh evaluation max |d| {d:.3e}; {smi}")
+
+    # ---- HMC and NUTS: 256 chains on the light curve with widths
+    for kind, extra, prod in (
+            ("hmc", ["--nburn", "4", "--nprod", "4", "--checkpoint-every",
+                     "2"], (2, 4)),
+            ("nuts", ["--nuts-max-depth", "4", "--nburn", "2", "--nprod",
+                      "2", "--checkpoint-every", "1"], (1, 2))):
+        inp = write_input(kind, 256, data="demo_ecl0_widths.txt")
+        out_dir = base / kind
+        _zero_counts(contacts, stream, gp)
+        for k in step_counts:
+            step_counts[k] = 0
+        wall1, text = fit(inp, out_dir, "--sampler", kind, *extra)
+        s_step = prod_seconds_per_step(out_dir, *prod)
+        n_rows = prod[1]
+        wall2 = None
+        if kind == "hmc":
+            wall2, text2 = fit(inp, out_dir, "--sampler", kind, *extra[:3],
+                               "6", *extra[4:], "--resume")
+            _check("resumed from" in text2, "HMC: no resume")
+            n_rows = 6
+        paths[f"fit_{kind}"] = c = _counts(contacts, stream, gp)
+        n_vg = step_counts["grad_evals"]
+        _check(n_vg > 0 and c["k1"] == c["k1_bwd"] == c["k1_bwd_kernel"]
+               == c["k2_sens"] == n_vg,
+               f"{kind}: {n_vg} gradient evaluations launched {c}")
+        shape, d = last_row_check(kind, inp, out_dir, full, torch.float32,
+                                  n_rows)
+        line = re.search(r"^(HMC|NUTS) total.*$", text, re.M).group(0)
+        rate = (f"{256 * 16 / s_step:.0f} gradient evals/s" if kind == "hmc"
+                else f"{256 / s_step:.2f} trajectories/s")
+        print(f"[15 fit {kind}] --sampler {kind} {' '.join(extra)}, 256 "
+              f"chains, widths {width:.6f} cycles: exited 0 in {wall1:.1f} s"
+              + ("" if wall2 is None else f", resumed to 6 in {wall2:.1f} s")
+              + f"; {s_step:.2f} s per production step ({rate}); the fit's "
+              f"own line: '{line}'; {n_vg} gradient evaluations, each one "
+              f"K1, one K1 backward kernel, one K2 with sensitivities "
+              f"({c['k1_bwd_kernel']}, {c['k2_sens']}); chain {shape}, last "
+              f"row vs a fresh evaluation max |d| {d:.3e}; {smi}")
+
+    # ---- --precise and --x64 at the demo's 1024 walkers
+    for tag, flag, key, cfg, dtype in (
+            ("precise", "--precise", "k1_mixed",
+             CVConfig(mixed_precision=True), torch.float32),
+            ("x64", "--x64", "k1_f64", full, torch.float64)):
+        inp = write_input(tag, 1024)
+        out_dir = base / tag
+        _zero_counts(contacts, stream, gp)
+        for k in step_counts:
+            step_counts[k] = 0
+        wall, text = fit(inp, out_dir, flag, "--nburn", "10", "--nprod", "10",
+                         "--checkpoint-every", "5")
+        paths[f"fit_{tag}"] = c = _counts(contacts, stream, gp)
+        n = step_counts["steps"]
+        _check(n == 20 and step_counts[key] == 2 * n
+               and step_counts["k2"] == 2 * n and c["k1"] == 0,
+               f"{tag}: {n} steps launched {step_counts} ({c})")
+        s_step = prod_seconds_per_step(out_dir, 5, 10)
+        shape, d = last_row_check(tag, inp, out_dir, cfg, dtype, 10)
+        print(f"[15 fit {tag}] {flag}, 1024 walkers, --nburn 10 --nprod 10 "
+              f"exited 0 in {wall:.1f} s; {s_step:.3f} s per production "
+              f"step ({1024 / s_step:.0f} ln-prob evals/s); {n} ensemble "
+              f"steps launched K1 ({key[3:]}) {step_counts[key]} and K2 "
+              f"{step_counts['k2']} times (2 each per step), K1 float32 "
+              f"{c['k1']}; chain {shape}, last row vs a fresh evaluation "
+              f"max |d| {d:.3e}; {smi}")
+    return paths
+
+
 def main():
     import torch
 
@@ -627,7 +1028,18 @@ def main():
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
     print(f"[1 device] K1, K1's backward, K2 and K3 built and loaded in "
           f"{build_s:.2f} s")
-    registers = {}
+    # K1's three instantiations: reported, not gated (the mixed one's
+    # sin and cos of float32 and float64 arguments may keep their
+    # argument reduction's array in local memory)
+    frames_k1 = _stack_frames(_build.PTXAS_LOGS["contacts"].read_text())
+    print("[1 device] K1 stack frames (bytes) and registers, ptxas: "
+          + ", ".join(f"{_short_entry(e)} {b} bytes, {r} registers"
+                      for e, (b, r) in sorted(frames_k1.items())))
+    _check(len(frames_k1) == 3, f"K1 has {len(frames_k1)} instantiations, "
+           "expected float32, float64 and mixed precision")
+    registers = {"contacts": {_short_entry(e): {"registers": r,
+                                                "stack_frame_bytes": b}
+                              for e, (b, r) in frames_k1.items()}}
     for tag, name, n_inst in (("K1's backward", "contacts_backward", 2),
                               ("K2", "stream", 4), ("K3", "gp", 6)):
         frames = _stack_frames(_build.PTXAS_LOGS[name].read_text())
@@ -824,6 +1236,8 @@ def main():
     def plain_path(fn):
         with mock.patch.object(contacts, "element_intervals_kernel",
                                contacts.element_intervals_plain), \
+                mock.patch.object(contacts, "element_intervals_mixed_kernel",
+                                  contacts.element_intervals_plain), \
                 mock.patch.object(contacts, "contact_backward_kernel",
                                   contacts._contact_backward_plain):
             return fn()
@@ -986,8 +1400,9 @@ def main():
           f"backward {c_one['k1_bwd']} (its kernel "
           f"{c_one['k1_bwd_kernel']}), K2 {c_one['k2']} (with "
           f"sensitivities {c_one['k2_sens']})")
-    _check(c_one == {"k1": 1, "k1_bwd": 1, "k1_bwd_kernel": 1, "k2": 1,
-                     "k2_sens": 1, "k3": 0, "k3_bwd": 0},
+    _check(c_one == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
+                     "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 0,
+                     "k3_bwd": 0},
            "K1's backward kernel or K2's sensitivities not once per "
            "evaluation")
     _check(bool(torch.isfinite(lp_g).all()), "a chain's ln p is not finite")
@@ -1460,8 +1875,9 @@ def main():
     c5_ms = (time.perf_counter() - t0) * 1e3
     c_gp_c5 = _counts(contacts, stream, gp)
     peak_c5 = torch.cuda.max_memory_allocated()
-    _check(c_gp_c5 == {"k1": 1, "k1_bwd": 0, "k1_bwd_kernel": 0, "k2": 1,
-                       "k2_sens": 0, "k3": 1, "k3_bwd": 0},
+    _check(c_gp_c5 == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 0,
+                       "k1_bwd_kernel": 0, "k2": 1, "k2_sens": 0, "k3": 1,
+                       "k3_bwd": 0},
            f"config-5 evaluation launches: {c_gp_c5}")
     prior_ok = torch.isfinite(prior_c5(pos_c5))
     k3_c5_ms = _event_ms(lambda: gp.segmented_matern32_kernel(
@@ -1485,8 +1901,9 @@ def main():
     _zero_counts(contacts, stream, gp)
     lp_gg, g_gp = lp_gpw.value_and_grad(pos_gpw)
     c_gp_vg = _counts(contacts, stream, gp)
-    _check(c_gp_vg == {"k1": 1, "k1_bwd": 1, "k1_bwd_kernel": 1, "k2": 1,
-                       "k2_sens": 1, "k3": 1, "k3_bwd": 1},
+    _check(c_gp_vg == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
+                       "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 1,
+                       "k3_bwd": 1},
            f"GP value_and_grad launches: {c_gp_vg}")
     _check(bool(torch.isfinite(lp_gg).all()), "a GP chain's ln p not finite")
     _check(bool(torch.isfinite(g_gp).all()), "a GP gradient is not finite")
@@ -1568,7 +1985,8 @@ def main():
           f"{c_gp_hmc['k1_bwd_kernel']}), K2 with "
           f"sensitivities {c_gp_hmc['k2_sens']}, K3 {c_gp_hmc['k3']}, K3's "
           f"reverse kernel {c_gp_hmc['k3_bwd']} (16 each expected)")
-    _check(c_gp_hmc == dict.fromkeys(c_gp_hmc, N_LEAPFROG),
+    _check(c_gp_hmc == {**dict.fromkeys(c_gp_hmc, N_LEAPFROG),
+                        "k1_f64": 0, "k1_mixed": 0},
            "GP hmc_step: not one K1, K1 backward kernel, K2, K3 and K3 "
            "reverse kernel per leapfrog")
     _check(bool(torch.isfinite(hs_gp2.positions).all()
@@ -1686,19 +2104,40 @@ def main():
     # ---- 13. the fit command on the demo input, and its resume --------
     c_fit = _fit_phase(dev, smi, contacts, stream, gp, plain_path)
 
+    # ---- 14. K1 in float64 and in mixed precision -----------------------
+    k1_modes, c_modes = _k1_modes_phase(dev, smi, model, pos, contacts,
+                                        stream, gp, plain_path)
+
+    # ---- 15. the fit command's other branches ---------------------------
+    c_branches = _fit_branches_phase(dev, smi, contacts, stream, gp)
+
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
-             "nuts": c_nuts, "fit": c_fit}
+             "nuts": c_nuts, "fit": c_fit, **c_modes, **c_branches}
+    f32_paths = ("ensemble", "hmc", "gp", "pt", "nuts", "fit", "fit_pt",
+                 "fit_hmc", "fit_nuts")
 
     def by_path(key):
         return {name: c[key] for name, c in paths.items()}
 
-    for key, on in (("k1", paths), ("k2", paths), ("k3", ("gp",)),
+    for key, on in (("k1", f32_paths), ("k2", paths), ("k3", ("gp",)),
                     ("k3_bwd", ("gp",)),
-                    ("k1_bwd_kernel", ("hmc", "gp", "nuts"))):
+                    ("k1_bwd_kernel", ("hmc", "gp", "nuts", "fit_hmc",
+                                       "fit_nuts")),
+                    ("k1_f64", ("posterior_f64", "fit_x64")),
+                    ("k1_mixed", ("posterior_precise", "fit_precise"))):
         for name in on:
             _check(paths[name][key] > 0,
                    f"the {name} path never launched {key.upper()}")
+
+    def k1_mode(mode, key):
+        r = k1_modes[mode]
+        return {"route": "cuda", "source": K1_SOURCE,
+                "replaces": K1_MODE_REPLACES,
+                "launches": sum(by_path(key).values()),
+                "launches_by_path": {n: v for n, v in by_path(key).items()
+                                     if v},
+                "registers": registers["contacts"], **r}
     print(json.dumps({"kernels": [
         {"name": "contacts", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,
@@ -1709,6 +2148,8 @@ def main():
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "ops": k1_ops,
          "eclipsed_share": f_ecl, "library_ms": None,
+         "float64": k1_mode("float64", "k1_f64"),
+         "mixed_precision": k1_mode("mixed_precision", "k1_mixed"),
          "library_ms_reason": NO_LIBRARY.format(
              "a fixed-iteration safeguarded Newton solve of each element's "
              "eclipse contact phases"),

@@ -2,21 +2,32 @@
 
     python -m lfit_python_tpu_torch.cli fit mcmc_input.dat [--outdir out]
         [--device cuda|cpu] [--seed N] [--nburn N] [--nprod N] [--x64]
-        [--resume] [--checkpoint-every N] [--resolution full|low]
-        [--no-plots] [--quiet]
+        [--precise] [--sampler ensemble|hmc|nuts] [--hmc-leapfrog N]
+        [--nuts-max-depth N] [--resume] [--checkpoint-every N]
+        [--resolution full|low] [--no-plots] [--quiet]
 
-Port of the stretch-move ensemble branch of ``lfit_python_tpu/cli.py``:
-parse the input, build the model tree, scatter the walker ball, burn in
-(twice with ``double_burnin``), then run production in segments of
-``--checkpoint-every`` steps, each appended to ``chain_prod.txt`` and
-checkpointed, and end with the percentile table (``params.json``) and the
-convergence diagnostics.  ``metrics.jsonl`` gets one line a chunk.
+Port of ``lfit_python_tpu/cli.py``'s ``fit``: parse the input, build the
+model tree, scatter the walker ball, burn in, then run production in
+segments of ``--checkpoint-every`` steps, each appended to
+``chain_prod.txt`` and checkpointed, and end with the percentile table
+(``params.json``) and the convergence diagnostics.  ``metrics.jsonl`` gets
+one line a chunk.  The sampler is the stretch-move ensemble (burn-in twice
+with ``double_burnin``), or, with ``usePT = 1`` in the input, the
+parallel-tempered ensemble over ``ntemps`` rungs (the cold rung is the
+chain; ``evidence.json`` holds the thermodynamic-integration evidence of
+the production ladder), or, with ``--sampler hmc|nuts``, HMC or NUTS over
+``nwalkers`` chains (``nburn`` steps of adaptive warmup).  The posterior is
+float32 (the CUDA kernel K1 in float32 solves the contacts), float64 with
+``--x64`` (K1 in float64), or float32 in the mixed-precision mode with
+``--precise`` (K1 in mixed precision; not with HMC or NUTS, which need the
+gradient).  A resume continues the latest checkpoint of the same sampler
+kind and precision, and refuses any other.
 
 The fit runs on the CUDA card unless ``--device`` names another device,
 and stops with an error where there is no card.  What the JAX package's
-command line offers beyond this (tempering, HMC / NUTS, ``--precise``,
-sharding, profiling, notifications, plots, ``wdparams``) is refused with
-exit code 2 and the roadmap item it waits for.
+command line offers beyond this (sharding, profiling, notifications,
+plots, ``wdparams``) is refused with exit code 2 and the roadmap item it
+waits for.
 """
 
 from __future__ import annotations
@@ -27,31 +38,36 @@ import math
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
 __all__ = ["main"]
 
-_ITEM3 = "ROADMAP queue 1 item 3 (the CLI's PT, HMC and NUTS branches)"
 _ITEM6 = "ROADMAP queue 1 item 6 (the rest of the host surface)"
+
+
+class _Refused(Exception):
+    """A fit the port does not run as asked: exit code 2."""
 
 
 def _refusal(args, cfg):
     """Why the port cannot run this fit as asked, or None."""
-    if cfg.get("usePT", False):
-        return f"usePT = 1: parallel tempering waits for {_ITEM3}"
-    if args.sampler != "ensemble":
-        return f"--sampler {args.sampler} waits for {_ITEM3}"
-    if args.hmc_leapfrog is not None or args.nuts_max_depth is not None:
-        return f"--hmc-leapfrog / --nuts-max-depth belong to the HMC and " \
-               f"NUTS branches, which wait for {_ITEM3}"
-    if args.precise:
-        return ("--precise waits for ROADMAP queue 1 item 4 (the "
-                "mixed-precision mode)")
+    if args.sampler in ("hmc", "nuts"):
+        # the gradient samplers differentiate the posterior: the precise
+        # path is primal-only, and there is no tempered ladder
+        if args.precise:
+            return (f"--sampler {args.sampler} is incompatible with "
+                    "--precise (that path is not differentiable); drop one "
+                    "flag")
+        if cfg.get("usePT", False):
+            return (f"--sampler {args.sampler} ignores usePT (no tempered "
+                    "ladder); unset usePT or use the default ensemble "
+                    "sampler")
     if args.pallas or args.no_pallas:
         return ("--pallas / --no-pallas do not apply to the port: it routes "
-                "the contact solve by dtype (float32 on the card: the CUDA "
-                "kernel K1; --x64: the plain solver)")
+                "the contact solve by dtype (the CUDA kernel K1 in float32, "
+                "in float64 with --x64, in mixed precision with --precise)")
     if args.shard:
         return ("--shard waits for ROADMAP queue 1 item 7 (multi-GPU walker "
                 "sharding)")
@@ -68,11 +84,6 @@ def _fit(args):
 
     from .device import resolve_device
     from .models.cv import CVConfig
-    from .models.likelihood import make_ln_prob
-    from .sampling.ensemble import ensemble_step, init_walkers, run_chunked
-    from .utils.chains import ChainWriter, read_chain
-    from .utils.checkpoints import (latest_checkpoint, load_checkpoint,
-                                    save_checkpoint)
     from .utils.config import build_model_from_config, parse_input_dat
 
     cfg = parse_input_dat(args.input)
@@ -95,9 +106,8 @@ def _fit(args):
     cvcfg = (CVConfig() if args.resolution == "full"
              else CVConfig(n_disc_rad=5, n_disc_az=8, n_spot=8,
                            n_donor_lat=6, n_donor_lon=8))
-    ln_prob = make_ln_prob(model, config=cvcfg, dtype=dtype, device=device)
+    cvcfg = cvcfg._replace(mixed_precision=args.precise)
 
-    n_walkers = int(cfg.get("nwalkers", 64))
     n_burn = args.nburn if args.nburn is not None else int(cfg.get("nburn", 100))
     n_prod = args.nprod if args.nprod is not None else int(cfg.get("nprod", 100))
     ckpt_every = max(args.checkpoint_every, 1)
@@ -107,9 +117,6 @@ def _fit(args):
                      ckpt_every)
     if chunk < 8:
         chunk = 64
-    scatter_1 = float(cfg.get("scatter_1", 1e-3))
-    scatter_2 = float(cfg.get("scatter_2", scatter_1))
-    thin = int(cfg.get("thin", 1))
 
     def tensor(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
@@ -119,13 +126,17 @@ def _fit(args):
     # scatter_1 ball
     comp_mult = (tensor(model.var_scatter())
                  if cfg.get("comp_scat", False) else torch.ones_like(start))
+    scatter_1 = float(cfg.get("scatter_1", 1e-3))
 
-    def ball(centre, frac):
+    def ball(centre, frac=scatter_1):
         return frac * comp_mult * centre.abs().clamp(min=1e-2)
 
-    def step_fn(state):
-        return ensemble_step(state, ln_prob, generator)
-
+    if cfg.get("usePT", False):
+        branch = _fit_pt
+    elif args.sampler in ("hmc", "nuts"):
+        branch = _fit_gradient
+    else:
+        branch = _fit_ensemble
     with (outdir / "metrics.jsonl").open("a") as metrics:
         def log(stage, step, acc):
             rec = {"t": time.time(), "stage": stage, "step": step,
@@ -135,77 +146,266 @@ def _fit(args):
             if not args.quiet:
                 print(f"[{stage}] step {step} accept={acc:.3f}", flush=True)
 
-        resume_from = latest_checkpoint(outdir) if args.resume else None
-        if resume_from is not None:
-            try:
-                state, generator, _ = load_checkpoint(resume_from, device)
-            except ValueError as exc:
-                print(f"lfit_python_tpu_torch fit: {exc}", file=sys.stderr)
-                return 2
-            if state.positions.dtype != dtype:
-                print(f"lfit_python_tpu_torch fit: {resume_from} holds "
-                      f"{state.positions.dtype} walkers but this run is "
-                      f"{dtype} (--x64); resume it with the same precision",
-                      file=sys.stderr)
-                return 2
-            print(f"resumed from {resume_from} at step {state.step}")
-        else:
-            generator = torch.Generator(device=device).manual_seed(args.seed)
-            state = init_walkers(generator, start, ball(start, scatter_1),
-                                 ln_prob, n_walkers)
+        run = SimpleNamespace(
+            args=args, cfg=cfg, model=model, cvcfg=cvcfg, dtype=dtype,
+            device=device, outdir=outdir, log=log, tensor=tensor,
+            n_walkers=int(cfg.get("nwalkers", 64)), n_burn=n_burn,
+            n_prod=n_prod, chunk=chunk, ckpt_every=ckpt_every,
+            thin=int(cfg.get("thin", 1)), start=start, ball=ball)
+        try:
+            chain, lp = branch(run)
+        except _Refused as exc:
+            print(f"lfit_python_tpu_torch fit: {exc}", file=sys.stderr)
+            return 2
+    _report(model, chain, lp, outdir, args)
+    return 0
 
-        t0 = time.time()
-        n_run = 0
-        if resume_from is None and n_burn > 0:
-            state, chain, chain_lp, _ = run_chunked(
-                state, step_fn, n_burn, chunk_size=chunk,
-                progress=lambda s, a: log("burn", s, a))
-            n_run += n_burn
-            if cfg.get("double_burnin", False):
-                # re-scatter around the best walker, and burn in again
-                best = tensor(chain.reshape(-1, model.n_var)[
-                    np.argmax(chain_lp.reshape(-1))])
-                state = init_walkers(generator, best, ball(best, scatter_2),
-                                     ln_prob, n_walkers)
-                state, _, _, _ = run_chunked(
-                    state, step_fn, n_burn, chunk_size=chunk,
-                    progress=lambda s, a: log("burn2", s, a))
-                n_run += n_burn
-            # production counts its own steps from zero; checkpoints
-            # store production steps
-            state = state._replace(step=0)
 
-        all_chain, all_lp = [], []
-        with ChainWriter(outdir / "chain_prod.txt", model.var_names(),
-                         append=resume_from is not None) as writer:
-            done = state.step
-            while done < n_prod:
-                n = min(ckpt_every, n_prod - done)
-                state, chain, chain_lp, _ = run_chunked(
-                    state, step_fn, n, thin=thin, chunk_size=chunk,
-                    progress=lambda s, a: log("prod", done + s, a))
-                writer.append(chain, chain_lp)
-                all_chain.append(chain)
-                all_lp.append(chain_lp)
-                done += n
-                n_run += n
-                save_checkpoint(outdir / f"checkpoint_{done:07d}.npz", state,
-                                generator, {"input": str(args.input),
-                                            "stage": "prod"})
+def _resume(run, kind):
+    """(state, generator, meta, path) of the latest checkpoint in the
+    output directory when ``--resume`` asks for it (Nones otherwise, or
+    where there is none); raises _Refused for a checkpoint of another
+    sampler ``kind`` or another precision."""
+    from .utils.checkpoints import latest_checkpoint, load_checkpoint
 
-    if resume_from is not None:
+    path = latest_checkpoint(run.outdir) if run.args.resume else None
+    if path is None:
+        return None, None, None, None
+    try:
+        state, generator, meta = load_checkpoint(path, run.device, kind)
+    except ValueError as exc:
+        raise _Refused(str(exc)) from None
+    if state.positions.dtype != run.dtype:
+        raise _Refused(f"{path} holds {state.positions.dtype} walkers but "
+                       f"this run is {run.dtype} (--x64); resume it with the "
+                       "same precision")
+    print(f"resumed from {path} at step {state.step}")
+    return state, generator, meta, path
+
+
+def _production(run, state, generator, step_fn, extract, sampler, resumed,
+                after_segment=None):
+    """Production from ``state.step`` to ``run.n_prod`` in checkpoint
+    segments of ``run_chunked``, each appended to ``chain_prod.txt``
+    (continued after a resume, else started anew) and checkpointed with
+    ``sampler`` in its meta.  Returns (state, the production chain and its
+    ln p to report, aux of each segment, steps run)."""
+    from .sampling.ensemble import run_chunked
+    from .utils.chains import ChainWriter, read_chain
+    from .utils.checkpoints import save_checkpoint
+
+    all_chain, all_lp, all_aux = [], [], []
+    step0 = done = state.step
+    path = run.outdir / "chain_prod.txt"
+    with ChainWriter(path, run.model.var_names(),
+                     append=resumed is not None) as writer:
+        while done < run.n_prod:
+            n = min(run.ckpt_every, run.n_prod - done)
+            state, chain, chain_lp, aux = run_chunked(
+                state, step_fn, n, thin=run.thin, chunk_size=run.chunk,
+                progress=lambda s, a: run.log("prod", done + s, a),
+                extract=extract)
+            writer.append(chain, chain_lp)
+            all_chain.append(chain)
+            all_lp.append(chain_lp)
+            all_aux.append(aux)
+            if after_segment is not None:
+                after_segment(aux)
+            done += n
+            save_checkpoint(run.outdir / f"checkpoint_{done:07d}.npz", state,
+                            generator, {"input": str(run.args.input),
+                                        "stage": "prod", "kind": sampler})
+    if resumed is not None:
         # the segments before the resume live only in the chain file
-        chain, lp, _ = read_chain(outdir / "chain_prod.txt")
+        chain, lp, _ = read_chain(path)
     elif all_chain:
         chain, lp = np.concatenate(all_chain), np.concatenate(all_lp)
     else:
-        chain = np.empty((0, n_walkers, model.n_var))
-        lp = np.empty((0, n_walkers))
+        chain = np.empty((0, run.n_walkers, run.model.n_var))
+        lp = np.empty((0, run.n_walkers))
+    return state, chain, lp, all_aux, done - step0
+
+
+def _rows(state):
+    return state.positions, state.log_prob
+
+
+def _cold_rows(state):
+    """The cold (beta = 1) rung's positions and ln posterior."""
+    return state.positions[0], state.ln_prior[0] + state.ln_like[0]
+
+
+def _fit_ensemble(run):
+    """The stretch-move ensemble: burn-in (twice with double_burnin), then
+    production."""
+    import torch
+
+    from .models.likelihood import make_ln_prob
+    from .sampling.ensemble import ensemble_step, init_walkers, run_chunked
+
+    ln_prob = make_ln_prob(run.model, config=run.cvcfg, dtype=run.dtype,
+                           device=run.device)
+
+    def step_fn(state):
+        return ensemble_step(state, ln_prob, generator)
+
+    state, generator, _, resumed = _resume(run, "ensemble")
+    if resumed is None:
+        generator = torch.Generator(device=run.device).manual_seed(
+            run.args.seed)
+        state = init_walkers(generator, run.start, run.ball(run.start),
+                             ln_prob, run.n_walkers)
+
+    t0 = time.time()
+    n_run = 0
+    if resumed is None and run.n_burn > 0:
+        state, chain, chain_lp, _ = run_chunked(
+            state, step_fn, run.n_burn, chunk_size=run.chunk,
+            progress=lambda s, a: run.log("burn", s, a))
+        n_run += run.n_burn
+        if run.cfg.get("double_burnin", False):
+            # re-scatter around the best walker, and burn in again
+            best = run.tensor(chain.reshape(-1, run.model.n_var)[
+                np.argmax(chain_lp.reshape(-1))])
+            scatter_2 = float(run.cfg.get("scatter_2",
+                                          run.cfg.get("scatter_1", 1e-3)))
+            state = init_walkers(generator, best, run.ball(best, scatter_2),
+                                 ln_prob, run.n_walkers)
+            state, _, _, _ = run_chunked(
+                state, step_fn, run.n_burn, chunk_size=run.chunk,
+                progress=lambda s, a: run.log("burn2", s, a))
+            n_run += run.n_burn
+        # production counts its own steps from zero; checkpoints store
+        # production steps
+        state = state._replace(step=0)
+
+    state, chain, lp, _, n = _production(run, state, generator, step_fn,
+                                         _rows, "ensemble", resumed)
     dt = time.time() - t0
-    n_evals = n_run * n_walkers
-    print(f"total {dt:.1f}s, ~{n_evals / max(dt, 1e-9):.0f} ln-prob evals/s")
-    _report(model, chain, lp, outdir, args)
-    return 0
+    rate = (n_run + n) * run.n_walkers / max(dt, 1e-9)
+    print(f"total {dt:.1f}s, ~{rate:.0f} ln-prob evals/s")
+    return chain, lp
+
+
+def _fit_pt(run):
+    """The parallel-tempered ensemble over ``ntemps`` rungs: burn-in, then
+    production of the cold rung, and the evidence of the production
+    ladder."""
+    import torch
+
+    from .models.likelihood import make_ln_prob_parts
+    from .sampling import pt
+    from .sampling.ensemble import run_chunked
+
+    ln_prior_fn, ln_like_fn, _ = make_ln_prob_parts(
+        run.model, config=run.cvcfg, dtype=run.dtype, device=run.device)
+
+    def step_fn(state):
+        return pt.pt_step(state, ln_prior_fn, ln_like_fn, generator)
+
+    t0 = time.time()
+    state, generator, _, resumed = _resume(run, "pt")
+    if resumed is None:
+        generator = torch.Generator(device=run.device).manual_seed(
+            run.args.seed)
+        state = pt.init_pt(generator, run.start, run.ball(run.start),
+                           ln_prior_fn, ln_like_fn, run.n_walkers,
+                           int(run.cfg.get("ntemps", 4)))
+    n_temps = state.positions.shape[0]
+
+    n_run = 0
+    if resumed is None and run.n_burn > 0:
+        state = run_chunked(state, step_fn, run.n_burn, chunk_size=run.chunk,
+                            progress=lambda s, a: run.log("burn", s, a),
+                            extract=_cold_rows)[0]
+        n_run += run.n_burn
+        state = state._replace(step=0)
+
+    state, chain, lp, all_aux, n = _production(
+        run, state, generator, step_fn, _cold_rows, "pt", resumed)
+    dt = time.time() - t0
+    rate = (n_run + n) * run.n_walkers * n_temps / max(dt, 1e-9)
+    print(f"PT ({n_temps} rungs) total {dt:.1f}s, ~{rate:.0f} ln-prob "
+          f"evals/s")
+    if all_aux:
+        # thermodynamic integration over this run's production ladder
+        mean_ll = np.concatenate([aux[1] for aux in all_aux]).mean(axis=0)
+        betas = state.betas.double().cpu().numpy()
+        ln_z, dln_z = pt.log_evidence(betas, mean_ll)
+        (run.outdir / "evidence.json").write_text(json.dumps({
+            "ln_evidence": ln_z, "dln_evidence": dln_z,
+            "betas": betas.tolist(),
+            "mean_ln_like_per_rung": mean_ll.tolist(),
+            "note": ("thermodynamic integration over the production "
+                     "ladder; dln = full vs half-ladder difference"),
+        }, indent=1))
+        print(f"ln evidence (thermodynamic integration): {ln_z:.3f} +- "
+              f"{dln_z:.3f}")
+    return chain, lp
+
+
+def _fit_gradient(run):
+    """HMC or NUTS over ``nwalkers`` chains: ``nburn`` steps of adaptive
+    warmup (step size and diagonal metric), then production."""
+    import torch
+
+    from .models.likelihood import make_ln_prob
+    from .sampling import hmc, nuts
+
+    args, kind = run.args, run.args.sampler
+    ln_prob = make_ln_prob(run.model, config=run.cvcfg, dtype=run.dtype,
+                           device=run.device)
+
+    def step_fn(state):
+        if kind == "nuts":
+            state, astat, _, div, depth = nuts.nuts_step(
+                state, ln_prob, generator, args.nuts_max_depth)
+            return state, (astat, div, depth)
+        state, acc, _, div = hmc.hmc_step(state, ln_prob, generator,
+                                          args.hmc_leapfrog)
+        return state, (acc, div)
+
+    state, generator, meta, resumed = _resume(run, "hmc")
+    if resumed is not None and meta.get("kind", kind) != kind:
+        raise _Refused(f"{resumed} is a {meta['kind']} checkpoint but "
+                       f"--sampler is {kind}; refusing to resume across "
+                       "sampler kinds")
+    if resumed is None:
+        generator = torch.Generator(device=run.device).manual_seed(args.seed)
+        state = hmc.init_hmc(generator, run.start, run.ball(run.start),
+                             ln_prob, run.n_walkers)
+        t_w = time.time()
+        if kind == "nuts":
+            state = nuts.warmup_nuts(state, ln_prob, run.n_burn, generator,
+                                     max_depth=args.nuts_max_depth)
+        else:
+            state = hmc.warmup_hmc(state, ln_prob, run.n_burn, generator,
+                                   n_leapfrog=args.hmc_leapfrog)
+        run.log("warmup", run.n_burn, 0.0)
+        if not args.quiet:
+            print(f"warmup {time.time() - t_w:.1f}s: step_size="
+                  f"{float(state.step_size):.3e}")
+
+    def warn(aux):
+        div = float(np.mean(aux[1]))
+        if div > 0.02 and not args.quiet:
+            print(f"warning: {100 * div:.1f}% divergent trajectories; "
+                  "results may be biased", file=sys.stderr)
+
+    t0 = time.time()
+    state, chain, lp, all_aux, n = _production(
+        run, state, generator, step_fn, _rows, kind, resumed, warn)
+    dt = time.time() - t0
+    if kind == "nuts":
+        depth = (np.mean(np.concatenate([a[2] for a in all_aux]))
+                 if all_aux else math.nan)
+        print(f"NUTS total {dt:.1f}s, {n} steps x {run.n_walkers} chains, "
+              f"mean depth {depth:.1f}, "
+              f"~{n * run.n_walkers / max(dt, 1e-9):.1f} trajectories/s")
+    else:
+        rate = n * run.n_walkers * args.hmc_leapfrog / max(dt, 1e-9)
+        print(f"HMC total {dt:.1f}s, ~{rate:.0f} gradient evals/s")
+    return chain, lp
 
 
 def _report(model, chain, lp, outdir, args):
@@ -232,8 +432,13 @@ def _report(model, chain, lp, outdir, args):
     for row in table:
         print(f"{row['name']:22s} {row['median']:12.6g} "
               f"{row['upper']:10.3g} {row['lower']:10.3g}")
-    rhat = gelman_rubin(chain, discard=discard)
-    print("max split-R-hat:", float(np.max(rhat)))
+    if len(kept) >= 2:
+        rhat = gelman_rubin(chain, discard=discard)
+        print("max split-R-hat:", float(np.max(rhat)))
+    else:
+        # the JAX package's command line divides by zero here
+        print("max split-R-hat: not computed (it splits each walker's "
+              f"kept rows in two; {len(kept)} kept)")
     if len(kept) >= 8:
         print("min effective sample size:",
               round(min(r["ess"] for r in table)))
@@ -274,13 +479,20 @@ def main(argv=None):
                      help="element-grid fidelity (low: quick looks, tests)")
     fit.add_argument("--no-plots", action="store_true")
     fit.add_argument("--quiet", action="store_true")
-    # the JAX package's options that the port refuses (see _refusal)
     fit.add_argument("--sampler", choices=("ensemble", "hmc", "nuts"),
                      default="ensemble",
-                     help="only ensemble (the stretch move) runs here yet")
-    fit.add_argument("--hmc-leapfrog", type=int, default=None)
-    fit.add_argument("--nuts-max-depth", type=int, default=None)
-    fit.add_argument("--precise", action="store_true")
+                     help="ensemble = affine-invariant stretch move; hmc = "
+                          "HMC with adaptive warmup; nuts = the No-U-Turn "
+                          "sampler")
+    fit.add_argument("--hmc-leapfrog", type=int, default=16,
+                     help="leapfrog steps per HMC trajectory")
+    fit.add_argument("--nuts-max-depth", type=int, default=8,
+                     help="max tree doublings per NUTS trajectory")
+    fit.add_argument("--precise", action="store_true",
+                     help="mixed-precision mode: a float32 posterior with "
+                          "float64 geometry solves and near-root "
+                          "clearances")
+    # the JAX package's options that the port refuses (see _refusal)
     fit.add_argument("--pallas", action="store_true")
     fit.add_argument("--no-pallas", action="store_true")
     fit.add_argument("--shard", action="store_true")

@@ -85,11 +85,18 @@ def _edge_visible_fraction(x, ulimb):
     return _EdgeVisibleFraction.apply(x, ulimb)
 
 
-def wd_flux(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins=None):
+def wd_flux(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins=None,
+            precise=None):
     """Normalised white-dwarf light curve (out of eclipse == 1): the
     smooth shadow distance of the WD centre, an inscribed-sphere guard for
-    certain occultation, and the analytic edge fraction.  Broadcasts."""
-    d, clear = origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1)
+    certain occultation, and the analytic edge fraction.  Broadcasts.
+
+    ``precise``: optional (q, incl, xl1, pl1) solved in float64 (the
+    mixed-precision mode): the shadow distance is refined in float64 and
+    the edge fraction, ill-conditioned at |x| = 1, is finished in float64
+    before the curve is cast to ``phases``' dtype."""
+    d, clear = origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1,
+                                      precise=precise)
     if r_ins is None:
         r_ins = inscribed_radius(q, xl1_val, phi_l1)
     th = 2.0 * math.pi * phases
@@ -97,11 +104,14 @@ def wd_flux(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins=None):
     tstar = si * torch.cos(th)
     miss = torch.sqrt(torch.clamp(1.0 - tstar * tstar, min=0.0))
     certain_occ = (tstar > 0.0) & (miss < r_ins - rwd)
+    if precise is not None:
+        rwd, ulimb = rwd.to(d.dtype), ulimb.to(d.dtype)
     one = torch.ones_like(d)
     x = torch.where(clear > 0.25, one,
                     torch.where(certain_occ, -one,
                                 torch.clamp(d / rwd, -1.0, 1.0)))
-    return _edge_visible_fraction(x, ulimb)
+    frac = _edge_visible_fraction(x, ulimb)
+    return frac if precise is None else frac.to(phases.dtype)
 
 
 def disc_elements(rwd, rdisc, dexp, n_rad=24, n_az=40):
@@ -168,14 +178,19 @@ def spot_normal(az_deg, tilt_deg, yaw_deg):
                        dim=-1)
 
 
-def element_intervals(q, incl_deg, positions, xl1_val, phi_l1):
+def element_intervals(q, incl_deg, positions, xl1_val, phi_l1,
+                      precise=None, positions64=None):
     """Per-element eclipse intervals, one root-find per element.
 
     ``q``, ``incl_deg``, ``xl1_val``, ``phi_l1``: (...); ``positions``:
     (..., N, 3) orbital-plane points.  The leading axes are flattened into
     rows and solved in one call of ``ops.contacts.element_intervals_diff``
-    (the CUDA kernel for float32 on the card, IFT gradients in the
-    backward).  Returns (phi_in, phi_out, eclipsed), each (..., N)."""
+    (K1 in the positions' dtype on the card, IFT gradients in the
+    backward).  ``precise``: optional (q, incl, xl1, pl1) solved in
+    float64, (...) each, with ``positions64`` the positions in float64:
+    the mixed-precision solve of ``ops.contacts.element_intervals`` (K1 in
+    mixed precision on the card; no gradient).  Returns (phi_in, phi_out,
+    eclipsed), each (..., N)."""
     lead = positions.shape[:-2]
     n = positions.shape[-2]
 
@@ -185,9 +200,20 @@ def element_intervals(q, incl_deg, positions, xl1_val, phi_l1):
     r_ins = inscribed_radius(q, xl1_val, phi_l1)
     px = positions[..., 0].reshape(-1, n).contiguous()
     py = positions[..., 1].reshape(-1, n).contiguous()
-    out = contacts.element_intervals_diff(
-        rows(q), rows(incl_deg), px, py, rows(xl1_val), rows(phi_l1),
-        rows(r_ins))
+    args = (rows(q), rows(incl_deg), px, py, rows(xl1_val), rows(phi_l1),
+            rows(r_ins))
+    if precise is None:
+        out = contacts.element_intervals_diff(*args)
+    else:
+        if _recording(q, incl_deg, positions, xl1_val, phi_l1):
+            raise ValueError("the mixed-precision contact solve is not "
+                             "differentiable; differentiate the float32 "
+                             "or float64 posterior instead")
+        p64 = positions if positions64 is None else positions64
+        out = contacts.element_intervals(
+            *args, precise=tuple(rows(a) for a in precise),
+            p64=tuple(p64[..., k].reshape(-1, n).to(torch.float64)
+                      .contiguous() for k in (0, 1)))
     return tuple(o.reshape(lead + (n,)) for o in out)
 
 
@@ -203,7 +229,12 @@ def element_flux_curve(phases, widths, intervals, weights):
     ``phases`` (..., P), ``widths`` (..., P) or None, ``intervals`` from
     :func:`element_intervals` (each (..., N)), ``weights`` (..., N).
     Returns (..., P).  The (P, N) visibility sweep is chunked over the
-    flattened leading axes to bound memory."""
+    flattened leading axes to bound memory.  The weighted sum over N is a
+    product and a sum, not a batched matrix product: a matrix product on
+    the card picks its algorithm (and its float32 summation order) by the
+    chunk's row count, so a row's flux, and through small error bars its
+    ln p, would depend on the batch it came in, while the sum's order over
+    N is its own."""
     phi_in, phi_out, ecl = intervals
     lead = torch.broadcast_shapes(phases.shape[:-1], weights.shape[:-1])
     P, N = phases.shape[-1], weights.shape[-1]
@@ -227,7 +258,7 @@ def element_flux_curve(phases, widths, intervals, weights):
             vis = visible_fraction_interval(
                 ph[s, :, None], wd[s, :, None], pin[s, None, :],
                 pout[s, None, :], ec[s, None, :])
-        out.append(torch.matmul(vis, wts[s, :, None])[..., 0])
+        out.append((vis * wts[s, None, :]).sum(dim=-1))
     return torch.cat(out).reshape(lead + (P,))
 
 

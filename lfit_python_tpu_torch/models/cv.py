@@ -1,8 +1,9 @@
 """CV forward-model orchestrator: parameter vectors -> light curves.
 
-Port of ``lfit_python_tpu/models/cv.py`` (non-precise mode, exact donor
-sums).  Parameter vectors are ``(..., 14)`` (simple spot) or ``(..., 18)``
-(complex spot), in the JAX package's order:
+Port of ``lfit_python_tpu/models/cv.py`` (exact donor sums), with its
+mixed-precision mode (``CVConfig.mixed_precision``).  Parameter vectors
+are ``(..., 14)`` (simple spot) or ``(..., 18)`` (complex spot), in the
+JAX package's order:
 
     0 wdFlux  1 dFlux  2 sFlux  3 rsFlux  4 q  5 dphi  6 rdisc  7 ulimb
     8 rwd  9 scale  10 az  11 fis  12 dexp  13 phi0
@@ -29,6 +30,7 @@ __all__ = [
     "CVFluxes",
     "CVGeometry",
     "cv_geometry",
+    "core_precise",
     "cv_physical_ok",
     "cv_fluxes",
     "cv_total_flux",
@@ -43,8 +45,9 @@ COMPLEX_PARAM_NAMES = SIMPLE_PARAM_NAMES + ("exp1", "exp2", "tilt", "yaw")
 
 class CVConfig(NamedTuple):
     """Resolution knobs of the CV model (the JAX package's defaults).  The
-    port always sums the donor exactly, has no mixed-precision mode, and
-    routes the contact solve by dtype (float32 -> the CUDA kernel)."""
+    port always sums the donor exactly and routes the contact solve by
+    dtype (float32 or float64 -> the CUDA kernel K1 in that dtype; float32
+    with ``mixed_precision`` -> K1 in mixed precision)."""
     complex_spot: bool = False
     n_disc_rad: int = 24
     n_disc_az: int = 40
@@ -53,6 +56,13 @@ class CVConfig(NamedTuple):
     n_donor_lon: int = 24
     n_exposure_sub: int = 3      # finite-exposure phase subsamples
     ulimb_donor: float = 0.9
+    # mixed precision (the JAX package's --precise): a float32 posterior
+    # solves the per-walker geometry (xl1, findi) again in float64, builds
+    # the disc grid in float64, and evaluates the contact and white-dwarf
+    # decision quantity c = Phi - Phi_L1 in float64 near the roots; the
+    # element sums stay float32.  No effect on a float64 posterior.  Not
+    # differentiable.
+    mixed_precision: bool = False
 
 
 class CVFluxes(NamedTuple):
@@ -72,12 +82,16 @@ class CVGeometry(NamedTuple):
     incl: torch.Tensor         # inclination (deg; NaN if infeasible)
     rdisc: torch.Tensor        # disc radius in separation units
     spot_impact: torch.Tensor  # stream / disc-rim impact point
+    # (q, incl, x1, pl1) solved in float64 for the mixed-precision mode,
+    # or None (the mode is off, or the working dtype is float64)
+    precise: tuple | None = None
 
 
-def cv_geometry(pars) -> CVGeometry:
-    """Solve the geometry (L1, inclination, stream impact) of ``pars``
-    (..., 14|18) on its own.  The posterior solves the core node once per
-    walker instead and assembles the :class:`CVGeometry` itself."""
+def cv_geometry(pars, config: CVConfig = CVConfig()) -> CVGeometry:
+    """Solve the geometry (L1, inclination, stream impact and, in the
+    mixed-precision mode, :func:`core_precise`) of ``pars`` (..., 14|18)
+    on its own.  The posterior solves the core node once per walker
+    instead and assembles the :class:`CVGeometry` itself."""
     q, dphi, rdisc_x = pars[..., 4], pars[..., 5], pars[..., 6]
     x1 = xl1(q)
     pl1 = l1_potential(q, x1)
@@ -86,7 +100,21 @@ def cv_geometry(pars) -> CVGeometry:
     lead = rdisc.shape
     impact = stream_impacts(q.reshape(-1), rdisc.reshape(-1, 1),
                             x1.reshape(-1)).reshape(lead + (3,))
-    return CVGeometry(x1, pl1, incl, rdisc, impact)
+    return CVGeometry(x1, pl1, incl, rdisc, impact,
+                      core_precise(q, dphi, config, pars.dtype))
+
+
+def core_precise(q, dphi, config: CVConfig, dtype):
+    """(q, incl, x1, pl1) solved in float64 from the working-dtype ``q``
+    and ``dphi`` (...), for the mixed-precision refinements; None when the
+    mode is off or ``dtype`` is already float64."""
+    if not config.mixed_precision or dtype == torch.float64:
+        return None
+    q64 = q.to(torch.float64)
+    x164 = xl1(q64)
+    pl164 = l1_potential(q64, x164)
+    incl64 = findi(q64, dphi.to(torch.float64), x164, pl164)
+    return q64, incl64, x164, pl164
 
 
 def cv_physical_ok(pars, geom: CVGeometry):
@@ -130,12 +158,24 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
         yaw = torch.zeros_like(q)
 
     if geometry is None:
-        geometry = cv_geometry(pars)
+        geometry = cv_geometry(pars, config)
     x1, pl1, incl, rdisc = (geometry.x1, geometry.pl1, geometry.incl,
                             geometry.rdisc)
+    precise = geometry.precise
 
-    disc_pos, disc_w = comp.disc_elements(
-        rwd, rdisc, dexp, config.n_disc_rad, config.n_disc_az)
+    if precise is not None:
+        # the disc grid in float64, cast down: float32 rounding of the
+        # element coordinates alone moves their contact phases by ~1e-7
+        # cycles, which flips elements across data phases
+        f64 = torch.float64
+        disc_pos64, disc_w64 = comp.disc_elements(
+            rwd.to(f64), rdisc_x.to(f64) * precise[2], dexp.to(f64),
+            config.n_disc_rad, config.n_disc_az)
+        disc_pos, disc_w = disc_pos64.to(dtype), disc_w64.to(dtype)
+    else:
+        disc_pos64 = None
+        disc_pos, disc_w = comp.disc_elements(
+            rwd, rdisc, dexp, config.n_disc_rad, config.n_disc_az)
     spot_pos, spot_w = comp.spot_elements(
         q, rdisc, scale, az, exp1, exp2, config.n_spot,
         impact=geometry.spot_impact)
@@ -161,7 +201,9 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
 
     # ---- white dwarf -----------------------------------------------------
     y = comp.wd_flux(per_walker(q), per_walker(incl), sub, per_walker(rwd),
-                     per_walker(ulimb), per_walker(x1), per_walker(pl1))
+                     per_walker(ulimb), per_walker(x1), per_walker(pl1),
+                     precise=None if precise is None
+                     else tuple(per_walker(a) for a in precise))
     if n_sub > 1:
         y = y.reshape(y.shape[:-1] + (-1, n_sub)).mean(dim=-1)
     ywd = wdF[..., None] * y
@@ -171,24 +213,28 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
     # (-y, -phase) and the disc azimuths come in mirror pairs
     # (az_j <-> 2 pi - az_j), so only half the disc azimuths plus the spot
     # strip are solved; the other half is (-phi_out, -phi_in) of its
-    # partner.
+    # partner.  In the mixed-precision mode the float64 positions take the
+    # same path (the spot strip's are its float32 ones).
     n_rad, n_az = config.n_disc_rad, config.n_disc_az
     lead = disc_pos.shape[:-2]
     mirror = n_az % 2 == 0
-    if mirror:
-        half_az = n_az // 2
-        n_solve_disc = n_rad * half_az
-        d3 = disc_pos.reshape(lead + (n_rad, n_az, 3))
-        all_pos = torch.cat(
-            [d3[..., :half_az, :].reshape(lead + (n_solve_disc, 3)),
-             spot_pos.expand(lead + spot_pos.shape[-2:])], dim=-2)
-    else:
-        n_solve_disc = disc_pos.shape[-2]
-        all_pos = torch.cat(
-            [disc_pos, spot_pos.expand(lead + spot_pos.shape[-2:])], dim=-2)
-    intervals = comp.element_intervals(q, incl, all_pos, x1, pl1)
+    n_solve_disc = n_rad * n_az // 2 if mirror else disc_pos.shape[-2]
+
+    def solved(disc, spot):
+        if mirror:
+            disc = disc.reshape(lead + (n_rad, n_az, 3))[
+                ..., :n_az // 2, :].reshape(lead + (n_solve_disc, 3))
+        return torch.cat([disc, spot.expand(lead + spot.shape[-2:])], dim=-2)
+
+    all_pos = solved(disc_pos, spot_pos)
+    all_pos64 = (None if disc_pos64 is None
+                 else solved(disc_pos64, spot_pos.to(torch.float64)))
+    intervals = comp.element_intervals(q, incl, all_pos, x1, pl1,
+                                       precise=precise,
+                                       positions64=all_pos64)
     if mirror:
         s_in, s_out, s_ecl = intervals
+        half_az = n_az // 2
         di = s_in[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
         do = s_out[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
         de = s_ecl[..., :n_solve_disc].reshape(lead + (n_rad, half_az))

@@ -33,7 +33,8 @@ from ..roche.geometry import (findi, l1_potential, origin_shadow_distance,
                               xl1)
 from ..roche.stream import stream_steps_for
 from .components import donor_grid
-from .cv import CVConfig, CVGeometry, cv_physical_ok, cv_total_flux
+from .cv import (CVConfig, CVGeometry, core_precise, cv_physical_ok,
+                 cv_total_flux)
 from .priors import ln_prior_table
 from .tree import CompiledModel
 
@@ -160,11 +161,13 @@ class Posterior:
         self.gp_idx = dev(model.gp_idx, torch.int64)
         self.gp_mask = dev(model.gp_mask, torch.bool)
 
-    def _core(self, var):
+    def _core(self, var, precise=False):
         """The part of an evaluation the prior needs: (full vectors
         (W, n_full), prior table sum (W,), CV parameters (W, E, 18),
         geometry, physical validity (W, E)) of sampled vectors ``var``
-        (W, D).  The core-node geometry is solved once per walker."""
+        (W, D).  The core-node geometry is solved once per walker; with
+        ``precise`` (the flux model's), so is its float64 solve of the
+        mixed-precision mode (:func:`core_precise`)."""
         model = self.model
         full = model.full_from_var(var.to(self.dtype))
         lp = ln_prior_table(full, model.prior_table)
@@ -175,8 +178,11 @@ class Posterior:
         incl = findi(q, dphi, x1, pl1)
         rdisc = cvp[..., 6] * x1[:, None]
         impacts = stream_impacts(q, rdisc, x1, n_steps=self.stream_steps)
+        fine = (core_precise(q, dphi, self.config, self.dtype) if precise
+                else None)
         geom = CVGeometry(x1[:, None], pl1[:, None], incl[:, None], rdisc,
-                          impacts)
+                          impacts, None if fine is None
+                          else tuple(a[:, None] for a in fine))
         return full, lp, cvp, geom, cv_physical_ok(cvp, geom)
 
     def _flux(self, cvp, geom):
@@ -192,7 +198,7 @@ class Posterior:
         per eclipse (W, E)) of sampled vectors ``var`` (W, D): chi^2, or
         the GP likelihood for the eclipses flagged ``use_gp``.  Where the
         model has no GP eclipse nothing of the GP runs."""
-        full, lp, cvp, geom, ok = self._core(var)
+        full, lp, cvp, geom, ok = self._core(var, precise=True)
         mflux = self._flux(cvp, geom)
         ll = _chi2_ln_like(mflux, self.flux, self.err, self.mask)
         if self.model.any_gp:
@@ -205,7 +211,7 @@ class Posterior:
     def model_flux(self, var):
         """Total model flux (W, E, P) of sampled vectors ``var`` (W, D)."""
         with torch.inference_mode():
-            _, _, cvp, geom, _ = self._core(var)
+            _, _, cvp, geom, _ = self._core(var, precise=True)
             return self._flux(cvp, geom)
 
     @staticmethod

@@ -1,11 +1,14 @@
-// Eclipse contact-interval solver (K1) for NVIDIA Hopper (sm_90a).
+// Eclipse contact-interval solver (K1) for NVIDIA Hopper (sm_90a), in
+// float32, in float64 and in mixed precision.
 //
 // Replaces the TPU kernel lfit_python_tpu/ops/pallas_contacts.py::_kernel
 // together with its launcher element_intervals_pallas (the setup before
-// the kernel and the arctan epilogue after it).  The plain PyTorch version
-// of the same algorithm is lfit_python_tpu_torch/roche/geometry.py::
-// contact_interval; the two are held to each other by the tests and by
-// chip_smoke.py.
+// the kernel and the arctan epilogue after it), and, for float64 and the
+// mixed-precision mode, the plain XLA solver the JAX package runs there
+// (lfit_python_tpu/roche/geometry.py::_contact_interval_impl).  The plain
+// PyTorch version of the same algorithm is lfit_python_tpu_torch/roche/
+// geometry.py::contact_interval (with ``precise`` for the mixed mode); the
+// two are held to each other by the tests and by chip_smoke.py.
 //
 // For each (row, element) — a row is one (walker, eclipse) pair, an
 // element an orbital-plane point (px, py, 0) of the disc or bright spot —
@@ -19,17 +22,30 @@
 //      warm-started ray minimum, on-sphere endpoint insurance and
 //      bisection fallback, returning the best EVALUATED point;
 //   4. one atan per edge converts w back to phase.
+// contacts_kernel<T> runs these in T (float or double).  The mixed kernel
+// runs 1, 2 and the first 5 iterations of 3 in float32, then 4 iterations
+// per edge in phase, carried in double and restarted from the original
+// sphere bracket: each evaluates the decision quantity c = Phi - Phi_L1 in
+// double from the row's double-solved (q, incl, Phi_L1) and the element's
+// double position, at the float32 ray minimum t (the envelope theorem
+// makes c first-order insensitive to t's error); t and the envelope
+// derivative, which only steers Newton, stay float32.  The best evaluated
+// phase is rounded to float32 at the end.
 //
 // What bounds it on the card: issued instructions, not bytes.  At the
-// north-star shape (5120 rows x 512 elements) the kernel reads 8 bytes
-// and writes 9 per element (44.6 MB, 13 us at 3.35 TB/s), while every
-// element needs ~287 operations for its setup and conjunction test and
-// an eclipsed one ~3,400 more for its bracket, 16 edge steps and atans
-// (counted by hand from this source, each rsqrt, sqrt, divide and atan
-// as one).  About 93% of the north-star's elements are eclipsed, so a
-// call is ~9 GFLOP: ~135 us at the f32 peak of 67 TFLOP/s, which counts
-// a fused multiply-add as two; --fmad=false forbids those, and each
-// divide, sqrt and atan is several instructions.
+// north-star shape (5120 rows x 512 elements) the float32 kernel reads 8
+// bytes and writes 9 per element (44.6 MB, 13 us at 3.35 TB/s), while
+// every element needs ~287 operations for its setup and conjunction test
+// and an eclipsed one ~3,400 more for its bracket, 16 edge steps and atans
+// (counted by hand from this source, each rsqrt, sqrt, divide and atan as
+// one).  About 93% of the north-star's elements are eclipsed, so a call is
+// ~9 GFLOP: ~135 us at the f32 peak of 67 TFLOP/s, which counts a fused
+// multiply-add as two; --fmad=false forbids those, and each divide, sqrt
+// and atan is several instructions.  The float64 kernel does the same
+// work against the 34 TFLOP/s f64 peak.  The mixed kernel's eclipsed
+// element does 10 float32 edge steps, then per edge 4 float32 ray minima
+// (3 Newton steps, 3 end values, the sin and cos of the phase) with the
+// envelope derivative, and 4 double evaluations of c.
 //
 // What the design does about it: one thread owns one (row, element) and
 // keeps all state in registers (no shared memory, nothing spilled to
@@ -44,232 +60,411 @@
 // second, persistent pass (bit-identical) was measured slower on an
 // H100: its conjunction-test pass alone costs 15% of this kernel, and
 // the edge pass over the list is no faster than this kernel's whole
-// run (PERF.md).
+// run (PERF.md).  The mixed kernel runs its double tails one edge after
+// the other, so that only one edge's double state is live at a time.
 //
 // Rounding: built with --fmad=false, so every product and sum is rounded
 // as the plain version's separate tensor ops round it.  min / max / clip
 // propagate NaN as torch.minimum / torch.maximum do, so an infeasible
 // walker (NaN inclination) yields the same empty interval as the plain
-// version.  What still differs at the ulp level: rsqrtf, atanf, atan2f.
+// version.  What still differs at the ulp level: rsqrt, atan, atan2, and
+// in the mixed kernel sin and cos.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#define K1_FN __device__ __forceinline__
+
 namespace {
 
 constexpr int kEdgeIters = 8;     // lockstep with geometry._EDGE_ITERS
+constexpr int kEdgeItersF32 = 5;  // mixed: geometry._EDGE_ITERS_F32
+constexpr int kEdgeItersF64 = 4;  // mixed: geometry._EDGE_ITERS_F64
 constexpr int kTNewton = 3;       // lockstep with geometry._EDGE_T_NEWTON
-constexpr float kClearVisible = 10.0f;
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr double kPi = 3.14159265358979323846;
+constexpr double kTwoPi = 6.28318530717958647692;
 constexpr int kBlock = 128;
 
+K1_FN float rsqrt_(float v) { return rsqrtf(v); }
+K1_FN double rsqrt_(double v) { return rsqrt(v); }
+K1_FN float sqrt_(float v) { return sqrtf(v); }
+K1_FN double sqrt_(double v) { return sqrt(v); }
+K1_FN float atan_(float v) { return atanf(v); }
+K1_FN double atan_(double v) { return atan(v); }
+K1_FN float atan2_(float y, float x) { return atan2f(y, x); }
+K1_FN double atan2_(double y, double x) { return atan2(y, x); }
+K1_FN float fabs_(float v) { return fabsf(v); }
+K1_FN double fabs_(double v) { return fabs(v); }
+
 // NaN-propagating min / max, as torch.minimum / torch.maximum
-__device__ __forceinline__ float nmax(float a, float b) {
+template <typename T> K1_FN T nmax(T a, T b) {
     return (a > b || a != a) ? a : b;
 }
-__device__ __forceinline__ float nmin(float a, float b) {
+template <typename T> K1_FN T nmin(T a, T b) {
     return (a < b || a != a) ? a : b;
 }
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
+template <typename T> K1_FN T clip(T x, T lo, T hi) {
     return nmin(nmax(x, lo), hi);
 }
 
-struct Elem {
-    float px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1;
+template <typename T> struct Elem {
+    T px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1;
 };
 
 // g(t) = Phi(p + t e) along the ray, from its two inverse distances
-__device__ __forceinline__ float g_from(const Elem& s, float t, float ex,
-                                        float ey, float i1, float i2) {
-    float cx = s.px - s.mu + t * ex;
-    float cy = s.py + t * ey;
-    return -(1.0f - s.mu) * i1 - s.mu * i2 - 0.5f * (cx * cx + cy * cy);
+template <typename T>
+K1_FN T g_from(const Elem<T>& s, T t, T ex, T ey, T i1, T i2) {
+    T cx = s.px - s.mu + t * ex;
+    T cy = s.py + t * ey;
+    return -(T(1) - s.mu) * i1 - s.mu * i2 - T(0.5) * (cx * cx + cy * cy);
 }
 
-__device__ __forceinline__ float g_val(const Elem& s, float t, float ex,
-                                       float ey, float b1, float b2) {
-    float i1 = rsqrtf(t * t + 2.0f * b1 * t + s.c1);
-    float i2 = rsqrtf(t * t + 2.0f * b2 * t + s.ww);
+template <typename T>
+K1_FN T g_val(const Elem<T>& s, T t, T ex, T ey, T b1, T b2) {
+    T i1 = rsqrt_(t * t + T(2) * b1 * t + s.c1);
+    T i2 = rsqrt_(t * t + T(2) * b2 * t + s.ww);
     return g_from(s, t, ex, ey, i1, i2);
 }
 
 // first and second t-derivatives of g at t
-__device__ __forceinline__ void g_derivs(const Elem& s, float t, float ex,
-                                         float ey, float b1, float b2,
-                                         float& g1, float& g2) {
-    float i1 = rsqrtf(t * t + 2.0f * b1 * t + s.c1);
-    float i2 = rsqrtf(t * t + 2.0f * b2 * t + s.ww);
-    float u1 = t + b1, u2 = t + b2;
-    float i13 = i1 * i1 * i1, i23 = i2 * i2 * i2;
-    float cx = s.px - s.mu + t * ex;
-    float cy = s.py + t * ey;
-    g1 = (1.0f - s.mu) * u1 * i13 + s.mu * u2 * i23 - (cx * ex + cy * ey);
-    g2 = (1.0f - s.mu) * (i13 - 3.0f * u1 * u1 * i13 * i1 * i1)
-         + s.mu * (i23 - 3.0f * u2 * u2 * i23 * i2 * i2)
+template <typename T>
+K1_FN void g_derivs(const Elem<T>& s, T t, T ex, T ey, T b1, T b2, T& g1,
+                    T& g2) {
+    T i1 = rsqrt_(t * t + T(2) * b1 * t + s.c1);
+    T i2 = rsqrt_(t * t + T(2) * b2 * t + s.ww);
+    T u1 = t + b1, u2 = t + b2;
+    T i13 = i1 * i1 * i1, i23 = i2 * i2 * i2;
+    T cx = s.px - s.mu + t * ex;
+    T cy = s.py + t * ey;
+    g1 = (T(1) - s.mu) * u1 * i13 + s.mu * u2 * i23 - (cx * ex + cy * ey);
+    g2 = (T(1) - s.mu) * (i13 - T(3) * u1 * u1 * i13 * i1 * i1)
+         + s.mu * (i23 - T(3) * u2 * u2 * i23 * i2 * i2)
          - (ex * ex + ey * ey);
 }
 
-struct Edge {
-    float sign, w, lo, hi, w_best, c_best, t;
+// the ray minimum at the observer direction (ex, ey): chord-midpoint
+// seed, kTNewton clamped Newton steps, chord-endpoint insurance.  Returns
+// its value; t is where it lies, no_occ whether the ray misses the
+// enclosing sphere.
+template <typename T>
+K1_FN T ray_min(const Elem<T>& s, T ex, T ey, T& t, bool& no_occ) {
+    T tstar = s.wx * ex + s.wy * ey;
+    T disc = s.rad * s.rad - (s.ww - tstar * tstar);
+    T half = sqrt_(nmax(disc, T(0)));
+    T t_lo = nmax(tstar - half, T(0));
+    T t_hi = nmax(tstar + half, T(0));
+    no_occ = disc <= T(0);
+    T b1 = s.px * ex + s.py * ey;
+    T b2 = b1 - ex;
+    t = clip(tstar, t_lo, t_hi);
+    for (int it = 0; it < kTNewton; ++it) {
+        T g1, g2;
+        g_derivs(s, t, ex, ey, b1, b2, g1, g2);
+        T step = (g2 > T(1e-12)) ? g1 / nmax(g2, T(1e-12)) : T(0);
+        t = clip(t - step, t_lo, t_hi);
+    }
+    T val = g_val(s, t, ex, ey, b1, b2);
+    T v_lo = g_val(s, t_lo, ex, ey, b1, b2);
+    T v_hi = g_val(s, t_hi, ex, ey, b1, b2);
+    if (v_lo < val) t = t_lo;
+    val = nmin(val, v_lo);
+    if (v_hi < val) t = t_hi;
+    return nmin(val, v_hi);
+}
+
+template <typename T> struct Edge {
+    T sign, w, lo, hi, w_best, c_best, t;
 };
 
 // observer direction at phi_c + sign atan(w) / pi, rational in w
-__device__ __forceinline__ void e_of(float e_A, float e_B, float sign,
-                                     float w, float& ex, float& ey,
-                                     float& den) {
-    den = 1.0f / (1.0f + w * w);
-    float cd = (1.0f - w * w) * den;
-    float sd = (2.0f * w) * den;
+template <typename T>
+K1_FN void e_of(T e_A, T e_B, T sign, T w, T& ex, T& ey, T& den) {
+    den = T(1) / (T(1) + w * w);
+    T cd = (T(1) - w * w) * den;
+    T sd = (T(2) * w) * den;
     ex = e_A * cd - sign * e_B * sd;
     ey = -(e_B * cd + sign * e_A * sd);
 }
 
 // one safeguarded envelope-Newton iteration of one edge
-__device__ __forceinline__ void edge_step(const Elem& s, float e_A,
-                                          float e_B, Edge& g) {
-    float ex, ey, den;
+template <typename T>
+K1_FN void edge_step(const Elem<T>& s, T e_A, T e_B, Edge<T>& g) {
+    T ex, ey, den;
     e_of(e_A, e_B, g.sign, g.w, ex, ey, den);
-    float tstar = s.wx * ex + s.wy * ey;
-    float disc = s.rad * s.rad - (s.ww - tstar * tstar);
-    float half = sqrtf(nmax(disc, 0.0f));
-    float t_lo = nmax(tstar - half, 0.0f);
-    float t_hi = nmax(tstar + half, 0.0f);
-    bool no_occ = disc <= 0.0f;
-    float b1 = s.px * ex + s.py * ey;
-    float b2 = b1 - ex;
-    float t = clip(g.t, t_lo, t_hi);
-    float t_mid = clip(tstar, t_lo, t_hi);
+    T tstar = s.wx * ex + s.wy * ey;
+    T disc = s.rad * s.rad - (s.ww - tstar * tstar);
+    T half = sqrt_(nmax(disc, T(0)));
+    T t_lo = nmax(tstar - half, T(0));
+    T t_hi = nmax(tstar + half, T(0));
+    bool no_occ = disc <= T(0);
+    T b1 = s.px * ex + s.py * ey;
+    T b2 = b1 - ex;
+    T t = clip(g.t, t_lo, t_hi);
+    T t_mid = clip(tstar, t_lo, t_hi);
     // warm polish step, well-guarded: a carried t in a concave region
     // (g2 <= 0) restarts from the chord midpoint
-    float g1, g2;
+    T g1, g2;
     g_derivs(s, t, ex, ey, b1, b2, g1, g2);
-    t = (g2 > 1e-12f) ? clip(t - g1 / nmax(g2, 1e-12f), t_lo, t_hi) : t_mid;
+    t = (g2 > T(1e-12)) ? clip(t - g1 / nmax(g2, T(1e-12)), t_lo, t_hi)
+                        : t_mid;
     // clearance with endpoint insurance (on-sphere identity: the donor
     // term at an unclipped chord endpoint is exactly -mu / rad)
-    float i1 = rsqrtf(t * t + 2.0f * b1 * t + s.c1);
-    float i2 = rsqrtf(t * t + 2.0f * b2 * t + s.ww);
-    float val = g_from(s, t, ex, ey, i1, i2);
-    float i1_lo = rsqrtf(t_lo * t_lo + 2.0f * b1 * t_lo + s.c1);
-    float i2_lo = (tstar - half > 0.0f) ? s.inv_rad : s.i2_p;
-    float v_lo = g_from(s, t_lo, ex, ey, i1_lo, i2_lo);
-    float i1_hi = rsqrtf(t_hi * t_hi + 2.0f * b1 * t_hi + s.c1);
-    float i2_hi = (tstar + half > 0.0f) ? s.inv_rad : s.i2_p;
-    float v_hi = g_from(s, t_hi, ex, ey, i1_hi, i2_hi);
+    T i1 = rsqrt_(t * t + T(2) * b1 * t + s.c1);
+    T i2 = rsqrt_(t * t + T(2) * b2 * t + s.ww);
+    T val = g_from(s, t, ex, ey, i1, i2);
+    T i1_lo = rsqrt_(t_lo * t_lo + T(2) * b1 * t_lo + s.c1);
+    T i2_lo = (tstar - half > T(0)) ? s.inv_rad : s.i2_p;
+    T v_lo = g_from(s, t_lo, ex, ey, i1_lo, i2_lo);
+    T i1_hi = rsqrt_(t_hi * t_hi + T(2) * b1 * t_hi + s.c1);
+    T i2_hi = (tstar + half > T(0)) ? s.inv_rad : s.i2_p;
+    T v_hi = g_from(s, t_hi, ex, ey, i1_hi, i2_hi);
     if (v_lo < val) { t = t_lo; i1 = i1_lo; i2 = i2_lo; }
     val = nmin(val, v_lo);
     if (v_hi < val) { t = t_hi; i1 = i1_hi; i2 = i2_hi; }
     val = nmin(val, v_hi);
-    float c = no_occ ? kClearVisible : val - s.pl1;
+    T c = no_occ ? T(10) : val - s.pl1;
     // keep the best evaluated point
-    float ac = fabsf(c);
+    T ac = fabs_(c);
     if (ac < g.c_best) { g.w_best = g.w; g.c_best = ac; }
-    if (c < 0.0f) g.lo = g.w; else g.hi = g.w;
+    if (c < T(0)) g.lo = g.w; else g.hi = g.w;
     // envelope derivative dc/dphi, converted to dc/dw by sign den / pi
-    float rx = s.px + t * ex;
-    float ry = s.py + t * ey;
-    float i13 = i1 * i1 * i1, i23 = i2 * i2 * i2;
-    float gx = (1.0f - s.mu) * rx * i13 + s.mu * (rx - 1.0f) * i23
-               - (rx - s.mu);
-    float gy = ry * ((1.0f - s.mu) * i13 + s.mu * i23 - 1.0f);
-    float d = t * kTwoPi * (gx * ey - gy * ex);
-    float dd = (fabsf(d) > 1e-12f) ? g.sign * den * d : INFINITY;
-    float w_newton = g.w - (c * kPi) / dd;
-    bool inside = (w_newton - g.lo) * (w_newton - g.hi) < 0.0f;
+    T rx = s.px + t * ex;
+    T ry = s.py + t * ey;
+    T i13 = i1 * i1 * i1, i23 = i2 * i2 * i2;
+    T gx = (T(1) - s.mu) * rx * i13 + s.mu * (rx - T(1)) * i23
+           - (rx - s.mu);
+    T gy = ry * ((T(1) - s.mu) * i13 + s.mu * i23 - T(1));
+    T d = t * T(kTwoPi) * (gx * ey - gy * ex);
+    T dd = (fabs_(d) > T(1e-12)) ? g.sign * den * d : T(INFINITY);
+    T w_newton = g.w - (c * T(kPi)) / dd;
+    bool inside = (w_newton - g.lo) * (w_newton - g.hi) < T(0);
     bool ok = inside && isfinite(w_newton) && !no_occ;
-    g.w = ok ? w_newton : 0.5f * (g.lo + g.hi);
+    g.w = ok ? w_newton : T(0.5) * (g.lo + g.hi);
     g.t = t;
 }
 
-// scal: (rows, 6) = [mu, sin i, cos i, 1 - xl1, Phi_L1, r_ins]
+// An element's setup, its conjunction test and its sphere bracket.
+// sc: the row's [mu, sin i, cos i, 1 - xl1, Phi_L1, r_ins].
+template <typename T> struct Setup {
+    Elem<T> s;
+    T phi_c, e_A, e_B, w_inscr, w_sphere;
+    bool ecl;
+};
+
+template <typename T>
+K1_FN Setup<T> setup(const T* sc, T px, T py) {
+    Setup<T> u;
+    Elem<T>& s = u.s;
+    s.mu = sc[0];
+    const T si = sc[1];
+    s.rad = sc[3];
+    s.pl1 = sc[4];
+    const T r_ins = sc[5];
+    s.px = px;
+    s.py = py;
+    s.wx = T(1) - s.px;
+    s.wy = -s.py;
+    s.ww = s.wx * s.wx + s.wy * s.wy;
+    s.c1 = s.px * s.px + s.py * s.py;
+    s.inv_rad = T(1) / s.rad;
+    s.i2_p = rsqrt_(s.ww);
+    u.phi_c = atan2_(s.py, T(1) - s.px) / T(kTwoPi);
+
+    // conjunction direction without trig: e(phi_c) = (e_A, -e_B, cos i)
+    const T iw = rsqrt_(s.ww);
+    u.e_A = si * s.wx * iw;
+    u.e_B = si * s.py * iw;
+
+    // 1. the eclipsed? test
+    T t;
+    bool no_occ;
+    T val = ray_min(s, u.e_A, -u.e_B, t, no_occ);
+    T c_mid = no_occ ? T(10) : val - s.pl1;
+    u.ecl = c_mid < T(0);
+
+    // 2. two-sided sphere bracket in w = tan(theta / 2)
+    const T inv_den = T(1) / nmax(si * sqrt_(s.ww), T(1e-12));
+    const T c_eff = clip(sqrt_(nmax(s.ww - s.rad * s.rad, T(0))) * inv_den,
+                         T(0), T(1));
+    u.w_sphere = sqrt_((T(1) - c_eff) / (T(1) + c_eff));
+    const T c_ins = clip(sqrt_(nmax(s.ww - r_ins * r_ins, T(0))) * inv_den,
+                         T(0), T(1));
+    u.w_inscr = sqrt_((T(1) - c_ins) / (T(1) + c_ins));
+    return u;
+}
+
+// 3. the ingress (sign -1) and egress (sign +1) edges after n_iters
+// interleaved envelope-Newton iterations
+template <typename T>
+K1_FN void edges(const Setup<T>& u, int n_iters, Edge<T>& a, Edge<T>& b) {
+    const T w0 = T(0.5) * (u.w_inscr + u.w_sphere);
+    a = Edge<T>{T(-1), w0, u.w_inscr, u.w_sphere, w0, T(INFINITY), T(0)};
+    b = Edge<T>{T(+1), w0, u.w_inscr, u.w_sphere, w0, T(INFINITY), T(0)};
+    T ex, ey, den;
+    e_of(u.e_A, u.e_B, a.sign, w0, ex, ey, den);
+    a.t = u.s.wx * ex + u.s.wy * ey;
+    e_of(u.e_A, u.e_B, b.sign, w0, ex, ey, den);
+    b.t = u.s.wx * ex + u.s.wy * ey;
+#pragma unroll 1
+    for (int it = 0; it < n_iters; ++it) {
+        edge_step(u.s, u.e_A, u.e_B, a);
+        edge_step(u.s, u.e_A, u.e_B, b);
+    }
+}
+
+// one element in T: (phi_in, phi_out, eclipsed)
+template <typename T>
+K1_FN void solve_element(const T* sc, T px, T py, T& pin, T& pout,
+                         bool& ecl) {
+    const Setup<T> u = setup(sc, px, py);
+    ecl = u.ecl;
+    pin = u.phi_c;
+    pout = u.phi_c;
+    if (u.ecl) {
+        Edge<T> a, b;
+        edges(u, kEdgeIters, a, b);
+        // 4. one atan per edge back to phase
+        pin = u.phi_c + T(-1) * (atan_(a.w_best) / T(kPi));
+        pout = u.phi_c + (atan_(b.w_best) / T(kPi));
+    }
+}
+
+// ---- the mixed-precision tail ---------------------------------------
+
+// the row's double-solved scalars and the element's double position
+struct Exact {
+    double mu, si, pl1, px, py, c1, ww;
+};
+
+// c = Phi(p + t e(phi)) - Phi_L1 in double at the float32 ray minimum t
+K1_FN double c_refined(const Exact& x, float t32, double phi) {
+    const double t = (double)t32;
+    const double th = kTwoPi * phi;
+    const double ex = x.si * cos(th), ey = -x.si * sin(th);
+    const double b1 = x.px * ex + x.py * ey;
+    const double b2 = b1 - ex;
+    const double i1 = rsqrt(t * t + 2.0 * b1 * t + x.c1);
+    const double i2 = rsqrt(t * t + 2.0 * b2 * t + x.ww);
+    const double cx = x.px - x.mu + t * ex;
+    const double cy = x.py + t * ey;
+    return (-(1.0 - x.mu) * i1 - x.mu * i2 - 0.5 * (cx * cx + cy * cy))
+           - x.pl1;
+}
+
+// envelope derivative dc/dphi = grad(Phi) . t de/dphi, in float32
+K1_FN float dc_dphi(const Elem<float>& s, float ci, float t, float ex,
+                    float ey) {
+    float rx = s.px + t * ex;
+    float ry = s.py + t * ey;
+    float rz = t * ci;
+    float i1 = rsqrtf(rx * rx + ry * ry + rz * rz);
+    float dx = rx - 1.0f;
+    float i2 = rsqrtf(dx * dx + ry * ry + rz * rz);
+    float i13 = i1 * i1 * i1, i23 = i2 * i2 * i2;
+    float gx = (1.0f - s.mu) * rx * i13 + s.mu * dx * i23 - (rx - s.mu);
+    float gy = ry * ((1.0f - s.mu) * i13 + s.mu * i23 - 1.0f);
+    return t * float(kTwoPi) * (gx * ey - gy * ex);
+}
+
+// the last kEdgeItersF64 iterations of one edge, in phase, carried in
+// double from the float32 iterate w and restarted from the sphere
+// bracket; returns the best evaluated phase
+K1_FN double edge_tail(const Setup<float>& u, const Exact& x, float si,
+                       float ci, float sign, float w) {
+    const float inv_pi = float(1.0 / kPi);
+    double phi = (double)(u.phi_c + sign * (atanf(w) * inv_pi));
+    double lo = (double)(u.phi_c + sign * (atanf(u.w_inscr) * inv_pi));
+    double hi = (double)(u.phi_c + sign * (atanf(u.w_sphere) * inv_pi));
+    double best = phi, c_best = INFINITY;
+#pragma unroll 1
+    for (int it = 0; it < kEdgeItersF64; ++it) {
+        const float phi32 = (float)phi;
+        const float th = float(kTwoPi) * phi32;
+        const float ex = si * cosf(th), ey = -si * sinf(th);
+        float t;
+        bool no_occ;
+        ray_min(u.s, ex, ey, t, no_occ);
+        const double c = no_occ ? (double)INFINITY : c_refined(x, t, phi);
+        if (fabs(c) < c_best) { best = phi; c_best = fabs(c); }
+        if (c < 0.0) lo = phi; else hi = phi;
+        const double d = (double)dc_dphi(u.s, ci, t, ex, ey);
+        const double phi_newton =
+            phi - c / ((fabs(d) > 1e-12) ? d : (double)INFINITY);
+        const bool inside = (phi_newton - lo) * (phi_newton - hi) < 0.0;
+        const bool ok = inside && isfinite(phi_newton) && !no_occ;
+        phi = ok ? phi_newton : 0.5 * (lo + hi);
+    }
+    return best;
+}
+
+// one element in mixed precision.  sc as for solve_element<float>;
+// sc64: the row's double [mu, sin i, Phi_L1]
+K1_FN void solve_element_mixed(const float* sc, const double* sc64,
+                               float px, float py, double px64,
+                               double py64, float& pin, float& pout,
+                               bool& ecl) {
+    const Setup<float> u = setup(sc, px, py);
+    ecl = u.ecl;
+    pin = u.phi_c;
+    pout = u.phi_c;
+    if (u.ecl) {
+        Edge<float> a, b;
+        edges(u, kEdgeItersF32, a, b);
+        Exact x;
+        x.mu = sc64[0];
+        x.si = sc64[1];
+        x.pl1 = sc64[2];
+        x.px = px64;
+        x.py = py64;
+        x.c1 = px64 * px64 + py64 * py64;
+        const double wx = 1.0 - px64, wy = -py64;
+        x.ww = wx * wx + wy * wy;
+        pin = (float)edge_tail(u, x, sc[1], sc[2], -1.0f, a.w);
+        pout = (float)edge_tail(u, x, sc[1], sc[2], +1.0f, b.w);
+    }
+}
+
+// ---- kernel and launcher ------------------------------------------------
+
+// scal: (rows, 6) of T = [mu, sin i, cos i, 1 - xl1, Phi_L1, r_ins]
+template <typename T>
 __global__ void __launch_bounds__(kBlock)
-contacts_kernel(const float* __restrict__ scal,
-                const float* __restrict__ px_in,
-                const float* __restrict__ py_in,
-                float* __restrict__ phi_in, float* __restrict__ phi_out,
+contacts_kernel(const T* __restrict__ scal, const T* __restrict__ px_in,
+                const T* __restrict__ py_in, T* __restrict__ phi_in,
+                T* __restrict__ phi_out,
                 unsigned char* __restrict__ eclipsed, int n) {
     const int row = blockIdx.x;
     const int j = blockIdx.y * kBlock + threadIdx.x;
     if (j >= n) return;
     const long long k = (long long)row * n + j;
-    const float* sc = scal + 6LL * row;
-
-    Elem s;
-    s.mu = sc[0];
-    const float si = sc[1];
-    s.rad = sc[3];
-    s.pl1 = sc[4];
-    const float r_ins = sc[5];
-    s.px = px_in[k];
-    s.py = py_in[k];
-    s.wx = 1.0f - s.px;
-    s.wy = -s.py;
-    s.ww = s.wx * s.wx + s.wy * s.wy;
-    s.c1 = s.px * s.px + s.py * s.py;
-    s.inv_rad = 1.0f / s.rad;
-    s.i2_p = rsqrtf(s.ww);
-    const float phi_c = atan2f(s.py, 1.0f - s.px) / kTwoPi;
-
-    // conjunction direction without trig: e(phi_c) = (e_A, -e_B, cos i)
-    const float iw = rsqrtf(s.ww);
-    const float e_A = si * s.wx * iw;
-    const float e_B = si * s.py * iw;
-
-    // 1. the eclipsed? test
+    T pin, pout;
     bool ecl;
-    {
-        const float ex = e_A, ey = -e_B;
-        float tstar = s.wx * ex + s.wy * ey;
-        float disc = s.rad * s.rad - (s.ww - tstar * tstar);
-        float half = sqrtf(nmax(disc, 0.0f));
-        float t_lo = nmax(tstar - half, 0.0f);
-        float t_hi = nmax(tstar + half, 0.0f);
-        bool no_occ = disc <= 0.0f;
-        float b1 = s.px * ex + s.py * ey;
-        float b2 = b1 - ex;
-        float t = clip(tstar, t_lo, t_hi);
-        for (int it = 0; it < kTNewton; ++it) {
-            float g1, g2;
-            g_derivs(s, t, ex, ey, b1, b2, g1, g2);
-            float step = (g2 > 1e-12f) ? g1 / nmax(g2, 1e-12f) : 0.0f;
-            t = clip(t - step, t_lo, t_hi);
-        }
-        float val = g_val(s, t, ex, ey, b1, b2);
-        val = nmin(val, g_val(s, t_lo, ex, ey, b1, b2));
-        val = nmin(val, g_val(s, t_hi, ex, ey, b1, b2));
-        float c_mid = no_occ ? kClearVisible : val - s.pl1;
-        ecl = c_mid < 0.0f;
-    }
+    solve_element(scal + 6LL * row, px_in[k], py_in[k], pin, pout, ecl);
+    phi_in[k] = pin;
+    phi_out[k] = pout;
+    eclipsed[k] = ecl ? 1 : 0;
+}
 
-    float pin = phi_c, pout = phi_c;
-    if (ecl) {
-        // 2. two-sided sphere bracket in w = tan(theta / 2)
-        const float inv_den = 1.0f / nmax(si * sqrtf(s.ww), 1e-12f);
-        const float c_eff = clip(
-            sqrtf(nmax(s.ww - s.rad * s.rad, 0.0f)) * inv_den, 0.0f, 1.0f);
-        const float w_sphere = sqrtf((1.0f - c_eff) / (1.0f + c_eff));
-        const float c_ins = clip(
-            sqrtf(nmax(s.ww - r_ins * r_ins, 0.0f)) * inv_den, 0.0f, 1.0f);
-        const float w_inscr = sqrtf((1.0f - c_ins) / (1.0f + c_ins));
-        const float w0 = 0.5f * (w_inscr + w_sphere);
-
-        // 3. ingress (sign -1) and egress (sign +1), interleaved
-        Edge a{-1.0f, w0, w_inscr, w_sphere, w0, INFINITY, 0.0f};
-        Edge b{+1.0f, w0, w_inscr, w_sphere, w0, INFINITY, 0.0f};
-        float ex, ey, den;
-        e_of(e_A, e_B, a.sign, w0, ex, ey, den);
-        a.t = s.wx * ex + s.wy * ey;
-        e_of(e_A, e_B, b.sign, w0, ex, ey, den);
-        b.t = s.wx * ex + s.wy * ey;
-#pragma unroll 1
-        for (int it = 0; it < kEdgeIters; ++it) {
-            edge_step(s, e_A, e_B, a);
-            edge_step(s, e_A, e_B, b);
-        }
-        // 4. one atan per edge back to phase
-        pin = phi_c + (-1.0f) * (atanf(a.w_best) / kPi);
-        pout = phi_c + (atanf(b.w_best) / kPi);
-    }
+// scal as above in float32, scal64: (rows, 3) of double = [mu, sin i,
+// Phi_L1] solved in double; px64, py64 the double positions
+__global__ void __launch_bounds__(kBlock)
+contacts_mixed_kernel(const float* __restrict__ scal,
+                      const double* __restrict__ scal64,
+                      const float* __restrict__ px_in,
+                      const float* __restrict__ py_in,
+                      const double* __restrict__ px64,
+                      const double* __restrict__ py64,
+                      float* __restrict__ phi_in,
+                      float* __restrict__ phi_out,
+                      unsigned char* __restrict__ eclipsed, int n) {
+    const int row = blockIdx.x;
+    const int j = blockIdx.y * kBlock + threadIdx.x;
+    if (j >= n) return;
+    const long long k = (long long)row * n + j;
+    float pin, pout;
+    bool ecl;
+    solve_element_mixed(scal + 6LL * row, scal64 + 3LL * row, px_in[k],
+                        py_in[k], px64[k], py64[k], pin, pout, ecl);
     phi_in[k] = pin;
     phi_out[k] = pout;
     eclipsed[k] = ecl ? 1 : 0;
@@ -279,14 +474,37 @@ contacts_kernel(const float* __restrict__ scal,
 
 // Launches K1 on ``stream`` for ``rows`` x ``n`` elements and returns
 // cudaGetLastError() (0 on success).  All pointers are device pointers to
-// contiguous float32 (uint8 for ``eclipsed``) arrays.
-extern "C" int contacts_launch(const float* scal, const float* px,
-                               const float* py, float* phi_in,
-                               float* phi_out, unsigned char* eclipsed,
+// contiguous arrays of float64 (is_double = 1) or float32 (0), uint8 for
+// ``eclipsed``.
+extern "C" int contacts_launch(int is_double, const void* scal,
+                               const void* px, const void* py, void* phi_in,
+                               void* phi_out, unsigned char* eclipsed,
                                int rows, int n, void* stream) {
     if (rows <= 0 || n <= 0) return 0;
     dim3 grid(rows, (n + kBlock - 1) / kBlock);
-    contacts_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-        scal, px, py, phi_in, phi_out, eclipsed, n);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (is_double)
+        contacts_kernel<double><<<grid, kBlock, 0, st>>>(
+            (const double*)scal, (const double*)px, (const double*)py,
+            (double*)phi_in, (double*)phi_out, eclipsed, n);
+    else
+        contacts_kernel<float><<<grid, kBlock, 0, st>>>(
+            (const float*)scal, (const float*)px, (const float*)py,
+            (float*)phi_in, (float*)phi_out, eclipsed, n);
+    return (int)cudaGetLastError();
+}
+
+// The mixed-precision K1: float32 scal, px, py and outputs; double scal64,
+// px64, py64.
+extern "C" int contacts_mixed_launch(const float* scal, const double* scal64,
+                                     const float* px, const float* py,
+                                     const double* px64, const double* py64,
+                                     float* phi_in, float* phi_out,
+                                     unsigned char* eclipsed, int rows, int n,
+                                     void* stream) {
+    if (rows <= 0 || n <= 0) return 0;
+    dim3 grid(rows, (n + kBlock - 1) / kBlock);
+    contacts_mixed_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+        scal, scal64, px, py, px64, py64, phi_in, phi_out, eclipsed, n);
     return (int)cudaGetLastError();
 }

@@ -54,6 +54,11 @@ _CLEAR_VISIBLE = 10.0    # clearance reported for rays missing the donor
 _EDGE_ITERS = 8
 _EDGE_T_NEWTON = 3
 _EDGE_T_WARM = 1
+# the mixed-precision split (``precise``): the first _EDGE_ITERS_F32
+# iterations run in the working dtype, the last _EDGE_ITERS_F64 in phase,
+# carried in float64, with c = Phi - Phi_L1 evaluated in float64
+_EDGE_ITERS_F32 = 5
+_EDGE_ITERS_F64 = 4
 
 
 def _recording(*ts):
@@ -204,8 +209,9 @@ def ray_clearance(q, p, e, xl1_val, phi_l1):
 
 def _origin_clearance(q, incl_deg, phases, xl1_val, phi_l1):
     """Clearance of the ray from the origin (the WD centre) at ``phases``;
-    returns (clear, t_min, mu, ex, ey, ci).  Componentwise
-    specialisation of :func:`ray_clearance` at p = 0 (r1 = t)."""
+    returns (clear, t_min, mu, ex, ey, ci, t_lo, t_hi, no_occ).
+    Componentwise specialisation of :func:`ray_clearance` at p = 0
+    (r1 = t)."""
     mu = q / (1.0 + q)
     i_rad = torch.deg2rad(incl_deg)
     si, ci = torch.sin(i_rad), torch.cos(i_rad)
@@ -250,15 +256,51 @@ def _origin_clearance(q, incl_deg, phases, xl1_val, phi_l1):
     val = torch.minimum(val, v_hi)
     clear = torch.where(no_occ, torch.full_like(val, _CLEAR_VISIBLE),
                         val - phi_l1)
-    return clear, t, mu, ex, ey, ci
+    return clear, t, mu, ex, ey, ci, t_lo, t_hi, no_occ
 
 
-def origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1):
+def origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1,
+                           precise=None):
     """Signed sky-plane distance of the WD centre from the donor's shadow
     terminator at ``phases`` (positive = visible), and the clearance.
-    Returns (distance, clearance), both broadcast(q, incl, phases)."""
-    clear, t, mu, ex, ey, ci = _origin_clearance(
+    Returns (distance, clearance), both broadcast(q, incl, phases).
+
+    ``precise``: optional (q, incl, xl1, pl1) solved in float64 (the
+    mixed-precision mode): the ray minimum t of the working-dtype solve
+    takes two float64 Newton steps, and the clearance and the gradient
+    are evaluated once in float64 there; both are then returned in
+    float64 (``components.wd_flux`` finishes the edge fraction in
+    float64)."""
+    clear, t, mu, ex, ey, ci, t_lo, t_hi, no_occ = _origin_clearance(
         q, incl_deg, phases, xl1_val, phi_l1)
+    if precise is not None:
+        f64 = torch.float64
+        q64, incl64, _, pl164 = (a.to(f64) for a in precise)
+        mu = q64 / (1.0 + q64)
+        i64 = torch.deg2rad(incl64)
+        si, ci = torch.sin(i64), torch.cos(i64)
+        th = 2.0 * math.pi * phases.to(f64)
+        ex, ey = si * torch.cos(th), -si * torch.sin(th)
+        t, t_lo, t_hi = t.to(f64), t_lo.to(f64), t_hi.to(f64)
+        ee2 = ex * ex + ey * ey
+        for _ in range(2):
+            i2 = torch.rsqrt(t * t - 2.0 * ex * t + 1.0)
+            u2 = t - ex
+            i23 = i2 * i2 * i2
+            cx = t * ex - mu
+            cy = t * ey
+            g1 = (1.0 - mu) / (t * t) + mu * u2 * i23 - (cx * ex + cy * ey)
+            g2 = (-2.0 * (1.0 - mu) / (t * t * t)
+                  + mu * (i23 - 3.0 * u2 * u2 * i23 * i2 * i2) - ee2)
+            step = torch.where(g2 > 1e-14, g1 / torch.clamp(g2, min=1e-14),
+                               torch.zeros_like(g2))
+            t = torch.minimum(torch.maximum(t - step, t_lo), t_hi)
+        i2 = torch.rsqrt(t * t - 2.0 * ex * t + 1.0)
+        cx = t * ex - mu
+        cy = t * ey
+        val = -(1.0 - mu) / t - mu * i2 - 0.5 * (cx * cx + cy * cy)
+        clear = torch.where(no_occ, torch.full_like(val, _CLEAR_VISIBLE),
+                            val - pl164)
     # grad(Phi) at the minimising point, perpendicular to the line of sight
     rx, ry, rz = t * ex, t * ey, t * ci
     i1 = torch.rsqrt(rx * rx + ry * ry + rz * rz)
@@ -360,13 +402,14 @@ def inscribed_radius(q, xl1_val=None, phi_l1=None):
     return 0.995 * lobe_radius(q, pole, xl1_val, phi_l1)
 
 
-def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
+def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins,
+                     precise=None, p64=None):
     """Eclipse interval (phi_in, phi_out, eclipsed) of orbital-plane
     points (px, py, 0): the plain tensor form of the contact solver.
 
-    Port of the reference's non-precise ``_contact_interval_impl``, and the
-    plain version of the CUDA kernel ``ops/csrc/contacts.cu``.  All
-    arguments broadcast elementwise; ``r_ins`` is the per-walker
+    Port of the reference's ``_contact_interval_impl``, and the plain
+    version of the CUDA kernel ``ops/csrc/contacts.cu``.  All arguments
+    broadcast elementwise; ``r_ins`` is the per-walker
     :func:`inscribed_radius`.  Steps:
 
     1. conjunction test: the ray minimum at the conjunction direction
@@ -381,10 +424,20 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
        best *evaluated* point (smallest |c|) is returned, never the
        bracket midpoint or the last proposal.
 
+    ``precise``: the mixed-precision mode, with (q, incl, xl1, pl1)
+    solved in float64 (broadcasting like the other arguments) and ``p64``
+    the points' (px, py) in float64 (None: px, py themselves).  Step 3
+    then runs 5 iterations in the working dtype and 4 more per edge in
+    phase, carried in float64 and restarted from the sphere bracket: each
+    takes the ray minimum t and the envelope derivative in the working
+    dtype and the clearance c in float64 at that t.  The best evaluated
+    phase is cast to the working dtype.  Not differentiable.
+
     Ingress (sign -1) and egress (sign +1) run side by side on a trailing
     axis of 2 — each edge's arithmetic is unchanged.  Never-eclipsed points
     get the empty interval phi_in == phi_out == phi_c.
     """
+    dtype = torch.result_type(px, py)
     mu = q / (1.0 + q)
     i_rad = torch.deg2rad(incl_deg)
     si, ci = torch.sin(i_rad), torch.cos(i_rad)
@@ -398,12 +451,8 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
     i2_p = torch.rsqrt(ww)
     phi_c = torch.atan2(py, 1.0 - px) / two_pi
 
-    def g_val(t, ex, ey, b1, b2):
-        i1 = torch.rsqrt(t * t + 2.0 * b1 * t + c1)
-        i2 = torch.rsqrt(t * t + 2.0 * b2 * t + ww)
-        cx = px - mu + t * ex
-        cy = py + t * ey
-        return -(1.0 - mu) * i1 - mu * i2 - 0.5 * (cx * cx + cy * cy)
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
 
     def newton(t, ex, ey, b1, b2, px, py, c1, ww, mu):
         i1 = torch.rsqrt(t * t + 2.0 * b1 * t + c1)
@@ -418,8 +467,37 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
               - (ex * ex + ey * ey))
         return g1, g2
 
-    def clip(x, lo, hi):
-        return torch.minimum(torch.maximum(x, lo), hi)
+    def ray_minimum(ex, ey, px, py, c1, ww, wx, wy, mu, rad):
+        """(value, t, no_occ) of the ray minimum at the observer direction
+        (ex, ey): chord-midpoint seed, 3 clamped Newton steps, chord-end
+        insurance."""
+        def g_val(t):
+            i1 = torch.rsqrt(t * t + 2.0 * b1 * t + c1)
+            i2 = torch.rsqrt(t * t + 2.0 * b2 * t + ww)
+            cx = px - mu + t * ex
+            cy = py + t * ey
+            return -(1.0 - mu) * i1 - mu * i2 - 0.5 * (cx * cx + cy * cy)
+
+        tstar = wx * ex + wy * ey
+        disc = rad * rad - (ww - tstar * tstar)
+        half = torch.sqrt(torch.clamp(disc, min=0.0))
+        t_lo = torch.clamp(tstar - half, min=0.0)
+        t_hi = torch.clamp(tstar + half, min=0.0)
+        no_occ = disc <= 0.0
+        b1 = px * ex + py * ey
+        b2 = b1 - ex
+        t = clip(tstar, t_lo, t_hi)
+        for _ in range(_EDGE_T_NEWTON):
+            g1, g2 = newton(t, ex, ey, b1, b2, px, py, c1, ww, mu)
+            step = torch.where(g2 > 1e-12, g1 / torch.clamp(g2, min=1e-12),
+                               torch.zeros_like(g2))
+            t = clip(t - step, t_lo, t_hi)
+        val = g_val(t)
+        v_lo, v_hi = g_val(t_lo), g_val(t_hi)
+        t = torch.where(v_lo < val, t_lo, t)
+        val = torch.minimum(val, v_lo)
+        t = torch.where(v_hi < val, t_hi, t)
+        return torch.minimum(val, v_hi), t, no_occ
 
     # conjunction direction without trig: e(phi_c) = (e_A, -e_B, ci)
     iw = torch.rsqrt(ww)
@@ -427,24 +505,7 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
     e_B = si * py * iw
 
     # 1. the eclipsed? test: ray minimum at conjunction
-    ex, ey = e_A, -e_B
-    tstar = wx * ex + wy * ey
-    disc = rad * rad - (ww - tstar * tstar)
-    half = torch.sqrt(torch.clamp(disc, min=0.0))
-    t_lo = torch.clamp(tstar - half, min=0.0)
-    t_hi = torch.clamp(tstar + half, min=0.0)
-    no_occ = disc <= 0.0
-    b1 = px * ex + py * ey
-    b2 = b1 - ex
-    t = clip(tstar, t_lo, t_hi)
-    for _ in range(_EDGE_T_NEWTON):
-        g1, g2 = newton(t, ex, ey, b1, b2, px, py, c1, ww, mu)
-        step = torch.where(g2 > 1e-12, g1 / torch.clamp(g2, min=1e-12),
-                           torch.zeros_like(g2))
-        t = clip(t - step, t_lo, t_hi)
-    val = g_val(t, ex, ey, b1, b2)
-    val = torch.minimum(val, g_val(t_lo, ex, ey, b1, b2))
-    val = torch.minimum(val, g_val(t_hi, ex, ey, b1, b2))
+    val, _, no_occ = ray_minimum(e_A, -e_B, px, py, c1, ww, wx, wy, mu, rad)
     c_mid = torch.where(no_occ, torch.full_like(val, _CLEAR_VISIBLE),
                         val - pl1)
     eclipsed = c_mid < 0.0
@@ -463,11 +524,12 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
     shape = torch.broadcast_shapes(
         phi_c.shape, w_inscr.shape, w_sphere.shape, e_A.shape) + (2,)
     sign = torch.tensor([-1.0, 1.0], dtype=phi_c.dtype, device=phi_c.device)
-    (px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1, e_A,
-     e_B) = (a[..., None] for a in (
-         px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1, e_A, e_B))
-    lo = w_inscr[..., None].expand(shape)       # eclipsed end (certified)
-    hi = w_sphere[..., None].expand(shape)      # visible end (sphere miss)
+    (px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1, e_A, e_B, si, ci,
+     phi_c_e, w_inscr_e, w_sphere_e) = (a[..., None] for a in (
+         px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1, e_A, e_B, si,
+         ci, phi_c, w_inscr, w_sphere))
+    lo = w_inscr_e.expand(shape)                # eclipsed end (certified)
+    hi = w_sphere_e.expand(shape)               # visible end (sphere miss)
     w = 0.5 * (lo + hi)
 
     def e_of(w):
@@ -482,7 +544,7 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
     t = wx * ex0 + wy * ey0
     w_best = w
     c_best = torch.full(shape, math.inf, dtype=w.dtype, device=w.device)
-    for _ in range(_EDGE_ITERS):
+    for _ in range(_EDGE_ITERS if precise is None else _EDGE_ITERS_F32):
         ex, ey, den = e_of(w)
         tstar = wx * ex + wy * ey
         disc = rad * rad - (ww - tstar * tstar)
@@ -558,7 +620,77 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins):
         ok = inside & torch.isfinite(w_newton) & ~no_occ
         w = torch.where(ok, w_newton, 0.5 * (lo + hi))
 
-    edge = phi_c[..., None] + sign * (torch.atan(w_best) / math.pi)
+    if precise is None:
+        edge = phi_c_e + sign * (torch.atan(w_best) / math.pi)
+    else:
+        # float64 phase tail, restarted from the sphere bracket (a
+        # working-dtype bracket may sit on the wrong side of a tangential
+        # root) and seeded by the last working-dtype iterate
+        f64 = torch.float64
+        q64, incl64, _, pl164 = (a.to(f64)[..., None] for a in precise)
+        px64, py64 = ((px, py) if p64 is None
+                      else (p64[0][..., None], p64[1][..., None]))
+        px64, py64 = px64.to(f64), py64.to(f64)
+        mu64 = q64 / (1.0 + q64)
+        si64 = torch.sin(torch.deg2rad(incl64))
+        c164 = px64 * px64 + py64 * py64
+        wx64, wy64 = 1.0 - px64, -py64
+        c2n64 = wx64 * wx64 + wy64 * wy64
+
+        def c_refined(t, phi):
+            t = t.to(f64)
+            th = 2.0 * math.pi * phi
+            ex, ey = si64 * torch.cos(th), -si64 * torch.sin(th)
+            b1 = px64 * ex + py64 * ey
+            b2 = b1 - ex
+            i1 = torch.rsqrt(t * t + 2.0 * b1 * t + c164)
+            i2 = torch.rsqrt(t * t + 2.0 * b2 * t + c2n64)
+            cx = px64 - mu64 + t * ex
+            cy = py64 + t * ey
+            return (-(1.0 - mu64) * i1 - mu64 * i2
+                    - 0.5 * (cx * cx + cy * cy)) - pl164
+
+        def dc_dphi(t, ex, ey):
+            rx = px + t * ex
+            ry = py + t * ey
+            rz = t * ci
+            i1 = torch.rsqrt(rx * rx + ry * ry + rz * rz)
+            dx = rx - 1.0
+            i2 = torch.rsqrt(dx * dx + ry * ry + rz * rz)
+            i13, i23 = i1 * i1 * i1, i2 * i2 * i2
+            gx = (1.0 - mu) * rx * i13 + mu * dx * i23 - (rx - mu)
+            gy = ry * ((1.0 - mu) * i13 + mu * i23 - 1.0)
+            return t * two_pi * (gx * ey - gy * ex)
+
+        inv_pi = 1.0 / math.pi
+        lo = (phi_c_e + sign * (torch.atan(w_inscr_e) * inv_pi)).to(f64)
+        hi = (phi_c_e + sign * (torch.atan(w_sphere_e) * inv_pi)).to(f64)
+        phi = (phi_c_e + sign * (torch.atan(w) * inv_pi)).to(f64)
+        lo, hi = torch.broadcast_tensors(lo, hi, phi)[:2]
+        phi_best = phi
+        c_best = torch.full(phi.shape, math.inf, dtype=f64, device=phi.device)
+        for _ in range(_EDGE_ITERS_F64):
+            phi32 = phi.to(dtype)
+            th = two_pi * phi32
+            ex, ey = si * torch.cos(th), -si * torch.sin(th)
+            _, t, no_occ = ray_minimum(ex, ey, px, py, c1, ww, wx, wy, mu,
+                                       rad)
+            c = torch.where(no_occ, torch.full_like(phi, math.inf),
+                            c_refined(t, phi))
+            better = torch.abs(c) < c_best
+            phi_best = torch.where(better, phi, phi_best)
+            c_best = torch.where(better, torch.abs(c), c_best)
+            below = c < 0.0
+            lo = torch.where(below, phi, lo)
+            hi = torch.where(below, hi, phi)
+            d = dc_dphi(t, ex, ey).to(f64)
+            phi_newton = phi - c / torch.where(
+                torch.abs(d) > 1e-12, d, torch.full_like(d, math.inf))
+            inside = (phi_newton - lo) * (phi_newton - hi) < 0.0
+            ok = inside & torch.isfinite(phi_newton) & ~no_occ
+            phi = torch.where(ok, phi_newton, 0.5 * (lo + hi))
+        edge = phi_best.to(dtype)
+
     phi_in = torch.where(eclipsed, edge[..., 0], phi_c)
     phi_out = torch.where(eclipsed, edge[..., 1], phi_c)
     return phi_in, phi_out, eclipsed

@@ -134,15 +134,27 @@ def run_sampler(state: EnsembleState, ln_prob_fn, n_steps, generator,
     return state, chain, chain_lp, acc_t
 
 
+def _extract_samples(state):
+    """The rows a kept step contributes: the state's positions and
+    ln-probabilities."""
+    return state.positions, state.log_prob
+
+
 @torch.inference_mode()
-def run_chunked(state: EnsembleState, step_fn, n_steps, thin=1,
-                chunk_size=64,
-                progress: Optional[Callable[[int, float], None]] = None):
-    """Run ``step_fn(state) -> (state, accept fraction)`` ``n_steps`` times,
-    keeping, as :func:`run_sampler` does, the steps whose global number
+def run_chunked(state, step_fn, n_steps, thin=1, chunk_size=64,
+                progress: Optional[Callable[[int, float], None]] = None,
+                extract=_extract_samples):
+    """Run ``step_fn(state) -> (state, aux)`` ``n_steps`` times, keeping,
+    as :func:`run_sampler` does, the steps whose global number
     ``state.step`` is a multiple of ``thin`` (the phase follows the global
     counter, so the spacing stays regular across checkpoint segments).
-    Each kept row is copied to the host as it is made.
+    ``extract(state) -> (rows (W, D), ln p (W,))`` picks what a kept step
+    contributes (default: the state's positions and log_prob; the tempered
+    sampler keeps its cold rung), and each kept row is copied to the host
+    as it is made.  ``aux`` is the step's accept fraction as a 0-d tensor,
+    or a tuple of per-step tensors whose first is the accept fraction (the
+    tempered sampler adds each rung's mean ln-likelihood, HMC the
+    divergence fraction, NUTS that and the mean depth).
 
     ``progress(done, mean accept)`` is called where the JAX package's
     driver ends a chunk, so a fit's metrics lines fall on the same steps:
@@ -150,31 +162,41 @@ def run_chunked(state: EnsembleState, step_fn, n_steps, thin=1,
     thin`` kept rows, after the last kept row, and at the end.
 
     Returns (final state, chain (n_kept, W, D), chain_lp (n_kept, W),
-    accept fractions (n_steps,)), the last three as numpy arrays.
+    aux), the last three as numpy arrays: aux is the accept fractions
+    (n_steps,), or a tuple of each aux entry stacked over the steps (an
+    empty array when ``n_steps`` is 0).
     """
     thin = max(int(thin), 1)
     step0 = int(state.step)
-    W, D = state.positions.shape
-    dtype = state.positions[:0].cpu().numpy().dtype
+    rows, lp = extract(state)
+    W, D = rows.shape
+    dtype = rows[:0].cpu().numpy().dtype
     n_kept = (step0 + n_steps) // thin - step0 // thin
     chain = np.empty((n_kept, W, D), dtype)
     chain_lp = np.empty((n_kept, W), dtype)
-    acc = np.empty(n_steps, dtype)
     first = min((-step0) % thin, n_steps)
     last = n_steps - (n_steps - first) % thin
     span = max(chunk_size // thin, 1) * thin
     ends = {first, last, n_steps, *range(first + span, last, span)} - {0}
-    k, lo, fracs = 0, 0, []
+    k, pending, done = 0, [], []
+    single = None
     for i in range(1, n_steps + 1):
-        state, frac = step_fn(state)
-        fracs.append(frac)
+        state, aux = step_fn(state)
+        single = not isinstance(aux, tuple)
+        pending.append((aux,) if single else aux)
         if state.step % thin == 0:
-            chain[k] = state.positions.cpu().numpy()
-            chain_lp[k] = state.log_prob.cpu().numpy()
+            rows, lp = extract(state)
+            chain[k] = rows.cpu().numpy()
+            chain_lp[k] = lp.cpu().numpy()
             k += 1
         if i in ends:
-            acc[lo:i] = torch.stack(fracs).cpu().numpy()
+            chunk = [torch.stack(col).cpu().numpy() for col in zip(*pending)]
+            done.append(chunk)
             if progress is not None:
-                progress(i, float(acc[lo:i].mean()))
-            lo, fracs = i, []
-    return state, chain, chain_lp, acc
+                progress(i, float(chunk[0].mean()))
+            pending = []
+    if done:
+        aux = tuple(np.concatenate(col) for col in zip(*done))
+    else:
+        aux = (np.empty(0, dtype),)
+    return state, chain, chain_lp, aux[0] if single in (None, True) else aux

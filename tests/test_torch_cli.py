@@ -8,8 +8,12 @@ checkpoint's walkers (relative 1e-9: the file keeps 11 significant
 digits), the checkpoint's walkers must be the chain's last rows, and a
 fit stopped at step 2 and resumed must write the same chain file.  Every
 option or input key the port does not run yet exits with code 2 and a
-message naming what it waits for; without a card and without
-``--device cpu`` the command exits non-zero.
+message naming what it waits for, and so does each combination the JAX
+package's command line refuses (``--precise`` or ``usePT`` with HMC /
+NUTS, a resume from another sampler kind's checkpoint); without a card
+and without ``--device cpu`` the command exits non-zero.  The tempered,
+HMC, NUTS and ``--precise`` fits have their own files
+(tests/test_torch_cli_*.py).
 """
 
 import contextlib
@@ -119,15 +123,9 @@ def test_resume_gives_the_same_chain(fit, tmp_path):
         == ["checkpoint_0000002.npz", "checkpoint_0000004.npz"]
 
 
-ITEM3, ITEM4, ITEM6, ITEM7 = (f"ROADMAP queue 1 item {k}" for k in "3467")
+ITEM6, ITEM7 = (f"ROADMAP queue 1 item {k}" for k in "67")
 BY_DTYPE = "routes the contact solve by dtype"
 REFUSED = {
-    "sampler_hmc": (["--sampler", "hmc"], "", ITEM3),
-    "sampler_nuts": (["--sampler", "nuts"], "", ITEM3),
-    "hmc_leapfrog": (["--hmc-leapfrog", "8"], "", ITEM3),
-    "nuts_max_depth": (["--nuts-max-depth", "4"], "", ITEM3),
-    "usePT": ([], "usePT = 1\nntemps = 2\n", ITEM3),
-    "precise": (["--precise"], "", ITEM4),
     "pallas": (["--pallas"], "", BY_DTYPE),
     "no_pallas": (["--no-pallas"], "", BY_DTYPE),
     "shard": (["--shard"], "", ITEM7),
@@ -148,6 +146,70 @@ def test_refused_options_exit_2(case, tmp_path, capsys):
     assert rc == 2
     assert why in err
     assert not (tmp_path / "out").exists()
+
+
+PT_INPUT = "usePT = 1\nntemps = 2\n"
+NOT_DIFFERENTIABLE = "not differentiable"
+NO_LADDER = "ignores usePT"
+ACROSS = "refusing to resume across sampler kinds"
+# the JAX command line's refusals (lfit_python_tpu/cli.py): flags that do
+# not go together, and a resume from another sampler kind's checkpoint
+# (flags, input lines, the kind of checkpoint in outdir, message)
+JAX_REFUSALS = {
+    "hmc_precise": (["--sampler", "hmc", "--precise"], "", None,
+                    NOT_DIFFERENTIABLE),
+    "nuts_precise": (["--sampler", "nuts", "--precise"], "", None,
+                     NOT_DIFFERENTIABLE),
+    "hmc_usePT": (["--sampler", "hmc"], PT_INPUT, None, NO_LADDER),
+    "nuts_usePT": (["--sampler", "nuts"], PT_INPUT, None, NO_LADDER),
+    "pt_to_ensemble": ([], "", "pt", ACROSS),
+    "ensemble_to_pt": ([], PT_INPUT, "ensemble", ACROSS),
+    "hmc_to_nuts": (["--sampler", "nuts"], "", "hmc", ACROSS),
+    "ensemble_to_hmc": (["--sampler", "hmc"], "", "ensemble", ACROSS),
+    "nuts_to_ensemble": ([], "", "nuts", ACROSS),
+    "hmc_to_pt": ([], PT_INPUT, "hmc", ACROSS),
+}
+
+
+def kind_checkpoint(out_dir, kind):
+    """A checkpoint of sampler ``kind`` at step 2 in ``out_dir``, of a
+    state of the demo's width (no posterior evaluated)."""
+    from lfit_python_tpu_torch.sampling.ensemble import EnsembleState
+    from lfit_python_tpu_torch.sampling.hmc import HMCState
+    from lfit_python_tpu_torch.sampling.pt import PTState
+
+    out_dir.mkdir(parents=True)
+    z = torch.zeros
+    f64 = dict(dtype=torch.float64)
+    state = {"ensemble": EnsembleState(z(W, 13, **f64), z(W, **f64), 2),
+             "pt": PTState(z(2, W, 13, **f64), z(2, W, **f64),
+                           z(2, W, **f64), z(2, **f64), 2)}.get(kind)
+    if state is None:
+        state = HMCState(z(W, 13, **f64), z(W, **f64), z(W, 13, **f64),
+                         z((), **f64), z(13, **f64), 2)
+    checkpoints.save_checkpoint(out_dir / "checkpoint_0000002.npz", state,
+                                torch.Generator(), {"kind": kind})
+
+
+@pytest.mark.parametrize("case", sorted(JAX_REFUSALS))
+def test_jax_command_line_refusals_exit_2(case, tmp_path, capsys):
+    flags, extra, saved, why = JAX_REFUSALS[case]
+    inp = demo_copy(tmp_path, extra)
+    out_dir = tmp_path / "out"
+    if saved is not None:
+        kind_checkpoint(out_dir, saved)
+        flags = [*flags, "--resume"]
+    before = sorted(p.name for p in out_dir.iterdir()) \
+        if out_dir.exists() else None
+    rc = cli.main(["fit", str(inp), "--outdir", str(out_dir), *flags, *CPU])
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert why in err
+    if before is None:
+        assert not out_dir.exists()
+    else:        # nothing written but the metrics file the run opened
+        assert sorted(p.name for p in out_dir.iterdir()
+                      if p.name != "metrics.jsonl") == before
 
 
 def test_wdparams_is_refused(capsys):

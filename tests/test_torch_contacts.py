@@ -12,8 +12,19 @@ And its float64 phases are held to the JAX package's float64 oracle
 ``roche.geometry.ray_clearance`` (the minimum of the potential along the
 sight-line) at a stated p99 (``TestAccuracyAgainstTheOracle``).
 The CUDA kernel itself is tested against the plain version on the card
-(tests/test_torch_cuda.py).
+(tests/test_torch_cuda.py).  Here its source's arithmetic is: the part of
+``ops/csrc/contacts.cu`` above its kernels, compiled as C++ by ``g++``
+behind a shim header (``__device__`` and friends as empty macros) with a
+host loop over elements in the kernels' place, in each of its three
+instantiations (float32, float64 and the mixed-precision one) against the
+plain version of the same mode (``TestKernelSource``; skipped where there
+is no ``g++``).
 """
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -207,3 +218,175 @@ class TestRouting:
         args = [a.to("meta") for a in _args(batch, torch.float32)]
         with pytest.raises(ValueError):
             contacts.element_intervals_kernel(*args)
+
+
+# ---- the kernel source's arithmetic, compiled as C++ --------------------
+
+SOURCE = Path(contacts.__file__).resolve().parent / "csrc" / "contacts.cu"
+
+_SHIM = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#define __device__
+#define __global__
+#define __forceinline__ inline __attribute__((always_inline))
+#define __launch_bounds__(...)
+static inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
+static inline double rsqrt(double v) { return 1.0 / std::sqrt(v); }
+"""
+
+_HOST = r"""
+}  // namespace
+
+template <typename T>
+static void host_rows(const T* scal, const T* px, const T* py, T* pin,
+                      T* pout, unsigned char* ecl, int rows, int n) {
+  for (int r = 0; r < rows; ++r)
+    for (int j = 0; j < n; ++j) {
+      const size_t k = (size_t)r * n + j;
+      bool e;
+      solve_element(scal + 6 * (size_t)r, px[k], py[k], pin[k], pout[k], e);
+      ecl[k] = e ? 1 : 0;
+    }
+}
+
+extern "C" void contacts_host(int is_double, const void* scal,
+                              const void* px, const void* py, void* pin,
+                              void* pout, unsigned char* ecl, int rows,
+                              int n) {
+  if (is_double)
+    host_rows<double>((const double*)scal, (const double*)px,
+                      (const double*)py, (double*)pin, (double*)pout, ecl,
+                      rows, n);
+  else
+    host_rows<float>((const float*)scal, (const float*)px, (const float*)py,
+                     (float*)pin, (float*)pout, ecl, rows, n);
+}
+
+extern "C" void contacts_mixed_host(const float* scal, const double* scal64,
+                                    const float* px, const float* py,
+                                    const double* px64, const double* py64,
+                                    float* pin, float* pout,
+                                    unsigned char* ecl, int rows, int n) {
+  for (int r = 0; r < rows; ++r)
+    for (int j = 0; j < n; ++j) {
+      const size_t k = (size_t)r * n + j;
+      bool e;
+      solve_element_mixed(scal + 6 * (size_t)r, scal64 + 3 * (size_t)r,
+                          px[k], py[k], px64[k], py64[k], pin[k], pout[k], e);
+      ecl[k] = e ? 1 : 0;
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def source_lib(tmp_path_factory):
+    """contacts.cu above its ``// ---- kernel and launcher`` line, built by
+    g++ (no contraction of products and sums, as --fmad=false) with host
+    loops in the kernels' place."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel source's arithmetic")
+    build = tmp_path_factory.mktemp("contacts_source")
+    (build / "cuda_runtime.h").write_text(_SHIM)
+    head, marker, _ = SOURCE.read_text().partition(
+        "// ---- kernel and launcher")
+    assert marker, "the kernel source lost its marker line"
+    (build / "host.cpp").write_text(head + _HOST)
+    so = build / "libhost.so"
+    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
+                    "-shared", "-fPIC", f"-I{build}", "-o", str(so),
+                    str(build / "host.cpp")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.contacts_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                                  + [ctypes.c_int] * 2)
+    lib.contacts_mixed_host.argtypes = ([ctypes.c_void_p] * 9
+                                        + [ctypes.c_int] * 2)
+    return lib
+
+
+def source_rows(dtype, stress, seed=11, rows=24, n=160):
+    """Rows as element_intervals hands them to K1: north-star geometry, or
+    a stress set (q 0.05-1, incl 70-90 deg, elements out to 0.6 a)."""
+    rng = np.random.default_rng(seed)
+    if stress:
+        q = torch.tensor(rng.uniform(0.05, 1.0, rows), dtype=dtype)
+        incl = torch.tensor(rng.uniform(70.0, 90.0, rows), dtype=dtype)
+        r = rng.uniform(0.0, 0.6, (rows, n))
+    else:
+        q = torch.tensor(0.15 + 0.01 * rng.standard_normal(rows),
+                         dtype=dtype)
+        incl = None
+        r = rng.uniform(0.02, 0.45, (rows, n))
+    th = rng.uniform(0, 2 * np.pi, (rows, n))
+    x1 = tg.xl1(q)
+    pl1 = tg.l1_potential(q, x1)
+    if incl is None:
+        incl = tg.findi(q, torch.full_like(q, 0.04), x1, pl1)
+    p64 = (torch.tensor(r * np.cos(th)), torch.tensor(r * np.sin(th)))
+    return ([q, incl, p64[0].to(dtype), p64[1].to(dtype), x1, pl1,
+             tg.inscribed_radius(q, x1, pl1)], p64)
+
+
+def _run_source(lib, args, precise=None, p64=None):
+    q, incl, px, py, x1, pl1, r_ins = args
+    scal = contacts._row_scalars(q, incl, x1, pl1, r_ins)
+    pin, pout = torch.empty_like(px), torch.empty_like(px)
+    ecl = torch.empty(px.shape, dtype=torch.bool)
+    rows, n = px.shape
+    if precise is None:
+        lib.contacts_host(int(px.dtype == torch.float64), scal.data_ptr(),
+                          px.data_ptr(), py.data_ptr(), pin.data_ptr(),
+                          pout.data_ptr(), ecl.data_ptr(), rows, n)
+    else:
+        q64, incl64, _, pl164 = precise
+        scal64 = torch.stack([q64 / (1.0 + q64),
+                              torch.sin(torch.deg2rad(incl64)), pl164],
+                             dim=-1).contiguous()
+        lib.contacts_mixed_host(
+            scal.data_ptr(), scal64.data_ptr(), px.data_ptr(), py.data_ptr(),
+            p64[0].data_ptr(), p64[1].data_ptr(), pin.data_ptr(),
+            pout.data_ptr(), ecl.data_ptr(), rows, n)
+    return pin, pout, ecl
+
+
+class TestKernelSource:
+    """Each instantiation of K1's source against the plain version of its
+    mode on the same inputs: flags on all but 1e-4 of the elements and
+    phases to 1e-5 cycles in float32 and mixed precision (phase 2's
+    limits on the card; here the compiled source and PyTorch round
+    alike almost everywhere), flags equal and phases to 1e-12 cycles in
+    float64."""
+
+    @pytest.mark.parametrize("stress", [False, True])
+    @pytest.mark.parametrize("mode", ["float32", "float64", "mixed"])
+    def test_matches_plain(self, source_lib, mode, stress):
+        dtype = torch.float64 if mode == "float64" else torch.float32
+        args, p64 = source_rows(dtype, stress)
+        precise = None
+        if mode == "mixed":
+            q64 = args[0].double()
+            x164 = tg.xl1(q64)
+            pl164 = tg.l1_potential(q64, x164)
+            incl64 = (args[1].double() if stress else
+                      tg.findi(q64, torch.full_like(q64, 0.04), x164,
+                               pl164))
+            precise = (q64, incl64, x164, pl164)
+        got = _run_source(source_lib, args, precise, p64)
+        ref = contacts.element_intervals_plain(
+            *args, precise=precise, p64=None if precise is None else p64)
+        flags = (got[2] != ref[2]).double().mean().item()
+        both = got[2] & ref[2]
+        assert 0 < int(both.sum()) < both.numel()
+        err = max((got[k] - ref[k]).abs()[both].max().item() for k in (0, 1))
+        if mode == "float64":
+            assert flags == 0.0 and err <= 1e-12
+        else:
+            assert flags <= 1e-4 and err <= 1e-5
+        # a visible element's interval is empty, at phi_c
+        assert torch.equal(got[0][~got[2]], got[1][~got[2]])
+        vis = ~(got[2] | ref[2])
+        assert (got[0] - ref[0]).abs()[vis].max().item() <= (
+            1e-15 if mode == "float64" else 1e-7)

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 (contacts) and its backward, K2 (gas stream) and K3
+"""The CUDA kernels K1 (contacts: float32, float64 and mixed precision) and
+its backward, K2 (gas stream) and K3
 (GP recursion) and its reverse kernel on the card, against their plain
 PyTorch versions, the posterior and its gradient through them, and the
 fit command, its chunked sampling loop and its checkpoints on the card.
@@ -135,7 +136,9 @@ def test_kernel_on_edge_rows(cuda, case):
 def test_kernel_checks_inputs(cuda):
     args = contact_rows(cuda, rows=4)
     with pytest.raises(TypeError):
-        contacts.element_intervals_kernel(*[a.double() for a in args])
+        contacts.element_intervals_kernel(*[a.half() for a in args])
+    with pytest.raises(TypeError):
+        contacts.element_intervals_kernel(args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         contacts.element_intervals_kernel(args[0][:-1], *args[1:])
     with pytest.raises(ValueError):
@@ -143,6 +146,98 @@ def test_kernel_checks_inputs(cuda):
     strided = torch.stack([args[2], args[2]], dim=-1)[..., 0]
     with pytest.raises(ValueError):
         contacts.element_intervals_kernel(*args[:2], strided, *args[3:])
+
+
+def precise_rows(dev, rows=40, n=300, seed=7):
+    """contact_rows with the mixed-precision mode's float64 solve of the
+    rows' (q, incl, x1, pl1) and the elements' float64 positions."""
+    args = contact_rows(dev, rows, n, seed)
+    q64 = args[0].double()
+    x164 = tg.xl1(q64)
+    pl164 = tg.l1_potential(q64, x164)
+    incl64 = tg.findi(q64, torch.full_like(q64, 0.04), x164, pl164)
+    rng = np.random.default_rng(seed + 100)
+    r = rng.uniform(0.02, 0.45, (rows, n))
+    th = rng.uniform(0, 2 * np.pi, (rows, n))
+    p64 = (torch.tensor(r * np.cos(th), device=dev),
+           torch.tensor(r * np.sin(th), device=dev))
+    args[2], args[3] = p64[0].float(), p64[1].float()
+    return args, (q64, incl64, x164, pl164), p64
+
+
+@pytest.mark.parametrize("mode", ["float64", "mixed"])
+def test_float64_and_mixed_kernels_match_plain(cuda, mode):
+    """K1's float64 and mixed-precision instantiations against the plain
+    version of their mode: flags equal, phases to 1e-12 cycles (float64)
+    and 1e-5 (mixed: phase 2's limit); each call one launch, counted on
+    its own counter."""
+    if mode == "float64":
+        args = [a.double() for a in contact_rows(cuda)]
+        kw = {}
+    else:
+        args, precise, p64 = precise_rows(cuda)
+        kw = dict(precise=precise, p64=p64)
+    before = (contacts.LAUNCHES, contacts.F64_LAUNCHES,
+              contacts.MIXED_LAUNCHES)
+    k = contacts.element_intervals(*args, **kw)
+    torch.cuda.synchronize()
+    after = (contacts.LAUNCHES, contacts.F64_LAUNCHES,
+             contacts.MIXED_LAUNCHES)
+    assert after == (before[0], before[1] + (mode == "float64"),
+                     before[2] + (mode == "mixed"))
+    p = contacts.element_intervals_plain(*args, **kw)
+    assert k[0].dtype == p[0].dtype == args[2].dtype
+    assert torch.equal(k[2], p[2])
+    m = k[2]
+    assert 0 < int(m.sum()) < m.numel()
+    tol = 1e-12 if mode == "float64" else 1e-5
+    assert float((k[0] - p[0]).abs()[m].max()) <= tol
+    assert float((k[1] - p[1]).abs()[m].max()) <= tol
+    assert torch.equal(k[0][~m], k[1][~m])
+
+
+def test_mixed_kernel_checks_inputs(cuda):
+    args, precise, p64 = precise_rows(cuda, rows=4, n=64)
+    with pytest.raises(TypeError):
+        contacts.element_intervals_mixed_kernel(*args, precise,
+                                                (p64[0].float(), p64[1]))
+    with pytest.raises(TypeError):
+        contacts.element_intervals_mixed_kernel(
+            *[a.double() for a in args], precise, p64)
+    with pytest.raises(ValueError):
+        contacts.element_intervals_mixed_kernel(
+            *args, (precise[0][:-1],) + precise[1:], p64)
+
+
+@pytest.mark.parametrize("mode", ["float64", "mixed"])
+def test_posterior_float64_and_precise_kernel_paths(cuda, mode):
+    """The float64 posterior and the precise float32 one on the card: K1
+    in that mode once per evaluation, against the same posterior with the
+    plain contact solver (flux max 2e-4: phase 3's limit)."""
+    model = build_model(n_eclipses=2, complex_spot=[False, True],
+                        n_points=16, bands=("g",)).compile()
+    dtype = torch.float64 if mode == "float64" else torch.float32
+    lp = make_ln_prob(model, CVConfig(mixed_precision=mode == "mixed",
+                                      **TINY), dtype=dtype, device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(3)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((8, start.size)),
+                       dtype=dtype, device=cuda)
+    counter = "F64_LAUNCHES" if mode == "float64" else "MIXED_LAUNCHES"
+    before = (getattr(contacts, counter), contacts.LAUNCHES)
+    a, fa = lp(pos), lp.model_flux(pos)
+    assert (getattr(contacts, counter), contacts.LAUNCHES) == (
+        before[0] + 2, before[1])
+    wrapper = ("element_intervals_kernel" if mode == "float64"
+               else "element_intervals_mixed_kernel")
+    with mock.patch.object(contacts, wrapper,
+                           contacts.element_intervals_plain):
+        b, fb = lp(pos), lp.model_flux(pos)
+    assert getattr(contacts, counter) == before[0] + 2
+    assert bool(torch.isfinite(a).all())
+    assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    assert float((fa - fb).abs().max()) <= 2e-4
 
 
 def backward_rows(dev, dtype, case):
@@ -328,6 +423,29 @@ def test_posterior_kernel_path_matches_plain_path(cuda):
     assert bool(torch.isfinite(a).all())
     assert torch.equal(torch.isfinite(a), torch.isfinite(b))
     assert float((fa - fb).abs().max()) <= 2e-4
+
+
+def test_float32_posterior_does_not_depend_on_its_batch(cuda):
+    """A walker's float32 ln p and flux are the same bits alone and inside
+    a larger batch, across the flux sweep's chunk boundaries (chunks cut
+    small here so that the batches end in partial chunks of other sizes):
+    the chain file's ln_prob column and a fresh evaluation agree."""
+    from lfit_python_tpu_torch.models import components as comp
+
+    model = build_model(n_eclipses=2, complex_spot=[False, True],
+                        n_points=16, bands=("g",)).compile()
+    lp = make_ln_prob(model, CVConfig(**TINY), dtype=torch.float32,
+                      device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(5)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((37, start.size)),
+                       dtype=torch.float32, device=cuda)
+    with mock.patch.object(comp, "_CHUNK_ELEMS", 1 << 12):
+        alone = lp(pos[:25]), lp.model_flux(pos[:25])
+        inside = lp(pos), lp.model_flux(pos)
+    assert torch.equal(alone[0], inside[0][:25])
+    assert torch.equal(alone[1], inside[1][:25])
 
 
 def stream_inputs(dev, dtype):

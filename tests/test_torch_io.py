@@ -25,6 +25,7 @@ from lfit_python_tpu.utils import checkpoints as jck
 from lfit_python_tpu.utils import config as jcfg
 from lfit_python_tpu_torch.models import tree as ttree
 from lfit_python_tpu_torch.sampling import ensemble as ens
+from lfit_python_tpu_torch.sampling import hmc, pt
 from lfit_python_tpu_torch.utils import chains, checkpoints, config
 
 DEMO = Path(__file__).resolve().parent.parent / "examples/demo_input.dat"
@@ -318,6 +319,23 @@ def gauss_state(dtype=torch.float64, seed=5):
     return state, gen
 
 
+def sampler_state(kind, dtype=torch.float64):
+    """A state of ``kind`` one step past its start, and its generator."""
+    if kind == "ensemble":
+        state, gen = gauss_state(dtype)
+        return ens.ensemble_step(state, gauss_ln_prob, gen)[0], gen
+    gen = torch.Generator().manual_seed(6)
+    start = torch.linspace(-1.0, 1.0, 4, dtype=dtype)
+    scatter = torch.full_like(start, 0.5)
+    if kind == "pt":
+        state = pt.init_pt(gen, start, scatter, lambda x: torch.zeros(
+            x.shape[0], dtype=dtype), gauss_ln_prob, 6, 3)
+        return pt.pt_step(state, lambda x: torch.zeros(
+            x.shape[0], dtype=dtype), gauss_ln_prob, gen)[0], gen
+    state = hmc.init_hmc(gen, start, scatter, gauss_ln_prob, 5)
+    return hmc.hmc_step(state, gauss_ln_prob, gen, n_leapfrog=3)[0], gen
+
+
 class TestCheckpoints:
     @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
     def test_round_trip_is_bit_for_bit(self, tmp_path, dtype):
@@ -361,6 +379,39 @@ class TestCheckpoints:
                                    jstate, {"stage": "prod"})
         with pytest.raises(ValueError, match="no torch.Generator state"):
             checkpoints.load_checkpoint(path, "cpu")
+
+    @pytest.mark.parametrize("kind", ["pt", "hmc"])
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    def test_pt_and_hmc_round_trip_is_bit_for_bit(self, tmp_path, kind,
+                                                  dtype):
+        state, gen = sampler_state(kind, dtype)
+        path = checkpoints.save_checkpoint(
+            tmp_path / "checkpoint_0000001.npz", state, gen,
+            {"stage": "prod", "kind": kind})
+        back, gen2, meta = checkpoints.load_checkpoint(path, "cpu", kind)
+        assert type(back) is type(state)
+        for a, b in zip(back[:-1], state[:-1]):
+            assert a.dtype == dtype and torch.equal(a, b)
+        assert back.step == state.step == 1
+        assert torch.equal(gen2.get_state(), gen.get_state())
+        assert meta == {"stage": "prod", "kind": kind}
+        # the JAX package's field names
+        with np.load(path) as z:
+            assert str(z["kind"]) == kind and "key" not in z
+            own = {"pt": ("ln_prior", "betas"),
+                   "hmc": ("grad", "step_size", "inv_mass")}[kind]
+            assert set(own) <= set(z.files)
+            first = state.ln_like if kind == "pt" else state.log_prob
+            np.testing.assert_array_equal(z["log_prob"], first.numpy())
+
+    @pytest.mark.parametrize("saved,asked", [
+        ("ensemble", "pt"), ("ensemble", "hmc"), ("pt", "ensemble"),
+        ("pt", "hmc"), ("hmc", "ensemble"), ("hmc", "pt")])
+    def test_another_kind_is_refused(self, tmp_path, saved, asked):
+        state, gen = sampler_state(saved)
+        path = checkpoints.save_checkpoint(tmp_path / "c.npz", state, gen)
+        with pytest.raises(ValueError, match="across sampler kinds"):
+            checkpoints.load_checkpoint(path, "cpu", asked)
 
     def test_latest_checkpoint(self, tmp_path):
         assert checkpoints.latest_checkpoint(tmp_path) is None
