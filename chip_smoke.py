@@ -76,9 +76,10 @@ x 256 walkers.  Phases:
      against the posterior evaluated afresh on those walkers, seconds
      per step and ln-prob evaluations per second; then those walkers
      and their first half (a half-step's 512) through the kernel path
-     and the plain contact path (phase 3's limits), and K1 and K2 on the
-     inputs the half's evaluation hands them against their plain
-     versions (phase 2's and phase 6's limits);
+     and the plain contact path (phase 3's limits), the first 256
+     walkers' ln p and flux the same bits alone and in batches of 512
+     and 1024, and K1 and K2 on the inputs the half's evaluation hands
+     them against their plain versions (phase 2's and phase 6's limits);
  14. K1 in float64 and in mixed precision: the contact rows one
      evaluation of the float64 north-star posterior and of the precise
      float32 one (CVConfig.mixed_precision) hands K1 at 1024 walkers
@@ -104,7 +105,15 @@ x 256 walkers.  Phases:
      twice per step, K1 in float32 never); each exits 0, and its chain's
      last row's ln_prob agrees with a fresh evaluation (phase 13's limit);
      seconds per production step and evaluations (gradient evaluations,
-     trajectories) per second.
+     trajectories) per second.  Then each branch's kernels at its own
+     shapes: that last row through the kernel path and the plain contact
+     path (phase 3's limits; for --precise and --x64 also its first 512
+     walkers, and K1 of that mode on the rows one evaluation of those 512
+     hands it, phase 2's limits); for HMC and NUTS also the gradient of
+     the two paths (phase 7's gate), and K1, K1's backward kernel and K2
+     with sensitivities on the inputs one value_and_grad of the 256
+     chains hands them, against their plain versions (phase 2's, 7's and
+     6's limits).
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -448,6 +457,223 @@ def _k2_against_plain(stream, q, rd, x1, n_steps, with_sens):
     return imp_err, jac_err, ms, plain_ms
 
 
+def _k1_launches(contacts):
+    """K1's launches in its three modes."""
+    return contacts.LAUNCHES + contacts.F64_LAUNCHES + contacts.MIXED_LAUNCHES
+
+
+def _paths_agree(tag, post, p, plain_path, contacts):
+    """``post`` at walkers ``p`` through the kernel path and through the
+    plain contact path (``plain_path(fn)``): the same -inf pattern and
+    phase 3's limits on the model flux (max 2e-4, median 1e-6)."""
+    import torch
+
+    with torch.inference_mode():
+        lk, fk = post(p), post.model_flux(p)
+        before = _k1_launches(contacts)
+        lpl, fpl = plain_path(lambda: (post(p), post.model_flux(p)))
+    _check(_k1_launches(contacts) == before,
+           f"{tag}: the plain path launched K1")
+    fin = torch.isfinite(lk)
+    _check(bool((fin == torch.isfinite(lpl)).all()),
+           f"{tag}: finite/-inf pattern differs between the paths")
+    _check(bool(fin.any()), f"{tag}: every walker is -inf")
+    dflux = (fk - fpl).abs()[fin]
+    f_max, f_med = dflux.max().item(), dflux.median().item()
+    d_lp = (lk - lpl).abs()[fin].max().item()
+    print(f"{tag}: {int(fin.sum())} of {len(p)} walkers finite in both "
+          f"paths; model flux |kernel - plain| max {f_max:.3e} (limit "
+          f"2e-4), median {f_med:.3e} (limit 1e-6); ln p |kernel - plain| "
+          f"max {d_lp:.3e}")
+    _check(f_max <= 2e-4 and f_med <= 1e-6,
+           f"{tag}: the kernel path's fluxes disagree with the plain path's")
+    return lk, fk
+
+
+def _k1_at(tag, contacts, wrapper, fn, shape):
+    """Runs ``fn`` with the K1 wrapper ``wrapper`` recorded, and holds that
+    wrapper, on the arguments of its one call, to the plain version of its
+    mode: phase 2's limits (flags 1e-4, |dphi| 1e-5 cycles).  Returns
+    (the arguments, the kernel's outputs, {flag_disagreement, max, median,
+    p99 of |dphi| at the elements eclipsed in both})."""
+    import torch
+
+    kernel = getattr(contacts, wrapper)
+    with mock.patch.object(contacts, wrapper, wraps=kernel) as rec:
+        fn()
+    _check(rec.call_count == 1,
+           f"{tag}: {wrapper} called {rec.call_count} times, not once")
+    args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                 for a in rec.call_args.args)
+    rows, n = args[2].shape
+    _check((rows, n) == shape,
+           f"{tag}: contact rows {rows} x {n}, expected {shape}")
+    k_out = kernel(*args)
+    p_out = contacts.element_intervals_plain(*args)
+    torch.cuda.synchronize()
+    flag_diff = (k_out[2] != p_out[2]).float().mean().item()
+    both = k_out[2] & p_out[2]
+    err = torch.cat([(k_out[i] - p_out[i]).abs()[both].double()
+                     for i in (0, 1)])
+    if err.numel() == 0:
+        err = err.new_zeros(1)
+    sample = err[torch.randperm(err.numel(), device=err.device)[:1 << 24]]
+    stats = {"flag_disagreement": flag_diff, "max_abs_err": err.max().item(),
+             "median_abs_err": err.median().item(),
+             "p99_abs_err": torch.quantile(sample, 0.99).item()}
+    print(f"{tag}: {wrapper} on {rows} x {n} contacts ({int(both.sum())} "
+          f"eclipsed in both) against its plain version: flag "
+          f"disagreement {flag_diff:.3e} (limit 1e-4); |dphi| median "
+          f"{stats['median_abs_err']:.3e}, p99 {stats['p99_abs_err']:.3e}, "
+          f"max {stats['max_abs_err']:.3e} cycles (limit 1e-5)")
+    _check(flag_diff <= 1e-4 and stats["max_abs_err"] <= 1e-5,
+           f"{tag}: K1 disagrees with its plain version")
+    return args, k_out, stats
+
+
+def _k1_backward_against_plain(tag, contacts, b32):
+    """K1's backward kernel on ``b32`` (float32: the six inputs, both
+    roots, the flags and both cotangents) against its plain version,
+    autograd on the edge residual, with phase 7's gates: in float64 within
+    1e-9 of max |g|; in float32 each entry within 1e-5 + 2e-3 |g| of the
+    plain float32 backward, or no farther from the float64 plain backward
+    than 3x the plain float32 backward's largest distance from it (two
+    float32 evaluations that round their angles differently, sincospi(2
+    phi) in the kernel and sin(2 pi phi) in PyTorch, differ by about as
+    much as each errs against float64, most at near-grazing elements where
+    1 / dcdphi is large); equal bits from run to run.  Returns (the
+    float64 arguments, {output: float64 relative error}, the largest
+    float32 |d g|)."""
+    import torch
+
+    b64 = [a if a.dtype == torch.bool else a.double() for a in b32]
+    before = contacts.BACKWARD_LAUNCHES
+    kb64 = contacts.contact_backward_kernel(*b64)
+    kb32 = contacts.contact_backward_kernel(*b32)
+    kb32_again = contacts.contact_backward_kernel(*b32)
+    _check(contacts.BACKWARD_LAUNCHES == before + 3,
+           f"{tag}: K1's backward wrapper did not launch its kernel")
+    pb64 = contacts._contact_backward_plain(*b64)
+    pb32 = contacts._contact_backward_plain(*b32)
+    torch.cuda.synchronize()
+    names = ("q", "incl", "px", "py", "x1", "pl1")
+    rel64 = {}
+    for nm, k, pl in zip(names, kb64, pb64):
+        scale = pl.abs().max().item()
+        rel64[nm] = ((k - pl).abs().max().item() / scale if scale > 0
+                     else (k - pl).abs().max().item())
+    rows, n = b32[2].shape
+    print(f"{tag}: float64 kernel vs autograd on the edge residual, {rows} "
+          f"x {n} contacts: max |d g| / max |g| "
+          + ", ".join(f"{nm} {v:.2e}" for nm, v in rel64.items())
+          + " (limit 1e-9 each)")
+    _check(all(v <= 1e-9 for v in rel64.values()),
+           f"{tag}: K1's float64 backward kernel disagrees with autograd")
+    err, worst32 = 0.0, {}
+    for nm, k, pl, ref, again in zip(names, kb32, pb32, pb64, kb32_again):
+        _check(bool((torch.isfinite(k) == torch.isfinite(pl)).all()),
+               f"{tag}: non-finite pattern of d {nm} differs")
+        _check(torch.equal(k, again),
+               f"{tag}: d {nm} differs from run to run")
+        d = (k.double() - pl.double()).abs()
+        lim = 1e-5 + 2e-3 * pl.double().abs()
+        e_k, e_p = (k.double() - ref).abs(), (pl.double() - ref).abs()
+        fails = (d > lim) & (e_k > 3.0 * e_p.max())
+        worst32[nm] = dict(
+            ratio=(d / lim).max().item(), outside=int((d > lim).sum()),
+            coin=int(((d > lim) & (d > e_p)).sum()), fails=int(fails.sum()),
+            rms_k=e_k.square().mean().sqrt().item(),
+            rms_p=e_p.square().mean().sqrt().item(),
+            max_k=e_k.max().item(), max_p=e_p.max().item())
+        err = max(err, d.max().item())
+    print(f"{tag}: float32 kernel vs the plain float32 backward, per "
+          f"output: max |d g| / (1e-5 + 2e-3 |g|), entries outside it, of "
+          f"those farther from plain than plain is from float64, and of "
+          f"those farther from float64 than 3x plain's largest distance "
+          f"from it (limit 0); rms and max distance from the float64 plain "
+          f"backward, kernel / plain float32: "
+          + "; ".join(
+              f"{nm} {w['ratio']:.3f}, {w['outside']}, {w['coin']}, "
+              f"{w['fails']}; rms {w['rms_k']:.3e} / {w['rms_p']:.3e}, max "
+              f"{w['max_k']:.3e} / {w['max_p']:.3e}"
+              for nm, w in worst32.items())
+          + "; equal bits from run to run")
+    _check(all(w["fails"] == 0 for w in worst32.values()),
+           f"{tag}: K1's float32 backward kernel disagrees with the plain "
+           "backward")
+    return b64, rel64, err
+
+
+def _grads_agree(tag, post, post64, p, plain_path, contacts):
+    """``post.value_and_grad`` at ``p`` through the K1 path (the kernel
+    and its backward kernel) and through the plain contact path (plain
+    solver, plain backward), with ``post64``'s float64 gradient as
+    referee: phase 7's gate (an entry outside |dg| <= 1e-5 + 2e-3 |g| must
+    sit within the float32 plain path's own distance from float64 there:
+    the chi^2 gradient is a sum of large cancelling terms, and its float32
+    rounding, not K1, sets the small entries)."""
+    import torch
+
+    _, g_k = post.value_and_grad(p)
+    before = contacts.BACKWARD_LAUNCHES
+    _, g_p = plain_path(lambda: post.value_and_grad(p))
+    _check(contacts.BACKWARD_LAUNCHES == before,
+           f"{tag}: the plain contact path launched K1's backward kernel")
+    _, g64 = post64.value_and_grad(p.to(torch.float64))
+    g_k64, g_p64 = g_k.to(torch.float64), g_p.to(torch.float64)
+    d_kp = (g_k64 - g_p64).abs()
+    bound = 1e-5 + 2e-3 * g_p64.abs()
+    outside = d_kp > bound
+    unexplained = outside & (d_kp > (g_p64 - g64).abs())
+    print(f"{tag}: K1 path (the kernel and its backward kernel) vs plain "
+          f"contact path (plain solver, plain backward), {g_k.numel()} "
+          f"entries: {int(outside.sum())} outside |dg| <= 1e-5 + 2e-3 |g|, "
+          f"max |dg| / bound {(d_kp / bound).max().item():.3f}; of those, "
+          f"{int(unexplained.sum())} (limit 0) farther apart than the plain "
+          f"path is from the float64 gradient")
+    _check(int(unexplained.sum()) == 0,
+           f"{tag}: gradients of the K1 and plain paths disagree")
+    return g_k, g64
+
+
+def _gradient_kernels_at(tag, post, post64, p, plain_path, contacts,
+                         stream):
+    """A gradient sampler's chains ``p`` through the kernel path and the
+    plain contact path, ln p and the gradient (phase 3's and phase 7's
+    limits, ``post64`` the float64 referee), and K1, K1's backward kernel
+    and K2 with sensitivities on the inputs one value_and_grad there hands
+    them, against their plain versions (phase 2's, 7's and 6's limits)."""
+    _paths_agree(tag, post, p, plain_path, contacts)
+    _grads_agree(tag, post, post64, p, plain_path, contacts)
+    with mock.patch.object(contacts, "contact_backward_kernel",
+                           wraps=contacts.contact_backward_kernel) as rb, \
+            mock.patch.object(stream, "stream_impacts_kernel",
+                              wraps=stream.stream_impacts_kernel) as rs:
+        # the demo's one eclipse: a contact row per chain
+        _k1_at(tag, contacts, "element_intervals_kernel",
+               lambda: post.value_and_grad(p), (len(p), 512))
+    _check(rb.call_count == 1 and rs.call_count == 1,
+           f"{tag}: K1's backward {rb.call_count}, K2 {rs.call_count} "
+           "calls in one value_and_grad")
+    _k1_backward_against_plain(
+        tag, contacts, [a.detach() for a in rb.call_args.args])
+    a2 = rs.call_args.args
+    _check(len(a2) == 5 and a2[3] == post.stream_steps
+           and a2[4] == stream.plain._DT
+           and rs.call_args.kwargs == {"with_sens": True},
+           f"{tag}: K2 called with {a2[3:]}, {rs.call_args.kwargs}")
+    imp_err, jac, ms, plain_ms = _k2_against_plain(
+        stream, *(a.detach() for a in a2[:3]), a2[3], True)
+    print(f"{tag}: K2 with sensitivities on {a2[0].shape[0]} walkers x "
+          f"{a2[1].shape[1]} radii, {a2[3]} steps, against its plain "
+          f"version: max |d impact| {imp_err:.2e}, max |dJ|: jq "
+          f"{jac[0]:.2e}, jx0 {jac[1]:.2e}, jrd {jac[2]:.2e} (limit 0: "
+          f"bit for bit); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    _check(imp_err == 0.0 and all(j == 0.0 for j in jac),
+           f"{tag}: K2 with sensitivities differs from its plain "
+           "version")
+
+
 def _fit_phase(dev, smi, contacts, stream, gp, plain_path):
     """Phase 13: the fit command on the demo input, and its resume; then
     K1 and K2 at the fit's own shapes against their plain versions
@@ -565,52 +791,30 @@ def _fit_phase(dev, smi, contacts, stream, gp, plain_path):
     # the kernel path and the plain contact path: phase 3's limits
     pos_fit = torch.tensor(chain[-1], dtype=torch.float32, device=dev)
     half = pos_fit[:n_walk // 2]
-    for tag, p in ((f"{n_walk} walkers", pos_fit),
-                   (f"{len(half)} walkers (a half-step)", half)):
-        with torch.inference_mode():
-            lk, fk = post(p), post.model_flux(p)
-            k1_before = contacts.LAUNCHES
-            lpl, fpl = plain_path(lambda: (post(p), post.model_flux(p)))
-        _check(contacts.LAUNCHES == k1_before, "the plain path launched K1")
-        fin = torch.isfinite(lk)
-        _check(bool((fin == torch.isfinite(lpl)).all()),
-               f"fit, {tag}: finite/-inf pattern differs between the paths")
-        dflux = (fk - fpl).abs()[fin]
-        f_max, f_med = dflux.max().item(), dflux.median().item()
-        d_pl = (lk - lpl).abs()[fin].max().item()
-        print(f"[13 fit] last kept row, {tag}: {int(fin.sum())} finite in "
-              f"both paths; model flux |kernel - plain| max {f_max:.3e} "
-              f"(limit 2e-4), median {f_med:.3e} (limit 1e-6); ln p "
-              f"|kernel - plain| max {d_pl:.3e}")
-        _check(f_max <= 2e-4 and f_med <= 1e-6,
-               f"fit, {tag}: the kernel path's fluxes disagree with the "
-               f"plain path's")
+    out = {len(p): _paths_agree(f"[13 fit] last kept row, {len(p)} walkers",
+                                post, p, plain_path, contacts)
+           for p in (pos_fit, half)}
+    # a walker's float32 ln p and flux are the same bits in batches of
+    # 256, 512 and 1024 (the chain is made in half-steps of 512)
+    with torch.inference_mode():
+        out[256] = post(pos_fit[:256]), post.model_flux(pos_fit[:256])
+    same = all(torch.equal(out[n][i][:256], out[256][i])
+               for n in (512, n_walk) for i in (0, 1))
+    print(f"[13 fit] batch independence: ln p and model flux of the first "
+          f"256 walkers evaluated alone, in 512 and in {n_walk}: "
+          f"{'equal bits' if same else 'NOT the same bits'}")
+    _check(same, "a walker's float32 ln p depends on its batch")
     # K1 and K2 on the inputs the half's evaluation hands them: phase 2's
     # and phase 6's limits
-    with mock.patch.object(contacts, "element_intervals_kernel",
-                           wraps=contacts.element_intervals_kernel) as r1, \
-            mock.patch.object(stream, "stream_impacts_kernel",
-                              wraps=stream.stream_impacts_kernel) as r2, \
+    with mock.patch.object(stream, "stream_impacts_kernel",
+                           wraps=stream.stream_impacts_kernel) as r2, \
             torch.inference_mode():
-        post(half)
-    _check(r1.call_count == 1 and r2.call_count == 1,
-           f"K1 {r1.call_count}, K2 {r2.call_count} calls in one evaluation")
-    a1, a2 = r1.call_args.args, r2.call_args.args
-    rows, n = a1[2].shape
-    _check((rows, n) == (len(half), 512),
-           f"fit contact rows {rows} x {n}, expected {len(half)} x 512")
-    k_out = contacts.element_intervals_kernel(*a1)
-    p_out = contacts.element_intervals_plain(*a1)
-    flag_diff = (k_out[2] != p_out[2]).float().mean().item()
-    both = k_out[2] & p_out[2]
-    k1_err = max((k_out[i] - p_out[i]).abs()[both].max().item()
-                 for i in (0, 1)) if bool(both.any()) else 0.0
-    print(f"[13 fit] K1 on the half-step's {rows} x {n} contacts "
-          f"({int(both.sum())} eclipsed in both) against its plain version: "
-          f"flag disagreement {flag_diff:.3e} (limit 1e-4), max |dphi| "
-          f"{k1_err:.3e} cycles (limit 1e-5)")
-    _check(flag_diff <= 1e-4 and k1_err <= 1e-5,
-           "K1 disagrees with its plain version at the fit's shapes")
+        _k1_at("[13 fit] the half-step's K1", contacts,
+               "element_intervals_kernel", lambda: post(half),
+               (len(half), 512))
+    _check(r2.call_count == 1,
+           f"K2 called {r2.call_count} times in one evaluation")
+    a2 = r2.call_args.args
     _check(len(a2) == 5 and a2[3] == post.stream_steps
            and a2[4] == stream.plain._DT, f"K2 called with {a2[3:]}")
     imp_err, _, k2_ms, k2_pms = _k2_against_plain(stream, *a2[:4], False)
@@ -646,32 +850,10 @@ def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
     results, paths = {}, {}
     for mode, (post, p, wrapper, key, path) in modes.items():
         kernel = getattr(contacts, wrapper)
-        with mock.patch.object(contacts, wrapper, wraps=kernel) as rec, \
-                torch.inference_mode():
-            post(p)
-        _check(rec.call_count == 1,
-               f"{mode}: K1 called {rec.call_count} times per evaluation")
-        args = rec.call_args.args
+        with torch.inference_mode():
+            args, k_out, st = _k1_at(f"[14 {mode}]", contacts, wrapper,
+                                     lambda: post(p), (len(p) * 5, 512))
         rows, n = args[2].shape
-        _check((rows, n) == (len(p) * 5, 512),
-               f"{mode}: contact rows {rows} x {n}, expected "
-               f"{len(p) * 5} x 512")
-        k_out = kernel(*args)
-        p_out = contacts.element_intervals_plain(*args)
-        torch.cuda.synchronize()
-        flag_diff = (k_out[2] != p_out[2]).float().mean().item()
-        both = k_out[2] & p_out[2]
-        err = torch.cat([(k_out[i] - p_out[i]).abs()[both].double()
-                         for i in (0, 1)])
-        e_max, e_med = err.max().item(), err.median().item()
-        e_p99 = torch.quantile(err[torch.randperm(
-            err.numel(), device=dev)[:1 << 24]], 0.99).item()
-        print(f"[14 {mode}] {rows} x {n} contacts, {int(both.sum())} "
-              f"eclipsed in both; flag disagreement {flag_diff:.3e} (limit "
-              f"1e-4); |dphi| median {e_med:.3e}, p99 {e_p99:.3e}, max "
-              f"{e_max:.3e} cycles (limit 1e-5)")
-        _check(flag_diff <= 1e-4 and e_max <= 1e-5,
-               f"K1 ({mode}) disagrees with its plain version")
         ms = _event_ms(lambda: kernel(*args), 20)
         plain_ms = _event_ms(lambda: contacts.element_intervals_plain(*args),
                              3)
@@ -741,9 +923,8 @@ def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
                f"{mode}: the kernel path's fluxes disagree with the plain "
                f"path's")
         results[mode] = {
-            "rows": rows, "elements": n, "flag_disagreement": flag_diff,
-            "max_abs_err": e_max, "median_abs_err": e_med,
-            "p99_abs_err": e_p99, "ms": ms, "plain_ms": plain_ms,
+            "rows": rows, "elements": n, **st, "ms": ms,
+            "plain_ms": plain_ms,
             "ops": ops, "bytes": nbytes, "bound_ms": bound, "bound_by": by,
             "posterior_ms": min(turns["kernel"]),
             "posterior_plain_path_ms": min(turns["plain"]),
@@ -782,11 +963,14 @@ def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
     return results, paths
 
 
-def _fit_branches_phase(dev, smi, contacts, stream, gp):
+def _fit_branches_phase(dev, smi, contacts, stream, gp, plain_path):
     """Phase 15: the fit command's tempered, HMC, NUTS, --precise and --x64
     branches on copies of the demo input (full resolution), through
     cli.main, each with its launch counts and its chain's last row against
-    a fresh evaluation.  Returns {path: launch counts}."""
+    a fresh evaluation; then that row through the kernel path and the
+    plain contact path (``plain_path(fn)``), and the kernels of the branch
+    on the inputs one of its evaluations hands them against their plain
+    versions.  Returns {path: launch counts}."""
     import contextlib
     import io
     import shutil
@@ -876,7 +1060,8 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp):
         lim = 1e-5 * np.maximum(1.0, np.abs(lp[-1]))
         _check(bool((d <= lim).all()), f"{tag}: the chain's ln_prob column "
                "disagrees with the posterior")
-        return chain.shape, d.max()
+        return chain.shape, d.max(), post, torch.tensor(
+            chain[-1], dtype=dtype, device=dev)
 
     paths, full = {}, CVConfig()
 
@@ -900,7 +1085,8 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp):
            f"PT: K1 {step_counts['k1']}, K2 {step_counts['k2']} in {n} steps")
     _check(np.isfinite(ev["ln_evidence"]) and len(ev["betas"]) == 4,
            f"evidence.json: {ev}")
-    shape, d = last_row_check("PT", inp, out_dir, full, torch.float32, 12)
+    shape, d, post, last = last_row_check("PT", inp, out_dir, full,
+                                          torch.float32, 12)
     print(f"[15 fit pt] usePT = 1, 4 rungs x 256 walkers: --nburn 4 --nprod 8 "
           f"--checkpoint-every 4 exited 0 in {wall1:.1f} s, resumed to 12 "
           f"in {wall2:.1f} s; {s_step:.3f} s per production step "
@@ -909,6 +1095,8 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp):
           f"each per step); ln evidence {ev['ln_evidence']:.3f} +- "
           f"{ev['dln_evidence']:.3f}; cold chain {shape}, last row vs a "
           f"fresh evaluation max |d| {d:.3e}; {smi}")
+    _paths_agree("[15 fit pt] the cold chain's last row", post, last,
+                 plain_path, contacts)
 
     # ---- HMC and NUTS: 256 chains on the light curve with widths
     for kind, extra, prod in (
@@ -935,8 +1123,8 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp):
         _check(n_vg > 0 and c["k1"] == c["k1_bwd"] == c["k1_bwd_kernel"]
                == c["k2_sens"] == n_vg,
                f"{kind}: {n_vg} gradient evaluations launched {c}")
-        shape, d = last_row_check(kind, inp, out_dir, full, torch.float32,
-                                  n_rows)
+        shape, d, post, last = last_row_check(kind, inp, out_dir, full,
+                                              torch.float32, n_rows)
         line = re.search(r"^(HMC|NUTS) total.*$", text, re.M).group(0)
         rate = (f"{256 * 16 / s_step:.0f} gradient evals/s" if kind == "hmc"
                 else f"{256 / s_step:.2f} trajectories/s")
@@ -948,6 +1136,11 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp):
               f"K1, one K1 backward kernel, one K2 with sensitivities "
               f"({c['k1_bwd_kernel']}, {c['k2_sens']}); chain {shape}, last "
               f"row vs a fresh evaluation max |d| {d:.3e}; {smi}")
+        model = build_model_from_config(parse_input_dat(inp)).compile()
+        _gradient_kernels_at(
+            f"[15 fit {kind}] last row", post,
+            make_ln_prob(model, full, dtype=torch.float64, device=dev), last,
+            plain_path, contacts, stream)
 
     # ---- --precise and --x64 at the demo's 1024 walkers
     for tag, flag, key, cfg, dtype in (
@@ -967,7 +1160,8 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp):
                and step_counts["k2"] == 2 * n and c["k1"] == 0,
                f"{tag}: {n} steps launched {step_counts} ({c})")
         s_step = prod_seconds_per_step(out_dir, 5, 10)
-        shape, d = last_row_check(tag, inp, out_dir, cfg, dtype, 10)
+        shape, d, post, last = last_row_check(tag, inp, out_dir, cfg, dtype,
+                                              10)
         print(f"[15 fit {tag}] {flag}, 1024 walkers, --nburn 10 --nprod 10 "
               f"exited 0 in {wall:.1f} s; {s_step:.3f} s per production "
               f"step ({1024 / s_step:.0f} ln-prob evals/s); {n} ensemble "
@@ -975,6 +1169,17 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp):
               f"{step_counts['k2']} times (2 each per step), K1 float32 "
               f"{c['k1']}; chain {shape}, last row vs a fresh evaluation "
               f"max |d| {d:.3e}; {smi}")
+        # the last row's walkers, and their first half (a half-step's
+        # 512), through both paths; K1 of this mode on the half's rows
+        half = last[:len(last) // 2]
+        for p in (last, half):
+            _paths_agree(f"[15 fit {tag}] last row, {len(p)} walkers", post,
+                         p, plain_path, contacts)
+        with torch.inference_mode():
+            _k1_at(f"[15 fit {tag}] the half-step's K1", contacts,
+                   "element_intervals_mixed_kernel" if key == "k1_mixed"
+                   else "element_intervals_kernel", lambda: post(half),
+                   (len(half), 512))
     return paths
 
 
@@ -1462,65 +1667,8 @@ def main():
     # on both edges: float64 (the kernel's arithmetic), then float32 (what
     # the main paths run) with the float64 plain backward as referee
     b32 = [*crow[:6], k1_ecl[0], k1_ecl[1], k1_ecl[2], cot, cot]
-    b64 = [a if a.dtype == torch.bool else a.double() for a in b32]
-    before = contacts.BACKWARD_LAUNCHES
-    kb64 = contacts.contact_backward_kernel(*b64)
-    kb32 = contacts.contact_backward_kernel(*b32)
-    kb32_again = contacts.contact_backward_kernel(*b32)
-    _check(contacts.BACKWARD_LAUNCHES == before + 3,
-           "K1's backward wrapper did not launch its kernel")
-    pb64 = contacts._contact_backward_plain(*b64)
-    pb32 = contacts._contact_backward_plain(*b32)
-    torch.cuda.synchronize()
-    names = ("q", "incl", "px", "py", "x1", "pl1")
-    rel64 = {}
-    for nm, k, pl in zip(names, kb64, pb64):
-        scale = pl.abs().max().item()
-        rel64[nm] = ((k - pl).abs().max().item() / scale if scale > 0
-                     else (k - pl).abs().max().item())
-    print(f"[7 K1 backward] float64 kernel vs autograd on the edge residual, "
-          f"{crow[2].shape[0]} x {crow[2].shape[1]} contacts: max |d g| / "
-          f"max |g| " + ", ".join(f"{nm} {v:.2e}" for nm, v in rel64.items())
-          + " (limit 1e-9 each)")
-    _check(all(v <= 1e-9 for v in rel64.values()),
-           "K1's float64 backward kernel disagrees with autograd")
-    # Two float32 evaluations that round their angles differently (the
-    # kernel takes sincospi(2 phi), PyTorch sin(2 pi phi)) differ by about
-    # as much as each errs against float64, most at near-grazing elements
-    # where 1 / dcdphi is large: an entry outside the bound must be no
-    # farther from the float64 plain backward than 3x the plain float32
-    # backward's largest distance from it in that output
-    k1_bwd_err, worst32 = 0.0, {}
-    for nm, k, pl, ref, again in zip(names, kb32, pb32, pb64, kb32_again):
-        _check(bool((torch.isfinite(k) == torch.isfinite(pl)).all()),
-               f"K1's backward: non-finite pattern of d {nm} differs")
-        _check(torch.equal(k, again),
-               f"K1's backward: d {nm} differs from run to run")
-        d = (k.double() - pl.double()).abs()
-        lim = 1e-5 + 2e-3 * pl.double().abs()
-        e_k, e_p = (k.double() - ref).abs(), (pl.double() - ref).abs()
-        fails = (d > lim) & (e_k > 3.0 * e_p.max())
-        worst32[nm] = dict(
-            ratio=(d / lim).max().item(), outside=int((d > lim).sum()),
-            coin=int(((d > lim) & (d > e_p)).sum()), fails=int(fails.sum()),
-            rms_k=e_k.square().mean().sqrt().item(),
-            rms_p=e_p.square().mean().sqrt().item(),
-            max_k=e_k.max().item(), max_p=e_p.max().item())
-        k1_bwd_err = max(k1_bwd_err, d.max().item())
-    print(f"[7 K1 backward] float32 kernel vs the plain float32 backward, "
-          f"per output: max |d g| / (1e-5 + 2e-3 |g|), entries outside it, "
-          f"of those farther from plain than plain is from float64, and of "
-          f"those farther from float64 than 3x plain's largest distance "
-          f"from it (limit 0); rms and max distance from the float64 plain "
-          f"backward, kernel / plain float32: "
-          + "; ".join(
-              f"{nm} {w['ratio']:.3f}, {w['outside']}, {w['coin']}, "
-              f"{w['fails']}; rms {w['rms_k']:.3e} / {w['rms_p']:.3e}, max "
-              f"{w['max_k']:.3e} / {w['max_p']:.3e}"
-              for nm, w in worst32.items())
-          + "; equal bits from run to run")
-    _check(all(w["fails"] == 0 for w in worst32.values()),
-           "K1's float32 backward kernel disagrees with the plain backward")
+    b64, rel64, k1_bwd_err = _k1_backward_against_plain(
+        "[7 K1 backward]", contacts, b32)
     k1_bwd_kernel_ms = _event_ms(
         lambda: contacts.contact_backward_kernel(*b32), 20)
     k1_bwd_kernel64_ms = _event_ms(
@@ -1550,30 +1698,11 @@ def main():
           f"{k1_bwd_run_bound / k1_bwd_kernel_ms:.1%} of that")
 
     # the gradient on the K1 path against the plain contact path, with
-    # the float64 gradient (plain contact solver) as referee
-    before = contacts.BACKWARD_LAUNCHES
-    _, g_p = plain_path(lambda: lpw.value_and_grad(posw))
-    _check(contacts.BACKWARD_LAUNCHES == before,
-           "the plain contact path launched K1's backward kernel")
+    # the float64 gradient as referee
     lpw64 = make_ln_prob(model_w, dtype=f64, device=dev)
-    _, g64 = lpw64.value_and_grad(posw.to(f64))
-    g_k64, g_p64 = g_k.to(f64), g_p.to(f64)
-    d_kp = (g_k64 - g_p64).abs()
-    bound = 1e-5 + 2e-3 * g_p64.abs()
-    outside = d_kp > bound
-    # an entry outside the bound must still sit inside the float32 path's
-    # own error there: the chi^2 gradient is a sum of large cancelling
-    # terms, and its float32 rounding, not K1, sets the small entries
-    unexplained = outside & (d_kp > (g_p64 - g64).abs())
-    print(f"[7 grad] K1 path (the kernel and its backward kernel) vs plain "
-          f"contact path (plain solver, plain backward), {g_k.numel()} "
-          f"entries: "
-          f"{int(outside.sum())} outside |dg| <= 1e-5 + 2e-3 |g|, max "
-          f"|dg| / bound {(d_kp / bound).max().item():.3f}; "
-          f"of those, {int(unexplained.sum())} (limit 0) farther apart "
-          f"than the plain path is from the float64 gradient")
-    _check(int(unexplained.sum()) == 0,
-           "gradients of the K1 and plain paths disagree")
+    g_k, g64 = _grads_agree("[7 grad]", lpw, lpw64, posw, plain_path,
+                            contacts)
+    g_k64 = g_k.to(f64)
 
     # float32 against float64
     cos = ((g_k64 * g64).sum(-1) / (g_k64.norm(dim=-1) * g64.norm(dim=-1)))
@@ -2109,7 +2238,8 @@ def main():
                                         stream, gp, plain_path)
 
     # ---- 15. the fit command's other branches ---------------------------
-    c_branches = _fit_branches_phase(dev, smi, contacts, stream, gp)
+    c_branches = _fit_branches_phase(dev, smi, contacts, stream, gp,
+                                     plain_path)
 
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,

@@ -233,8 +233,12 @@ def element_flux_curve(phases, widths, intervals, weights):
     product and a sum, not a batched matrix product: a matrix product on
     the card picks its algorithm (and its float32 summation order) by the
     chunk's row count, so a row's flux, and through small error bars its
-    ln p, would depend on the batch it came in, while the sum's order over
-    N is its own."""
+    ln p, would depend on the batch it came in.  PyTorch's CUDA reduction
+    over the last axis also sizes its blocks by the number of outputs,
+    but splits N alike for every chunk of 16 outputs (rows x P) or more,
+    so a row's sum is the same bits in any batch once P >= 16 (the demo's
+    151 points, the north-star's 128); a chunk with fewer outputs may sum
+    in another order."""
     phi_in, phi_out, ecl = intervals
     lead = torch.broadcast_shapes(phases.shape[:-1], weights.shape[:-1])
     P, N = phases.shape[-1], weights.shape[-1]

@@ -151,10 +151,11 @@ def run_chunked(state, step_fn, n_steps, thin=1, chunk_size=64,
     ``extract(state) -> (rows (W, D), ln p (W,))`` picks what a kept step
     contributes (default: the state's positions and log_prob; the tempered
     sampler keeps its cold rung), and each kept row is copied to the host
-    as it is made.  ``aux`` is the step's accept fraction as a 0-d tensor,
-    or a tuple of per-step tensors whose first is the accept fraction (the
-    tempered sampler adds each rung's mean ln-likelihood, HMC the
-    divergence fraction, NUTS that and the mean depth).
+    as it is made.  ``aux`` is the step's accept fraction as a 0-d tensor
+    (taken as a tuple of one), or a tuple of per-step tensors whose first
+    is the accept fraction (the tempered sampler adds each rung's mean
+    ln-likelihood, HMC the divergence fraction, NUTS that and the mean
+    depth).
 
     ``progress(done, mean accept)`` is called where the JAX package's
     driver ends a chunk, so a fit's metrics lines fall on the same steps:
@@ -162,9 +163,9 @@ def run_chunked(state, step_fn, n_steps, thin=1, chunk_size=64,
     thin`` kept rows, after the last kept row, and at the end.
 
     Returns (final state, chain (n_kept, W, D), chain_lp (n_kept, W),
-    aux), the last three as numpy arrays: aux is the accept fractions
-    (n_steps,), or a tuple of each aux entry stacked over the steps (an
-    empty array when ``n_steps`` is 0).
+    aux), as numpy arrays: aux is a tuple of each aux entry stacked over
+    the steps (one empty array when ``n_steps`` is 0), so that its first
+    is the accept fractions (n_steps,).
     """
     thin = max(int(thin), 1)
     step0 = int(state.step)
@@ -179,11 +180,9 @@ def run_chunked(state, step_fn, n_steps, thin=1, chunk_size=64,
     span = max(chunk_size // thin, 1) * thin
     ends = {first, last, n_steps, *range(first + span, last, span)} - {0}
     k, pending, done = 0, [], []
-    single = None
     for i in range(1, n_steps + 1):
         state, aux = step_fn(state)
-        single = not isinstance(aux, tuple)
-        pending.append((aux,) if single else aux)
+        pending.append(aux if isinstance(aux, tuple) else (aux,))
         if state.step % thin == 0:
             rows, lp = extract(state)
             chain[k] = rows.cpu().numpy()
@@ -199,4 +198,4 @@ def run_chunked(state, step_fn, n_steps, thin=1, chunk_size=64,
         aux = tuple(np.concatenate(col) for col in zip(*done))
     else:
         aux = (np.empty(0, dtype),)
-    return state, chain, chain_lp, aux[0] if single in (None, True) else aux
+    return state, chain, chain_lp, aux

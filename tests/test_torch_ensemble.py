@@ -230,7 +230,8 @@ class TestRunChunked:
         kept = [s for s in range(step0 + 1, step0 + n + 1) if s % thin == 0]
         assert out[1].shape == (len(kept), 12, 3)
         np.testing.assert_array_equal(out[1][:, 0, 0], kept)
-        for got, want in zip(out[1:], ref[1:]):
+        assert len(out[3]) == 1
+        for got, want in zip((*out[1:3], out[3][0]), ref[1:]):
             assert isinstance(got, np.ndarray) and got.dtype == np.float64
             np.testing.assert_array_equal(got, np.asarray(want))
         assert seen == jseen and seen[-1][0] == n
@@ -254,7 +255,8 @@ class TestRunChunked:
         kept = [s for s in range(step0 + 1, step0 + 14) if s % 3 == 0]
         assert out[1].shape == (len(kept), 12, 3)
         assert out[2].shape == (len(kept), 12)
-        for got, want in zip(out[1:], ref[1:]):
+        assert len(out[3]) == 1
+        for got, want in zip((*out[1:3], out[3][0]), ref[1:]):
             assert isinstance(got, np.ndarray)
             np.testing.assert_array_equal(got, want.numpy())
         # one progress call a chunk, with the mean accept of its steps
@@ -272,7 +274,7 @@ class TestRunChunked:
         state = ens.EnsembleState(torch.from_numpy(pos0),
                                   torch.from_numpy(-pos0[:, 0]), 1)
         seen = []
-        state, chain, chain_lp, acc = ens.run_chunked(
+        state, chain, chain_lp, (acc,) = ens.run_chunked(
             state, _torch_counter_step, 2, thin=5,
             progress=lambda done, a: seen.append(done))
         assert chain.shape == (0, 12, 3) and chain_lp.shape == (0, 12)
@@ -287,4 +289,5 @@ class TestRunChunked:
                                   torch.zeros(4, dtype=torch.float64), 0)
         out = ens.run_chunked(state, None, 0)
         assert out[0] is state
-        assert out[1].shape == (0, 4, 2) and out[3].shape == (0,)
+        assert out[1].shape == (0, 4, 2) and len(out[3]) == 1
+        assert out[3][0].shape == (0,)
