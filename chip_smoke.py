@@ -18,10 +18,10 @@ x 256 walkers.  Phases:
      K1's backward (contacts_backward.cu), K2 (stream.cu) and K3 (gp.cu)
      from lfit_python_tpu_torch/ops/csrc/, in parallel, with the stack
      frame and registers of each instantiation from ptxas: K1's three
-     (float32, float64, mixed precision; reported), and K1's backward (one
-     pass each in float32 and float64), K2 and K3, whose frame must be 0:
-     nothing in local memory (K3's are the forward kernel with and without
-     the kept state and the reverse kernel, in both dtypes);
+     (float32, float64, mixed precision), K1's backward (one pass each in
+     float32 and float64), K2 and K3, whose frame must be 0: nothing in
+     local memory (K3's are the forward kernel with and without the kept
+     state and the reverse kernel, in both dtypes);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
@@ -84,10 +84,14 @@ x 256 walkers.  Phases:
      evaluation of the float64 north-star posterior and of the precise
      float32 one (CVConfig.mixed_precision) hands K1 at 1024 walkers
      (5120 x 512), each instantiation against the plain version of its
-     mode (phase 2's limits; the median and p99 printed), its time, the
-     plain version's, its operations (float32 and float64 apart in the
-     mixed mode) and bound; each posterior through K1 (one launch of its
-     mode per evaluation) and through the plain solver, timed in turns
+     mode (phase 2's limits, and at most 1e-4 of the elements eclipsed in
+     both above 1e-12 cycles in float64, above 1e-7 in mixed precision;
+     the median and p99 printed), its time, the plain version's, its
+     operations (float32 and float64 apart in the mixed mode) and bound,
+     and the instructions it executes (counted from its SASS) with their
+     time at the FP64, FP32 and MUFU issue rates; each posterior through
+     K1 (one launch of its mode per evaluation) and through the plain
+     solver, timed in turns
      (phase 3's limits), with its device-busy share; and the precise
      float32 fluxes through the mixed K1 against tests/golden/
      golden_v1.npz (every component within 1e-6 of the largest total,
@@ -109,7 +113,7 @@ x 256 walkers.  Phases:
      shapes: that last row through the kernel path and the plain contact
      path (phase 3's limits; for --precise and --x64 also its first 512
      walkers, and K1 of that mode on the rows one evaluation of those 512
-     hands it, phase 2's limits); for HMC and NUTS also the gradient of
+     hands it, phase 14's limits); for HMC and NUTS also the gradient of
      the two paths (phase 7's gate), and K1, K1's backward kernel and K2
      with sensitivities on the inputs one value_and_grad of the 256
      chains hands them, against their plain versions (phase 2's, 7's and
@@ -177,6 +181,35 @@ K1_OPS_ECLIPSED = 3401
 # and the phase update (62 each)
 K1_MIXED_OPS_ECLIPSED_F32 = 68 + 10 * 240 + 2 * (12 + 4 * 339)
 K1_MIXED_OPS_ECLIPSED_F64 = 8 + 2 * 4 * 62
+# What each K1 instantiation executes, beside the operations its bound
+# counts: instructions of each class per element and what an eclipsed
+# element adds, counted from the SASS of contacts.cu built by
+# ops/_build.py (tools/k1_sass_counts.py: one thread's path, the loops
+# at their trip counts, no slow path).  Phase 1 recounts them from the
+# library it builds and fails if they differ.
+K1_EXECUTED = {
+    "contacts_kernel<f32>": {
+        "element": dict(DFMA=0, DMUL=0, DADD=0, DSETP=0, MUFU=28, FP32=403,
+                        CONV=0, OTHER=159),
+        "eclipsed": dict(DFMA=0, DMUL=0, DADD=0, DSETP=0, MUFU=163, FP32=3698,
+                         CONV=0, OTHER=698)},
+    "contacts_kernel<f64>": {
+        "element": dict(DFMA=200, DMUL=119, DADD=28, DSETP=47, MUFU=27,
+                        FP32=11, CONV=0, OTHER=358),
+        "eclipsed": dict(DFMA=1449, DMUL=990, DADD=368, DSETP=468, MUFU=163,
+                         FP32=17, CONV=0, OTHER=2261)},
+    "contacts_mixed_kernel": {
+        "element": dict(DFMA=0, DMUL=0, DADD=0, DSETP=0, MUFU=28, FP32=400,
+                        CONV=0, OTHER=173),
+        "eclipsed": dict(DFMA=298, DMUL=121, DADD=75, DSETP=40, MUFU=273,
+                         FP32=5169, CONV=80, OTHER=1460)}}
+# per SM and clock on an H100: lanes of the FP64 pipe, the FP32 pipe and
+# the special function unit, and instructions its four schedulers issue
+SM_LANES = {"fp64": 64, "fp32": 128, "mufu": 16, "issue": 128}
+# the phase error (cycles) that at most 1e-4 of the elements may pass
+# against the plain version of the mode: float64 and the mixed mode keep
+# their precision (measured 2.8e-17 and 0 before their redesign)
+K1_TIGHT = {"float64": 1e-12, "mixed_precision": 1e-7}
 K2_OPS_STEP = 180
 K2_OPS_STEP_COLUMN = 248
 # K1's backward.  What the function needs per eclipsed edge: the residual
@@ -308,6 +341,36 @@ def _stack_frames(ptxas_log):
             frames[entry][1] = int(m.group(1))
             entry = None
     return {e: tuple(v) for e, v in frames.items()}
+
+
+def _executed(kernel, n_el, n_ecl):
+    """The instructions ``kernel`` (a K1_EXECUTED key) executes on
+    ``n_el`` elements of which ``n_ecl`` are eclipsed, and their least
+    time (ms) at the FP64 pipe's rate (DFMA, DMUL, DADD, DSETP), the FP32
+    pipe's, the special function unit's and the schedulers' (every
+    instruction), full warps at the card's top SM clock."""
+    import torch
+
+    ex = K1_EXECUTED[kernel]
+    tot = {c: n_el * v + n_ecl * ex["eclipsed"][c]
+           for c, v in ex["element"].items()}
+    per_s = (torch.cuda.get_device_properties(0).multi_processor_count
+             * _sm_clock_hz() / 1e3)
+    pipe = {"fp64": tot["DFMA"] + tot["DMUL"] + tot["DADD"] + tot["DSETP"],
+            "fp32": tot["FP32"], "mufu": tot["MUFU"],
+            "issue": sum(tot.values())}
+    return {"instructions": tot, **{f"{k}_ms": v / (SM_LANES[k] * per_s)
+                                    for k, v in pipe.items()}}
+
+
+def _executed_line(kernel, ex, ms):
+    e = K1_EXECUTED[kernel]
+    return ("executes per element / per eclipsed one (SASS): "
+            + ", ".join(f"{c} {e['element'][c]} / {e['eclipsed'][c]}"
+                        for c in e["element"])
+            + f"; at the FP64 pipe's rate {ex['fp64_ms']:.4f} ms, FP32 "
+            f"{ex['fp32_ms']:.4f}, MUFU {ex['mufu_ms']:.4f}, issue "
+            f"{ex['issue_ms']:.4f} (the kernel at {ms:.4f} ms)")
 
 
 def _sm_clock_hz():
@@ -490,12 +553,15 @@ def _paths_agree(tag, post, p, plain_path, contacts):
     return lk, fk
 
 
-def _k1_at(tag, contacts, wrapper, fn, shape):
+def _k1_at(tag, contacts, wrapper, fn, shape, tight=None):
     """Runs ``fn`` with the K1 wrapper ``wrapper`` recorded, and holds that
     wrapper, on the arguments of its one call, to the plain version of its
-    mode: phase 2's limits (flags 1e-4, |dphi| 1e-5 cycles).  Returns
-    (the arguments, the kernel's outputs, {flag_disagreement, max, median,
-    p99 of |dphi| at the elements eclipsed in both})."""
+    mode: phase 2's limits (flags 1e-4, |dphi| 1e-5 cycles) and, where
+    ``tight`` (cycles) is given, at most 1e-4 of the elements eclipsed in
+    both with either |dphi| above it (K1_TIGHT: float64 and mixed hold
+    their precision).  Returns (the arguments, the kernel's outputs,
+    {flag_disagreement, max, median, p99 of |dphi| at the elements
+    eclipsed in both, and the share above ``tight``})."""
     import torch
 
     kernel = getattr(contacts, wrapper)
@@ -513,21 +579,34 @@ def _k1_at(tag, contacts, wrapper, fn, shape):
     torch.cuda.synchronize()
     flag_diff = (k_out[2] != p_out[2]).float().mean().item()
     both = k_out[2] & p_out[2]
-    err = torch.cat([(k_out[i] - p_out[i]).abs()[both].double()
-                     for i in (0, 1)])
+    d_in, d_out = ((k_out[i] - p_out[i]).abs()[both].double()
+                   for i in (0, 1))
+    err = torch.cat([d_in, d_out])
     if err.numel() == 0:
         err = err.new_zeros(1)
     sample = err[torch.randperm(err.numel(), device=err.device)[:1 << 24]]
     stats = {"flag_disagreement": flag_diff, "max_abs_err": err.max().item(),
              "median_abs_err": err.median().item(),
              "p99_abs_err": torch.quantile(sample, 0.99).item()}
+    line = ""
+    if tight is not None:
+        above = (torch.maximum(d_in, d_out) > tight).double()
+        stats["share_above_tight"] = (above.mean().item() if above.numel()
+                                      else 0.0)
+        line = (f"; elements above {tight:.0e} cycles: "
+                f"{int(above.sum().item())}, a share of "
+                f"{stats['share_above_tight']:.3e} (limit 1e-4)")
     print(f"{tag}: {wrapper} on {rows} x {n} contacts ({int(both.sum())} "
           f"eclipsed in both) against its plain version: flag "
           f"disagreement {flag_diff:.3e} (limit 1e-4); |dphi| median "
           f"{stats['median_abs_err']:.3e}, p99 {stats['p99_abs_err']:.3e}, "
-          f"max {stats['max_abs_err']:.3e} cycles (limit 1e-5)")
+          f"max {stats['max_abs_err']:.3e} cycles (limit 1e-5){line}")
     _check(flag_diff <= 1e-4 and stats["max_abs_err"] <= 1e-5,
            f"{tag}: K1 disagrees with its plain version")
+    if tight is not None:
+        _check(stats["share_above_tight"] <= 1e-4,
+               f"{tag}: K1 has lost its mode's precision against its plain "
+               f"version")
     return args, k_out, stats
 
 
@@ -852,7 +931,8 @@ def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
         kernel = getattr(contacts, wrapper)
         with torch.inference_mode():
             args, k_out, st = _k1_at(f"[14 {mode}]", contacts, wrapper,
-                                     lambda: post(p), (len(p) * 5, 512))
+                                     lambda: post(p), (len(p) * 5, 512),
+                                     K1_TIGHT[mode])
         rows, n = args[2].shape
         ms = _event_ms(lambda: kernel(*args), 20)
         plain_ms = _event_ms(lambda: contacts.element_intervals_plain(*args),
@@ -881,6 +961,10 @@ def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
               + f", {nbytes / 1e6:.1f} MB; bound {bound * 1e3:.1f} us (set "
               f"by {by}); the kernel at {bound / ms:.1%} of its bound; "
               f"{smi}")
+        kname = ("contacts_kernel<f64>" if mode == "float64"
+                 else "contacts_mixed_kernel")
+        ex = _executed(kname, n_el, n_ecl)
+        print(f"[14 {mode}] {_executed_line(kname, ex, ms)}")
 
         # the posterior through K1 and through the plain solver
         _zero_counts(contacts, stream, gp)
@@ -926,6 +1010,7 @@ def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
             "rows": rows, "elements": n, **st, "ms": ms,
             "plain_ms": plain_ms,
             "ops": ops, "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+            "executed": ex,
             "posterior_ms": min(turns["kernel"]),
             "posterior_plain_path_ms": min(turns["plain"]),
             "posterior_flux_max_abs_diff": f_max}
@@ -1179,7 +1264,9 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp, plain_path):
             _k1_at(f"[15 fit {tag}] the half-step's K1", contacts,
                    "element_intervals_mixed_kernel" if key == "k1_mixed"
                    else "element_intervals_kernel", lambda: post(half),
-                   (len(half), 512))
+                   (len(half), 512), K1_TIGHT["mixed_precision"
+                                              if key == "k1_mixed"
+                                              else "float64"])
     return paths
 
 
@@ -1233,19 +1320,9 @@ def main():
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
     print(f"[1 device] K1, K1's backward, K2 and K3 built and loaded in "
           f"{build_s:.2f} s")
-    # K1's three instantiations: reported, not gated (the mixed one's
-    # sin and cos of float32 and float64 arguments may keep their
-    # argument reduction's array in local memory)
-    frames_k1 = _stack_frames(_build.PTXAS_LOGS["contacts"].read_text())
-    print("[1 device] K1 stack frames (bytes) and registers, ptxas: "
-          + ", ".join(f"{_short_entry(e)} {b} bytes, {r} registers"
-                      for e, (b, r) in sorted(frames_k1.items())))
-    _check(len(frames_k1) == 3, f"K1 has {len(frames_k1)} instantiations, "
-           "expected float32, float64 and mixed precision")
-    registers = {"contacts": {_short_entry(e): {"registers": r,
-                                                "stack_frame_bytes": b}
-                              for e, (b, r) in frames_k1.items()}}
-    for tag, name, n_inst in (("K1's backward", "contacts_backward", 2),
+    registers = {}
+    for tag, name, n_inst in (("K1", "contacts", 3),
+                              ("K1's backward", "contacts_backward", 2),
                               ("K2", "stream", 4), ("K3", "gp", 6)):
         frames = _stack_frames(_build.PTXAS_LOGS[name].read_text())
         registers[name] = {_short_entry(e): r for e, (_, r) in frames.items()}
@@ -1255,6 +1332,14 @@ def main():
         _check(len(frames) == n_inst
                and not any(b for b, _ in frames.values()),
                f"a {tag} instantiation keeps an array in local memory")
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from k1_sass_counts import built_sass, counts
+    k1_counted = {k: {c: v[c] for c in ("element", "eclipsed")}
+                  for k, v in counts(built_sass()).items()}
+    print(f"[1 device] K1 executes, from its SASS: {json.dumps(k1_counted)}")
+    _check(k1_counted == K1_EXECUTED, "K1_EXECUTED is not this build's "
+           "count (tools/k1_sass_counts.py)")
 
     # ---- the north-star model and 1024 walkers around its start -------
     t0 = time.perf_counter()
@@ -1306,6 +1391,8 @@ def main():
           f"{K1_OPS_ECLIPSED} per eclipsed one), {k1_bytes / 1e6:.1f} MB; "
           f"bound {k1_bound * 1e3:.1f} us (set by {k1_by}); the kernel at "
           f"{k1_bound / k1_ms:.1%} of its bound")
+    k1_ex = _executed("contacts_kernel<f32>", n_el, n_ecl_k)
+    print(f"[2 K1] {_executed_line('contacts_kernel<f32>', k1_ex, k1_ms)}")
     with torch.inference_mode():
         cvp = model.cv_params(model.full_from_var(pos))
         q = cvp[:, 0, 4].contiguous()
@@ -2277,7 +2364,7 @@ def main():
          "device_events_per_call": k1_launch[1],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "ops": k1_ops,
-         "eclipsed_share": f_ecl, "library_ms": None,
+         "executed": k1_ex, "eclipsed_share": f_ecl, "library_ms": None,
          "float64": k1_mode("float64", "k1_f64"),
          "mixed_precision": k1_mode("mixed_precision", "k1_mixed"),
          "library_ms_reason": NO_LIBRARY.format(

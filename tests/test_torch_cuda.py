@@ -107,13 +107,38 @@ def special_rows(dev, case):
     return args
 
 
+def in_mode(args, mode):
+    """float32 contact rows as the K1 instantiation of ``mode`` takes them:
+    float32 as they are, float64 cast, and the mixed-precision mode's
+    float64 (q, incl, x1, pl1) and positions beside the float32 rows (the
+    inclination cast, so that a NaN row stays NaN)."""
+    if mode == "float32":
+        return args, {}
+    if mode == "float64":
+        return [a.double() for a in args], {}
+    q64 = args[0].double()
+    x164 = tg.xl1(q64)
+    pl164 = tg.l1_potential(q64, x164)
+    return args, dict(precise=(q64, args[1].double(), x164, pl164),
+                      p64=(args[2].double(), args[3].double()))
+
+
+@pytest.mark.parametrize("mode", ["float32", "float64", "mixed"])
 @pytest.mark.parametrize("case", ["all eclipsed", "all visible", "n = 37",
                                   "n = 300", "infeasible row"])
-def test_kernel_on_edge_rows(cuda, case):
-    args = special_rows(cuda, case)
-    k = contacts.element_intervals_kernel(*args)
-    p = contacts.element_intervals_plain(*args)
+def test_kernel_on_edge_rows(cuda, case, mode):
+    """Each K1 instantiation on the edge rows against the plain version
+    of its mode: flags equal, phases to 1e-5 cycles (1e-12 in float64),
+    one launch on the mode's counter."""
+    args, kw = in_mode(special_rows(cuda, case), mode)
+    counters = ("LAUNCHES", "F64_LAUNCHES", "MIXED_LAUNCHES")
+    before = [getattr(contacts, c) for c in counters]
+    k = contacts.element_intervals(*args, **kw)
     torch.cuda.synchronize()
+    p = contacts.element_intervals_plain(*args, **kw)
+    launched = [getattr(contacts, c) - b for c, b in zip(counters, before)]
+    assert launched == [int(mode == m)
+                        for m in ("float32", "float64", "mixed")]
     assert torch.equal(k[2], p[2])
     m = k[2]
     if case == "all eclipsed":
@@ -124,9 +149,10 @@ def test_kernel_on_edge_rows(cuda, case):
         assert not bool(m[2].any()) and bool(m.any())
     else:
         assert 0 < int(m.sum()) < m.numel()
+    tol = 1e-12 if mode == "float64" else 1e-5
     if bool(m.any()):
-        assert float((k[0] - p[0]).abs()[m].max()) <= 1e-5
-        assert float((k[1] - p[1]).abs()[m].max()) <= 1e-5
+        assert float((k[0] - p[0]).abs()[m].max()) <= tol
+        assert float((k[1] - p[1]).abs()[m].max()) <= tol
     # a visible element's interval is empty, at phi_c, as in plain
     assert torch.equal(k[0][~m], k[1][~m])
     if not bool(m.all()):

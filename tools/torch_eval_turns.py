@@ -15,7 +15,11 @@ line:
   the same tree with use_gp on every eclipse, at 1024 walkers;
 - ms per call of the checkout's kernels, through its own wrappers and
   timed with CUDA events: K1 on the contact rows one evaluation hands it
-  (5120 x 512), K1's backward on the contact rows one gradient evaluation
+  (5120 x 512); K1 in float64 and in mixed precision on the rows one
+  float64 and one precise evaluation hand it, at 1024 walkers (5120 x
+  512) and at a half-step of the demo fit (512 walkers of
+  examples/demo_input.dat: 512 x 512), each also as the profiler traces
+  the kernel alone; K1's backward on the contact rows one gradient evaluation
   hands it (1280 x 512; the backward pass of element_intervals_diff, as a
   forward and backward less a forward, and the backward kernel's wrapper
   alone in float32 and float64), K2 on the evaluation's stream
@@ -116,6 +120,8 @@ def main():
     from lfit_python_tpu_torch.models.likelihood import make_ln_prob
     from lfit_python_tpu_torch.ops import contacts, stream
     from lfit_python_tpu_torch.roche.geometry import xl1
+    from lfit_python_tpu_torch.utils.config import (build_model_from_config,
+                                                    parse_input_dat)
 
     if not lfit_python_tpu_torch.__file__.startswith(root):
         raise SystemExit(f"imported {lfit_python_tpu_torch.__file__}")
@@ -140,6 +146,18 @@ def main():
     kernels = {"k1": {"ms": event_ms(
         lambda: contacts.element_intervals_kernel(*k1_args), 20),
         "sha256": digest(contacts.element_intervals_kernel(*k1_args))}}
+    demo = build_model_from_config(parse_input_dat(
+        Path(root) / "examples" / "demo_input.dat")).compile()
+    for tag, m, p in (("", model, pos),
+                      ("_512", demo, walkers(demo.var_start(), 512, 2))):
+        for mode, (fn, args) in k1_mode_rows(contacts, m, p).items():
+            kernels[f"k1_{mode}{tag}"] = {
+                "rows": list(args[2].shape),
+                "ms": event_ms(lambda: fn(*args), 20),
+                "traced_us": traced_us(lambda: fn(*args), {
+                    "f64": "contacts_kernel",
+                    "mixed": "contacts_mixed_kernel"}[mode]),
+                "sha256": digest(fn(*args))}
     kernels["k1_backward"] = k1_backward(
         contacts, [a.detach() for a in rec_d.call_args.args])
     with torch.inference_mode():
@@ -160,6 +178,27 @@ def main():
                       "eval_ms": ev, "value_and_grad_ms": vg,
                       "gp_eval_ms": gp_turns(spec, pos, kernels),
                       "kernels": kernels}))
+
+
+def k1_mode_rows(contacts, model, pos):
+    """{mode: (K1 wrapper, its arguments)}: the call one float64 (f64) and
+    one precise (mixed) evaluation of ``model`` at the walkers ``pos``
+    make of K1's float64 and mixed-precision wrappers."""
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+
+    out = {}
+    for mode, wrapper, config, dt in (
+            ("f64", "element_intervals_kernel", CVConfig(), F64),
+            ("mixed", "element_intervals_mixed_kernel",
+             CVConfig(mixed_precision=True), F32)):
+        post = make_ln_prob(model, config, dtype=dt, device=DEV)
+        fn = getattr(contacts, wrapper)
+        with mock.patch.object(contacts, wrapper, wraps=fn) as rec, \
+                torch.inference_mode():
+            post(pos.to(dt))
+        out[mode] = (fn, rec.call_args.args)
+    return out
 
 
 def k1_backward(contacts, rows):
