@@ -80,6 +80,11 @@ x 256 walkers.  Phases:
      walkers' ln p and flux the same bits alone and in batches of 512
      and 1024, and K1 and K2 on the inputs the half's evaluation hands
      them against their plain versions (phase 2's and phase 6's limits);
+     then light curves of 5 and 11 points (fewer than 16: flux sweep
+     chunks and the donor normaliser with fewer than 16 outputs) at the
+     default widths: a walker's ln p and flux the same bits alone, in 2,
+     25 and 37, with the sweep's chunks at their default size and cut
+     small;
  14. K1 in float64 and in mixed precision: the contact rows one
      evaluation of the float64 north-star posterior and of the precise
      float32 one (CVConfig.mixed_precision) hands K1 at 1024 walkers
@@ -118,6 +123,26 @@ x 256 walkers.  Phases:
      with sensitivities on the inputs one value_and_grad of the 256
      chains hands them, against their plain versions (phase 2's, 7's and
      6's limits).
+  16. walker sharding (lfit_python_tpu_torch.parallel.mesh): in process, a
+     one-rank NCCL group (so that the launch counters count), then
+     cli.main fit --shard on the demo input (1024 walkers, --nburn 20
+     --nprod 10) and --sampler hmc --shard --resume on phase 15's input
+     (256 chains, from its checkpoint at production step 2 to 4: its
+     warm-up reused); each chain file the same bytes as the first rows of
+     the unsharded fit with the same seed (phases 13 and 15), K1 and K2
+     launched on both paths (K1 = K2 per evaluation) and K1's backward
+     kernel once per gradient evaluation on the HMC one; then an
+     ensemble step (1024 walkers) and an hmc_step (256 chains, 4
+     leapfrog steps) unsharded and sharded from one state and one
+     generator state, in turns, the sharded state the same bits; the
+     cost of one all-gather of a half-step's ln p (512 floats); then one
+     `torchrun --nproc-per-node <device count>` subprocess fit --shard,
+     its chain file compared the same way;
+  17. the donor quadrature (CVConfig.n_donor_quad): the north-star model at
+     1024 walkers in float32 with exact donor sums and with 256 nodes,
+     timed in turns; the largest difference of the total flux against
+     the largest total (limit 1e-6, the parity gate), the same -inf
+     pattern, and each evaluation's K1 and K2 launches (one each).
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -753,6 +778,15 @@ def _gradient_kernels_at(tag, post, post64, p, plain_path, contacts,
            "version")
 
 
+def _stage_seconds(out_dir):
+    """{(stage, step): first time} of a fit's metrics.jsonl."""
+    t = {}
+    for ln in (out_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(ln)
+        t.setdefault((rec["stage"], rec["step"]), rec["t"])
+    return t
+
+
 def _fit_phase(dev, smi, contacts, stream, gp, plain_path):
     """Phase 13: the fit command on the demo input, and its resume; then
     K1 and K2 at the fit's own shapes against their plain versions
@@ -840,13 +874,10 @@ def _fit_phase(dev, smi, contacts, stream, gp, plain_path):
                                   device=dev)).double().cpu().numpy()
     d_lp = np.abs(fresh - lp[-1])
     lim = 1e-5 * np.maximum(1.0, np.abs(lp[-1]))
-    times = {}
-    for ln in (out_dir / "metrics.jsonl").read_text().splitlines():
-        rec = json.loads(ln)
-        times.setdefault((rec["stage"], rec["step"]), []).append(rec["t"])
+    times = _stage_seconds(out_dir)
     # production seconds per step between the first run's two segment
     # ends (a segment's 20 steps, its chain rows and its checkpoint)
-    s_step = (times["prod", 40][0] - times["prod", 20][0]) / (40 - 20)
+    s_step = (times["prod", 40] - times["prod", 20]) / (40 - 20)
     print(f"[13 fit] demo_input.dat: {n_walk} walkers, D = {len(names)}, "
           f"float32, full resolution: fit --nburn {n_burn} --nprod {n_prod} "
           f"--checkpoint-every {every} exited 0 in {wall1:.1f} s (its "
@@ -903,6 +934,7 @@ def _fit_phase(dev, smi, contacts, stream, gp, plain_path):
           f"kernel {k2_ms:.4f} ms, plain {k2_pms:.1f} ms")
     _check(imp_err == 0.0, "K2 differs from its plain version at the fit's "
            "shapes")
+    _short_curves_batch_check(dev)
     return c_fit
 
 
@@ -1125,10 +1157,7 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp, plain_path):
         return time.perf_counter() - t0, text
 
     def prod_seconds_per_step(out_dir, a, b):
-        t = {}
-        for ln in (out_dir / "metrics.jsonl").read_text().splitlines():
-            rec = json.loads(ln)
-            t.setdefault((rec["stage"], rec["step"]), rec["t"])
+        t = _stage_seconds(out_dir)
         return (t["prod", b] - t["prod", a]) / (b - a)
 
     def last_row_check(tag, inp, out_dir, config, dtype, rows):
@@ -1268,6 +1297,315 @@ def _fit_branches_phase(dev, smi, contacts, stream, gp, plain_path):
                                               if key == "k1_mixed"
                                               else "float64"])
     return paths
+
+
+def _short_curves_batch_check(dev):
+    """Phase 13's batch independence at fewer than 16 points a light
+    curve: a walker's float32 ln p and flux the same bits alone, in 2, 25
+    and 37, with the flux sweep's chunks at their default size and cut
+    so that batches end in partial chunks (default widths)."""
+    import torch
+
+    from lfit_python_tpu_torch.examples import build_model
+    from lfit_python_tpu_torch.models import components as comp
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+
+    for n_points in (5, 11):
+        model = build_model(n_eclipses=2, complex_spot=[False, True],
+                            n_points=n_points, bands=("g",)).compile()
+        post = make_ln_prob(model, CVConfig(), dtype=torch.float32,
+                            device=dev)
+        pos = _walkers(model.var_start(), 37, 6, torch.float32, dev)
+        same = True
+        for chunk in (comp._CHUNK_ELEMS, 1 << 14):
+            with mock.patch.object(comp, "_CHUNK_ELEMS", chunk), \
+                    torch.inference_mode():
+                ref = post(pos), post.model_flux(pos)
+                _check(bool(torch.isfinite(ref[0]).all()),
+                       f"{n_points} points: a non-finite ln p")
+                for n in (1, 2, 25):
+                    got = post(pos[:n]), post.model_flux(pos[:n])
+                    same &= all(torch.equal(g, r[:n])
+                                for g, r in zip(got, ref))
+        print(f"[13 fit] batch independence at {n_points} points (2 "
+              f"eclipses, default widths): ln p and flux of walkers alone, "
+              f"in 2 and 25 against the batch of 37, chunks of 2^25 and "
+              f"2^14 elements: {'equal bits' if same else 'NOT equal'}")
+        _check(same, f"a walker's float32 ln p depends on its batch at "
+               f"{n_points} points")
+
+
+def _torchrun_fit(n_ranks, argv, timeout=600):
+    """The command line under ``torchrun --standalone`` at ``n_ranks``
+    ranks, in a session of its own (killed whole on a timeout): (exit
+    code, output, wall seconds)."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n_ranks}", "-m", "lfit_python_tpu_torch.cli",
+           *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"chip_smoke: torchrun fit timed out: "
+                           f"{out[-2000:]}") from None
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def _in_turns(fns):
+    """{name: [seconds, seconds]} of one call of each of ``fns`` in the
+    order a, b, b, a (the card synchronized around each call)."""
+    import torch
+
+    out = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[k]()
+        torch.cuda.synchronize()
+        out[k].append(time.perf_counter() - t0)
+    return out
+
+
+def _turns_line(turns):
+    (a, ta), (b, tb) = turns.items()
+    return (f"{b} {min(tb):.4f} s ({[round(v, 4) for v in tb]}) against "
+            f"{a} {min(ta):.4f} s ({[round(v, 4) for v in ta]}), least of "
+            f"2 in turns, {min(tb) / min(ta) - 1:+.1%}")
+
+
+def _shard_steps_in_turns(smi, mesh, inputs):
+    """An ensemble step at 1024 walkers of the demo posterior and an
+    hmc_step at 256 chains of the widths posterior, each unsharded and
+    sharded over ``mesh``, from one state and one generator state, in
+    turns; the sharded steps' outputs against the unsharded ones, bit for
+    bit."""
+    import torch
+
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+    from lfit_python_tpu_torch.parallel import mesh as pm
+    from lfit_python_tpu_torch.sampling import ensemble, hmc
+    from lfit_python_tpu_torch.utils.config import (build_model_from_config,
+                                                    parse_input_dat)
+
+    posts = {}
+    for key, inp in inputs.items():
+        model = build_model_from_config(parse_input_dat(inp)).compile()
+        start = torch.as_tensor(model.var_start(), dtype=torch.float32,
+                                device=mesh.device)
+        posts[key] = (make_ln_prob(model, dtype=torch.float32,
+                                   device=mesh.device),
+                      start, 1e-3 * start.abs().clamp(min=1e-2))
+    gen = torch.Generator(device=mesh.device).manual_seed(11)
+    post, start, ball = posts["ens"]
+    ens = ensemble.init_walkers(gen, start, ball, post, N_WALKERS)
+    post_w, start_w, ball_w = posts["hmc"]
+    hs = hmc.init_hmc(gen, start_w, ball_w, post_w, N_CHAINS)
+    g0 = gen.get_state()
+    # 4 leapfrog steps: the fit's step has 16, each the same gradient
+    # evaluation
+    steps = {
+        "ensemble": {
+            "unsharded": lambda: ensemble.ensemble_step(ens, post, gen),
+            "sharded": lambda: ensemble.ensemble_step(
+                ens, pm.sharded_batch_ln_prob(post, mesh), gen)},
+        "hmc_step (4 leapfrog)": {
+            "unsharded": lambda: hmc.hmc_step(hs, post_w, gen, 4),
+            "sharded": lambda: hmc.hmc_step(
+                hs, post_w, gen, 4, hmc.batch_trajectories(
+                    post_w, 4, vg_fn=pm.sharded_value_and_grad(post_w,
+                                                               mesh)))}}
+    for tag, fns in steps.items():
+        out = {}
+
+        def run(k, fn=None):
+            def go():
+                gen.set_state(g0)
+                out[k] = fn()
+            return go
+
+        turns = _in_turns({k: run(k, fn) for k, fn in fns.items()})
+        state = {k: o[0] for k, o in out.items()}
+        same = all(torch.equal(a, b) for a, b in zip(
+            state["unsharded"][:2], state["sharded"][:2]))
+        print(f"[16 shard] {tag}, one-rank NCCL group: "
+              f"{_turns_line(turns)}; the sharded step's state "
+              f"{'the same bits' if same else 'DIFFERS'}; {smi}")
+        _check(same, f"{tag}: the sharded step differs from the unsharded")
+
+
+def _shard_phase(dev, smi, contacts, stream, gp):
+    """Phase 16: fit --shard in process on a one-rank NCCL group (the
+    ensemble on the demo input; HMC on phase 15's input, resumed from its
+    second production step) and under torchrun, each chain file against
+    the unsharded fits of phases 13 and 15; then an ensemble step and an
+    hmc_step unsharded and sharded in turns.  Returns {path: launch
+    counts}."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from lfit_python_tpu_torch import cli
+    from lfit_python_tpu_torch.parallel.mesh import walker_mesh
+
+    base = ROOT / "build" / "chip_fit_shard"
+    shutil.rmtree(base, ignore_errors=True)
+    demo = ROOT / "examples" / "demo_input.dat"
+    hmc_inp = ROOT / "build" / "chip_fit_branches" / "hmc.dat"
+    unsharded = {"ens": ROOT / "build" / "chip_fit",
+                 "hmc": ROOT / "build" / "chip_fit_branches" / "hmc"}
+    ens_args = ["--nburn", "20", "--nprod", "10", "--checkpoint-every",
+                "10", "--quiet", "--shard"]
+    hmc_args = ["--sampler", "hmc", "--nburn", "4", "--nprod", "4",
+                "--checkpoint-every", "2", "--quiet", "--shard", "--resume"]
+    # the sharded HMC fit resumes phase 15's at its second production
+    # step (its warm-up reused): that checkpoint and the chain's rows to it
+    hmc_dir = base / "hmc"
+    hmc_dir.mkdir(parents=True)
+    shutil.copy(unsharded["hmc"] / "checkpoint_0000002.npz", hmc_dir)
+    lines = (unsharded["hmc"] / "chain_prod.txt").read_text().splitlines(
+        keepends=True)
+    (hmc_dir / "chain_prod.txt").write_text("".join(lines[:1 + 2 * N_CHAINS]))
+
+    def same_segment(tag, out_dir, ref_dir, n_rows, n_walk):
+        got = (out_dir / "chain_prod.txt").read_text()
+        ref = (ref_dir / "chain_prod.txt").read_text().splitlines(
+            keepends=True)
+        same = got == "".join(ref[:1 + n_rows * n_walk])
+        print(f"[16 shard] {tag}: chain file {len(got)} bytes, {n_rows} x "
+              f"{n_walk} rows, against the unsharded fit's first {n_rows} "
+              f"rows: {'the same bytes' if same else 'DIFFER'}")
+        _check(same, f"{tag}: the sharded chain differs from the unsharded")
+
+    created = not dist.is_initialized()
+    mesh = walker_mesh("cuda")
+    _check(dist.get_backend() == "nccl" and mesh.world_size == 1,
+           f"a one-rank NCCL group expected, got {dist.get_backend()} x "
+           f"{mesh.world_size}")
+    paths = {}
+    try:
+        for tag, inp, args, key in (
+                ("fit_shard", demo, ens_args, "ens"),
+                ("fit_hmc_shard", hmc_inp, hmc_args, "hmc")):
+            out_dir = base / key
+            buf = io.StringIO()
+            _zero_counts(contacts, stream, gp)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["fit", str(inp), "--outdir", str(out_dir),
+                               *args])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paths[tag] = c = _counts(contacts, stream, gp)
+            text = buf.getvalue()
+            _check(rc == 0, f"{tag} exited {rc}: {text[-2000:]}")
+            _check("--shard: 1 rank(s), nccl" in text, f"{tag}: {text[:300]}")
+            if key == "ens":
+                n_walk, n_rows = N_WALKERS, 10
+                t = _stage_seconds(out_dir)
+                what = (f"{(t['prod', 10] - t['burn', 20]) / 10:.3f} s per "
+                        f"production step")
+                _check(c["k1"] == c["k2"] >= 2 * 30,
+                       f"{tag}: 30 ensemble steps launched {c}")
+            else:
+                n_walk, n_rows = N_CHAINS, 4
+                what = "resumed at production step 2 to 4"
+                _check("resumed from" in text, f"{tag}: no resume")
+                _check(c["k1"] == c["k1_bwd_kernel"] == c["k2_sens"]
+                       == c["k2"] == 2 * N_LEAPFROG,
+                       f"{tag}: not one K1, K1 backward kernel and K2 with "
+                       f"sensitivities per gradient evaluation: {c}")
+            print(f"[16 shard] {tag}: cli.main fit {' '.join(args)} on a "
+                  f"one-rank NCCL group exited 0 in {wall:.1f} s; {what}; "
+                  f"launches: K1 {c['k1']}, K2 {c['k2']}, K1 backward "
+                  f"kernel {c['k1_bwd_kernel']}, K2 with sensitivities "
+                  f"{c['k2_sens']}; {smi}")
+            same_segment(tag, out_dir, unsharded[key], n_rows, n_walk)
+
+        _shard_steps_in_turns(smi, mesh, {"ens": demo, "hmc": hmc_inp})
+        # what sharding adds to a half-step at world size 1: one
+        # all-gather of its 512 ln p
+        part = torch.randn(N_WALKERS // 2, device=dev)
+        blocks = [torch.empty_like(part)]
+        ms = _event_ms(lambda: dist.all_gather(blocks, part), 50)
+        print(f"[16 shard] one all-gather of a half-step's {N_WALKERS // 2} "
+              f"float32 ln p on the one-rank NCCL group: {ms * 1e3:.1f} us "
+              f"(event-timed, 50 calls; {smi})")
+    finally:
+        if created:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    n_ranks = torch.cuda.device_count()
+    out_dir = base / "torchrun"
+    rc, out, wall = _torchrun_fit(
+        n_ranks, ["fit", str(demo), "--outdir", str(out_dir), *ens_args])
+    _check(rc == 0, f"torchrun fit exited {rc}: {out[-3000:]}")
+    _check(f"--shard: {n_ranks} rank(s), nccl, ranks started by torchrun"
+           in out, f"torchrun fit: {out[:500]}")
+    t = _stage_seconds(out_dir)
+    print(f"[16 shard] torchrun --nproc-per-node {n_ranks} -m "
+          f"lfit_python_tpu_torch.cli fit {' '.join(ens_args)} exited 0 in "
+          f"{wall:.1f} s (its processes' start and kernel loads included); "
+          f"{(t['prod', 10] - t['burn', 20]) / 10:.3f} s per production "
+          f"step; {smi}")
+    same_segment("torchrun fit_shard", out_dir, unsharded["ens"], 10,
+                 N_WALKERS)
+    return paths
+
+
+def _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp):
+    """Phase 17: the north-star posterior at ``pos``' walkers with exact
+    donor sums and with 256 quadrature nodes.  Returns {path: launch
+    counts of one evaluation with the quadrature}."""
+    import torch
+
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+
+    posts = {n: make_ln_prob(model, CVConfig(n_donor_quad=n),
+                             dtype=torch.float32, device=dev)
+             for n in (0, 256)}
+    out, counts = {}, {}
+    with torch.inference_mode():
+        for n, post in posts.items():
+            _zero_counts(contacts, stream, gp)
+            lp = post(pos)
+            counts[n] = _counts(contacts, stream, gp)
+            out[n] = lp, post.model_flux(pos)
+        ms = {n: [] for n in posts}
+        for n in (0, 256, 256, 0):
+            ms[n].append(_sync_time(lambda: posts[n](pos), 2))
+    f0, f256 = (out[n][1].double() for n in (0, 256))
+    rel = ((f256 - f0).abs().amax() / f0.abs().amax()).item()
+    same_inf = torch.equal(torch.isfinite(out[0][0]),
+                           torch.isfinite(out[256][0]))
+    print(f"[17 donor quad] north star, {len(pos)} walkers, float32: exact "
+          f"donor sums {min(ms[0]):.1f} ms per evaluation "
+          f"({[round(v, 1) for v in ms[0]]}), 256 nodes {min(ms[256]):.1f} "
+          f"ms ({[round(v, 1) for v in ms[256]]}), in turns; largest "
+          f"total-flux difference {rel:.3e} of the largest total (limit "
+          f"1e-6); the same -inf pattern: {same_inf}; launches per "
+          f"evaluation: K1 {counts[0]['k1']} / {counts[256]['k1']}, K2 "
+          f"{counts[0]['k2']} / {counts[256]['k2']}; {smi}")
+    _check(rel <= 1e-6, "the donor quadrature moves the flux by more than "
+           "1e-6 of the largest total")
+    _check(same_inf, "the donor quadrature changed the -inf pattern")
+    _check(all(c["k1"] == c["k2"] == 1 for c in counts.values()),
+           f"not one K1 and one K2 per evaluation: {counts}")
+    return {"posterior_quad": counts[256]}
 
 
 def main():
@@ -2328,11 +2666,19 @@ def main():
     c_branches = _fit_branches_phase(dev, smi, contacts, stream, gp,
                                      plain_path)
 
+    # ---- 16. walker sharding ---------------------------------------------
+    c_shard = _shard_phase(dev, smi, contacts, stream, gp)
+
+    # ---- 17. the donor quadrature ----------------------------------------
+    c_quad = _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp)
+
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
-             "nuts": c_nuts, "fit": c_fit, **c_modes, **c_branches}
+             "nuts": c_nuts, "fit": c_fit, **c_modes, **c_branches,
+             **c_shard, **c_quad}
     f32_paths = ("ensemble", "hmc", "gp", "pt", "nuts", "fit", "fit_pt",
-                 "fit_hmc", "fit_nuts")
+                 "fit_hmc", "fit_nuts", "fit_shard", "fit_hmc_shard",
+                 "posterior_quad")
 
     def by_path(key):
         return {name: c[key] for name, c in paths.items()}
@@ -2340,7 +2686,7 @@ def main():
     for key, on in (("k1", f32_paths), ("k2", paths), ("k3", ("gp",)),
                     ("k3_bwd", ("gp",)),
                     ("k1_bwd_kernel", ("hmc", "gp", "nuts", "fit_hmc",
-                                       "fit_nuts")),
+                                       "fit_nuts", "fit_hmc_shard")),
                     ("k1_f64", ("posterior_f64", "fit_x64")),
                     ("k1_mixed", ("posterior_precise", "fit_precise"))):
         for name in on:

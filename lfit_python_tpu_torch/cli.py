@@ -4,7 +4,10 @@
         [--device cuda|cpu] [--seed N] [--nburn N] [--nprod N] [--x64]
         [--precise] [--sampler ensemble|hmc|nuts] [--hmc-leapfrog N]
         [--nuts-max-depth N] [--resume] [--checkpoint-every N]
-        [--resolution full|low] [--no-plots] [--quiet]
+        [--resolution full|low] [--shard] [--no-plots] [--quiet]
+
+    torchrun --nproc-per-node N -m lfit_python_tpu_torch.cli fit \
+        mcmc_input.dat --shard [...]
 
 Port of ``lfit_python_tpu/cli.py``'s ``fit``: parse the input, build the
 model tree, scatter the walker ball, burn in, then run production in
@@ -24,15 +27,21 @@ gradient).  A resume continues the latest checkpoint of the same sampler
 kind and precision, and refuses any other.
 
 The fit runs on the CUDA card unless ``--device`` names another device,
-and stops with an error where there is no card.  What the JAX package's
-command line offers beyond this (sharding, profiling, notifications,
-plots, ``wdparams``) is refused with exit code 2 and the roadmap item it
-waits for.
+and stops with an error where there is no card.  With ``--shard`` every
+batch of walkers (chains) is split over the ranks of a process group
+(``parallel.mesh``): under ``torchrun`` one rank per card (NCCL; gloo with
+``--device cpu``), each on ``cuda:LOCAL_RANK``; without torchrun a
+one-rank group that goes through the same collectives.  Every rank runs
+the same chain; only rank 0 writes the output directory, and every rank
+reads the checkpoint it resumes from.  What the JAX package's command
+line offers beyond this (profiling, notifications, plots, ``wdparams``)
+is refused with exit code 2 and the roadmap item it waits for.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -68,9 +77,6 @@ def _refusal(args, cfg):
         return ("--pallas / --no-pallas do not apply to the port: it routes "
                 "the contact solve by dtype (the CUDA kernel K1 in float32, "
                 "in float64 with --x64, in mixed precision with --precise)")
-    if args.shard:
-        return ("--shard waits for ROADMAP queue 1 item 7 (multi-GPU walker "
-                "sharding)")
     if args.profile is not None:
         return f"--profile waits for {_ITEM6}"
     if args.notify_cmd or args.notify_file or cfg.get("notify", False):
@@ -80,11 +86,8 @@ def _refusal(args, cfg):
 
 
 def _fit(args):
-    import torch
-
     from .device import resolve_device
-    from .models.cv import CVConfig
-    from .utils.config import build_model_from_config, parse_input_dat
+    from .utils.config import parse_input_dat
 
     cfg = parse_input_dat(args.input)
     why = _refusal(args, cfg)
@@ -97,9 +100,45 @@ def _fit(args):
         print(f"lfit_python_tpu_torch fit: {exc} (here: --device cpu)",
               file=sys.stderr)
         return 1
+    if not args.shard:
+        return _fit_on(args, cfg, device, None)
+    import torch.distributed as dist
 
+    from .parallel.mesh import walker_mesh
+
+    created = not dist.is_initialized()
+    try:
+        mesh = walker_mesh(device)
+    except RuntimeError as exc:
+        print(f"lfit_python_tpu_torch fit: --shard: {exc}", file=sys.stderr)
+        return 1
+    try:
+        if mesh.rank == 0:
+            how = ("ranks started by torchrun" if mesh.launched else
+                   "a one-rank group: not started by torchrun (torchrun "
+                   "--nproc-per-node N shards over N ranks)")
+            print(f"--shard: {mesh.world_size} rank(s), "
+                  f"{dist.get_backend()}, {how}; rank 0 on {mesh.device}")
+        return _fit_on(args, cfg, mesh.device, mesh)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _fit_on(args, cfg, device, mesh):
+    """The fit on ``device``, sharded over ``mesh`` where one is given
+    (only its rank 0 writes files and prints)."""
+    import torch
+
+    from .models.cv import CVConfig
+    from .utils.config import build_model_from_config
+
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        args.quiet = True
     outdir = Path(args.outdir)
-    outdir.mkdir(parents=True, exist_ok=True)
+    if lead:
+        outdir.mkdir(parents=True, exist_ok=True)
     model = build_model_from_config(cfg).compile()
     dtype = torch.float64 if args.x64 else torch.float32
     # element-grid fidelity: 'low' is for quick looks and tests
@@ -137,8 +176,11 @@ def _fit(args):
         branch = _fit_gradient
     else:
         branch = _fit_ensemble
-    with (outdir / "metrics.jsonl").open("a") as metrics:
+    with ((outdir / "metrics.jsonl").open("a") if lead
+          else contextlib.nullcontext()) as metrics:
         def log(stage, step, acc):
+            if not lead:
+                return
             rec = {"t": time.time(), "stage": stage, "step": step,
                    "accept": round(float(acc), 4)}
             metrics.write(json.dumps(rec) + "\n")
@@ -151,13 +193,15 @@ def _fit(args):
             device=device, outdir=outdir, log=log, tensor=tensor,
             n_walkers=int(cfg.get("nwalkers", 64)), n_burn=n_burn,
             n_prod=n_prod, chunk=chunk, ckpt_every=ckpt_every,
-            thin=int(cfg.get("thin", 1)), start=start, ball=ball)
+            thin=int(cfg.get("thin", 1)), start=start, ball=ball,
+            mesh=mesh, lead=lead)
         try:
             chain, lp = branch(run)
         except _Refused as exc:
             print(f"lfit_python_tpu_torch fit: {exc}", file=sys.stderr)
             return 2
-    _report(model, chain, lp, outdir, args)
+    if lead:
+        _report(model, chain, lp, outdir, args)
     return 0
 
 
@@ -179,8 +223,21 @@ def _resume(run, kind):
         raise _Refused(f"{path} holds {state.positions.dtype} walkers but "
                        f"this run is {run.dtype} (--x64); resume it with the "
                        "same precision")
-    print(f"resumed from {path} at step {state.step}")
+    if run.lead:
+        print(f"resumed from {path} at step {state.step}")
     return state, generator, meta, path
+
+
+def _shard(run, shard_fn, state, generator):
+    """``state`` as every rank runs it (``shard_fn``: ``shard_state``,
+    ``shard_pt_state`` or ``shard_hmc_state``), when the fit is sharded;
+    a walker count the ranks do not divide is refused."""
+    if run.mesh is None:
+        return state
+    try:
+        return shard_fn(state, run.mesh, generator)
+    except ValueError as exc:
+        raise _Refused(f"--shard: {exc}") from None
 
 
 def _production(run, state, generator, step_fn, extract, sampler, resumed,
@@ -188,8 +245,9 @@ def _production(run, state, generator, step_fn, extract, sampler, resumed,
     """Production from ``state.step`` to ``run.n_prod`` in checkpoint
     segments of ``run_chunked``, each appended to ``chain_prod.txt``
     (continued after a resume, else started anew) and checkpointed with
-    ``sampler`` in its meta.  Returns (state, the production chain and its
-    ln p to report, aux of each segment, steps run)."""
+    ``sampler`` in its meta, by rank 0 alone in a sharded fit.  Returns
+    (state, the production chain and its ln p to report, aux of each
+    segment, steps run)."""
     from .sampling.ensemble import run_chunked
     from .utils.chains import ChainWriter, read_chain
     from .utils.checkpoints import save_checkpoint
@@ -197,25 +255,29 @@ def _production(run, state, generator, step_fn, extract, sampler, resumed,
     all_chain, all_lp, all_aux = [], [], []
     step0 = done = state.step
     path = run.outdir / "chain_prod.txt"
-    with ChainWriter(path, run.model.var_names(),
-                     append=resumed is not None) as writer:
+    with (ChainWriter(path, run.model.var_names(),
+                      append=resumed is not None) if run.lead
+          else contextlib.nullcontext()) as writer:
         while done < run.n_prod:
             n = min(run.ckpt_every, run.n_prod - done)
             state, chain, chain_lp, aux = run_chunked(
                 state, step_fn, n, thin=run.thin, chunk_size=run.chunk,
                 progress=lambda s, a: run.log("prod", done + s, a),
                 extract=extract)
-            writer.append(chain, chain_lp)
+            if run.lead:
+                writer.append(chain, chain_lp)
             all_chain.append(chain)
             all_lp.append(chain_lp)
             all_aux.append(aux)
             if after_segment is not None:
                 after_segment(aux)
             done += n
-            save_checkpoint(run.outdir / f"checkpoint_{done:07d}.npz", state,
-                            generator, {"input": str(run.args.input),
-                                        "stage": "prod", "kind": sampler})
-    if resumed is not None:
+            if run.lead:
+                save_checkpoint(
+                    run.outdir / f"checkpoint_{done:07d}.npz", state,
+                    generator, {"input": str(run.args.input),
+                                "stage": "prod", "kind": sampler})
+    if resumed is not None and run.lead:
         # the segments before the resume live only in the chain file
         chain, lp, _ = read_chain(path)
     elif all_chain:
@@ -241,10 +303,13 @@ def _fit_ensemble(run):
     import torch
 
     from .models.likelihood import make_ln_prob
+    from .parallel.mesh import shard_state, sharded_batch_ln_prob
     from .sampling.ensemble import ensemble_step, init_walkers, run_chunked
 
     ln_prob = make_ln_prob(run.model, config=run.cvcfg, dtype=run.dtype,
                            device=run.device)
+    if run.mesh is not None:
+        ln_prob = sharded_batch_ln_prob(ln_prob, run.mesh)
 
     def step_fn(state):
         return ensemble_step(state, ln_prob, generator)
@@ -255,6 +320,7 @@ def _fit_ensemble(run):
             run.args.seed)
         state = init_walkers(generator, run.start, run.ball(run.start),
                              ln_prob, run.n_walkers)
+    state = _shard(run, shard_state, state, generator)
 
     t0 = time.time()
     n_run = 0
@@ -271,6 +337,7 @@ def _fit_ensemble(run):
                                           run.cfg.get("scatter_1", 1e-3)))
             state = init_walkers(generator, best, run.ball(best, scatter_2),
                                  ln_prob, run.n_walkers)
+            state = _shard(run, shard_state, state, generator)
             state, _, _, _ = run_chunked(
                 state, step_fn, run.n_burn, chunk_size=run.chunk,
                 progress=lambda s, a: run.log("burn2", s, a))
@@ -283,7 +350,8 @@ def _fit_ensemble(run):
                                          _rows, "ensemble", resumed)
     dt = time.time() - t0
     rate = (n_run + n) * run.n_walkers / max(dt, 1e-9)
-    print(f"total {dt:.1f}s, ~{rate:.0f} ln-prob evals/s")
+    if run.lead:
+        print(f"total {dt:.1f}s, ~{rate:.0f} ln-prob evals/s")
     return chain, lp
 
 
@@ -294,14 +362,18 @@ def _fit_pt(run):
     import torch
 
     from .models.likelihood import make_ln_prob_parts
+    from .parallel.mesh import shard_pt_state, sharded_pt_batch_parts
     from .sampling import pt
     from .sampling.ensemble import run_chunked
 
     ln_prior_fn, ln_like_fn, _ = make_ln_prob_parts(
         run.model, config=run.cvcfg, dtype=run.dtype, device=run.device)
+    batch_parts = (None if run.mesh is None else
+                   sharded_pt_batch_parts(ln_prior_fn, ln_like_fn, run.mesh))
 
     def step_fn(state):
-        return pt.pt_step(state, ln_prior_fn, ln_like_fn, generator)
+        return pt.pt_step(state, ln_prior_fn, ln_like_fn, generator,
+                          batch_parts_fn=batch_parts)
 
     t0 = time.time()
     state, generator, _, resumed = _resume(run, "pt")
@@ -310,7 +382,9 @@ def _fit_pt(run):
             run.args.seed)
         state = pt.init_pt(generator, run.start, run.ball(run.start),
                            ln_prior_fn, ln_like_fn, run.n_walkers,
-                           int(run.cfg.get("ntemps", 4)))
+                           int(run.cfg.get("ntemps", 4)),
+                           batch_parts_fn=batch_parts)
+    state = _shard(run, shard_pt_state, state, generator)
     n_temps = state.positions.shape[0]
 
     n_run = 0
@@ -325,6 +399,8 @@ def _fit_pt(run):
         run, state, generator, step_fn, _cold_rows, "pt", resumed)
     dt = time.time() - t0
     rate = (n_run + n) * run.n_walkers * n_temps / max(dt, 1e-9)
+    if not run.lead:
+        return chain, lp
     print(f"PT ({n_temps} rungs) total {dt:.1f}s, ~{rate:.0f} ln-prob "
           f"evals/s")
     if all_aux:
@@ -350,19 +426,24 @@ def _fit_gradient(run):
     import torch
 
     from .models.likelihood import make_ln_prob
+    from .parallel import mesh as pm
     from .sampling import hmc, nuts
 
     args, kind = run.args, run.args.sampler
     ln_prob = make_ln_prob(run.model, config=run.cvcfg, dtype=run.dtype,
                            device=run.device)
+    vg = traj = None
+    if run.mesh is not None:
+        vg = pm.sharded_value_and_grad(ln_prob, run.mesh)
+        traj = hmc.batch_trajectories(ln_prob, args.hmc_leapfrog, vg_fn=vg)
 
     def step_fn(state):
         if kind == "nuts":
             state, astat, _, div, depth = nuts.nuts_step(
-                state, ln_prob, generator, args.nuts_max_depth)
+                state, ln_prob, generator, args.nuts_max_depth, vg_fn=vg)
             return state, (astat, div, depth)
         state, acc, _, div = hmc.hmc_step(state, ln_prob, generator,
-                                          args.hmc_leapfrog)
+                                          args.hmc_leapfrog, traj)
         return state, (acc, div)
 
     state, generator, meta, resumed = _resume(run, "hmc")
@@ -373,14 +454,18 @@ def _fit_gradient(run):
     if resumed is None:
         generator = torch.Generator(device=run.device).manual_seed(args.seed)
         state = hmc.init_hmc(generator, run.start, run.ball(run.start),
-                             ln_prob, run.n_walkers)
+                             ln_prob, run.n_walkers, vg_fn=vg)
+    state = _shard(run, pm.shard_hmc_state, state, generator)
+    if resumed is None:
         t_w = time.time()
         if kind == "nuts":
             state = nuts.warmup_nuts(state, ln_prob, run.n_burn, generator,
-                                     max_depth=args.nuts_max_depth)
+                                     max_depth=args.nuts_max_depth,
+                                     vg_fn=vg)
         else:
             state = hmc.warmup_hmc(state, ln_prob, run.n_burn, generator,
-                                   n_leapfrog=args.hmc_leapfrog)
+                                   n_leapfrog=args.hmc_leapfrog,
+                                   traj_batch_fn=traj)
         run.log("warmup", run.n_burn, 0.0)
         if not args.quiet:
             print(f"warmup {time.time() - t_w:.1f}s: step_size="
@@ -396,6 +481,8 @@ def _fit_gradient(run):
     state, chain, lp, all_aux, n = _production(
         run, state, generator, step_fn, _rows, kind, resumed, warn)
     dt = time.time() - t0
+    if not run.lead:
+        return chain, lp
     if kind == "nuts":
         depth = (np.mean(np.concatenate([a[2] for a in all_aux]))
                  if all_aux else math.nan)

@@ -28,19 +28,25 @@ from ..roche.geometry import (
     implicit_tangent,
     inscribed_radius,
     origin_shadow_distance,
+    ray_clearance,
     visible_fraction_interval,
 )
 
 __all__ = [
+    "wd_visible_fraction",
     "wd_flux",
     "disc_elements",
+    "disc_flux",
     "spot_elements",
     "spot_normal",
+    "spot_flux",
     "element_intervals",
     "element_flux_curve",
     "DonorGrid",
     "donor_grid",
     "donor_flux",
+    "donor_curve_nodes",
+    "donor_curve_eval",
 ]
 
 # elements per chunk of the (rows, P, N) sweeps in element_flux_curve and
@@ -83,6 +89,31 @@ def _edge_visible_fraction(x, ulimb):
     straight shadow edge; ``x`` is the signed distance of the disc centre
     from the edge in disc radii (+1 fully visible, -1 fully occulted)."""
     return _EdgeVisibleFraction.apply(x, ulimb)
+
+
+def wd_visible_fraction(q, incl_deg, phase, rwd, ulimb, xl1_val, phi_l1):
+    """Visible flux fraction of the white dwarf at ``phase``: the oracle
+    that :func:`wd_flux` is held to.  The ray clearance of the WD centre
+    (:func:`~..roche.geometry.ray_clearance`) over the norm of the
+    potential's gradient across the line of sight is its signed sky
+    distance from the shadow edge; the inscribed-sphere guard and the
+    analytic edge fraction are :func:`wd_flux`'s.  Broadcasts."""
+    e = earth_vector(phase, incl_deg)
+    clear, grad = ray_clearance(q, torch.zeros_like(e), e, xl1_val, phi_l1,
+                                with_grad=True)
+    g_perp = grad - (grad * e).sum(dim=-1, keepdim=True) * e
+    g_norm = torch.clamp(torch.linalg.vector_norm(g_perp, dim=-1),
+                         min=1e-12)
+    d = clear / g_norm
+    r_ins = inscribed_radius(q, xl1_val, phi_l1)
+    tstar = e[..., 0]
+    miss = torch.sqrt(torch.clamp(1.0 - tstar * tstar, min=0.0))
+    certain_occ = (tstar > 0.0) & (miss < r_ins - rwd)
+    one = torch.ones_like(d)
+    x = torch.where(clear > 0.25, one,
+                    torch.where(certain_occ, -one,
+                                torch.clamp(d / rwd, -1.0, 1.0)))
+    return _edge_visible_fraction(x, torch.as_tensor(ulimb, dtype=x.dtype))
 
 
 def wd_flux(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins=None,
@@ -137,6 +168,26 @@ def disc_elements(rwd, rdisc, dexp, n_rad=24, n_az=40):
     return pos, w / w.sum(dim=-1, keepdim=True)
 
 
+def _visible_weight(q, incl_deg, phases, positions, weights, xl1_val,
+                    phi_l1):
+    """Sum of the weights of the elements at ``positions`` (N, 3) that the
+    donor does not occult at each of ``phases`` (P,), by a ray clearance
+    per element and phase: (P,)."""
+    e = earth_vector(phases, incl_deg)                       # (P, 3)
+    vis = ray_clearance(q, positions[None, :, :], e[:, None, :], xl1_val,
+                        phi_l1) >= 0.0                        # (P, N)
+    return (vis.to(weights.dtype) * weights).sum(dim=-1)
+
+
+def disc_flux(q, incl_deg, phases, positions, weights, xl1_val, phi_l1):
+    """Normalised disc light curve over ``phases`` (P,) of the elements
+    ``positions`` (N, 3) with ``weights`` (N,): the summed weight of the
+    visible elements.  The unbatched oracle that the interval path
+    (:func:`element_intervals`, :func:`element_flux_curve`) is held to."""
+    return _visible_weight(q, incl_deg, phases, positions, weights,
+                           xl1_val, phi_l1)
+
+
 def spot_elements(q, rdisc, scale, az_deg, exp1, exp2, n_elem=32,
                   max_extent=5.0, impact=None):
     """Bright-spot strip elements: from the stream / disc-rim impact point
@@ -178,6 +229,19 @@ def spot_normal(az_deg, tilt_deg, yaw_deg):
                        dim=-1)
 
 
+def spot_flux(q, incl_deg, phases, positions, weights, fis, normal,
+              xl1_val, phi_l1):
+    """Normalised bright-spot light curve over ``phases`` (P,): the
+    visible weight of the strip elements (N, 3) times the emission factor
+    fis + (1 - fis) max(0, n . e(phase)) of the spot ``normal`` (3,).  The
+    unbatched oracle of the spot's interval path."""
+    e = earth_vector(phases, incl_deg)
+    beam = torch.clamp((e * normal).sum(dim=-1), min=0.0)
+    factor = fis + (1.0 - fis) * beam
+    return _visible_weight(q, incl_deg, phases, positions, weights,
+                           xl1_val, phi_l1) * factor
+
+
 def element_intervals(q, incl_deg, positions, xl1_val, phi_l1,
                       precise=None, positions64=None):
     """Per-element eclipse intervals, one root-find per element.
@@ -217,6 +281,20 @@ def element_intervals(q, incl_deg, positions, xl1_val, phi_l1,
     return tuple(o.reshape(lead + (n,)) for o in out)
 
 
+def sum_last(x):
+    """``x.sum(dim=-1)`` summed in one order whatever the number of
+    outputs.  PyTorch's CUDA reduction over the last axis sizes its blocks
+    by the number of outputs and splits the axis alike for every count of
+    16 outputs or more; below that it may split it otherwise, and a row's
+    float32 sum would then depend on the batch it came in.  So a sum with
+    fewer than 16 outputs gets zero rows up to 16, which it drops."""
+    flat = x.reshape(-1, x.shape[-1])
+    n = flat.shape[0]
+    if n < 16:
+        flat = torch.cat([flat, flat.new_zeros((16 - n, flat.shape[-1]))])
+    return flat.sum(dim=-1)[:n].reshape(x.shape[:-1])
+
+
 def _row_chunks(n_rows, per_row):
     step = max(1, _CHUNK_ELEMS // max(per_row, 1))
     for i in range(0, n_rows, step):
@@ -230,15 +308,10 @@ def element_flux_curve(phases, widths, intervals, weights):
     :func:`element_intervals` (each (..., N)), ``weights`` (..., N).
     Returns (..., P).  The (P, N) visibility sweep is chunked over the
     flattened leading axes to bound memory.  The weighted sum over N is a
-    product and a sum, not a batched matrix product: a matrix product on
-    the card picks its algorithm (and its float32 summation order) by the
-    chunk's row count, so a row's flux, and through small error bars its
-    ln p, would depend on the batch it came in.  PyTorch's CUDA reduction
-    over the last axis also sizes its blocks by the number of outputs,
-    but splits N alike for every chunk of 16 outputs (rows x P) or more,
-    so a row's sum is the same bits in any batch once P >= 16 (the demo's
-    151 points, the north-star's 128); a chunk with fewer outputs may sum
-    in another order."""
+    product and :func:`sum_last`, not a batched matrix product: a matrix
+    product on the card picks its algorithm (and its float32 summation
+    order) by the chunk's row count, so a row's flux, and through small
+    error bars its ln p, would depend on the batch it came in."""
     phi_in, phi_out, ecl = intervals
     lead = torch.broadcast_shapes(phases.shape[:-1], weights.shape[:-1])
     P, N = phases.shape[-1], weights.shape[-1]
@@ -262,7 +335,7 @@ def element_flux_curve(phases, widths, intervals, weights):
             vis = visible_fraction_interval(
                 ph[s, :, None], wd[s, :, None], pin[s, None, :],
                 pout[s, None, :], ec[s, None, :])
-        out.append((vis * wts[s, None, :]).sum(dim=-1))
+        out.append(sum_last(vis * wts[s, None, :]))
     return torch.cat(out).reshape(lead + (P,))
 
 
@@ -367,7 +440,7 @@ def donor_flux(incl_deg, phases, grid: DonorGrid, ulimb_donor=0.9):
 
     ``incl_deg`` (...), ``phases`` (..., P), ``grid`` of (..., N)
     elements; returns (..., P).  The (P, N) sweep is chunked over the
-    flattened leading axes."""
+    flattened leading axes, and each chunk summed by :func:`sum_last`."""
     e = earth_vector(phases, incl_deg[..., None])             # (..., P, 3)
     lead = torch.broadcast_shapes(e.shape[:-2], grid.areas.shape[:-1])
     P, N = e.shape[-2], grid.areas.shape[-1]
@@ -382,5 +455,60 @@ def donor_flux(incl_deg, phases, grid: DonorGrid, ulimb_donor=0.9):
               + es[:, :, None, 2] * ns[:, None, :, 2])
         mu = torch.clamp(mu, min=0.0)
         w = mu * (1.0 - ulimb_donor) + ulimb_donor * mu * mu
-        out.append((w * areas[s, None, :]).sum(dim=-1))
+        out.append(sum_last(w * areas[s, None, :]))
     return torch.cat(out).reshape(lead + (P,))
+
+
+def donor_curve_nodes(incl_deg, grid: DonorGrid, ulimb_donor=0.9,
+                      n_quad=128):
+    """The donor curve on ``n_quad + 1`` uniform nodes over the half
+    period [0, 0.5]: :func:`donor_flux` at phases j / (2 n_quad).  The
+    curve is even and periodic in phase and depends only on core-node
+    quantities (the inclination, the donor grid), so the posterior sums
+    the donor elements once per walker on these nodes and every eclipse
+    interpolates (:func:`donor_curve_eval`).  ``incl_deg`` (...), ``grid``
+    of (..., N) elements; returns (..., n_quad + 1)."""
+    th = torch.linspace(0.0, 0.5, n_quad + 1, dtype=grid.positions.dtype,
+                        device=grid.positions.device)
+    return donor_flux(incl_deg, th, grid, ulimb_donor)
+
+
+def donor_curve_eval(nodes, phases):
+    """The quadrature donor curve at ``phases``: Catmull-Rom cubic
+    interpolation on the uniform [0, 0.5] nodes, with the even-reflection
+    ghosts (node -1 is node 1, node n + 1 is node n - 1: F'(0) = F'(0.5)
+    = 0 by the curve's symmetry), so it is C^1 in the phase.
+
+    ``nodes`` (L..., n + 1) and ``phases`` (L..., M..., P): the nodes'
+    leading axes are the phases' first ones, e.g. per-walker nodes
+    (W, n + 1) with phases (W, E, P) or (W, P).  The four taps are read
+    by ``torch.gather`` on the node axis, so gradients reach the node
+    values through the gather and the phase through the tap weights.
+    Returns ``phases``' shape.
+
+    The curve has a derivative kink at each element's terminator
+    crossing, so the error falls ~h^1.5, not h^4: ~1e-5 of the donor flux
+    at n = 256 (tests/test_torch_donor_quad.py)."""
+    n = nodes.shape[-1] - 1
+    lead = nodes.shape[:-1]
+    if phases.shape[:len(lead)] != lead:
+        raise ValueError(f"phases {tuple(phases.shape)} do not start with "
+                         f"the nodes' leading axes {tuple(lead)}")
+    k = nodes[..., 0].numel()
+    flat = phases.reshape(k, -1)
+    # fold to [0, 0.5]: periodic and even
+    x = torch.abs(torch.remainder(flat + 0.5, 1.0) - 0.5) * (2.0 * n)
+    j = torch.clamp(torch.floor(x), 0.0, n - 1.0)
+    s = x - j
+    s2 = s * s
+    s3 = s2 * s
+    jl = j.long()
+    taps = torch.stack([(jl - 1).abs(), jl, jl + 1,
+                        n - (n - (jl + 2)).abs()], dim=-1)
+    g = torch.gather(nodes.reshape(k, n + 1), 1,
+                     taps.reshape(k, -1)).reshape(taps.shape)
+    out = (0.5 * (-s + 2.0 * s2 - s3) * g[..., 0]
+           + 0.5 * (2.0 - 5.0 * s2 + 3.0 * s3) * g[..., 1]
+           + 0.5 * (s + 4.0 * s2 - 3.0 * s3) * g[..., 2]
+           + 0.5 * (-s2 + s3) * g[..., 3])
+    return out.reshape(phases.shape)

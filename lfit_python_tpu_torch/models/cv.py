@@ -1,7 +1,8 @@
 """CV forward-model orchestrator: parameter vectors -> light curves.
 
-Port of ``lfit_python_tpu/models/cv.py`` (exact donor sums), with its
-mixed-precision mode (``CVConfig.mixed_precision``).  Parameter vectors
+Port of ``lfit_python_tpu/models/cv.py``, with its mixed-precision mode
+(``CVConfig.mixed_precision``) and its donor quadrature
+(``CVConfig.n_donor_quad``).  Parameter vectors
 are ``(..., 14)`` (simple spot) or ``(..., 18)`` (complex spot), in the
 JAX package's order:
 
@@ -45,9 +46,9 @@ COMPLEX_PARAM_NAMES = SIMPLE_PARAM_NAMES + ("exp1", "exp2", "tilt", "yaw")
 
 class CVConfig(NamedTuple):
     """Resolution knobs of the CV model (the JAX package's defaults).  The
-    port always sums the donor exactly and routes the contact solve by
-    dtype (float32 or float64 -> the CUDA kernel K1 in that dtype; float32
-    with ``mixed_precision`` -> K1 in mixed precision)."""
+    port routes the contact solve by dtype (float32 or float64 -> the CUDA
+    kernel K1 in that dtype; float32 with ``mixed_precision`` -> K1 in
+    mixed precision)."""
     complex_spot: bool = False
     n_disc_rad: int = 24
     n_disc_az: int = 40
@@ -56,6 +57,12 @@ class CVConfig(NamedTuple):
     n_donor_lon: int = 24
     n_exposure_sub: int = 3      # finite-exposure phase subsamples
     ulimb_donor: float = 0.9
+    # donor quadrature: the posterior sums the donor elements once per
+    # walker on n_donor_quad + 1 phase nodes over the half period and each
+    # eclipse interpolates them (components.donor_curve_nodes /
+    # donor_curve_eval; ~1e-5 of the donor flux at 256).  0: exact
+    # per-phase sums, what the JAX package picks anywhere but on a TPU
+    n_donor_quad: int = 0
     # mixed precision (the JAX package's --precise): a float32 posterior
     # solves the per-walker geometry (xl1, findi) again in float64, builds
     # the disc grid in float64, and evaluates the contact and white-dwarf
@@ -138,14 +145,20 @@ def _expand_exposure(phases, widths, n_sub):
 
 
 def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
-              geometry: CVGeometry | None = None, donor=None) -> CVFluxes:
+              geometry: CVGeometry | None = None, donor=None,
+              donor_curve=None) -> CVFluxes:
     """Evaluate the four-component CV model over a phase grid.
 
     ``pars``: (..., 14) or (..., 18); ``phases``: (..., P) orbital phases;
     ``widths``: (..., P) exposure widths or None (instantaneous).
     ``geometry``: precomputed :func:`cv_geometry`; ``donor``: precomputed
-    :class:`~.components.DonorGrid` (it depends only on the core q).
-    Invalid geometry yields NaNs, which the posterior screens out."""
+    :class:`~.components.DonorGrid` (it depends only on the core q);
+    ``donor_curve``: precomputed quadrature nodes
+    (:func:`~.components.donor_curve_nodes`), whose leading axes are
+    ``pars``' first ones: the donor term and its normaliser are then
+    interpolated (:func:`~.components.donor_curve_eval`) instead of summed
+    per phase.  Invalid geometry yields NaNs, which the posterior screens
+    out."""
     dtype = pars.dtype
     (wdF, dF, sF, rsF, q, dphi, rdisc_x, ulimb, rwd, scale, az, fis,
      dexp, phi0) = (pars[..., i] for i in range(14))
@@ -259,10 +272,14 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
     yspot = sF[..., None] * spot_curve * factor
 
     # ---- donor (smooth; never occulted), at the bin centre ---------------
-    raw_sec = comp.donor_flux(incl, ph, dgrid, config.ulimb_donor)
     quad_ph = torch.full(ph.shape[:-1] + (1,), 0.25, dtype=dtype,
                          device=ph.device)
-    quad = comp.donor_flux(incl, quad_ph, dgrid, config.ulimb_donor)
+    if donor_curve is not None:
+        raw_sec = comp.donor_curve_eval(donor_curve, ph)
+        quad = comp.donor_curve_eval(donor_curve, quad_ph)
+    else:
+        raw_sec = comp.donor_flux(incl, ph, dgrid, config.ulimb_donor)
+        quad = comp.donor_flux(incl, quad_ph, dgrid, config.ulimb_donor)
     ysec = rsF[..., None] * raw_sec / torch.clamp(quad, min=1e-30)
 
     total = ywd + ydisc + yspot + ysec
@@ -270,6 +287,8 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
 
 
 def cv_total_flux(pars, phases, widths=None, config: CVConfig = CVConfig(),
-                  geometry: CVGeometry | None = None, donor=None):
+                  geometry: CVGeometry | None = None, donor=None,
+                  donor_curve=None):
     """Total model flux only (the likelihood hot path)."""
-    return cv_fluxes(pars, phases, widths, config, geometry, donor).total
+    return cv_fluxes(pars, phases, widths, config, geometry, donor,
+                     donor_curve).total

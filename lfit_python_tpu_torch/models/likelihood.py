@@ -32,7 +32,7 @@ from ..ops.stream import stream_impacts
 from ..roche.geometry import (findi, l1_potential, origin_shadow_distance,
                               xl1)
 from ..roche.stream import stream_steps_for
-from .components import donor_grid
+from .components import DonorGrid, donor_curve_nodes, donor_grid, sum_last
 from .cv import (CVConfig, CVGeometry, core_precise, cv_physical_ok,
                  cv_total_flux)
 from .priors import ln_prior_table
@@ -61,10 +61,11 @@ def _q_prior_floor(model: CompiledModel) -> float:
 
 
 def _chi2_ln_like(model_flux, flux, err, mask):
-    """Masked Gaussian ln-likelihood per eclipse: (..., E, P) -> (..., E)."""
+    """Masked Gaussian ln-likelihood per eclipse: (..., E, P) -> (..., E),
+    summed in one order whatever the batch (:func:`sum_last`)."""
     r = (flux - model_flux) / err
     per = -0.5 * (r * r + torch.log(2.0 * math.pi * err ** 2))
-    return torch.where(mask, per, torch.zeros_like(per)).sum(dim=-1)
+    return sum_last(torch.where(mask, per, torch.zeros_like(per)))
 
 
 def wd_contact_extension(q, incl, dphi, rwd, x1, pl1):
@@ -186,12 +187,19 @@ class Posterior:
         return full, lp, cvp, geom, cv_physical_ok(cvp, geom)
 
     def _flux(self, cvp, geom):
-        """Model flux (W, E, P) on the solved geometry."""
+        """Model flux (W, E, P) on the solved geometry.  The donor grid,
+        and with ``n_donor_quad`` the donor curve's quadrature nodes, are
+        core-node quantities: solved once per walker."""
         cfg = self.config
         dgrid = donor_grid(cvp[:, :1, 4], geom.x1, geom.pl1,
                            cfg.n_donor_lat, cfg.n_donor_lon)
+        nodes = None
+        if cfg.n_donor_quad:
+            nodes = donor_curve_nodes(
+                geom.incl[:, 0], DonorGrid(*(a[:, 0] for a in dgrid)),
+                cfg.ulimb_donor, cfg.n_donor_quad)           # (W, n + 1)
         return cv_total_flux(cvp, self.phase, self.width, cfg,
-                             geometry=geom, donor=dgrid)
+                             geometry=geom, donor=dgrid, donor_curve=nodes)
 
     def _terms(self, var):
         """(prior table sum (W,), physical validity (W, E), ln-likelihood

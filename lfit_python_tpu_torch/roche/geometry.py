@@ -144,11 +144,13 @@ def earth_vector(phase, incl_deg):
         torch.cos(i) * torch.ones_like(ph)), dim=-1)
 
 
-def ray_clearance(q, p, e, xl1_val, phi_l1):
+def ray_clearance(q, p, e, xl1_val, phi_l1, with_grad=False):
     """Minimum of (Phi - Phi_L1) along the sight-line from ``p`` towards
     ``e`` (both (..., 3)), restricted to the chord of the sphere of radius
     1 - xl1 around the donor.  Negative <=> occulted.  The slice uses the
-    contact solver instead; this grid-scan + Newton form is its oracle."""
+    contact solver instead; this grid-scan + Newton form is its oracle.
+    With ``with_grad`` also returns grad(Phi) (..., 3) at the minimising
+    point, the clearance's gradient in ``p`` by the envelope theorem."""
     rad = 1.0 - xl1_val
     px, py, pz = p[..., 0], p[..., 1], p[..., 2]
     ex, ey, ez = e[..., 0], e[..., 1], e[..., 2]
@@ -203,8 +205,19 @@ def ray_clearance(q, p, e, xl1_val, phi_l1):
                            torch.zeros_like(g2))
         t = torch.minimum(torch.maximum(t - step, lo), hi)
     val = g_val(t, b1, b2, c1, c2n, ax, py, ex, ey, mu)
-    return torch.where(no_occ, torch.full_like(val, _CLEAR_VISIBLE),
-                       val - phi_l1)
+    clear = torch.where(no_occ, torch.full_like(val, _CLEAR_VISIBLE),
+                        val - phi_l1)
+    if not with_grad:
+        return clear
+    r = p + t[..., None] * e
+    x, y, z = r[..., 0], r[..., 1], r[..., 2]
+    i13 = torch.rsqrt(x * x + y * y + z * z) ** 3
+    i23 = torch.rsqrt((x - 1.0) ** 2 + y * y + z * z) ** 3
+    grad = torch.stack([(1.0 - mu) * x * i13 + mu * (x - 1.0) * i23
+                        - (x - mu),
+                        y * ((1.0 - mu) * i13 + mu * i23 - 1.0),
+                        z * ((1.0 - mu) * i13 + mu * i23)], dim=-1)
+    return clear, grad
 
 
 def _origin_clearance(q, incl_deg, phases, xl1_val, phi_l1):

@@ -60,13 +60,15 @@ def value_and_grad(ln_prob_fn):
 
 
 def init_hmc(generator, start, scatter, ln_prob_fn, n_chains,
-             step_size=1e-3, max_rounds=100) -> HMCState:
+             step_size=1e-3, max_rounds=100, vg_fn=None) -> HMCState:
     """Chain ball around ``start`` (D,) with per-parameter ``scatter``
     (D,); chains with a non-finite ln-probability are redrawn, and only
     those re-evaluated, for at most ``max_rounds`` rounds.  ``scatter``
     doubles as the initial diagonal scale: inv_mass starts at
-    scatter^2."""
-    vg = value_and_grad(ln_prob_fn)
+    scatter^2.  ``vg_fn(x) -> (ln p, grad)`` evaluates the chains in
+    place of :func:`value_and_grad` of ``ln_prob_fn`` (a batch of any
+    size: the redrawn ones)."""
+    vg = value_and_grad(ln_prob_fn) if vg_fn is None else vg_fn
     D = start.shape[0]
 
     def draw(n):
@@ -136,11 +138,13 @@ def _trajectory(x0, lp0, g0, eps, inv_mass, vg_fn, n_leapfrog, noise,
             accept, accept_prob, divergent)
 
 
-def batch_trajectories(ln_prob_fn, n_leapfrog):
+def batch_trajectories(ln_prob_fn, n_leapfrog, vg_fn=None):
     """The chain-batched trajectory evaluator ``(draws, x (C, D), lp (C,),
     g (C, D), eps (), inv_mass (D,)) -> (x, lp, g, accept, accept_prob,
-    divergent)``, the hook a sharded evaluator would replace."""
-    vg = value_and_grad(ln_prob_fn)
+    divergent)``, each gradient evaluation by ``vg_fn`` where one is
+    given (the sharded one of ``parallel.mesh.sharded_value_and_grad``),
+    else by :func:`value_and_grad` of ``ln_prob_fn``."""
+    vg = value_and_grad(ln_prob_fn) if vg_fn is None else vg_fn
 
     def run(draws, x, lp, g, eps, inv_mass):
         return _trajectory(x, lp, g, eps, inv_mass, vg, n_leapfrog, *draws)

@@ -75,10 +75,10 @@ class GeneratorDraws:
 
 
 def init_nuts(generator, start, scatter, ln_prob_fn, n_chains,
-              step_size=1e-3, max_rounds=100) -> HMCState:
+              step_size=1e-3, max_rounds=100, vg_fn=None) -> HMCState:
     """The chain ball of :func:`~.hmc.init_hmc` (the state is shared)."""
     return init_hmc(generator, start, scatter, ln_prob_fn, n_chains,
-                    step_size=step_size, max_rounds=max_rounds)
+                    step_size=step_size, max_rounds=max_rounds, vg_fn=vg_fn)
 
 
 def _is_turning(inv_mass, p_left, p_right, rho):
@@ -240,11 +240,14 @@ def _nuts_trajectory(draws, x0, lp0, g0, eps, inv_mass, vg_fn, max_depth,
 
 
 def batch_nuts_trajectories(ln_prob_fn, max_depth,
-                            max_delta_energy=_MAX_DELTA_ENERGY):
+                            max_delta_energy=_MAX_DELTA_ENERGY, vg_fn=None):
     """The chain-batched NUTS trajectory evaluator ``(draws, x (C, D),
     lp (C,), g (C, D), eps (), inv_mass (D,)) -> (x, lp, g, accept_stat,
-    divergent, depth)``."""
-    vg = value_and_grad(ln_prob_fn)
+    divergent, depth)``, each leaf's gradient evaluation by ``vg_fn(x)
+    -> (ln p, grad)`` where one is given (the sharded one of
+    ``parallel.mesh.sharded_value_and_grad``), else by
+    :func:`~.hmc.value_and_grad` of ``ln_prob_fn``."""
+    vg = value_and_grad(ln_prob_fn) if vg_fn is None else vg_fn
 
     def run(draws, x, lp, g, eps, inv_mass):
         return _nuts_trajectory(draws, x, lp, g, eps, inv_mass, vg,
@@ -254,14 +257,15 @@ def batch_nuts_trajectories(ln_prob_fn, max_depth,
 
 
 def nuts_step(state: HMCState, ln_prob_fn, generator, max_depth=8,
-              max_delta_energy=_MAX_DELTA_ENERGY):
+              max_delta_energy=_MAX_DELTA_ENERGY, vg_fn=None):
     """One NUTS step for all chains.  Returns (state, accept_stat,
     mean_accept_stat, divergence fraction, mean depth), the last four as
     0-d tensors; accept_stat is the dual-averaging statistic (the mean
     leaf Metropolis probability), given twice as the reference does:
-    NUTS has no reject step, the multinomial draw is the transition."""
+    NUTS has no reject step, the multinomial draw is the transition.
+    ``vg_fn``: see :func:`batch_nuts_trajectories`."""
     trajectories = batch_nuts_trajectories(ln_prob_fn, max_depth,
-                                           max_delta_energy)
+                                           max_delta_energy, vg_fn)
     C, D = state.positions.shape
     draws = GeneratorDraws(generator, C, D, state.positions.dtype,
                            state.positions.device)
@@ -276,7 +280,8 @@ def nuts_step(state: HMCState, ln_prob_fn, generator, max_depth=8,
 
 
 def warmup_nuts(state: HMCState, ln_prob_fn, n_warmup, generator,
-                max_depth=8, target_accept=_TARGET_ACCEPT) -> HMCState:
+                max_depth=8, target_accept=_TARGET_ACCEPT,
+                vg_fn=None) -> HMCState:
     """Stan-style two-phase warmup with NUTS as the transition:
     dual-averaged step size, then a diagonal metric from the second half
     of the phase-1 draws (pooled over chains, shrunk towards 1e-3 for few
@@ -289,8 +294,8 @@ def warmup_nuts(state: HMCState, ln_prob_fn, n_warmup, generator,
         da = _da_init(state.step_size)
         xs = []
         for _ in range(n):
-            state, _, aprob, _, _ = nuts_step(state, ln_prob_fn, generator,
-                                              max_depth)
+            state, _, aprob, _, _ = nuts_step(
+                state, ln_prob_fn, generator, max_depth, vg_fn=vg_fn)
             da = _da_update(da, aprob, target_accept)
             state = state._replace(step_size=torch.exp(da.log_eps))
             xs.append(state.positions)
@@ -308,9 +313,10 @@ def warmup_nuts(state: HMCState, ln_prob_fn, n_warmup, generator,
 
 
 def run_nuts(state: HMCState, ln_prob_fn, n_steps, generator, max_depth=8,
-             thin=1):
-    """Run ``n_steps`` NUTS steps.  A step is kept when its global step
-    number is a multiple of ``thin``.
+             thin=1, vg_fn=None):
+    """Run ``n_steps`` NUTS steps (``vg_fn``: see
+    :func:`batch_nuts_trajectories`).  A step is kept when its global step number is a
+    multiple of ``thin``.
 
     Returns (final state, chain (n_kept, C, D), chain_lp (n_kept, C),
     accept_stat (n_steps,), divergence fraction (n_steps,), mean depth
@@ -319,7 +325,7 @@ def run_nuts(state: HMCState, ln_prob_fn, n_steps, generator, max_depth=8,
     kept_pos, kept_lp, astat, div, depth = [], [], [], [], []
     for _ in range(n_steps):
         state, a, _, d, dep = nuts_step(state, ln_prob_fn, generator,
-                                        max_depth)
+                                        max_depth, vg_fn=vg_fn)
         astat.append(a)
         div.append(d)
         depth.append(dep)

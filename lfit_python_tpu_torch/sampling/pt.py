@@ -13,8 +13,10 @@ min(1, exp((beta_a - beta_b)(lnL_b - lnL_a))).
 ``ln_prior_fn`` and ``ln_like_fn`` are batched, ``(N, D) -> (N,)``.  Where
 both are bound methods of one object that has a ``parts`` method (the
 port's ``Posterior``, from ``make_ln_prob_parts``), a proposal is
-evaluated by one ``parts`` call: one geometry solve for both.  Every
-random draw comes from an explicit ``torch.Generator`` through
+evaluated by one ``parts`` call: one geometry solve for both.  A
+``batch_parts_fn`` evaluates the proposals in their place where one is
+given (the sharded evaluator of ``parallel.mesh.sharded_pt_batch_parts``).
+Every random draw comes from an explicit ``torch.Generator`` through
 :func:`pt_draws`, so a test can feed :func:`_pt_update` the reference's
 own draws.
 """
@@ -46,17 +48,25 @@ def default_beta_ladder(n_temps, ratio=math.sqrt(2.0)):
                         dtype=torch.float64)
 
 
-def _default_batch_parts(ln_prior_fn, ln_like_fn):
-    """``pos (T, H, D) -> (ln_prior (T, H), ln_like (T, H))``: one call
-    on the flattened ``(T * H, D)`` block, through the shared ``parts``
-    pass where the two functions belong to one object that has it."""
+def parts_fn(ln_prior_fn, ln_like_fn):
+    """``flat (N, D) -> (ln_prior (N,), ln_like (N,))``: the shared
+    ``parts`` pass where the two functions belong to one object that has
+    it, else the two calls."""
     owner = getattr(ln_prior_fn, "__self__", None)
     if owner is not None and hasattr(owner, "parts") \
             and owner is getattr(ln_like_fn, "__self__", None):
-        parts = owner.parts
-    else:
-        def parts(flat):
-            return ln_prior_fn(flat), ln_like_fn(flat)
+        return owner.parts
+
+    def parts(flat):
+        return ln_prior_fn(flat), ln_like_fn(flat)
+
+    return parts
+
+
+def _default_batch_parts(ln_prior_fn, ln_like_fn):
+    """``pos (T, H, D) -> (ln_prior (T, H), ln_like (T, H))``: one
+    :func:`parts_fn` call on the flattened ``(T * H, D)`` block."""
+    parts = parts_fn(ln_prior_fn, ln_like_fn)
 
     def batch(pos):
         lp, ll = parts(pos.reshape(-1, pos.shape[-1]))
@@ -67,11 +77,13 @@ def _default_batch_parts(ln_prior_fn, ln_like_fn):
 
 @torch.inference_mode()
 def init_pt(generator, start, scatter, ln_prior_fn, ln_like_fn, n_walkers,
-            n_temps, betas=None, max_rounds=100) -> PTState:
+            n_temps, betas=None, max_rounds=100,
+            batch_parts_fn=None) -> PTState:
     """Walker balls around ``start`` (D,) with per-parameter ``scatter``
     (D,) at every rung.  Walkers whose prior is not finite are redrawn,
     and only those re-evaluated, for at most ``max_rounds`` rounds; the
-    likelihood is evaluated once, at the end."""
+    likelihood is evaluated once, at the end, by ``batch_parts_fn``
+    where one is given."""
     if betas is None:
         betas = default_beta_ladder(n_temps)
     betas = torch.as_tensor(betas).to(dtype=start.dtype, device=start.device)
@@ -91,8 +103,11 @@ def init_pt(generator, start, scatter, ln_prior_fn, ln_like_fn, n_walkers,
         fresh = draw(bad.numel())
         pos[bad] = fresh
         lp[bad] = ln_prior_fn(fresh)
-    ll = ln_like_fn(pos)
     shape = (n_temps, n_walkers)
+    if batch_parts_fn is None:
+        ll = ln_like_fn(pos)
+    else:
+        ll = batch_parts_fn(pos.reshape(*shape, D))[1].reshape(-1)
     return PTState(pos.reshape(*shape, D), ll.reshape(shape),
                    lp.reshape(shape), betas, 0)
 
@@ -175,21 +190,26 @@ def _pt_update(state: PTState, batch_parts_fn, a, draws):
 
 
 @torch.inference_mode()
-def pt_step(state: PTState, ln_prior_fn, ln_like_fn, generator, a=2.0):
+def pt_step(state: PTState, ln_prior_fn, ln_like_fn, generator, a=2.0,
+            batch_parts_fn=None):
     """One PT step for all rungs.  Returns (state, (accept fraction as a
-    0-d tensor, per-rung mean ln-likelihood (T,)))."""
+    0-d tensor, per-rung mean ln-likelihood (T,))).  ``batch_parts_fn(pos
+    (T, H, D)) -> (ln_prior (T, H), ln_like (T, H))`` evaluates the
+    proposals (default: one :func:`parts_fn` call on the flattened
+    block)."""
+    if batch_parts_fn is None:
+        batch_parts_fn = _default_batch_parts(ln_prior_fn, ln_like_fn)
     T, W, _ = state.positions.shape
     draws = pt_draws(generator, T, W, state.positions.dtype,
                      state.positions.device)
-    return _pt_update(state, _default_batch_parts(ln_prior_fn, ln_like_fn),
-                      a, draws)
+    return _pt_update(state, batch_parts_fn, a, draws)
 
 
 def run_pt(state: PTState, ln_prior_fn, ln_like_fn, n_steps, generator,
-           a=2.0, thin=1):
-    """Run ``n_steps`` PT steps.  A step is kept when its global step
-    number is a multiple of ``thin``; only the beta = 1 (cold) rung is
-    kept as samples.
+           a=2.0, thin=1, batch_parts_fn=None):
+    """Run ``n_steps`` PT steps (``batch_parts_fn``: see :func:`pt_step`).
+    A step is kept when its global step number is a multiple of
+    ``thin``; only the beta = 1 (cold) rung is kept as samples.
 
     Returns (final state, cold positions (n_kept, W, D), cold ln
     posterior (n_kept, W), accept fraction (n_steps,), rung_ln_like
@@ -199,7 +219,7 @@ def run_pt(state: PTState, ln_prior_fn, ln_like_fn, n_steps, generator,
     kept_pos, kept_lp, acc, rung = [], [], [], []
     for _ in range(n_steps):
         state, (frac, rung_ll) = pt_step(state, ln_prior_fn, ln_like_fn,
-                                         generator, a)
+                                         generator, a, batch_parts_fn)
         acc.append(frac)
         rung.append(rung_ll)
         if state.step % thin == 0:

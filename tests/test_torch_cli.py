@@ -6,7 +6,11 @@ One fit is shared by the tests that read its files.  Its chain file's
 ln_prob column must equal the port's posterior re-evaluated on the last
 checkpoint's walkers (relative 1e-9: the file keeps 11 significant
 digits), the checkpoint's walkers must be the chain's last rows, and a
-fit stopped at step 2 and resumed must write the same chain file.  Every
+fit stopped at step 2 and resumed must write the same chain file.  The
+same fit with ``--shard`` under ``torchrun`` at 2 ranks (gloo), stopped
+at step 2 and resumed, writes that chain file byte for byte; ``--shard``
+without torchrun is a one-rank group and says so, and refuses a walker
+count that twice the world size does not divide.  Every
 option or input key the port does not run yet exits with code 2 and a
 message naming what it waits for, and so does each combination the JAX
 package's command line refuses (``--precise`` or ``usePT`` with HMC /
@@ -20,6 +24,8 @@ import contextlib
 import io
 import json
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +40,8 @@ from lfit_python_tpu_torch.utils import checkpoints
 from lfit_python_tpu_torch.utils.config import (build_model_from_config,
                                                 parse_input_dat)
 
-EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+ROOT = Path(__file__).resolve().parent.parent
+EXAMPLES = ROOT / "examples"
 W, N_BURN, N_PROD = 8, 2, 4
 CPU = ["--device", "cpu", "--x64", "--resolution", "low", "--quiet"]
 LOW = CVConfig(n_disc_rad=5, n_disc_az=8, n_spot=8, n_donor_lat=6,
@@ -123,12 +130,79 @@ def test_resume_gives_the_same_chain(fit, tmp_path):
         == ["checkpoint_0000002.npz", "checkpoint_0000004.npz"]
 
 
-ITEM6, ITEM7 = (f"ROADMAP queue 1 item {k}" for k in "67")
+def torchrun(n_ranks, *argv):
+    """The command line under ``torchrun --standalone`` (a free localhost
+    port) at ``n_ranks`` ranks -> (exit code, its output)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={n_ranks}", "-m", "lfit_python_tpu_torch.cli",
+         *(str(a) for a in argv)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+@pytest.fixture(scope="module")
+def sharded_fit(tmp_path_factory):
+    """The shared fit with ``--shard`` at 2 ranks, stopped after its
+    first checkpoint segment (its chain file then), and resumed."""
+    d = tmp_path_factory.mktemp("sharded_fit")
+    inp = demo_copy(d)
+    common = ["--outdir", d / "out", "--nburn", N_BURN, "--checkpoint-every",
+              2, "--shard", *CPU]
+    first = torchrun(2, "fit", inp, "--nprod", 2, *common)
+    stopped = (d / "out" / "chain_prod.txt").read_text()
+    resumed = torchrun(2, "fit", inp, "--nprod", N_PROD, "--resume", *common)
+    return d, first, stopped, resumed
+
+
+def test_sharded_fit_writes_the_same_chain(fit, sharded_fit):
+    _, (rc, out), stopped, _ = sharded_fit
+    assert rc == 0, out[-4000:]
+    assert "--shard: 2 rank(s), gloo, ranks started by torchrun" in out
+    lines = (fit[0] / "out" / "chain_prod.txt").read_text().splitlines(
+        keepends=True)
+    assert stopped == "".join(lines[:1 + 2 * W])
+
+
+def test_sharded_fit_resumes(fit, sharded_fit):
+    d, _, _, (rc, out) = sharded_fit
+    assert rc == 0, out[-4000:]
+    assert "resumed from" in out and "at step 2" in out
+    assert (d / "out" / "chain_prod.txt").read_text() == \
+        (fit[0] / "out" / "chain_prod.txt").read_text()
+    assert sorted(p.name for p in (d / "out").iterdir()) == [
+        "chain_prod.txt", "checkpoint_0000002.npz", "checkpoint_0000004.npz",
+        "metrics.jsonl", "params.json"]
+
+
+def test_shard_without_torchrun_is_a_one_rank_group(tmp_path):
+    import torch.distributed as dist
+
+    inp = demo_copy(tmp_path)
+    rc, out = run("fit", inp, "--outdir", tmp_path / "out", "--nburn", 0,
+                  "--nprod", 0, "--shard", *CPU)
+    assert rc == 0
+    assert "--shard: 1 rank(s), gloo, a one-rank group: not started by " \
+        "torchrun" in out
+    assert not dist.is_initialized()
+
+
+def test_shard_refuses_an_indivisible_walker_count(tmp_path, capsys):
+    inp = demo_copy(tmp_path)
+    inp.write_text(inp.read_text().replace(f"nwalkers = {W}",
+                                           "nwalkers = 7"))
+    rc = cli.main(["fit", str(inp), "--outdir", str(tmp_path / "out"),
+                   "--nburn", "0", "--nprod", "2", "--shard", *CPU])
+    assert rc == 2
+    assert "n_walkers=7 must be divisible by 2*world_size=2" in \
+        capsys.readouterr().err
+
+
+ITEM6 = "ROADMAP queue 1 item 6"
 BY_DTYPE = "routes the contact solve by dtype"
 REFUSED = {
     "pallas": (["--pallas"], "", BY_DTYPE),
     "no_pallas": (["--no-pallas"], "", BY_DTYPE),
-    "shard": (["--shard"], "", ITEM7),
     "profile": (["--profile", "trace"], "", ITEM6),
     "notify_cmd": (["--notify-cmd", "true"], "", ITEM6),
     "notify_file": (["--notify-file", "n.jsonl"], "", ITEM6),

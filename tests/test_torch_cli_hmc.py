@@ -14,7 +14,9 @@ chains (relative 1e-9: 11 significant digits in the file); and a resume
 from what a fit stopped after its first production checkpoint leaves
 (that checkpoint, and the chain file's header and first step: a run with
 ``--nprod 1`` runs exactly the whole run's first segment) writes the same
-chain file as the whole run.
+chain file as the whole run.  The HMC fit with ``--shard`` under
+``torchrun`` at 2 ranks (gloo; after tests/test_cli.py's sharded HMC fit)
+writes the unsharded fit's chain file byte for byte.
 """
 
 import shutil
@@ -30,7 +32,7 @@ from lfit_python_tpu_torch.utils import checkpoints
 from lfit_python_tpu_torch.utils.config import (build_model_from_config,
                                                 parse_input_dat)
 
-from test_torch_cli import CPU, LOW, W, demo_copy, run
+from test_torch_cli import CPU, LOW, W, demo_copy, run, torchrun
 
 SAMPLERS = {"hmc": ["--sampler", "hmc", "--hmc-leapfrog", 2],
             "nuts": ["--sampler", "nuts", "--nuts-max-depth", 1]}
@@ -95,4 +97,15 @@ def test_resume_gives_the_same_chain(gradient_fit, tmp_path):
     assert rc == 0, out
     assert "resumed from" in out and "at step 1" in out
     assert (out_dir / "chain_prod.txt").read_text() == \
+        (d / "out" / "chain_prod.txt").read_text()
+
+
+def test_sharded_fit_writes_the_same_chain(gradient_fit, tmp_path):
+    kind, d, _, _, _ = gradient_fit
+    inp = demo_copy(tmp_path)
+    rc, out = torchrun(2, "fit", inp, "--outdir", tmp_path / "out",
+                       "--nprod", 2, "--shard", *SAMPLERS[kind], *COMMON)
+    assert rc == 0, out[-4000:]
+    assert "--shard: 2 rank(s), gloo, ranks started by torchrun" in out
+    assert (tmp_path / "out" / "chain_prod.txt").read_text() == \
         (d / "out" / "chain_prod.txt").read_text()

@@ -474,6 +474,36 @@ def test_float32_posterior_does_not_depend_on_its_batch(cuda):
     assert torch.equal(alone[1], inside[1][:25])
 
 
+@pytest.mark.parametrize("n_points", [5, 11])
+def test_float32_posterior_of_short_light_curves_does_not_depend_on_its_batch(
+        cuda, n_points):
+    """The same for light curves of fewer than 16 points, at the default
+    element grids: a chunk of the flux or donor sweep may then hold fewer
+    than 16 outputs (rows x P), and the donor's quadrature normaliser
+    (P = 1) does for a walker alone.  A walker's ln p and flux are the
+    same bits alone, in batches of 2 and 25 and in the batch of 37, with
+    the chunks at their default size and cut so that batches end in
+    partial chunks."""
+    from lfit_python_tpu_torch.models import components as comp
+
+    model = build_model(n_eclipses=2, complex_spot=[False, True],
+                        n_points=n_points, bands=("g",)).compile()
+    lp = make_ln_prob(model, CVConfig(), dtype=torch.float32, device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(6)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((37, start.size)),
+                       dtype=torch.float32, device=cuda)
+    for chunk in (comp._CHUNK_ELEMS, 1 << 14):
+        with mock.patch.object(comp, "_CHUNK_ELEMS", chunk):
+            inside = lp(pos), lp.model_flux(pos)
+            assert bool(torch.isfinite(inside[0]).all())
+            for n in (1, 2, 25):
+                alone = lp(pos[:n]), lp.model_flux(pos[:n])
+                assert torch.equal(alone[0], inside[0][:n]), (chunk, n)
+                assert torch.equal(alone[1], inside[1][:n]), (chunk, n)
+
+
 def stream_inputs(dev, dtype):
     """Four walkers over the q range and four disc radii each; the
     smallest the stream never reaches in 3072 steps (closest-approach
