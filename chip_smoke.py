@@ -142,7 +142,38 @@ x 256 walkers.  Phases:
      1024 walkers in float32 with exact donor sums and with 256 nodes,
      timed in turns; the largest difference of the total flux against
      the largest total (limit 1e-6, the parity gate), the same -inf
-     pattern, and each evaluation's K1 and K2 launches (one each).
+     pattern, and each evaluation's K1 and K2 launches (one each);
+  18. the host surface: cli fit on examples/demo_input.dat (--nburn 3
+     --nprod 3) in a fresh process, once plain and once with --profile,
+     --notify-file and --notify-cmd (the trace is the process's first
+     profiler window, so it keeps every kernel record); the trace closes
+     after cli.PROFILE_STEPS (4) of the 6 steps, and its contacts_kernel
+     and stream_kernel events equal the K1 and K2 launches the wrappers
+     counted in that window; one JSON line in
+     the notify file and the subject through the command; chains.npz
+     against the chain file (1e-10 relative); the plot line (matplotlib
+     absent) or the PNGs; then ChainWriter(use_native=True) against the
+     numpy writer on that production segment: the same bytes, both times;
+  19. wdparams on the card: a synthetic input from the synthetic DA grid
+     at Teff 15000 K, log g 8.0, parallax 5 mas with 1% errors, 64
+     walkers, 200 + 400 steps; exit 0, the JAX package's keys, every
+     median within 3 sigma of the truth; the ln p of 64 vectors on the
+     card in float64 (the command's dtype) against float64 on the CPU
+     (1e-12 x max(1, |ln p|)), the float32 distance printed beside it;
+  20. compat.CV.calcFlux in float32 on the card, fast and precise, and
+     plot_eclipse's evaluation (utils.plotting.eclipse_fluxes, float64)
+     of the demo on the card, each against float64 on the CPU, over every
+     phase of the total and the four components, of the largest total:
+     precise within 1e-6 (the golden gate), fast within PERF.md section
+     2's parity limits (median 1e-6, p99 1e-4, max 5e-2), the plot's
+     float64 within 1e-10; one K1 launch (of the call's mode) and one K2
+     launch a call;
+  21. the posterior tools, each in its own process:
+     tools/torch_ablate_posterior.py at 1024 walkers on the north star
+     (and with --floor; every ablation's device kernels read by the
+     profiler), tools/torch_accuracy_contacts.py (its p99 gate) and
+     tools/torch_parity.py (PERF.md section 2's parity limits); their
+     lines printed.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -1608,6 +1639,403 @@ def _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp):
     return {"posterior_quad": counts[256]}
 
 
+# The host surface's fit, run in a fresh process (its profiler window is
+# the process's first, so the trace keeps every kernel record): the trace
+# is taken by the CLI's own --profile, and the launch counters are read
+# where its window opens and closes, and at the end.
+_HOST_FIT = r"""
+import contextlib, json, sys
+from lfit_python_tpu_torch import cli
+from lfit_python_tpu_torch.ops import contacts, stream
+from lfit_python_tpu_torch.utils import tracing
+
+real, span = tracing.trace_to, {}
+
+@contextlib.contextmanager
+def counted(logdir, steps=None):
+    k1, k2 = contacts.LAUNCHES, stream.LAUNCHES
+    with real(logdir, steps) as trace:
+        close = trace.close
+
+        def counted_close():
+            if not trace.closed:
+                span.update(k1=contacts.LAUNCHES - k1,
+                            k2=stream.LAUNCHES - k2, path=str(trace.path),
+                            steps=trace.done)
+            close()
+
+        trace.close = counted_close
+        yield trace
+
+tracing.trace_to = counted
+rc = cli.main(sys.argv[1:])
+print("HOST_FIT " + json.dumps(dict(rc=rc, k1_total=contacts.LAUNCHES,
+                                    k2_total=stream.LAUNCHES, **span)))
+sys.exit(rc)
+"""
+
+
+def _run_host_fit(argv, timeout=600):
+    """``cli.main(argv)`` in a fresh process (``_HOST_FIT``): (exit code,
+    output, wall seconds, its HOST_FIT record)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _HOST_FIT, *argv],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    rec = re.search(r"^HOST_FIT (\{.*\})$", proc.stdout, re.M)
+    return proc.returncode, out, wall, (json.loads(rec.group(1)) if rec
+                                        else {})
+
+
+def _trace_kernel_counts(path, names):
+    """{name: number of device kernel events in the Chrome trace at
+    ``path`` whose name holds ``name`` as a word}."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    pats = {n: re.compile(rf"\b{n}\b") for n in names}
+    out = dict.fromkeys(names, 0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for n, pat in pats.items():
+            if pat.search(e.get("name", "")):
+                out[n] += 1
+    return out
+
+
+def _host_surface_phase(dev, smi):
+    """Phase 18: the demo fit with --profile and both notification
+    channels in a fresh process (and once unprofiled, for the step time
+    beside it); its trace, notifications, chains.npz and plot line; then
+    the native chain writer against the numpy one.  Returns the profiled
+    fit's launch counts."""
+    import shutil
+
+    from lfit_python_tpu_torch import cli
+    from lfit_python_tpu_torch.utils.chains import ChainWriter, read_chain
+
+    demo = ROOT / "examples" / "demo_input.dat"
+    base = ROOT / "build" / "chip_host"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    note, subject = base / "notify.jsonl", base / "subject.txt"
+    n_steps = 6             # more than the PROFILE_STEPS that are traced
+    common = ["fit", str(demo), "--nburn", "3", "--nprod", "3", "--quiet"]
+    rc0, out0, wall0, _ = _run_host_fit(
+        common + ["--outdir", str(base / "plain")])
+    _check(rc0 == 0, f"the unprofiled host fit exited {rc0}: {out0[-2000:]}")
+    out_dir = base / "out"
+    rc, out, wall, rec = _run_host_fit(common + [
+        "--outdir", str(out_dir), "--profile", str(base / "trace"),
+        "--notify-file", str(note), "--notify-cmd", f"cat > {subject}"])
+    _check(rc == 0 and rec.get("rc") == 0,
+           f"the profiled host fit exited {rc}: {out[-3000:]}")
+    totals = {}
+    for tag, text in (("unprofiled", out0), ("profiled", out)):
+        m = re.search(r"^total ([\d.]+)s, ~(\d+) ln-prob evals/s$", text,
+                      re.M)
+        _check(m is not None, f"the {tag} fit printed no total line")
+        totals[tag] = float(m.group(1))
+    trace = Path(rec.get("path", ""))
+    _check(trace.is_file(), f"no trace file at {trace}")
+    t0 = time.perf_counter()
+    in_trace = _trace_kernel_counts(trace, ("contacts_kernel",
+                                            "stream_kernel"))
+    parse_s = time.perf_counter() - t0
+    t_plain, t_prof = totals["unprofiled"], totals["profiled"]
+    print(f"[18 host] fit demo_input.dat --nburn 3 --nprod 3 (1024 walkers, "
+          f"float32): unprofiled {wall0:.1f} s wall (its total {t_plain:.2f} "
+          f"s, {t_plain / n_steps:.3f} s a step), with --profile "
+          f"{wall:.1f} s wall (total {t_prof:.2f} s, {t_prof / n_steps:.3f} "
+          f"s a step, {rec['steps']} of its {n_steps} steps traced and the "
+          f"trace written within it); each in a fresh process; {smi}")
+    size = trace.stat().st_size / 2**20
+    print(f"[18 host] trace {trace.name}: {size:.1f} MiB "
+          f"({size / rec['steps']:.1f} MiB a step), parsed in "
+          f"{parse_s:.1f} s; contacts_kernel {in_trace['contacts_kernel']}, "
+          f"stream_kernel {in_trace['stream_kernel']} device events; the "
+          f"wrappers counted K1 {rec['k1']}, K2 {rec['k2']} launches in the "
+          f"traced window (K1 {rec['k1_total']}, K2 {rec['k2_total']} in the "
+          f"process)")
+    _check(rec["steps"] == cli.PROFILE_STEPS < n_steps,
+           f"the trace closed after {rec['steps']} steps")
+    _check(in_trace["contacts_kernel"] == rec["k1"] > 0
+           and in_trace["stream_kernel"] == rec["k2"] > 0,
+           "the trace's K1 / K2 events are not the fit's launches")
+    lines = note.read_text().splitlines()
+    _check(len(lines) == 1 and json.loads(lines[0])["subject"].startswith(
+        "lfit_python_tpu_torch fit finished"), f"notify file: {lines}")
+    got = subject.read_text()
+    _check(got.startswith("lfit_python_tpu_torch fit finished"),
+           f"notify command got {got!r}")
+    chain, lp, names = read_chain(out_dir / "chain_prod.txt")
+    with np.load(out_dir / "chains.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    _check(set(arrays) == {*names, "ln_prob"}, f"chains.npz {sorted(arrays)}")
+    rel = max(np.abs(arrays[n] - chain[:, :, i].T).max()
+              / np.abs(chain[:, :, i]).max() for i, n in enumerate(names))
+    rel = max(rel, np.abs(arrays["ln_prob"] - lp.T).max()
+              / np.abs(lp).max())
+    plots = sorted(p.name for p in out_dir.glob("*.png"))
+    no_mpl = "plots: not made (matplotlib is not installed)" in out
+    print(f"[18 host] notifications: 1 JSON line in {note.name}, the "
+          f"subject through the command; chains.npz {chain.shape[1]} "
+          f"walkers x {chain.shape[0]} draws x {len(names)} parameters "
+          f"against the chain file: max relative {rel:.2e} (limit 1e-10); "
+          + ("plots: matplotlib is not installed here" if no_mpl
+             else f"plots {plots}"))
+    _check(rel <= 1e-10, "chains.npz disagrees with the chain file")
+    _check(no_mpl or {"corner.png", "eclipse_0.png"} <= set(plots),
+           "neither the plots nor the matplotlib line")
+
+    # the native chain writer against numpy's on one production segment
+    from lfit_python_tpu_torch import native as native_io
+
+    t0 = time.perf_counter()
+    native_io.load()
+    build_s = time.perf_counter() - t0
+    times = {}
+    for native in (False, True):
+        path = base / f"segment_{'native' if native else 'numpy'}.txt"
+        with ChainWriter(path, names, use_native=native) as w:
+            t0 = time.perf_counter()
+            w.append(chain, lp)
+            times[native] = time.perf_counter() - t0
+    same = ((base / "segment_native.txt").read_bytes()
+            == (base / "segment_numpy.txt").read_bytes())
+    n_rows = chain.shape[0] * chain.shape[1]
+    print(f"[18 host] one production segment ({n_rows} rows x "
+          f"{len(names) + 2} columns): numpy "
+          f"{times[False] * 1e3:.1f} ms, native {times[True] * 1e3:.1f} ms "
+          f"(its g++ build and load before, {build_s:.2f} s); the same "
+          f"bytes: {same}")
+    _check(same, "the native chain writer wrote other bytes")
+    counts = dict.fromkeys(("k1", "k1_f64", "k1_mixed", "k1_bwd",
+                            "k1_bwd_kernel", "k2", "k2_sens", "k3",
+                            "k3_bwd"), 0)
+    counts.update(k1=rec["k1_total"], k2=rec["k2_total"])
+    return counts
+
+
+WD_TRUTH = {"teff": 15000.0, "logg": 8.0, "plax": 5.0}
+WD_BANDS = {"u": 3560.0, "g": 4770.0, "r": 6230.0, "i": 7620.0,
+            "z": 9130.0}
+
+
+def _wdparams_phase(dev, smi):
+    """Phase 19: wdparams on the card on a synthetic input made from the
+    synthetic grid at WD_TRUTH with 1% errors; the medians against the
+    truth, the JSON keys, and the card's ln p against float64 on the
+    CPU."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from lfit_python_tpu_torch import cli
+    from lfit_python_tpu_torch.post import wdparams as wdp
+
+    out_dir = ROOT / "build" / "chip_wd"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    lams = list(WD_BANDS.values())
+    interp = wdp.GridInterpolator(*wdp.synthetic_da_grid(lams))
+    mags = interp(torch.tensor([WD_TRUTH["teff"]], dtype=torch.float64),
+                  torch.tensor([WD_TRUTH["logg"]], dtype=torch.float64))
+    dist = 1000.0 / WD_TRUTH["plax"]
+    flux = 3631e3 * 10 ** (-0.4 * (mags[0].numpy()
+                                   + 5 * np.log10(dist / 10)))
+    inp = out_dir / "wd_input.dat"
+    inp.write_text(
+        "teff = 15000 uniform 6000 90000 1\n"
+        "logg = 8.0 uniform 6.5 9.5 1\n"
+        "plax = 5.0 gauss 5.0 0.5 1\n"
+        + "".join(f"flux_{b} = {f:.8e} {0.01 * f:.8e} {lam:.0f}\n"
+                  for (b, lam), f in zip(WD_BANDS.items(), flux)))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["wdparams", str(inp), "--outdir", str(out_dir / "out"),
+                       "--nwalkers", "64", "--nburn", "200", "--nprod",
+                       "400"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(rc == 0, f"wdparams exited {rc}: {buf.getvalue()[-2000:]}")
+    report = json.loads((out_dir / "out" / "wdparams.json").read_text())
+    _check(set(report) == {"grid", "params", "best", "derived",
+                           "mean_acceptance"}, f"keys {sorted(report)}")
+    pulls = {}
+    for row in report["params"]:
+        truth = WD_TRUTH[row["name"]]
+        sigma = row["upper"] if truth > row["median"] else row["lower"]
+        pulls[row["name"]] = (row["median"] - truth) / sigma
+    # ln p of 64 vectors around the truth: the card against the CPU
+    parsed = wdp.read_wd_input(inp)
+    rng = np.random.default_rng(19)
+    v = np.array(list(WD_TRUTH.values())) * (
+        1 + 0.003 * rng.standard_normal((64, 3)))
+    lp = {}
+    for dt, d in ((torch.float64, dev), (torch.float64, "cpu"),
+                  (torch.float32, dev)):
+        fn = wdp.make_wd_ln_prob(parsed, interp, dt, d)
+        with torch.inference_mode():
+            lp[dt, str(d)] = fn(torch.tensor(v, dtype=dt, device=d)) \
+                .double().cpu().numpy()
+    ref = lp[torch.float64, "cpu"]
+    scale = np.maximum(1.0, np.abs(ref))
+    d64 = (np.abs(lp[torch.float64, str(dev)] - ref) / scale).max()
+    d32 = (np.abs(lp[torch.float32, str(dev)] - ref) / scale).max()
+    print(f"[19 wdparams] 64 walkers, 200 + 400 steps, float64 on the card: "
+          f"exit 0 in {wall:.2f} s wall; mean acceptance "
+          f"{report['mean_acceptance']:.3f}; medians "
+          + ", ".join(f"{r['name']} {r['median']:.5g} (+{r['upper']:.3g} "
+                      f"-{r['lower']:.3g}; pull {pulls[r['name']]:+.2f})"
+                      for r in report["params"])
+          + f"; {smi}")
+    print(f"[19 wdparams] ln p of 64 vectors (0.3% around the truth): the "
+          f"card's float64 against float64 on the CPU, max {d64:.2e} x "
+          f"max(1, |ln p|) (limit 1e-12); the card's float32 {d32:.2e} (the "
+          f"command runs float64; float32's magnitudes carry ~1e-6 mag)")
+    _check(all(abs(p) <= 3.0 for p in pulls.values()),
+           f"a median is more than 3 sigma from the truth: {pulls}")
+    _check(d64 <= 1e-12, "the card's wdparams ln p disagrees with the CPU's")
+
+
+def _compat_phase(dev, smi, contacts, stream, gp):
+    """Phase 20: compat.CV.calcFlux on the card in float32 (fast and
+    precise) against float64 on the CPU, and plot_eclipse's evaluation
+    (utils.plotting.eclipse_fluxes, float64) of the demo on the card
+    against the CPU; one K1 launch a call.  Returns {path: launch
+    counts}."""
+    import torch
+
+    from lfit_python_tpu_torch.compat import CV
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.utils.config import (build_model_from_config,
+                                                    parse_input_dat)
+    from lfit_python_tpu_torch.utils.plotting import eclipse_fluxes
+
+    pars = np.array([0.1, 0.05, 0.08, 0.03, 0.15, 0.04, 0.44, 0.3, 0.011,
+                     0.025, 160.0, 0.2, 1.5, 0.0, 1.0, 1.0, 90.0, 0.0])
+    phase = np.linspace(-0.1, 0.1, 256)
+    comps = ("ywd", "ydisc", "yspot", "ysec")
+
+    def components(cv, total):
+        return {"total": total, **{c: getattr(cv, c) for c in comps}}
+
+    def stats(got, ref):
+        """(median, p99, max) over every phase of the total and the four
+        components of |got - ref| / the largest total."""
+        err = np.concatenate([np.abs(got[k] - ref[k]) for k in ref])
+        err /= np.abs(ref["total"]).max()
+        return np.median(err), np.quantile(err, 0.99), err.max()
+
+    counts, errs = {}, {}
+    for mode, cfg in (("fast", CVConfig(complex_spot=True)),
+                      ("precise", CVConfig(complex_spot=True,
+                                           mixed_precision=True))):
+        ref_cv = CV(pars, cfg, device="cpu", dtype=torch.float64)
+        ref = components(ref_cv, ref_cv.calcFlux(pars, phase))
+        cv = CV(pars, cfg, device=dev, dtype=torch.float32)
+        _zero_counts(contacts, stream, gp)
+        got = components(cv, cv.calcFlux(pars, phase))
+        counts[mode] = _counts(contacts, stream, gp)
+        errs[mode] = stats(got, ref)
+    model = build_model_from_config(parse_input_dat(
+        ROOT / "examples" / "demo_input.dat")).compile()
+    full = model.full_from_var(model.var_start())
+    ref = eclipse_fluxes(model, full, 0, device="cpu")._asdict()
+    _zero_counts(contacts, stream, gp)
+    got = eclipse_fluxes(model, full, 0, device=dev)._asdict()
+    counts["plot"] = _counts(contacts, stream, gp)
+    errs["plot"] = stats(got, ref)
+    # fast float32: PERF.md section 2's parity limits (it has graze flips);
+    # precise float32: the golden gate; plot (float64): float64's own
+    limits = {"fast": (1e-6, 1e-4, 5e-2), "precise": (None, None, 1e-6),
+              "plot": (None, None, 1e-10)}
+
+    def fmt(mode):
+        med, p99, mx = errs[mode]
+        lim = limits[mode]
+        return (f"median {med:.2e}, p99 {p99:.2e}, max {mx:.2e} (limits "
+                + " / ".join("-" if v is None else f"{v:g}" for v in lim)
+                + ")")
+
+    print(f"[20 compat] CV.calcFlux (18 parameters, 256 phases) float32 on "
+          f"the card against float64 on the CPU, every phase of the total "
+          f"and the four components, of the largest total: fast {fmt('fast')}"
+          f"; precise {fmt('precise')}")
+    print(f"[20 compat] plot_eclipse's evaluation of the demo (float64 on "
+          f"the card against the CPU, {len(ref['total'])} phases): "
+          f"{fmt('plot')}; K1 launches per call: fast {counts['fast']['k1']}, "
+          f"precise {counts['precise']['k1_mixed']}, plot "
+          f"{counts['plot']['k1_f64']}; K2 {counts['fast']['k2']} / "
+          f"{counts['precise']['k2']} / {counts['plot']['k2']}; {smi}")
+    for mode, lim in limits.items():
+        _check(all(v is None or e <= v for e, v in zip(errs[mode], lim)),
+               f"{mode} fluxes: {fmt(mode)}")
+    for mode, key in (("fast", "k1"), ("precise", "k1_mixed"),
+                      ("plot", "k1_f64")):
+        c = counts[mode]
+        _check(c["k1"] + c["k1_f64"] + c["k1_mixed"] == 1 and c[key] == 1
+               and c["k2"] == 1,
+               f"{mode}: not one K1 and one K2 launch: {counts[mode]}")
+    merged = {k: counts["fast"][k] + counts["precise"][k]
+              for k in counts["fast"]}
+    return {"compat": merged, "plot_eclipse": counts["plot"]}
+
+
+def _tool(args, timeout=600):
+    """``python3 tools/<args>`` in its own process: (exit code, output,
+    wall seconds, its last line as JSON)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        last = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        last = None
+    return proc.returncode, proc.stdout + proc.stderr, wall, last
+
+
+def _tools_phase(smi):
+    """Phase 21: the ablation (default and --floor, 1024 walkers), the
+    contact solvers' stress accuracy and the flux parity tools, each in
+    its own process; their lines printed, accuracy held to its p99 gate,
+    parity to PERF.md section 2's limits (each tool exits 1 where its
+    gate fails); K1 launched by each tool, and traced in the ablation's
+    full evaluation."""
+    for args in (["tools/torch_ablate_posterior.py", "--reps", "3"],
+                 ["tools/torch_ablate_posterior.py", "--reps", "3",
+                  "--floor"],
+                 ["tools/torch_accuracy_contacts.py"],
+                 ["tools/torch_parity.py"]):
+        rc, out, wall, last = _tool(args)
+        tag = " ".join(a.replace("tools/", "") for a in args)
+        for ln in out.strip().splitlines()[:-1]:
+            print(f"[21 tools] {tag}: {ln}")
+        print(f"[21 tools] {tag}: exit {rc} in {wall:.1f} s; {smi}")
+        _check(rc == 0 and last is not None,
+               f"{tag} exited {rc}: {out[-3000:]}")
+        if "ablate" in tag:
+            rows = {r["name"]: r for r in last["rows"]}
+            _check(all(r["device_kernels"] for r in rows.values()),
+                   f"{tag}: an ablation traced no device kernels")
+            _check("--floor" in tag or rows["full"]["k1_kernels"] > 0,
+                   f"{tag}: the full evaluation traced no contacts_kernel")
+        elif "accuracy" in tag:
+            _check(last["k1_launches"] > 0, f"{tag}: K1 was not launched")
+        else:
+            _check(all(last[m]["k1_launches"] > 0
+                       for m in ("fast", "precise")),
+                   f"{tag}: K1 was not launched in each mode")
+
+
 def main():
     import torch
 
@@ -2672,13 +3100,25 @@ def main():
     # ---- 17. the donor quadrature ----------------------------------------
     c_quad = _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp)
 
+    # ---- 18. the host surface: --profile, notifications, arviz, native --
+    c_host = _host_surface_phase(dev, smi)
+
+    # ---- 19. wdparams on the card ----------------------------------------
+    _wdparams_phase(dev, smi)
+
+    # ---- 20. compat and plot_eclipse's evaluation ------------------------
+    c_compat = _compat_phase(dev, smi, contacts, stream, gp)
+
+    # ---- 21. the posterior tools -----------------------------------------
+    _tools_phase(smi)
+
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
              "nuts": c_nuts, "fit": c_fit, **c_modes, **c_branches,
-             **c_shard, **c_quad}
+             **c_shard, **c_quad, "fit_profiled": c_host, **c_compat}
     f32_paths = ("ensemble", "hmc", "gp", "pt", "nuts", "fit", "fit_pt",
                  "fit_hmc", "fit_nuts", "fit_shard", "fit_hmc_shard",
-                 "posterior_quad")
+                 "posterior_quad", "fit_profiled", "compat")
 
     def by_path(key):
         return {name: c[key] for name, c in paths.items()}
@@ -2687,8 +3127,10 @@ def main():
                     ("k3_bwd", ("gp",)),
                     ("k1_bwd_kernel", ("hmc", "gp", "nuts", "fit_hmc",
                                        "fit_nuts", "fit_hmc_shard")),
-                    ("k1_f64", ("posterior_f64", "fit_x64")),
-                    ("k1_mixed", ("posterior_precise", "fit_precise"))):
+                    ("k1_f64", ("posterior_f64", "fit_x64",
+                                "plot_eclipse")),
+                    ("k1_mixed", ("posterior_precise", "fit_precise",
+                                  "compat"))):
         for name in on:
             _check(paths[name][key] > 0,
                    f"the {name} path never launched {key.upper()}")

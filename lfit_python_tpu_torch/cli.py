@@ -5,6 +5,11 @@
         [--precise] [--sampler ensemble|hmc|nuts] [--hmc-leapfrog N]
         [--nuts-max-depth N] [--resume] [--checkpoint-every N]
         [--resolution full|low] [--shard] [--no-plots] [--quiet]
+        [--profile DIR] [--notify-cmd CMD] [--notify-file FILE]
+
+    python -m lfit_python_tpu_torch.cli wdparams wd_input.dat
+        [--outdir out_wd] [--grid FILE] [--device cuda|cpu] [--seed N]
+        [--nburn N] [--nprod N] [--nwalkers N]
 
     torchrun --nproc-per-node N -m lfit_python_tpu_torch.cli fit \
         mcmc_input.dat --shard [...]
@@ -24,7 +29,14 @@ float32 (the CUDA kernel K1 in float32 solves the contacts), float64 with
 ``--x64`` (K1 in float64), or float32 in the mixed-precision mode with
 ``--precise`` (K1 in mixed precision; not with HMC or NUTS, which need the
 gradient).  A resume continues the latest checkpoint of the same sampler
-kind and precision, and refuses any other.
+kind and precision, and refuses any other.  The fit ends with the
+percentile table, the chain in ArviZ form (``chains.npz``, or ``chains.nc``
+where arviz is installed) and, unless ``--no-plots``, the corner plots
+(global, and one per tree node) and ``eclipse_<k>.png`` for each eclipse
+the input plots, where matplotlib is installed.  ``--profile DIR`` writes a
+Chrome trace of the ensemble's first ``PROFILE_STEPS`` steps from burn-in
+on (no other branch is traced); ``--notify-cmd`` / ``--notify-file`` / ``notify = 1`` send a
+completion notification.
 
 The fit runs on the CUDA card unless ``--device`` names another device,
 and stops with an error where there is no card.  With ``--shard`` every
@@ -33,9 +45,11 @@ batch of walkers (chains) is split over the ranks of a process group
 ``--device cpu``), each on ``cuda:LOCAL_RANK``; without torchrun a
 one-rank group that goes through the same collectives.  Every rank runs
 the same chain; only rank 0 writes the output directory, and every rank
-reads the checkpoint it resumes from.  What the JAX package's command
-line offers beyond this (profiling, notifications, plots, ``wdparams``)
-is refused with exit code 2 and the roadmap item it waits for.
+reads the checkpoint it resumes from.  ``--pallas`` / ``--no-pallas``
+are refused with exit code 2: the port routes the contact solve by dtype.
+
+``wdparams`` fits the white dwarf's (Teff, log g, parallax) to its fluxes
+(``post.wdparams``), on the card unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -53,7 +67,9 @@ import numpy as np
 
 __all__ = ["main"]
 
-_ITEM6 = "ROADMAP queue 1 item 6 (the rest of the host surface)"
+# steps of the ensemble that ``fit --profile`` traces: a trace keeps every
+# event, ~64 MiB a step of 1024 walkers (NVIDIA H100, chip_smoke.py phase 18)
+PROFILE_STEPS = 4
 
 
 class _Refused(Exception):
@@ -77,11 +93,6 @@ def _refusal(args, cfg):
         return ("--pallas / --no-pallas do not apply to the port: it routes "
                 "the contact solve by dtype (the CUDA kernel K1 in float32, "
                 "in float64 with --x64, in mixed precision with --precise)")
-    if args.profile is not None:
-        return f"--profile waits for {_ITEM6}"
-    if args.notify_cmd or args.notify_file or cfg.get("notify", False):
-        return ("--notify-cmd / --notify-file / notify = 1: notifications "
-                f"wait for {_ITEM6}")
     return None
 
 
@@ -176,6 +187,11 @@ def _fit_on(args, cfg, device, mesh):
         branch = _fit_gradient
     else:
         branch = _fit_ensemble
+    if args.profile is not None and branch is not _fit_ensemble and lead:
+        # as the JAX command line, which traces the ensemble alone
+        print(f"--profile: no trace taken on the "
+              f"{'tempered' if branch is _fit_pt else args.sampler} branch "
+              "(only the ensemble's steps are traced)")
     with ((outdir / "metrics.jsonl").open("a") if lead
           else contextlib.nullcontext()) as metrics:
         def log(stage, step, acc):
@@ -201,7 +217,8 @@ def _fit_on(args, cfg, device, mesh):
             print(f"lfit_python_tpu_torch fit: {exc}", file=sys.stderr)
             return 2
     if lead:
-        _report(model, chain, lp, outdir, args)
+        _report(model, chain, lp, outdir, args, device)
+        _notify_done(args, cfg, outdir)
     return 0
 
 
@@ -311,8 +328,13 @@ def _fit_ensemble(run):
     if run.mesh is not None:
         ln_prob = sharded_batch_ln_prob(ln_prob, run.mesh)
 
+    trace = None
+
     def step_fn(state):
-        return ensemble_step(state, ln_prob, generator)
+        out = ensemble_step(state, ln_prob, generator)
+        if trace is not None:
+            trace.step()
+        return out
 
     state, generator, _, resumed = _resume(run, "ensemble")
     if resumed is None:
@@ -322,36 +344,44 @@ def _fit_ensemble(run):
                              ln_prob, run.n_walkers)
     state = _shard(run, shard_state, state, generator)
 
-    t0 = time.time()
-    n_run = 0
-    if resumed is None and run.n_burn > 0:
-        state, chain, chain_lp, _ = run_chunked(
-            state, step_fn, run.n_burn, chunk_size=run.chunk,
-            progress=lambda s, a: run.log("burn", s, a))
-        n_run += run.n_burn
-        if run.cfg.get("double_burnin", False):
-            # re-scatter around the best walker, and burn in again
-            best = run.tensor(chain.reshape(-1, run.model.n_var)[
-                np.argmax(chain_lp.reshape(-1))])
-            scatter_2 = float(run.cfg.get("scatter_2",
-                                          run.cfg.get("scatter_1", 1e-3)))
-            state = init_walkers(generator, best, run.ball(best, scatter_2),
-                                 ln_prob, run.n_walkers)
-            state = _shard(run, shard_state, state, generator)
-            state, _, _, _ = run_chunked(
+    # --profile traces from burn-in on, as the JAX command line, but only
+    # the first PROFILE_STEPS steps
+    profile = contextlib.nullcontext()
+    if run.args.profile is not None and run.lead:
+        from .utils.tracing import trace_to
+        profile = trace_to(run.args.profile, steps=PROFILE_STEPS)
+    with profile as trace:
+        t0 = time.time()
+        n_run = 0
+        if resumed is None and run.n_burn > 0:
+            state, chain, chain_lp, _ = run_chunked(
                 state, step_fn, run.n_burn, chunk_size=run.chunk,
-                progress=lambda s, a: run.log("burn2", s, a))
+                progress=lambda s, a: run.log("burn", s, a))
             n_run += run.n_burn
-        # production counts its own steps from zero; checkpoints store
-        # production steps
-        state = state._replace(step=0)
+            if run.cfg.get("double_burnin", False):
+                # re-scatter around the best walker, and burn in again
+                best = run.tensor(chain.reshape(-1, run.model.n_var)[
+                    np.argmax(chain_lp.reshape(-1))])
+                scatter_2 = float(run.cfg.get(
+                    "scatter_2", run.cfg.get("scatter_1", 1e-3)))
+                state = init_walkers(generator, best,
+                                     run.ball(best, scatter_2), ln_prob,
+                                     run.n_walkers)
+                state = _shard(run, shard_state, state, generator)
+                state, _, _, _ = run_chunked(
+                    state, step_fn, run.n_burn, chunk_size=run.chunk,
+                    progress=lambda s, a: run.log("burn2", s, a))
+                n_run += run.n_burn
+            # production counts its own steps from zero; checkpoints store
+            # production steps
+            state = state._replace(step=0)
 
-    state, chain, lp, _, n = _production(run, state, generator, step_fn,
-                                         _rows, "ensemble", resumed)
-    dt = time.time() - t0
-    rate = (n_run + n) * run.n_walkers / max(dt, 1e-9)
-    if run.lead:
-        print(f"total {dt:.1f}s, ~{rate:.0f} ln-prob evals/s")
+        state, chain, lp, _, n = _production(
+            run, state, generator, step_fn, _rows, "ensemble", resumed)
+        dt = time.time() - t0
+        rate = (n_run + n) * run.n_walkers / max(dt, 1e-9)
+        if run.lead:
+            print(f"total {dt:.1f}s, ~{rate:.0f} ln-prob evals/s")
     return chain, lp
 
 
@@ -495,13 +525,17 @@ def _fit_gradient(run):
     return chain, lp
 
 
-def _report(model, chain, lp, outdir, args):
-    """Percentile table (``params.json``) and convergence diagnostics."""
-    from .utils.chains import autocorr_time, gelman_rubin, summarize
+def _report(model, chain, lp, outdir, args, device):
+    """The chain in ArviZ form, the percentile table (``params.json``),
+    the convergence diagnostics and, unless ``--no-plots``, the plots (the
+    eclipse curves evaluated on ``device``)."""
+    from .utils.chains import (autocorr_time, gelman_rubin, save_arviz,
+                               summarize)
 
     if not len(chain):
         return
     names = model.var_names()
+    save_arviz(chain, names, outdir / "chains", log_prob=lp)
     discard = len(chain) // 4
     table = summarize(chain, names, discard=discard)
     kept = chain[discard:]
@@ -530,13 +564,60 @@ def _report(model, chain, lp, outdir, args):
         print("min effective sample size:",
               round(min(r["ess"] for r in table)))
     if not args.no_plots:
-        print(f"plots: not made; the port's plots wait for {_ITEM6}")
+        _plots(model, chain, lp, outdir, device)
+
+
+def _plots(model, chain, lp, outdir, device):
+    """The global corner plot, one per tree node where the tree has more
+    than one, and ``eclipse_<k>.png`` of the best walker for each eclipse
+    the input plots; one line instead where matplotlib is not installed."""
+    from .utils.plotting import corner_plot, have_matplotlib, plot_eclipse
+
+    if not have_matplotlib():
+        print("plots: not made (matplotlib is not installed)")
+        return
+    names = model.var_names()
+    flat = chain[len(chain) // 4:].reshape(-1, model.n_var)
+    corner_plot(flat, names, outdir / "corner.png")
+    # per-node corners: max_params=19 exceeds the largest node (a complex
+    # GP eclipse has 15), so every sampled parameter appears untruncated
+    groups = model.var_groups()
+    if len(groups) > 1:
+        for label, idx in groups:
+            corner_plot(flat[:, idx], [names[i] for i in idx],
+                        outdir / f"corner_{label}.png", max_params=19)
+    best = chain.reshape(-1, model.n_var)[np.argmax(lp.reshape(-1))]
+    full_best = model.full_from_var(best)
+    for k in range(model.n_eclipses):
+        if model.plot_mask[k]:
+            plot_eclipse(model, full_best, k,
+                         path=outdir / f"eclipse_{k}.png", device=device)
+    print(f"plots: written to {outdir}")
+
+
+def _notify_done(args, cfg, outdir):
+    """Completion notification through every configured channel."""
+    if not (args.notify_cmd or args.notify_file or cfg.get("notify")):
+        return
+    from .utils.notify import notify
+
+    notify(f"lfit_python_tpu_torch fit finished: {args.input}",
+           f"results in {outdir}", cmd=args.notify_cmd,
+           file=args.notify_file or (outdir / "notifications.jsonl"
+                                     if cfg.get("notify") else None))
 
 
 def _wdparams(args):
-    print(f"lfit_python_tpu_torch wdparams: waits for {_ITEM6}",
-          file=sys.stderr)
-    return 2
+    from .device import resolve_device
+    from .post.wdparams import run_wdparams
+
+    try:
+        resolve_device(args.device)
+    except RuntimeError as exc:
+        print(f"lfit_python_tpu_torch wdparams: {exc} (here: --device cpu)",
+              file=sys.stderr)
+        return 1
+    return run_wdparams(args)
 
 
 def main(argv=None):
@@ -579,17 +660,36 @@ def main(argv=None):
                      help="mixed-precision mode: a float32 posterior with "
                           "float64 geometry solves and near-root "
                           "clearances")
+    fit.add_argument("--shard", action="store_true",
+                     help="split every batch of walkers over the ranks of "
+                          "a process group (torchrun)")
+    fit.add_argument("--profile", default=None, metavar="DIR",
+                     help="write a torch.profiler Chrome trace of the "
+                          f"ensemble's first {PROFILE_STEPS} steps (from "
+                          "burn-in on) to DIR; ~64 MiB a step at 1024 "
+                          "walkers on an H100")
+    fit.add_argument("--notify-cmd", default=None,
+                     help="shell command to notify on completion")
+    fit.add_argument("--notify-file", default=None,
+                     help="append a JSON completion record to this file")
     # the JAX package's options that the port refuses (see _refusal)
     fit.add_argument("--pallas", action="store_true")
     fit.add_argument("--no-pallas", action="store_true")
-    fit.add_argument("--shard", action="store_true")
-    fit.add_argument("--profile", default=None, metavar="DIR")
-    fit.add_argument("--notify-cmd", default=None)
-    fit.add_argument("--notify-file", default=None)
     fit.set_defaults(func=_fit)
 
-    wd = sub.add_parser("wdparams", help="not ported yet")
-    wd.add_argument("rest", nargs=argparse.REMAINDER)
+    wd = sub.add_parser("wdparams",
+                        help="fit WD atmosphere params to fitted fluxes")
+    wd.add_argument("input")
+    wd.add_argument("--outdir", default="out_wd")
+    wd.add_argument("--grid", default=None,
+                    help="path to a Bergeron-format DA grid table")
+    wd.add_argument("--device", default="cuda",
+                    help="torch device to fit on (default: the CUDA card; "
+                         "an error where there is none)")
+    wd.add_argument("--seed", type=int, default=0)
+    wd.add_argument("--nburn", type=int, default=500)
+    wd.add_argument("--nprod", type=int, default=1000)
+    wd.add_argument("--nwalkers", type=int, default=64)
     wd.set_defaults(func=_wdparams)
 
     args = ap.parse_args(argv)

@@ -19,7 +19,7 @@ values (exp1 = 1, exp2 = 1, tilt = 90, yaw = 0) pinned as constants.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -169,6 +169,9 @@ class CompiledModel:
     # eclipses to plot; None where the model was carried across without them
     param_labels: Optional[List[str]] = None
     plot_mask: Optional[np.ndarray] = None   # (E,) bool
+    # the tree it was compiled from (each eclipse's name, band and light
+    # curve, for the plots); None where the model was carried across
+    spec: Optional[HierarchicalModel] = field(default=None, repr=False)
 
     @property
     def n_eclipses(self) -> int:
@@ -307,4 +310,5 @@ def _compile(spec: HierarchicalModel) -> CompiledModel:
         any_gp=any(e.use_gp for e in spec.eclipses),
         param_labels=labels,
         plot_mask=np.asarray([e.plot for e in spec.eclipses], bool),
+        spec=spec,
     )

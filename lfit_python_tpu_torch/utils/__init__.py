@@ -1,2 +1,3 @@
 """Host-side utilities of the port: the input-file reader, chain files
-and sampler checkpoints."""
+and their ArviZ form, sampler checkpoints, plots, notifications and
+profiling hooks."""

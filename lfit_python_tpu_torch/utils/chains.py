@@ -6,7 +6,10 @@ per (step, walker),
     walker_index  par_0 ... par_{D-1}  ln_prob
 
 under the header ``# walker <names> ln_prob``, so chain files of either
-package are read by the other.  Rows are written with numpy only.
+package are read by the other.  Rows are written with numpy, or with the
+native C++ writer (``lfit_python_tpu_torch.native``) where a
+:class:`ChainWriter` is given ``use_native=True``: the same bytes.
+:func:`save_arviz` writes the chain as named per-parameter arrays.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ __all__ = [
     "flatchain",
     "gelman_rubin",
     "autocorr_time",
+    "rebin",
+    "save_arviz",
+    "to_arviz",
     "summarize",
 ]
 
@@ -30,10 +36,12 @@ class ChainWriter:
     """Incremental chain writer: rows are appended as steps arrive, so a
     killed run keeps every row written so far."""
 
-    def __init__(self, path, param_names: Sequence[str], append=False):
+    def __init__(self, path, param_names: Sequence[str], append=False,
+                 use_native=False):
         """``append=True`` keeps an existing file's rows (resume): the
         header is written only to a new or empty file, and a file with
-        another header is refused."""
+        another header is refused.  ``use_native=True`` formats the rows
+        in C++ (built on first use; a failed build raises)."""
         self.path = Path(path)
         self.param_names = list(param_names)
         header = "# walker " + " ".join(self.param_names) + " ln_prob\n"
@@ -47,6 +55,7 @@ class ChainWriter:
         else:
             self.path.write_text(header)
         self._fh = self.path.open("a")
+        self._use_native = use_native
 
     def append(self, positions: np.ndarray, log_probs: np.ndarray):
         """positions (n_steps, W, D) or (W, D); log_probs matching."""
@@ -61,6 +70,12 @@ class ChainWriter:
         rows[:, 0] = np.tile(np.arange(W), n_steps)
         rows[:, 1:-1] = positions.reshape(-1, D)
         rows[:, -1] = log_probs.reshape(-1)
+        if self._use_native:
+            from ..native import chain_write
+
+            self._fh.flush()
+            chain_write(self.path, rows)
+            return
         np.savetxt(self._fh, rows, fmt=["%d"] + ["%.10e"] * (D + 1))
         self._fh.flush()
 
@@ -148,6 +163,51 @@ def autocorr_time(chain, c=5.0, walker_block=256):
         idx = np.argmin(window) if not window.all() else n - 1
         taus[j] = taus_cum[max(idx, 1)]
     return taus
+
+
+def rebin(phase, flux, err, factor):
+    """Rebin a light curve by an integer factor with inverse-variance
+    weighting; trailing remainder points are dropped."""
+    n = (len(phase) // factor) * factor
+    ph = np.asarray(phase)[:n].reshape(-1, factor)
+    fl = np.asarray(flux)[:n].reshape(-1, factor)
+    er = np.asarray(err)[:n].reshape(-1, factor)
+    w = 1.0 / np.maximum(er, 1e-300) ** 2
+    wsum = w.sum(axis=1)
+    return (ph.mean(axis=1),
+            (fl * w).sum(axis=1) / wsum,
+            1.0 / np.sqrt(wsum))
+
+
+def to_arviz(chain, param_names, log_prob=None):
+    """Chain (n_steps, W, D) -> ``arviz.InferenceData`` where arviz is
+    importable, else a dict {name: (walker, draw) array}, with ``ln_prob``
+    (walker, draw) where ``log_prob`` (n_steps, W) is given."""
+    x = np.asarray(chain)          # (draw, walker, dim) -> (walker, draw)
+    data = {n: x[:, :, i].T for i, n in enumerate(param_names)}
+    if log_prob is not None:
+        data["ln_prob"] = np.asarray(log_prob).T
+    try:
+        import arviz
+
+        return arviz.from_dict(posterior=data)
+    except Exception:
+        return data
+
+
+def save_arviz(chain, param_names, path, log_prob=None):
+    """Write the chain in ArviZ form: ``<path>.nc`` (netCDF) where arviz
+    is importable, else ``<path>.npz`` holding the same named (walker,
+    draw) arrays.  Returns the written path."""
+    out = to_arviz(chain, param_names, log_prob)
+    path = Path(path)
+    if isinstance(out, dict):               # arviz absent: npz
+        path = path.with_suffix(".npz")
+        np.savez_compressed(path, **out)
+    else:
+        path = path.with_suffix(".nc")
+        out.to_netcdf(str(path))
+    return path
 
 
 def summarize(chain, param_names, discard=0, percentiles=(16, 50, 84)):

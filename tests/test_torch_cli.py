@@ -10,14 +10,18 @@ fit stopped at step 2 and resumed must write the same chain file.  The
 same fit with ``--shard`` under ``torchrun`` at 2 ranks (gloo), stopped
 at step 2 and resumed, writes that chain file byte for byte; ``--shard``
 without torchrun is a one-rank group and says so, and refuses a walker
-count that twice the world size does not divide.  Every
-option or input key the port does not run yet exits with code 2 and a
-message naming what it waits for, and so does each combination the JAX
-package's command line refuses (``--precise`` or ``usePT`` with HMC /
-NUTS, a resume from another sampler kind's checkpoint); without a card
-and without ``--device cpu`` the command exits non-zero.  The tempered,
-HMC, NUTS and ``--precise`` fits have their own files
-(tests/test_torch_cli_*.py).
+count that twice the world size does not divide.  The fit writes the
+chain in ArviZ form (``chains.npz``) and the plots; ``--profile`` writes
+a trace (of an empty burn-in and production here: a CPU evaluation's
+eager stream scan makes a trace of gigabytes), and says on the tempered
+branch that it takes none; ``--notify-cmd``, ``--notify-file`` and
+``notify = 1`` deliver their notification; ``wdparams`` runs.
+``--pallas`` / ``--no-pallas`` exit with code 2 and a message, and so
+does each combination the JAX package's command line refuses
+(``--precise`` or ``usePT`` with HMC / NUTS, a resume from another
+sampler kind's checkpoint); without a card and without ``--device cpu``
+``fit`` and ``wdparams`` exit non-zero.  The tempered, HMC, NUTS and
+``--precise`` fits have their own files (tests/test_torch_cli_*.py).
 """
 
 import contextlib
@@ -46,6 +50,13 @@ W, N_BURN, N_PROD = 8, 2, 4
 CPU = ["--device", "cpu", "--x64", "--resolution", "low", "--quiet"]
 LOW = CVConfig(n_disc_rad=5, n_disc_az=8, n_spot=8, n_donor_lat=6,
                n_donor_lon=8)
+# what the fit's report writes beside the chain: the chain in ArviZ form,
+# the percentile table, the corner plots (global and per tree node) and
+# the eclipse's plot
+REPORT = ["chains.npz", "corner.png", "corner_core.png", "corner_ecl0.png",
+          "corner_g.png", "eclipse_0.png", "params.json"]
+REPORT_FILES = sorted(["chain_prod.txt", "checkpoint_0000002.npz",
+                       "checkpoint_0000004.npz", "metrics.jsonl", *REPORT])
 
 
 def demo_copy(d, extra=""):
@@ -80,9 +91,7 @@ def test_fit_writes_its_files(fit):
     d, _, rc, out = fit
     assert rc == 0, out
     out_dir = d / "out"
-    assert sorted(p.name for p in out_dir.iterdir()) == [
-        "chain_prod.txt", "checkpoint_0000002.npz", "checkpoint_0000004.npz",
-        "metrics.jsonl", "params.json"]
+    assert sorted(p.name for p in out_dir.iterdir()) == REPORT_FILES
     chain, lp, names = jchains.read_chain(out_dir / "chain_prod.txt")
     assert chain.shape == (N_PROD, W, 13) and lp.shape == (N_PROD, W)
     assert names[0] == "q_core" and names[-1] == "phi0_ecl0"
@@ -96,7 +105,14 @@ def test_fit_writes_its_files(fit):
         ("burn", 2), ("prod", 2), ("prod", 4)]
     assert all(0.0 <= r["accept"] <= 1.0 for r in recs)
     assert "ln-prob evals/s" in out and out.startswith("total ")
-    assert "max split-R-hat" in out and "plots: not made" in out
+    assert "max split-R-hat" in out and "plots: written to" in out
+    # the chain in ArviZ form: (walker, draw) arrays of the chain file's
+    # columns (which keep 11 significant digits)
+    with np.load(out_dir / "chains.npz") as z:
+        assert set(z.files) == {*names, "ln_prob"}
+        for i, name in enumerate(names):
+            np.testing.assert_allclose(z[name], chain[:, :, i].T, rtol=1e-10)
+        np.testing.assert_allclose(z["ln_prob"], lp.T, rtol=1e-10)
 
 
 def test_chain_ln_prob_is_the_posterior(fit):
@@ -170,9 +186,7 @@ def test_sharded_fit_resumes(fit, sharded_fit):
     assert "resumed from" in out and "at step 2" in out
     assert (d / "out" / "chain_prod.txt").read_text() == \
         (fit[0] / "out" / "chain_prod.txt").read_text()
-    assert sorted(p.name for p in (d / "out").iterdir()) == [
-        "chain_prod.txt", "checkpoint_0000002.npz", "checkpoint_0000004.npz",
-        "metrics.jsonl", "params.json"]
+    assert sorted(p.name for p in (d / "out").iterdir()) == REPORT_FILES
 
 
 def test_shard_without_torchrun_is_a_one_rank_group(tmp_path):
@@ -198,15 +212,10 @@ def test_shard_refuses_an_indivisible_walker_count(tmp_path, capsys):
         capsys.readouterr().err
 
 
-ITEM6 = "ROADMAP queue 1 item 6"
 BY_DTYPE = "routes the contact solve by dtype"
 REFUSED = {
     "pallas": (["--pallas"], "", BY_DTYPE),
     "no_pallas": (["--no-pallas"], "", BY_DTYPE),
-    "profile": (["--profile", "trace"], "", ITEM6),
-    "notify_cmd": (["--notify-cmd", "true"], "", ITEM6),
-    "notify_file": (["--notify-file", "n.jsonl"], "", ITEM6),
-    "notify_key": ([], "notify = 1\n", ITEM6),
 }
 
 
@@ -286,9 +295,76 @@ def test_jax_command_line_refusals_exit_2(case, tmp_path, capsys):
                       if p.name != "metrics.jsonl") == before
 
 
-def test_wdparams_is_refused(capsys):
-    assert cli.main(["wdparams", "wd_input.dat", "--nburn", "5"]) == 2
-    assert ITEM6 in capsys.readouterr().err
+def empty_fit(tmp_path, *flags, extra=""):
+    """A fit with no burn-in and no production (one evaluation of the
+    walker ball) -> (exit code, stdout, its output directory)."""
+    inp = demo_copy(tmp_path, extra)
+    rc, out = run("fit", inp, "--outdir", tmp_path / "out", "--nburn", 0,
+                  "--nprod", 0, *flags, *CPU)
+    return rc, out, tmp_path / "out"
+
+
+def test_profile_writes_a_trace(tmp_path):
+    rc, out, _ = empty_fit(tmp_path, "--profile", tmp_path / "trace")
+    assert rc == 0
+    traces = list((tmp_path / "trace").glob("trace_*.json"))
+    assert len(traces) == 1 and f"trace written to {traces[0]}" in out
+    assert "traceEvents" in json.loads(traces[0].read_text())
+
+
+def test_profile_takes_no_trace_on_the_tempered_branch(tmp_path):
+    rc, out, _ = empty_fit(tmp_path, "--profile", tmp_path / "trace",
+                           extra=PT_INPUT)
+    assert rc == 0
+    assert "--profile: no trace taken on the tempered branch" in out
+    assert not (tmp_path / "trace").exists()
+
+
+def test_notify_cmd_delivers_the_message(tmp_path):
+    got = tmp_path / "message.txt"
+    rc, _, out_dir = empty_fit(tmp_path, "--notify-cmd", f"cat > {got}")
+    assert rc == 0
+    assert got.read_text() == (f"lfit_python_tpu_torch fit finished: "
+                               f"{tmp_path / 'input.dat'}\nresults in "
+                               f"{out_dir}")
+
+
+def test_notify_file_gets_one_json_line(tmp_path):
+    note = tmp_path / "n.jsonl"
+    rc, _, out_dir = empty_fit(tmp_path, "--notify-file", note)
+    assert rc == 0
+    rec, = [json.loads(ln) for ln in note.read_text().splitlines()]
+    assert rec["subject"].startswith("lfit_python_tpu_torch fit finished")
+    assert rec["body"] == f"results in {out_dir}"
+    assert not (out_dir / "notifications.jsonl").exists()
+
+
+def test_notify_key_writes_notifications_jsonl(tmp_path):
+    rc, _, out_dir = empty_fit(tmp_path, extra="notify = 1\n")
+    assert rc == 0
+    rec, = [json.loads(ln) for ln in
+            (out_dir / "notifications.jsonl").read_text().splitlines()]
+    assert rec["body"] == f"results in {out_dir}"
+
+
+def test_wdparams_runs(tmp_path, capsys):
+    inp = tmp_path / "wd_input.dat"
+    inp.write_text("teff = 15000 uniform 6000 90000 1\n"
+                   "logg = 8.0 uniform 6.5 9.5 1\n"
+                   "plax = 5.0 gauss 5.0 0.5 1\n"
+                   "flux_g = 0.362 0.0036 4770\n"
+                   "flux_r = 0.287 0.0029 6230\n")
+    rc = cli.main(["wdparams", str(inp), "--outdir", str(tmp_path / "out"),
+                   "--device", "cpu", "--nwalkers", "16", "--nburn", "5",
+                   "--nprod", "10"])
+    assert rc == 0
+    report = json.loads((tmp_path / "out" / "wdparams.json").read_text())
+    assert [r["name"] for r in report["params"]] == ["teff", "logg", "plax"]
+    assert "derived:" in capsys.readouterr().out
+    if not torch.cuda.is_available():      # the card is the default device
+        rc = cli.main(["wdparams", str(inp), "--outdir",
+                       str(tmp_path / "out2")])
+        assert rc == 1 and "no CUDA device" in capsys.readouterr().err
 
 
 def test_resuming_a_jax_checkpoint_is_refused(tmp_path, capsys):

@@ -29,7 +29,7 @@ from lfit_python_tpu_torch.utils import checkpoints
 from lfit_python_tpu_torch.utils.config import (build_model_from_config,
                                                 parse_input_dat)
 
-from test_torch_cli import CPU, LOW, W, demo_copy, run
+from test_torch_cli import CPU, LOW, REPORT, W, demo_copy, run
 
 PT_INPUT = "usePT = 1\nntemps = 2\n"
 COMMON = ["--nburn", 1, "--checkpoint-every", 1, *CPU]
@@ -46,9 +46,9 @@ def pt_fit(tmp_path_factory):
 def test_pt_fit_writes_its_files(pt_fit):
     d, _, rc, out = pt_fit
     assert rc == 0, out
-    assert sorted(p.name for p in (d / "out").iterdir()) == [
+    assert sorted(p.name for p in (d / "out").iterdir()) == sorted([
         "chain_prod.txt", "checkpoint_0000001.npz", "checkpoint_0000002.npz",
-        "evidence.json", "metrics.jsonl", "params.json"]
+        "evidence.json", "metrics.jsonl", *REPORT])
     chain, lp, names = jchains.read_chain(d / "out" / "chain_prod.txt")
     assert chain.shape == (2, W, 13) and np.isfinite(lp).all()
     assert "PT (2 rungs) total" in out and "ln-prob evals/s" in out

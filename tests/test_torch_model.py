@@ -172,18 +172,28 @@ class TestTreeAndData:
 
 
 def test_port_never_imports_jax():
+    """Every module of the package and every tools/torch_*.py imports
+    without jax or the JAX package; none pulls in matplotlib or arviz
+    (the card's machine has neither: they are imported where a plot or
+    an ArviZ file is made)."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pathlib, pkgutil, sys\n"
         "import lfit_python_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 21, names\n"
+        "tools = sorted(pathlib.Path('tools').glob('torch_*.py'))\n"
+        "for path in tools:\n"
+        "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert len(tools) >= 10, tools\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
-        "       m.startswith(('jax.', 'jaxlib', 'lfit_python_tpu.'))]\n"
+        "       m.startswith(('jax.', 'jaxlib', 'lfit_python_tpu.',\n"
+        "                     'matplotlib', 'arviz'))]\n"
         "assert not bad, bad\n"
-        "print('ok', len(names))\n")
+        "print('ok', len(names), len(tools))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
