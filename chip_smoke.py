@@ -21,13 +21,17 @@ x 256 walkers.  Phases:
      (float32, float64, mixed precision), K1's backward (one pass each in
      float32 and float64), K2 and K3, whose frame must be 0: nothing in
      local memory (K3's are the forward kernel with and without the kept
-     state and the reverse kernel, in both dtypes);
+     state and the reverse kernel, in both dtypes); and of K4-K6
+     (roche.cu, float32 and float64), with no spill and no frame but the
+     32 / 40 bytes sinf / cosf keep for arguments beyond 105615 in K4's
+     (ROCHE_FRAMES);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
      device launches of one call of each wrapper (K1, K1 with its
      backward kernel, K2, K2 with sensitivities, K3 (one gp_kernel and no
-     other device event), K3 with its reverse pass (at most 3 events)),
+     other device event), K3 with its reverse pass (at most 3 events), and
+     K4, K5, K6 on the inputs that evaluation hands them (one event each)),
      read by the profiler;
   3. the posterior with K1 against the same posterior with the plain
      contact solver, at the same 1024 walkers, timed in turns; ms per
@@ -173,7 +177,19 @@ x 256 walkers.  Phases:
      (and with --floor; every ablation's device kernels read by the
      profiler), tools/torch_accuracy_contacts.py (its p99 gate) and
      tools/torch_parity.py (PERF.md section 2's parity limits); their
-     lines printed.
+     lines printed;
+  22. K4-K6 (findi, xl1, the lobe radius) against their plain loops on
+     the north star's solves (1024 walkers; 5120 radii) and a stress set
+     of 8192 with infeasible pairs and a NaN q, float32 and float64: the
+     same bits and NaN pattern; each kernel's time, its plain loop's, its
+     bound and its chain floor (a model); the float32, float64 and precise
+     evaluations (1024 walkers) and value_and_grad (256 chains) through
+     K4-K6 and through the plain loops: the same bits of ln p and flux (or
+     gradient), K4 = K5 = 1 launch an evaluation (2 precise), and the
+     device kernels of one evaluation either way (the forward one at least
+     15000 fewer); the forward evaluation's ms either way, in turns.
+     Phases 5, 8 and 14 count K4 = K5 = 1 per evaluation too, and every
+     path of the kernels line launched K4, K5 and K6.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -190,6 +206,7 @@ type, with the peaks of one H100 SXM from NVIDIA's data sheet (3.35 TB/s;
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -301,6 +318,46 @@ K1_BWD_OPS_EDGE = 321 + 2 * 281
 K1_BWD_OPS_ELEMENT = 15
 K1_BWD_EXECUTED_EDGE = 1188
 K1_BWD_EXECUTED_ELEMENT = 47
+# K4-K6 (roche.cu): the core geometry's bisections, port-only kernels
+# where the TPU ran an XLA lax.fori_loop
+ROCHE_SOURCE = "lfit_python_tpu_torch/ops/csrc/roche.cu"
+ROCHE_REPLACES = {
+    "findi": "lfit_python_tpu/roche/geometry.py:283 (findi's 54-step "
+             "lax.fori_loop, :316; no pallas_call)",
+    "xl1": "lfit_python_tpu/roche/geometry.py:114 (xl1's 64-step "
+           "lax.fori_loop, :133; no pallas_call)",
+    "lobe_radius": "lfit_python_tpu/roche/geometry.py:1140 (lobe_radius's "
+                   "54-step lax.fori_loop, :1169; inscribed_radius :539; "
+                   "no pallas_call)"}
+# sinf / cosf (sin / cos in float64) keep an array in local memory for the
+# Payne-Hanek reduction of |x| > 105615, which K4's angles never reach
+# (ptxas of CUDA 12.8 for sm_90a): K4's stack frame is that array and
+# nothing else, and the other four instantiations have none
+ROCHE_FRAMES = {"findi_kernel<f32>": 32, "findi_kernel<f64>": 40,
+                "xl1_kernel<f32>": 0, "xl1_kernel<f64>": 0,
+                "lobe_radius_kernel<f32>": 0, "lobe_radius_kernel<f64>": 0}
+# operations per bisection step and per solve outside the loop, counted by
+# hand from roche.cu (each divide, sqrt, rsqrt, sin and cos, compare and
+# select as one): K4 a step 253 (the clearance's setup 25, 4 Newton steps
+# of 41, 3 values of g of 19, the end selects 7), per solve 8 and the
+# clearance at 90 deg once more; K5 14 a step, 5 a solve; K6 32, 5
+ROCHE_OPS = {"findi": (253, 8 + 253), "xl1": (14, 5), "lobe_radius": (32, 5)}
+# the inputs of each solve (its output is one more number)
+ROCHE_INPUTS = {"findi": 4, "xl1": 1, "lobe_radius": 6}
+# each kernel's dependent chain per bisection step, counted from roche.cu:
+# (adds, multiplies, compares and selects; divides; square roots; rsqrts;
+# sin), and the latencies in cycles assumed for each (a float32 add 4, a
+# float64 one 8; the IEEE divide and sqrt, the rsqrt with its fix-up and
+# sinf's reduction and polynomial).  Steps x chain over the SM clock is the
+# chain floor: a model number beside the measured time, not a measurement
+ROCHE_CHAIN = {"findi": (88, 4, 1, 5, 1), "xl1": (8, 1, 0, 0, 0),
+               "lobe_radius": (13, 1, 1, 0, 0)}
+ROCHE_LATENCY = {"float32": (4, 40, 40, 20, 60),
+                 "float64": (8, 100, 100, 60, 160)}
+# K4-K6 launches of one evaluation (forward or value_and_grad; K4 and K5
+# twice in the precise mode): findi and xl1 once, the inscribed radius
+# for the contact rows and for the white dwarf's certain-occultation guard
+ROCHE_PER_EVAL = {"k4": 1, "k5": 1, "k6": 2}
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -438,10 +495,10 @@ def _sm_clock_hz():
 
 def _short_entry(entry):
     """``kernel<f32>`` for a mangled template kernel's entry name."""
-    m = re.search(r"\d([a-z_]+_kernel)I([fd])(?:Lb([01])|Li(\d+)ELi(\d+))?",
-                  entry)
+    m = re.search(r"\d([a-z_][a-z0-9_]*_kernel)I([fd])"
+                  r"(?:Lb([01])|Li(\d+)ELi(\d+))?", entry)
     if not m:
-        m = re.search(r"\d([a-z_]+_kernel)E", entry)
+        m = re.search(r"\d([a-z_][a-z0-9_]*_kernel)E", entry)
         return m.group(1) if m else entry[-44:]
     name, typ, flag, threads, blocks = m.groups()
     extra = ("" if flag is None else ", " + flag) + (
@@ -504,6 +561,16 @@ def _check_launches(tag, names, kernel):
     return mine, len(names)
 
 
+@contextlib.contextmanager
+def _roche_wrappers(roche, make):
+    """Each K4-K6 wrapper of ``roche`` replaced by ``make(name, wrapper)``
+    while the context lasts; yields {name: its replacement}."""
+    with contextlib.ExitStack() as stack:
+        yield {n: stack.enter_context(mock.patch.object(
+            roche, f"{n}_kernel", make(n, getattr(roche, f"{n}_kernel"))))
+            for n in ("findi", "xl1", "lobe_radius")}
+
+
 def _walkers(start, n, seed, dtype, dev):
     import torch
 
@@ -514,20 +581,28 @@ def _walkers(start, n, seed, dtype, dev):
 
 
 def _zero_counts(contacts, stream, gp):
+    """Sets every kernel wrapper's launch count to 0 (K4-K6's too)."""
+    from lfit_python_tpu_torch.ops import roche
+
     contacts.LAUNCHES = contacts.BACKWARD_CALLS = 0
     contacts.BACKWARD_LAUNCHES = 0
     contacts.F64_LAUNCHES = contacts.MIXED_LAUNCHES = 0
     stream.LAUNCHES = stream.SENS_LAUNCHES = 0
     gp.LAUNCHES = gp.BACKWARD_LAUNCHES = 0
+    roche.FINDI_LAUNCHES = roche.XL1_LAUNCHES = roche.LOBE_LAUNCHES = 0
 
 
 def _counts(contacts, stream, gp):
+    from lfit_python_tpu_torch.ops import roche
+
     return {"k1": contacts.LAUNCHES, "k1_f64": contacts.F64_LAUNCHES,
             "k1_mixed": contacts.MIXED_LAUNCHES,
             "k1_bwd": contacts.BACKWARD_CALLS,
             "k1_bwd_kernel": contacts.BACKWARD_LAUNCHES,
             "k2": stream.LAUNCHES, "k2_sens": stream.SENS_LAUNCHES,
-            "k3": gp.LAUNCHES, "k3_bwd": gp.BACKWARD_LAUNCHES}
+            "k3": gp.LAUNCHES, "k3_bwd": gp.BACKWARD_LAUNCHES,
+            "k4": roche.FINDI_LAUNCHES, "k5": roche.XL1_LAUNCHES,
+            "k6": roche.LOBE_LAUNCHES}
 
 
 def _delta(after, before):
@@ -1037,6 +1112,12 @@ def _k1_modes_phase(dev, smi, model, pos, contacts, stream, gp, plain_path):
         paths[path] = c
         _check(c[key] == 1 and c["k1"] == 0 and c["k2"] == 1,
                f"{mode}: one evaluation launched {c}")
+        # findi and xl1 once, and once more in float64 in the precise mode
+        n_core = 2 if mode == "mixed_precision" else 1
+        _check(c["k4"] == c["k5"] == n_core
+               and c["k6"] == ROCHE_PER_EVAL["k6"],
+               f"{mode}: one evaluation launched K4 {c['k4']}, K5 "
+               f"{c['k5']}, K6 {c['k6']} (K4 = K5 = {n_core} expected)")
         with torch.inference_mode():
             fk = post.model_flux(p)
             lpl, fpl = plain_path(lambda: (post(p), post.model_flux(p)))
@@ -1646,7 +1727,7 @@ def _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp):
 _HOST_FIT = r"""
 import contextlib, json, sys
 from lfit_python_tpu_torch import cli
-from lfit_python_tpu_torch.ops import contacts, stream
+from lfit_python_tpu_torch.ops import contacts, roche, stream
 from lfit_python_tpu_torch.utils import tracing
 
 real, span = tracing.trace_to, {}
@@ -1669,8 +1750,10 @@ def counted(logdir, steps=None):
 
 tracing.trace_to = counted
 rc = cli.main(sys.argv[1:])
-print("HOST_FIT " + json.dumps(dict(rc=rc, k1_total=contacts.LAUNCHES,
-                                    k2_total=stream.LAUNCHES, **span)))
+print("HOST_FIT " + json.dumps(dict(
+    rc=rc, k1_total=contacts.LAUNCHES, k2_total=stream.LAUNCHES,
+    k4_total=roche.FINDI_LAUNCHES, k5_total=roche.XL1_LAUNCHES,
+    k6_total=roche.LOBE_LAUNCHES, **span)))
 sys.exit(rc)
 """
 
@@ -1815,7 +1898,8 @@ def _host_surface_phase(dev, smi):
     counts = dict.fromkeys(("k1", "k1_f64", "k1_mixed", "k1_bwd",
                             "k1_bwd_kernel", "k2", "k2_sens", "k3",
                             "k3_bwd"), 0)
-    counts.update(k1=rec["k1_total"], k2=rec["k2_total"])
+    counts.update({k: rec[f"{k}_total"]
+                   for k in ("k1", "k2", "k4", "k5", "k6")})
     return counts
 
 
@@ -2036,6 +2120,205 @@ def _tools_phase(smi):
                    f"{tag}: K1 was not launched in each mode")
 
 
+def _same_bits(a, b):
+    """(the same NaN pattern and the same values elsewhere, max |a - b|
+    over the entries finite in both)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    same = bool(torch.equal(na, nb)) and bool(torch.equal(a[~na], b[~nb]))
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    d = (a - b).abs()[fin]
+    return same, (d.max().item() if d.numel() else 0.0)
+
+
+def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
+                 stream, gp):
+    """Phase 22: K4-K6 against their plain loops, bit for bit, on the
+    north star's solves (``roche_args``: phase 2's recorded inputs, 1024
+    walkers) and a stress set of 8192, float32 and float64; each kernel's
+    time, its plain loop's, its bound and its chain floor; the float32,
+    float64 and precise posteriors and the gradient through the kernels
+    and through the plain loops (equal bits), the launches of one
+    evaluation of each; and the device kernels of one forward, precise
+    and gradient evaluation either way.  Returns {name: results for the
+    kernels line}."""
+    import torch
+
+    from lfit_python_tpu_torch.examples import build_model, with_calib_widths
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+    from lfit_python_tpu_torch.ops import roche
+    from lfit_python_tpu_torch.roche import geometry as tg
+
+    f32, f64 = torch.float32, torch.float64
+    loops = {"findi": tg._findi_loop, "xl1": tg._xl1_loop,
+             "lobe_radius": tg._lobe_loop}
+    iters = {"findi": tg._FINDI_ITERS, "xl1": tg._XL1_ITERS,
+             "lobe_radius": tg._LOBE_ITERS}
+    wrappers = {n: getattr(roche, f"{n}_kernel") for n in loops}
+
+    def plain_loops():
+        return _roche_wrappers(roche, lambda n, _: loops[n])
+
+    def stress(dtype, n=8192):
+        """q 0.03-3 and dphi 0.005-0.15, the last three (0.05, 0.2),
+        (0.05, 0.25) infeasible and a NaN q; half the radii along the pole,
+        half along random unit directions."""
+        rng = np.random.default_rng(22)
+        q = torch.tensor(np.r_[rng.uniform(0.03, 3.0, n - 3),
+                               0.05, 0.05, np.nan], dtype=dtype, device=dev)
+        dphi = torch.tensor(np.r_[rng.uniform(0.005, 0.15, n - 3),
+                                  0.2, 0.25, 0.04], dtype=dtype, device=dev)
+        d = rng.standard_normal((n, 3))
+        d[: n // 2] = (0.0, 0.0, 1.0)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        d = torch.tensor(d, dtype=dtype, device=dev)
+        x1 = tg.xl1(q)
+        pl1 = tg.l1_potential(q, x1)
+        return {"findi": (q, 0.5 * dphi, x1, pl1), "xl1": (q,),
+                "lobe_radius": (q, x1, pl1, *(d[:, k].contiguous()
+                                              for k in range(3)))}
+
+    sets = {(f32, "north star"): roche_args,
+            (f64, "north star"): {n: tuple(a.to(f64) for a in args)
+                                  for n, args in roche_args.items()},
+            (f32, "stress"): stress(f32), (f64, "stress"): stress(f64)}
+    out = {n: {"max_abs_err": 0.0} for n in loops}
+    for (dtype, tag), inputs in sets.items():
+        line = []
+        for n, args in inputs.items():
+            k, p = wrappers[n](*args), loops[n](*args)
+            torch.cuda.synchronize()
+            same, err = _same_bits(k, p)
+            n_nan = int(torch.isnan(p).sum())
+            line.append(f"{n} {'the same bits' if same else 'DIFFER'} "
+                        f"(max |d| {err:.1e}, {n_nan} NaN of {p.numel()})")
+            _check(same, f"K4-K6: {n} differs from its plain loop on the "
+                   f"{tag} set in {dtype}: max |d| {err}")
+            out[n]["max_abs_err"] = max(out[n]["max_abs_err"], err)
+        print(f"[22 roche] {tag} set, {str(dtype)[6:]}: kernel against its "
+              f"plain loop: " + "; ".join(line))
+
+    # times, bounds and chain floors at the north star's shapes
+    clock = _sm_clock_hz()
+    for n, args in roche_args.items():
+        r = out[n]
+        r["solves"] = args[0].numel()
+        for dtype in (f32, f64):
+            a = sets[dtype, "north star"][n]
+            ms = _event_ms(lambda: wrappers[n](*a), 20)
+            plain_ms = _event_ms(lambda: loops[n](*a), 3, warmup=1)
+            per_step, per_solve = ROCHE_OPS[n]
+            ops = r["solves"] * (iters[n] * per_step + per_solve)
+            nbytes = (r["solves"] * (ROCHE_INPUTS[n] + 1)
+                      * a[0].element_size())
+            bound, by = _bound(ops, nbytes, str(dtype)[6:])
+            lat = ROCHE_LATENCY[str(dtype)[6:]]
+            chain = sum(c * t for c, t in zip(ROCHE_CHAIN[n], lat))
+            floor_ms = ((iters[n] + (n == "findi")) * chain / clock * 1e3)
+            res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "ops": ops, "bytes": nbytes,
+                   "chain_floor_ms": floor_ms}
+            if dtype == f32:
+                r.update(res)
+                r["traced_us"] = roche_us[n]
+            else:
+                r["float64"] = res
+            print(f"[22 roche] {n}_kernel, {r['solves']} solves, "
+                  f"{str(dtype)[6:]}: {ms:.4f} ms a call (event-timed"
+                  + (f"; {roche_us[n]:.1f} us traced in phase 2"
+                     if dtype == f32 else "")
+                  + f"), plain loop {plain_ms:.2f} ms "
+                  f"({plain_ms / ms:.0f}x); {ops / 1e6:.2f} M operations, "
+                  f"{nbytes} bytes: bound {bound * 1e3:.3f} us (set by {by}; "
+                  f"the kernel at {bound / ms:.2%} of it); chain floor (a "
+                  f"model: {iters[n] + (n == 'findi')} steps x {chain} "
+                  f"cycles at {clock / 1e9:.2f} GHz) {floor_ms * 1e3:.1f} us, "
+                  f"the kernel at {ms / floor_ms:.1f}x it; {smi}")
+
+    # the posteriors and the gradient, through the kernels and the loops
+    model_w = with_calib_widths(build_model(
+        n_eclipses=5, complex_spot=[False] * 5, n_points=128,
+        bands=("g", "r"))).compile()
+    posw = pos[:N_CHAINS]
+    evals = {
+        "float32": (make_ln_prob(model, dtype=f32, device=dev), pos),
+        "float64": (make_ln_prob(model, dtype=f64, device=dev), pos.to(f64)),
+        "precise": (make_ln_prob(model, CVConfig(mixed_precision=True),
+                                 dtype=f32, device=dev), pos),
+        "value_and_grad": (make_ln_prob(model_w, dtype=f32, device=dev),
+                           posw)}
+    kernels = {}
+    for tag, (post, p) in evals.items():
+        def once(post=post, p=p, vg=tag == "value_and_grad"):
+            """One evaluation: ln p, or ln p and its gradient."""
+            if vg:
+                return post.value_and_grad(p)
+            with torch.inference_mode():
+                return (post(p),)
+
+        def outputs(post=post, p=p, vg=tag == "value_and_grad"):
+            if vg:
+                return once()
+            with torch.inference_mode():
+                return post(p), post.model_flux(p)
+        once()
+        _zero_counts(contacts, stream, gp)
+        once()
+        c = _counts(contacts, stream, gp)
+        with plain_loops():
+            once()
+            c_plain = _counts(contacts, stream, gp)
+        got = outputs()
+        with plain_loops():
+            ref = outputs()
+        torch.cuda.synchronize()
+        same = [_same_bits(a, b)[0] for a, b in zip(got, ref)]
+        with plain_loops():
+            before = _device_kernels(once)
+        after = _device_kernels(once)
+        kernels[tag] = (before[1], after[1])
+        n_core = 2 if tag == "precise" else 1
+        print(f"[22 roche] {tag} evaluation at {p.shape[0]} walkers: ln p "
+              f"{'and flux' if tag != 'value_and_grad' else 'and gradient'} "
+              f"through K4-K6 and through the plain loops: "
+              f"{'the same bits' if all(same) else 'DIFFER'}; launches K4 "
+              f"{c['k4']}, K5 {c['k5']}, K6 {c['k6']} (K4 = K5 = {n_core} "
+              f"expected; on the plain loops "
+              f"{sum(c_plain[k] - c[k] for k in ('k4', 'k5', 'k6'))}"
+              f"); device kernels {before[1]} with the plain loops, "
+              f"{after[1]} with K4-K6 ({before[1] - after[1]} fewer); device "
+              f"ms {before[0] / 1e3:.1f} -> {after[0] / 1e3:.1f}; host-clock "
+              f"us of the traced call {before[2]:.0f} -> {after[2]:.0f}")
+        _check(all(same), f"{tag}: K4-K6 and the plain loops disagree")
+        mine = ("k4", "k5", "k6")
+        _check(c["k4"] == c["k5"] == n_core
+               and c["k6"] == ROCHE_PER_EVAL["k6"]
+               and all(c_plain[k] == c[k] for k in mine),
+               f"{tag}: launches {c}, with the plain loops {c_plain}")
+    _check(kernels["float32"][0] - kernels["float32"][1] >= 15000,
+           f"the forward evaluation's device kernels fell by "
+           f"{kernels['float32'][0] - kernels['float32'][1]} (< 15000)")
+
+    # the forward evaluation's host time, in turns
+    post, p = evals["float32"]
+    turns = {"plain": [], "kernel": []}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        ctx = plain_loops() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            turns[path].append(_sync_time(lambda: post(p), 3))
+    print(f"[22 roche] north-star forward evaluation, {N_WALKERS} walkers, "
+          f"float32, ms: K4-K6 {min(turns['kernel']):.1f} (turns "
+          f"{turns['kernel'][0]:.1f}, {turns['kernel'][1]:.1f}), plain loops "
+          f"{min(turns['plain']):.1f} (turns {turns['plain'][0]:.1f}, "
+          f"{turns['plain'][1]:.1f}); {smi}")
+    for n in out:
+        out[n]["eval_device_kernels"] = {t: {"plain_loops": b, "kernels": a}
+                                         for t, (b, a) in kernels.items()}
+    return out
+
+
 def main():
     import torch
 
@@ -2051,7 +2334,7 @@ def main():
     from lfit_python_tpu_torch.models.cv import CVConfig, cv_fluxes
     from lfit_python_tpu_torch.models.likelihood import (make_ln_prob,
                                                          make_ln_prob_parts)
-    from lfit_python_tpu_torch.ops import _build, contacts, gp, stream
+    from lfit_python_tpu_torch.ops import _build, contacts, gp, roche, stream
     from lfit_python_tpu_torch.roche.geometry import xl1
     from lfit_python_tpu_torch.sampling.ensemble import (init_walkers,
                                                          run_sampler)
@@ -2071,21 +2354,22 @@ def main():
     print(f"[1 device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:       # one nvcc per source, at once
+    with ThreadPoolExecutor(5) as pool:       # one nvcc per source, at once
         for fut in [pool.submit(contacts._kernel_fn),
                     pool.submit(contacts._backward_kernel_fn),
-                    pool.submit(stream._kernel), pool.submit(gp._kernel)]:
+                    pool.submit(stream._kernel), pool.submit(gp._kernel),
+                    pool.submit(roche._kernel)]:
             fut.result()
     build_s = time.perf_counter() - t0
-    for name in ("contacts", "contacts_backward", "stream", "gp"):
+    for name in ("contacts", "contacts_backward", "stream", "gp", "roche"):
         nvcc_s = _build.BUILD_SECONDS.get(name)
         print(f"[1 device] {name}.cu nvcc "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}")
         for ln in _build.PTXAS_LOGS[name].read_text().splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
-    print(f"[1 device] K1, K1's backward, K2 and K3 built and loaded in "
-          f"{build_s:.2f} s")
+    print(f"[1 device] K1, K1's backward, K2, K3 and K4-K6 built and loaded "
+          f"in {build_s:.2f} s")
     registers = {}
     for tag, name, n_inst in (("K1", "contacts", 3),
                               ("K1's backward", "contacts_backward", 2),
@@ -2098,6 +2382,22 @@ def main():
         _check(len(frames) == n_inst
                and not any(b for b, _ in frames.values()),
                f"a {tag} instantiation keeps an array in local memory")
+    # K4-K6: no spill, and no stack frame but the one sinf / cosf keep for
+    # arguments beyond 105615 (ROCHE_FRAMES)
+    log = _build.PTXAS_LOGS["roche"].read_text()
+    frames = {_short_entry(e): v for e, v in _stack_frames(log).items()}
+    registers["roche"] = {e: r for e, (_, r) in frames.items()}
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", log)]
+    print("[1 device] K4-K6 stack frames (bytes) and registers, ptxas: "
+          + ", ".join(f"{e} {b} bytes, {r} registers"
+                      for e, (b, r) in sorted(frames.items()))
+          + f"; spill stores and loads {sum(spills)} bytes; the findi "
+          f"kernels' frame is sinf / cosf's slow-path array (|x| > 105615, "
+          f"never reached)")
+    _check({e: b for e, (b, _) in frames.items()} == ROCHE_FRAMES
+           and not any(spills),
+           f"roche.cu's stack frames {frames} are not {ROCHE_FRAMES}, or it "
+           f"spills")
 
     sys.path.insert(0, str(ROOT / "tools"))
     from k1_sass_counts import built_sass, counts
@@ -2121,9 +2421,18 @@ def main():
 
     # ---- 2. K1 vs plain on the main path's own contact rows -----------
     with mock.patch.object(contacts, "element_intervals_kernel",
-                           wraps=contacts.element_intervals_kernel) as rec:
+                           wraps=contacts.element_intervals_kernel) as rec, \
+            _roche_wrappers(roche, lambda n, w: mock.MagicMock(
+                wraps=w)) as rec_roche:
         lp_kernel = lp32(pos)
     _check(rec.call_count == 1, f"K1 called {rec.call_count} times per eval")
+    # K4-K6's inputs on the main path: the first call of each
+    roche_args = {name: r.call_args_list[0].args
+                  for name, r in rec_roche.items()}
+    _check(all(r.call_count >= 1 for r in rec_roche.values())
+           and tuple(roche_args["findi"][0].shape) == (N_WALKERS,),
+           f"K4-K6 calls per eval: "
+           f"{ {n: r.call_count for n, r in rec_roche.items()} }")
     args = rec.call_args.args
     rows, n = args[2].shape
     _check((rows, n) == (N_WALKERS * 5, 512),
@@ -2224,8 +2533,20 @@ def main():
         "K2": lambda: stream.stream_impacts_kernel(q, rd, x1, n_steps),
         "K2 with sensitivities": lambda: stream.stream_impacts_kernel(
             *sub, n_steps, with_sens=True),
-        "K3": lambda: gp.segmented_matern32_kernel(*gp_args, **gp_kw)})
+        "K3": lambda: gp.segmented_matern32_kernel(*gp_args, **gp_kw),
+        **{f"K{k} {name}": (lambda name=name: getattr(
+            roche, f"{name}_kernel")(*roche_args[name]))
+           for k, name in ((4, "findi"), (5, "xl1"), (6, "lobe_radius"))}})
     k1_launch = _check_launches("K1", events["K1"], "contacts_kernel")
+    roche_launch, roche_us = {}, {}
+    for k, name in ((4, "findi"), (5, "xl1"), (6, "lobe_radius")):
+        tag = f"K{k} {name}"
+        roche_launch[name] = _check_launches(tag, events[tag],
+                                             f"{name}_kernel")
+        roche_us[name] = sum(device_us[tag].values())
+        _check(roche_launch[name][1] == 1, f"a {tag} call runs device "
+               f"kernels besides {name}_kernel: "
+               f"{[nm[:60] for nm in events[tag]]}")
     k2_launch = {sens: _check_launches(tag, events[tag], "stream_kernel")
                  for sens, tag in ((False, "K2"),
                                    (True, "K2 with sensitivities"))}
@@ -2405,6 +2726,8 @@ def main():
     _check(0.0 < acc_mean < 1.0, "acceptance fraction outside (0, 1)")
     _check(k1_steps == 2 * n_ens, "K1 did not launch once per half-step")
     _check(k2_steps == 2 * n_ens, "K2 did not launch once per half-step")
+    _check(c_ens["k4"] - c_init["k4"] == c_ens["k5"] - c_init["k5"]
+           == 2 * n_ens, "K4 / K5 did not launch once per half-step")
     _check(c_ens["k1_bwd"] == 0 and c_ens["k1_bwd_kernel"] == 0
            and c_ens["k2_sens"] == 0,
            "the ensemble path ran a gradient")
@@ -2460,7 +2783,7 @@ def main():
           f"sensitivities {c_one['k2_sens']})")
     _check(c_one == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
                      "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 0,
-                     "k3_bwd": 0},
+                     "k3_bwd": 0, **ROCHE_PER_EVAL},
            "K1's backward kernel or K2's sensitivities not once per "
            "evaluation")
     _check(bool(torch.isfinite(lp_g).all()), "a chain's ln p is not finite")
@@ -2611,6 +2934,8 @@ def main():
     _check(per["k1"] == per["k1_bwd"] == per["k1_bwd_kernel"] == per["k2"]
            == per["k2_sens"] == N_LEAPFROG,
            "not one K1, K1 backward kernel and K2 per leapfrog")
+    _check(per["k4"] == per["k5"] == N_LEAPFROG,
+           f"not one K4 and K5 per leapfrog: {per}")
     _check(bool(torch.isfinite(hs.positions).all()), "non-finite positions")
     _check(bool(torch.isfinite(hs.log_prob).all()), "non-finite log_prob")
     _check(bool(torch.isfinite(hchain_lp).all()), "non-finite chain_lp")
@@ -2859,7 +3184,7 @@ def main():
     peak_c5 = torch.cuda.max_memory_allocated()
     _check(c_gp_c5 == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 0,
                        "k1_bwd_kernel": 0, "k2": 1, "k2_sens": 0, "k3": 1,
-                       "k3_bwd": 0},
+                       "k3_bwd": 0, **ROCHE_PER_EVAL},
            f"config-5 evaluation launches: {c_gp_c5}")
     prior_ok = torch.isfinite(prior_c5(pos_c5))
     k3_c5_ms = _event_ms(lambda: gp.segmented_matern32_kernel(
@@ -2885,7 +3210,7 @@ def main():
     c_gp_vg = _counts(contacts, stream, gp)
     _check(c_gp_vg == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
                        "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 1,
-                       "k3_bwd": 1},
+                       "k3_bwd": 1, **ROCHE_PER_EVAL},
            f"GP value_and_grad launches: {c_gp_vg}")
     _check(bool(torch.isfinite(lp_gg).all()), "a GP chain's ln p not finite")
     _check(bool(torch.isfinite(g_gp).all()), "a GP gradient is not finite")
@@ -2968,7 +3293,9 @@ def main():
           f"sensitivities {c_gp_hmc['k2_sens']}, K3 {c_gp_hmc['k3']}, K3's "
           f"reverse kernel {c_gp_hmc['k3_bwd']} (16 each expected)")
     _check(c_gp_hmc == {**dict.fromkeys(c_gp_hmc, N_LEAPFROG),
-                        "k1_f64": 0, "k1_mixed": 0},
+                        "k1_f64": 0, "k1_mixed": 0,
+                        **{k: N_LEAPFROG * v
+                           for k, v in ROCHE_PER_EVAL.items()}},
            "GP hmc_step: not one K1, K1 backward kernel, K2, K3 and K3 "
            "reverse kernel per leapfrog")
     _check(bool(torch.isfinite(hs_gp2.positions).all()
@@ -3112,6 +3439,12 @@ def main():
     # ---- 21. the posterior tools -----------------------------------------
     _tools_phase(smi)
 
+    # ---- 22. the core geometry's bisections K4-K6 ------------------------
+    t0 = time.perf_counter()
+    k_roche = _roche_phase(dev, smi, model, pos, roche_args, roche_us,
+                           contacts, stream, gp)
+    print(f"[22 roche] phase 22 took {time.perf_counter() - t0:.1f} s")
+
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
              "nuts": c_nuts, "fit": c_fit, **c_modes, **c_branches,
@@ -3130,7 +3463,8 @@ def main():
                     ("k1_f64", ("posterior_f64", "fit_x64",
                                 "plot_eclipse")),
                     ("k1_mixed", ("posterior_precise", "fit_precise",
-                                  "compat"))):
+                                  "compat")),
+                    ("k4", paths), ("k5", paths), ("k6", paths)):
         for name in on:
             _check(paths[name][key] > 0,
                    f"the {name} path never launched {key.upper()}")
@@ -3271,6 +3605,26 @@ def main():
              "plain_ms": k3b[f64]["plain_ms"],
              "bound_ms": k3b[f64]["bound"][0],
              "bound_by": k3b[f64]["bound"][1]}},
+        *({"name": n, "route": "cuda", "source": ROCHE_SOURCE,
+           "replaces": ROCHE_REPLACES[n],
+           "launches": sum(by_path(key).values()),
+           "launches_by_path": by_path(key),
+           "device_launches_per_call": roche_launch[n][0],
+           "device_events_per_call": roche_launch[n][1],
+           "registers": {e: r for e, r in registers["roche"].items()
+                         if e.startswith(f"{n}_kernel")},
+           "library_ms": None,
+           "library_ms_reason": NO_LIBRARY.format(what),
+           **{k: v for k, v in k_roche[n].items() if k != "chain_floor_ms"},
+           "float64": {k: v for k, v in k_roche[n]["float64"].items()
+                       if k != "chain_floor_ms"}}
+          for n, key, what in (
+              ("findi", "k4", "a fixed-iteration bisection of a clamped-"
+               "Newton ray clearance over the inclination"),
+              ("xl1", "k5", "a fixed-iteration bisection of dPhi/dx on the "
+               "line of centres"),
+              ("lobe_radius", "k6", "a fixed-iteration bisection of the "
+               "Roche potential along a direction"))),
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

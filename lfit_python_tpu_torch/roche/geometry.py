@@ -102,21 +102,41 @@ def _potential_on_axis_dx(q, x):
     return (1.0 - mu) / (x * x) - mu / ((1.0 - x) ** 2) - (x - mu)
 
 
+def _solve(loop, kernel, *args):
+    """``loop(*args)`` on CPU tensors; on CUDA tensors one launch of the
+    ``ops.roche`` kernel ``kernel`` on the arguments broadcast to one
+    contiguous shape.  The wrapper is looked up at each call (imported
+    here: ``ops`` imports this module), so it can be patched."""
+    if args[0].device.type == "cpu":
+        return loop(*args)
+    from ..ops import roche
+
+    shape = torch.broadcast_shapes(*(a.shape for a in args))
+    return getattr(roche, kernel)(*(a.expand(shape).contiguous()
+                                    for a in args))
+
+
+def _xl1_loop(q):
+    """:func:`xl1`'s bisection of dPhi/dx over (1e-6, 1 - 1e-6): the plain
+    version of K5 (``ops/csrc/roche.cu``)."""
+    lo = torch.full_like(q, 1e-6)
+    hi = torch.full_like(q, 1.0 - 1e-6)
+    for _ in range(_XL1_ITERS):
+        mid = 0.5 * (lo + hi)
+        pos = _potential_on_axis_dx(q, mid) > 0.0
+        lo = torch.where(pos, mid, lo)
+        hi = torch.where(pos, hi, mid)
+    return 0.5 * (lo + hi)
+
+
 def xl1(q):
     """Distance of the inner Lagrangian point L1 from the primary
-    (fixed-iteration bisection of dPhi/dx on (0, 1)), with the IFT
-    tangent of F = dPhi/dx on the axis."""
+    (fixed-iteration bisection of dPhi/dx on (0, 1); K5 on CUDA tensors),
+    with the IFT tangent of F = dPhi/dx on the axis."""
     recording = _recording(q)
     with torch.no_grad():
         qd = q.detach()
-        lo = torch.full_like(qd, 1e-6)
-        hi = torch.full_like(qd, 1.0 - 1e-6)
-        for _ in range(_XL1_ITERS):
-            mid = 0.5 * (lo + hi)
-            pos = _potential_on_axis_dx(qd, mid) > 0.0
-            lo = torch.where(pos, mid, lo)
-            hi = torch.where(pos, hi, mid)
-        x = 0.5 * (lo + hi)
+        x = _solve(_xl1_loop, "xl1_kernel", qd)
         if not recording:
             return x
         mu = qd / (1.0 + qd)
@@ -330,10 +350,33 @@ def origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1,
     return clear / g_norm, clear
 
 
+def _clear_at(i_deg, q, half_w, x1, pl1):
+    return _origin_clearance(q, i_deg, half_w, x1, pl1)[0]
+
+
+def _findi_loop(q, half_w, x1, pl1):
+    """:func:`findi`'s bisection of the origin clearance at phase
+    ``half_w`` over i in (1, 90), NaN where the clearance at i = 90 is
+    not <= 0: the plain version of K4 (``ops/csrc/roche.cu``)."""
+    shape = torch.broadcast_shapes(q.shape, half_w.shape, x1.shape)
+    lo = torch.full(shape, 1.0, dtype=q.dtype, device=q.device)
+    hi = torch.full(shape, 90.0, dtype=q.dtype, device=q.device)
+    for _ in range(_FINDI_ITERS):
+        mid = 0.5 * (lo + hi)
+        vis = _clear_at(mid, q, half_w, x1, pl1) > 0.0  # not eclipsed
+        lo = torch.where(vis, mid, lo)
+        hi = torch.where(vis, hi, mid)
+    i_sol = 0.5 * (lo + hi)
+    feasible = _clear_at(torch.full_like(lo, 90.0), q, half_w, x1,
+                         pl1) <= 0.0
+    return torch.where(feasible, i_sol, torch.full_like(i_sol, math.nan))
+
+
 def findi(q, dphi, xl1_val=None, phi_l1=None):
     """Inclination (deg) at which the WD centre's eclipse has full phase
     width ``dphi``: bisection of the origin clearance at phase dphi/2 over
-    i in (1, 90).  NaN where even i = 90 gives no eclipse that wide.
+    i in (1, 90) (K4 on CUDA tensors).  NaN where even i = 90 gives no
+    eclipse that wide.
 
     The IFT tangent takes the clearance's slope in i from autograd of a
     detached evaluation at the root (the reference's ``jax.grad`` of the
@@ -342,29 +385,39 @@ def findi(q, dphi, xl1_val=None, phi_l1=None):
         xl1_val = xl1(q)
     if phi_l1 is None:
         phi_l1 = l1_potential(q, xl1_val)
-    shape = torch.broadcast_shapes(q.shape, dphi.shape, xl1_val.shape)
     args = (q, 0.5 * dphi, xl1_val, phi_l1)
     fixed = tuple(a.detach() for a in args)
-
-    def clear_at(i_deg, q, half_w, x1, pl1):
-        return _origin_clearance(q, i_deg, half_w, x1, pl1)[0]
-
     with torch.no_grad():
-        lo = torch.full(shape, 1.0, dtype=q.dtype, device=q.device)
-        hi = torch.full(shape, 90.0, dtype=q.dtype, device=q.device)
-        for _ in range(_FINDI_ITERS):
-            mid = 0.5 * (lo + hi)
-            vis = clear_at(mid, *fixed) > 0.0  # not eclipsed: higher i
-            lo = torch.where(vis, mid, lo)
-            hi = torch.where(vis, hi, mid)
-        i_sol = 0.5 * (lo + hi)
-        feasible = clear_at(torch.full_like(lo, 90.0), *fixed) <= 0.0
-    if _recording(*args):
-        with torch.enable_grad():
-            i0 = i_sol.clone().requires_grad_()
-            slope, = torch.autograd.grad(clear_at(i0, *fixed).sum(), i0)
-        i_sol = implicit_tangent(i_sol, clear_at(i_sol, *args), slope)
+        i_sol = _solve(_findi_loop, "findi_kernel", *fixed)
+    if not _recording(*args):
+        return i_sol
+    # the bisection's solution is never NaN, so NaN marks the infeasible;
+    # they take the tangent at i = 90, which the final select drops
+    feasible = ~torch.isnan(i_sol)
+    i_sol = torch.where(feasible, i_sol, torch.full_like(i_sol, 90.0))
+    with torch.enable_grad():
+        i0 = i_sol.clone().requires_grad_()
+        slope, = torch.autograd.grad(_clear_at(i0, *fixed).sum(), i0)
+    i_sol = implicit_tangent(i_sol, _clear_at(i_sol, *args), slope)
     return torch.where(feasible, i_sol, torch.full_like(i_sol, math.nan))
+
+
+def _lobe_at(r, dx, dy, dz):
+    return torch.stack([1.0 + r * dx, r * dy, r * dz], dim=-1)
+
+
+def _lobe_loop(q, x1, pl1, dx, dy, dz):
+    """:func:`lobe_radius`'s bisection of Phi(c2 + r d) - pl1 over
+    (1e-6 (1 - x1), 1 - x1] along d = (dx, dy, dz): the plain version of
+    K6 (``ops/csrc/roche.cu``)."""
+    rmax = 1.0 - x1
+    lo, hi = torch.broadcast_tensors(1e-6 * rmax, rmax, dx)[:2]
+    for _ in range(_LOBE_ITERS):
+        mid = 0.5 * (lo + hi)
+        inside = roche_potential(q, _lobe_at(mid, dx, dy, dz)) - pl1 < 0.0
+        lo = torch.where(inside, mid, lo)
+        hi = torch.where(inside, hi, mid)
+    return 0.5 * (lo + hi)
 
 
 def lobe_radius(q, direction, xl1_val=None, phi_l1=None):
@@ -377,21 +430,11 @@ def lobe_radius(q, direction, xl1_val=None, phi_l1=None):
     if phi_l1 is None:
         phi_l1 = l1_potential(q, xl1_val)
     dx, dy, dz = direction[..., 0], direction[..., 1], direction[..., 2]
-
-    def at(r):
-        return torch.stack([1.0 + r * dx, r * dy, r * dz], dim=-1)
-
     recording = _recording(q, phi_l1)
     with torch.no_grad():
         qd, pl1 = q.detach(), phi_l1.detach()
-        rmax = 1.0 - xl1_val.detach()
-        lo, hi = torch.broadcast_tensors(1e-6 * rmax, rmax, dx)[:2]
-        for _ in range(_LOBE_ITERS):
-            mid = 0.5 * (lo + hi)
-            inside = roche_potential(qd, at(mid)) - pl1 < 0.0
-            lo = torch.where(inside, mid, lo)
-            hi = torch.where(inside, hi, mid)
-        r = 0.5 * (lo + hi)
+        r = _solve(_lobe_loop, "lobe_radius_kernel", qd, xl1_val.detach(),
+                   pl1, dx.detach(), dy.detach(), dz.detach())
         if not recording:
             return r
         # grad(Phi) . d at the root, in closed form
@@ -404,7 +447,8 @@ def lobe_radius(q, direction, xl1_val=None, phi_l1=None):
         gy = (1.0 - mu) * y * i13 + mu * y * i23 - y
         gz = (1.0 - mu) * z * i13 + mu * z * i23
         slope = gx * dx + gy * dy + gz * dz
-    return implicit_tangent(r, roche_potential(q, at(r)) - phi_l1, slope)
+    return implicit_tangent(r, roche_potential(q, _lobe_at(r, dx, dy, dz))
+                            - phi_l1, slope)
 
 
 def inscribed_radius(q, xl1_val=None, phi_l1=None):

@@ -1,8 +1,8 @@
 """The CUDA kernels K1 (contacts: float32, float64 and mixed precision) and
-its backward, K2 (gas stream) and K3
-(GP recursion) and its reverse kernel on the card, against their plain
-PyTorch versions, the posterior and its gradient through them, and the
-fit command, its chunked sampling loop and its checkpoints on the card.
+its backward, K2 (gas stream), K3 (GP recursion) and its reverse kernel,
+and K4-K6 (the core geometry's bisections) on the card, against their
+plain PyTorch versions, the posterior and its gradient through them, and
+the fit command, its chunked sampling loop and its checkpoints on the card.
 
 Every test here needs a CUDA card (the kernels have no CPU form) and skips
 without one.  The file imports nothing of JAX, so on a machine with the
@@ -20,7 +20,7 @@ import torch
 from lfit_python_tpu_torch.examples import build_model, with_calib_widths
 from lfit_python_tpu_torch.models.cv import CVConfig
 from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-from lfit_python_tpu_torch.ops import contacts, gp, stream
+from lfit_python_tpu_torch.ops import contacts, gp, roche, stream
 from lfit_python_tpu_torch.roche import geometry as tg
 
 pytestmark = pytest.mark.cuda
@@ -937,3 +937,134 @@ def test_run_chunked_on_the_card_keeps_run_samplers_rows(cuda):
     assert torch.equal(out[0].positions, ref[0].positions)
     for got, want in zip((*out[1:3], out[3][0]), ref[1:]):
         np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+# ---- K4-K6: the core geometry's bisections ------------------------------
+
+ROCHE_LOOPS = {"findi": tg._findi_loop, "xl1": tg._xl1_loop,
+               "lobe_radius": tg._lobe_loop}
+
+
+def roche_inputs(dev, dtype, n=2048, seed=13):
+    """Each solve's inputs: q 0.03-3 and dphi 0.005-0.15 with infeasible
+    pairs (0.05, 0.2), (0.05, 0.25) and a NaN q last; radii along the pole
+    and along random unit directions."""
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(np.r_[rng.uniform(0.03, 3.0, n - 3), 0.05, 0.05,
+                           np.nan], dtype=dtype, device=dev)
+    dphi = torch.tensor(np.r_[rng.uniform(0.005, 0.15, n - 3), 0.2, 0.25,
+                              0.04], dtype=dtype, device=dev)
+    d = rng.standard_normal((n, 3))
+    d[: n // 2] = (0.0, 0.0, 1.0)
+    d = torch.tensor(d / np.linalg.norm(d, axis=1, keepdims=True),
+                     dtype=dtype, device=dev)
+    x1 = tg._xl1_loop(q)
+    pl1 = tg.l1_potential(q, x1)
+    return {"findi": (q, 0.5 * dphi, x1, pl1), "xl1": (q,),
+            "lobe_radius": (q, x1, pl1,
+                            *(d[:, k].contiguous() for k in range(3)))}
+
+
+def same_bits(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(a[~na], b[~nb]))
+
+
+@pytest.mark.parametrize("name", sorted(ROCHE_LOOPS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_roche_kernel_bit_identical(cuda, name, dtype):
+    """K4-K6 repeat their plain loops' operations in order: the same bits
+    and the same NaN pattern, on the card, in both dtypes."""
+    args = roche_inputs(cuda, dtype)[name]
+    counter = {"findi": "FINDI_LAUNCHES", "xl1": "XL1_LAUNCHES",
+               "lobe_radius": "LOBE_LAUNCHES"}[name]
+    before = getattr(roche, counter)
+    k = getattr(roche, f"{name}_kernel")(*args)
+    p = ROCHE_LOOPS[name](*args)
+    torch.cuda.synchronize()
+    assert getattr(roche, counter) == before + 1
+    assert same_bits(k, p)
+    if name == "findi":
+        assert bool(torch.isnan(k[-3:]).all())
+        assert 0.5 * k.numel() < int(torch.isfinite(k).sum()) < k.numel()
+
+
+@pytest.mark.parametrize("name", sorted(ROCHE_LOOPS))
+def test_roche_kernel_is_one_device_event(cuda, name):
+    """One wrapper call is one launch of its kernel and no other device
+    event (no copy, no set, no PyTorch kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = roche_inputs(cuda, torch.float32, n=1024)[name]
+    fn = getattr(roche, f"{name}_kernel")
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and f"{name}_kernel" in names[0], names
+
+
+def test_roche_routing_on_the_card(cuda):
+    """geometry's xl1, findi and inscribed_radius on CUDA tensors are one
+    launch each, with the loops' bits; the wrappers refuse what the
+    kernels cannot take."""
+    q = torch.linspace(0.05, 1.5, 64, dtype=torch.float32, device=cuda)
+    dphi = torch.full_like(q, 0.05)
+    before = (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES, roche.LOBE_LAUNCHES)
+    x1 = tg.xl1(q)
+    pl1 = tg.l1_potential(q, x1)
+    i = tg.findi(q, dphi, x1, pl1)
+    r = tg.inscribed_radius(q[:, None], x1[:, None], pl1[:, None])
+    assert (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES,
+            roche.LOBE_LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                     before[2] + 1)
+    assert torch.equal(x1, tg._xl1_loop(q))
+    assert same_bits(i, tg._findi_loop(q, 0.5 * dphi, x1, pl1))
+    pole = torch.tensor([0.0, 0.0, 1.0], device=cuda)
+    assert r.shape == (64, 1)
+    assert torch.equal(r, 0.995 * tg._lobe_loop(
+        q[:, None], x1[:, None], pl1[:, None], *pole))
+    with pytest.raises(TypeError):
+        roche.findi_kernel(q, dphi.double(), x1, pl1)
+    with pytest.raises(TypeError):
+        roche.xl1_kernel(q.half())
+    with pytest.raises(ValueError):
+        roche.findi_kernel(q, dphi[:-1], x1, pl1)
+    with pytest.raises(ValueError):
+        roche.xl1_kernel(torch.stack([q, q], dim=1)[:, 0])
+    with pytest.raises(ValueError):
+        roche.lobe_radius_kernel(q, x1, pl1, q, q, q.cpu())
+
+
+@pytest.mark.parametrize("mode", ["float32", "float64", "precise"])
+def test_posterior_through_roche_kernels_matches_plain_loops(cuda, mode):
+    """ln p and flux at 256 walkers on the north-star tree: the same bits
+    through K4-K6 and through the plain loops; findi and xl1 once an
+    evaluation (twice in the precise mode)."""
+    model = build_model(n_eclipses=5, complex_spot=[False] * 5,
+                        n_points=128, bands=("g", "r")).compile()
+    dtype = torch.float64 if mode == "float64" else torch.float32
+    lp = make_ln_prob(model, CVConfig(mixed_precision=mode == "precise"),
+                      dtype=dtype, device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(4)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((256, start.size)),
+                       dtype=dtype, device=cuda)
+    before = (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES)
+    a = lp(pos)
+    n_core = 2 if mode == "precise" else 1
+    assert (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES) == (
+        before[0] + n_core, before[1] + n_core)
+    fa = lp.model_flux(pos)
+    with mock.patch.object(roche, "findi_kernel", tg._findi_loop), \
+            mock.patch.object(roche, "xl1_kernel", tg._xl1_loop), \
+            mock.patch.object(roche, "lobe_radius_kernel", tg._lobe_loop):
+        b, fb = lp(pos), lp.model_flux(pos)
+    assert int(torch.isfinite(a).sum()) > 128
+    assert same_bits(a, b) and same_bits(fa, fb)

@@ -1,0 +1,424 @@
+"""The core geometry's bisection kernels K4-K6 (``ops/csrc/roche.cu``) on
+the CPU, against their plain loops and the JAX package.
+
+A CUDA kernel cannot run here, so the kernel source's own arithmetic, the
+part above its ``// ---- kernel and launcher`` line, is built by g++
+behind a small shim header (``-ffp-contract=off``: no product and sum
+contracted, as nvcc's ``--fmad=false``), with host loops in the kernels'
+place.  That stand-in is compared with the JAX package's ``findi``,
+``xl1``, ``inscribed_radius`` and ``lobe_radius`` in float64 (the tests of
+``test_torch_geometry.py``'s tolerances) and with the port's plain loops
+in float32 (1e-5 relative: the CPU's libm and PyTorch's CPU kernels round
+sin, cos and rsqrt otherwise than the card, which is why equal bits are a
+card gate, ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 22).
+The whole posterior with the stand-in in the loops' place is held to the
+JAX package's.  Then the routing: CPU tensors run the loops and count no
+launch; the wrappers check their inputs.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+from unittest import mock
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from lfit_python_tpu.models import priors as jpr
+from lfit_python_tpu.models import tree as jtree
+from lfit_python_tpu.models.cv import CVConfig as JCfg
+from lfit_python_tpu.models.likelihood import make_ln_prob as jmake
+from lfit_python_tpu.roche import geometry as jg
+from lfit_python_tpu_torch.convert import from_jax_model
+from lfit_python_tpu_torch.examples import build_model
+from lfit_python_tpu_torch.models.cv import CVConfig
+from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+from lfit_python_tpu_torch.ops import roche
+from lfit_python_tpu_torch.roche import geometry as tg
+
+SOURCE = Path(roche.__file__).resolve().parent / "csrc" / "roche.cu"
+
+_SHIM = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#define __device__
+#define __global__
+#define __forceinline__ inline __attribute__((always_inline))
+#define __launch_bounds__(...)
+static inline float rsqrtf(float v) { return 1.0f / std::sqrt(v); }
+static inline double rsqrt(double v) { return 1.0 / std::sqrt(v); }
+"""
+
+_HOST = r"""
+template <typename T>
+static void findi_rows(const T* q, const T* hw, const T* x1, const T* pl1,
+                       T* out, int n, int iters) {
+  for (int i = 0; i < n; ++i)
+    out[i] = findi_solve(q[i], hw[i], x1[i], pl1[i], iters);
+}
+
+template <typename T>
+static void xl1_rows(const T* q, T* out, int n, int iters) {
+  for (int i = 0; i < n; ++i) out[i] = xl1_solve(q[i], iters);
+}
+
+template <typename T>
+static void lobe_rows(const T* q, const T* x1, const T* pl1, const T* dx,
+                      const T* dy, const T* dz, T* out, int n, int iters) {
+  for (int i = 0; i < n; ++i)
+    out[i] = lobe_solve(q[i], x1[i], pl1[i], dx[i], dy[i], dz[i], iters);
+}
+
+extern "C" void findi_host(int is_double, const void* q, const void* hw,
+                           const void* x1, const void* pl1, void* out, int n,
+                           int iters) {
+  if (is_double)
+    findi_rows((const double*)q, (const double*)hw, (const double*)x1,
+               (const double*)pl1, (double*)out, n, iters);
+  else
+    findi_rows((const float*)q, (const float*)hw, (const float*)x1,
+               (const float*)pl1, (float*)out, n, iters);
+}
+
+extern "C" void xl1_host(int is_double, const void* q, void* out, int n,
+                         int iters) {
+  if (is_double)
+    xl1_rows((const double*)q, (double*)out, n, iters);
+  else
+    xl1_rows((const float*)q, (float*)out, n, iters);
+}
+
+extern "C" void lobe_radius_host(int is_double, const void* q,
+                                 const void* x1, const void* pl1,
+                                 const void* dx, const void* dy,
+                                 const void* dz, void* out, int n,
+                                 int iters) {
+  if (is_double)
+    lobe_rows((const double*)q, (const double*)x1, (const double*)pl1,
+              (const double*)dx, (const double*)dy, (const double*)dz,
+              (double*)out, n, iters);
+  else
+    lobe_rows((const float*)q, (const float*)x1, (const float*)pl1,
+              (const float*)dx, (const float*)dy, (const float*)dz,
+              (float*)out, n, iters);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def source_lib(tmp_path_factory):
+    """roche.cu above its ``// ---- kernel and launcher`` line, built by g++
+    (no contraction of products and sums, as --fmad=false) with host loops
+    in the kernels' place."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel source's arithmetic")
+    build = tmp_path_factory.mktemp("roche_source")
+    (build / "cuda_runtime.h").write_text(_SHIM)
+    head, marker, _ = SOURCE.read_text().partition(
+        "// ---- kernel and launcher")
+    assert marker, "the kernel source lost its marker line"
+    (build / "host.cpp").write_text(head + _HOST)
+    so = build / "libhost.so"
+    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
+                    "-shared", "-fPIC", f"-I{build}", "-o", str(so),
+                    str(build / "host.cpp")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    for fn, n_in in ((lib.findi_host, 4), (lib.xl1_host, 1),
+                     (lib.lobe_radius_host, 6)):
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (n_in + 1)
+                       + [ctypes.c_int] * 2)
+        fn.restype = None
+    return lib
+
+
+def stand_in(lib, name, iters):
+    """A function of broadcastable CPU tensors that runs the source's
+    solve ``name`` on them, as ``geometry._solve`` hands a kernel its
+    arguments: broadcast to one contiguous shape."""
+    fn = getattr(lib, f"{name}_host")
+
+    def run(*args):
+        shape = torch.broadcast_shapes(*(a.shape for a in args))
+        ts = [a.expand(shape).contiguous() for a in args]
+        out = torch.empty(shape, dtype=ts[0].dtype)
+        fn(int(out.dtype == torch.float64), *(t.data_ptr() for t in ts),
+           out.data_ptr(), out.numel(), iters)
+        return out
+    return run
+
+
+@pytest.fixture(scope="module")
+def solves(source_lib):
+    return {"findi": stand_in(source_lib, "findi", tg._FINDI_ITERS),
+            "xl1": stand_in(source_lib, "xl1", tg._XL1_ITERS),
+            "lobe": stand_in(source_lib, "lobe_radius", tg._LOBE_ITERS)}
+
+
+def draws(dtype):
+    """test_torch_geometry.py's draws (q 0.05-1.5, dphi 0.02-0.09), then
+    infeasible pairs (q 0.05, dphi 0.2) and a NaN q."""
+    rng = np.random.default_rng(11)
+    q = np.concatenate([rng.uniform(0.05, 1.5, 24), [0.05, 0.05, np.nan]])
+    dphi = np.concatenate([rng.uniform(0.02, 0.09, 24), [0.2, 0.25, 0.04]])
+    return (torch.tensor(q, dtype=dtype), torch.tensor(dphi, dtype=dtype))
+
+
+def directions(n, seed=3):
+    """Unit directions from the donor's centre, the pole first."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n, 3))
+    d[0] = (0.0, 0.0, 1.0)
+    return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def same_nan_then_close(got, ref, rtol):
+    got, ref = np.asarray(got), np.asarray(ref)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    ok = ~np.isnan(ref)
+    np.testing.assert_allclose(got[ok], ref[ok], rtol=rtol, atol=0)
+
+
+def geometry_inputs(q, dphi):
+    """(q, dphi / 2, x1, pl1) as findi hands its loop."""
+    x1 = tg.xl1(q)
+    return q, 0.5 * dphi, x1, tg.l1_potential(q, x1)
+
+
+class TestAgainstJax:
+    """The stand-in in float64 against the JAX package."""
+
+    def test_findi(self, solves):
+        q, dphi = draws(torch.float64)
+        got = solves["findi"](*geometry_inputs(q, dphi)).numpy()
+        ref = np.asarray(jax.vmap(jg.findi)(q.numpy(), dphi.numpy()))
+        assert np.isnan(got[-3:]).all() and (~np.isnan(got)).sum() > 12
+        same_nan_then_close(got, ref, 1e-10)
+
+    def test_xl1(self, solves):
+        q, _ = draws(torch.float64)
+        got = solves["xl1"](q).numpy()
+        ref = np.asarray(jax.vmap(jg.xl1)(q.numpy()))
+        assert not np.isnan(got).any()      # a NaN q ends at the bracket
+        same_nan_then_close(got, ref, 1e-12)
+
+    def test_inscribed_radius(self, solves):
+        q, _ = draws(torch.float64)
+        x1 = tg.xl1(q)
+        pl1 = tg.l1_potential(q, x1)
+        zero, one = torch.zeros(()), torch.ones(())
+        got = 0.995 * solves["lobe"](q, x1, pl1, zero.double(),
+                                     zero.double(), one.double())
+        ref = np.asarray(jax.vmap(jg.inscribed_radius)(q.numpy()))
+        same_nan_then_close(got.numpy(), ref, 1e-12)
+
+    @pytest.mark.parametrize("k", range(4))
+    def test_lobe_radius_along_a_direction(self, solves, k):
+        q, _ = draws(torch.float64)
+        d = directions(4)[k]
+        x1 = tg.xl1(q)
+        pl1 = tg.l1_potential(q, x1)
+        dt = [torch.tensor(c, dtype=torch.float64) for c in d]
+        got = solves["lobe"](q, x1, pl1, *dt).numpy()
+        ref = np.asarray(jax.vmap(lambda qq: jg.lobe_radius(
+            qq, jax.numpy.asarray(d)))(q.numpy()))
+        same_nan_then_close(got, ref, 1e-12)
+
+
+class TestAgainstPlainLoops:
+    """The stand-in against the port's plain loops: float32 at 1e-5
+    relative, float64 at the JAX tests' tolerances; the same NaN
+    pattern in both."""
+
+    @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                            (torch.float64, 1e-10)])
+    def test_findi(self, solves, dtype, rtol):
+        args = geometry_inputs(*draws(dtype))
+        same_nan_then_close(solves["findi"](*args), tg._findi_loop(*args),
+                            rtol)
+
+    @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                            (torch.float64, 1e-12)])
+    def test_xl1(self, solves, dtype, rtol):
+        q, _ = draws(dtype)
+        same_nan_then_close(solves["xl1"](q), tg._xl1_loop(q), rtol)
+
+    @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                            (torch.float64, 1e-12)])
+    def test_lobe_radius(self, solves, dtype, rtol):
+        q, _ = draws(dtype)
+        x1 = tg.xl1(q)
+        pl1 = tg.l1_potential(q, x1)
+        d = torch.tensor(directions(8), dtype=dtype)
+        # every walker along every direction: (W, 8)
+        args = (q[:, None], x1[:, None], pl1[:, None], d[:, 0], d[:, 1],
+                d[:, 2])
+        got, ref = solves["lobe"](*args), tg._lobe_loop(*args)
+        assert got.shape == ref.shape == (q.numel(), 8)
+        same_nan_then_close(got, ref, rtol)
+
+    def test_a_stress_set(self, solves):
+        """512 solves over q 0.03-3, dphi 0.005-0.15, float32."""
+        rng = np.random.default_rng(5)
+        q = torch.tensor(rng.uniform(0.03, 3.0, 512), dtype=torch.float32)
+        dphi = torch.tensor(rng.uniform(0.005, 0.15, 512),
+                            dtype=torch.float32)
+        args = geometry_inputs(q, dphi)
+        got, ref = solves["findi"](*args), tg._findi_loop(*args)
+        assert 0 < int(torch.isnan(ref).sum()) < 512
+        same_nan_then_close(got, ref, 1e-5)
+
+
+# ---- the posterior with the stand-in in the loops' place ---------------
+
+TINY = dict(n_disc_rad=5, n_disc_az=8, n_spot=8, n_donor_lat=6,
+            n_donor_lon=8)
+
+
+def jax_twin(spec):
+    """The JAX package's compiled model of the port's model tree."""
+    def par(p):
+        return jpr.Param(p.name, p.start, jpr.Prior(
+            p.prior.type, p.prior.p1, p.prior.p2), p.is_var, p.scatter)
+
+    ecl = [jtree.EclipseSpec(
+        e.name, e.band, jtree.Lightcurve(
+            e.lightcurve.phase, e.lightcurve.flux, e.lightcurve.err,
+            e.lightcurve.width, e.lightcurve.name),
+        {k: par(v) for k, v in e.params.items()}, e.complex_spot, e.use_gp)
+        for e in spec.eclipses]
+    return jtree.HierarchicalModel(
+        {k: par(v) for k, v in spec.core.items()},
+        {b: {k: par(v) for k, v in d.items()} for b, d in spec.bands.items()},
+        ecl).compile()
+
+
+def test_posterior_through_the_source_matches_jax(solves):
+    """The float64 posterior (one simple-spot eclipse, 16 points, 6
+    walkers; one walker with an infeasible dphi) with the three loops
+    replaced by the stand-in, against the JAX package's posterior: the
+    same -inf pattern, ln p within 1e-9 relative (the tolerance of
+    test_torch_posterior.py); and against the port's own plain loops."""
+    spec = build_model(n_eclipses=1, complex_spot=[False], n_points=16,
+                       bands=("g",))
+    jm = jax_twin(spec)
+    jlp = jax.jit(jax.vmap(jmake(jm, config=JCfg(
+        n_donor_quad=0, pallas_contacts=False, **TINY))))
+    lp = make_ln_prob(from_jax_model(jm), CVConfig(**TINY), device="cpu")
+    start = jm.var_start()
+    rng = np.random.default_rng(2)
+    pos = start[None] + 0.001 * np.abs(start)[None] * rng.standard_normal(
+        (6, start.size))
+    names = jm.var_names()
+    # inside the prior, but no inclination gives an eclipse that wide
+    pos[-1, names.index("q_core")] = 0.04
+    pos[-1, names.index("dphi_core")] = 0.19
+    p = torch.tensor(pos, dtype=torch.float64)
+    calls = {}
+
+    def counted(name):
+        def run(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return solves[name](*args)
+        return run
+
+    with mock.patch.object(tg, "_findi_loop", counted("findi")), \
+            mock.patch.object(tg, "_xl1_loop", counted("xl1")), \
+            mock.patch.object(tg, "_lobe_loop", counted("lobe")):
+        got = lp(p).numpy()
+    assert calls["findi"] == calls["xl1"] == 1 and calls["lobe"] >= 1
+    ref = np.asarray(jlp(pos))
+    plain = lp(p).numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    assert np.isfinite(got[:-1]).all() and not np.isfinite(got[-1])
+    ok = np.isfinite(ref)
+    np.testing.assert_allclose(got[ok], ref[ok], rtol=1e-9)
+    np.testing.assert_allclose(got[ok], plain[ok], rtol=1e-9)
+
+
+# ---- routing ---------------------------------------------------------
+
+class TestRouting:
+    def test_cpu_tensors_run_the_loops(self):
+        q, dphi = draws(torch.float64)
+        before = (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES,
+                  roche.LOBE_LAUNCHES)
+        x1 = tg.xl1(q)
+        assert torch.equal(x1, tg._xl1_loop(q))
+        pl1 = tg.l1_potential(q, x1)
+        i = tg.findi(q, dphi, x1, pl1)
+        ref = tg._findi_loop(q, 0.5 * dphi, x1, pl1)
+        assert torch.equal(torch.isnan(i), torch.isnan(ref))
+        assert torch.equal(i[~torch.isnan(i)], ref[~torch.isnan(ref)])
+        pole = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64)
+        r = tg.inscribed_radius(q, x1, pl1)
+        rr = 0.995 * tg._lobe_loop(q, x1, pl1, *pole)
+        ok = ~torch.isnan(rr)
+        assert torch.equal(r[ok], rr[ok])
+        assert (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES,
+                roche.LOBE_LAUNCHES) == before
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_wrappers_take_the_loops_on_the_cpu(self, dtype):
+        q, dphi = draws(dtype)
+        args = geometry_inputs(q, dphi)
+        before = (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES,
+                  roche.LOBE_LAUNCHES)
+        got = roche.findi_kernel(*args)
+        ref = tg._findi_loop(*args)
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+        assert torch.equal(roche.xl1_kernel(q).nan_to_num(),
+                           tg._xl1_loop(q).nan_to_num())
+        d = [torch.full_like(q, c) for c in (0.0, 0.6, 0.8)]
+        assert torch.equal(
+            roche.lobe_radius_kernel(q, args[2], args[3], *d).nan_to_num(),
+            tg._lobe_loop(q, args[2], args[3], *d).nan_to_num())
+        assert (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES,
+                roche.LOBE_LAUNCHES) == before
+
+    def test_wrappers_check_their_inputs(self):
+        q = torch.linspace(0.1, 1.0, 8, dtype=torch.float64)
+        with pytest.raises(TypeError):
+            roche.xl1_kernel(q.float().to(torch.float16))
+        with pytest.raises(TypeError):
+            roche.findi_kernel(q, q.float(), q, q)
+        with pytest.raises(ValueError):
+            roche.findi_kernel(q, q[:4], q, q)
+        with pytest.raises(ValueError):
+            roche.lobe_radius_kernel(q, q, q, q, q, torch.stack([q, q])[:, 0])
+        with pytest.raises(ValueError):
+            roche.xl1_kernel(torch.stack([q, q], dim=1)[:, 0])
+        with pytest.raises(ValueError):
+            roche.xl1_kernel(q.to("meta"))
+
+    def test_other_devices_reach_the_wrapper_broadcast(self):
+        """Off the CPU each solve is one wrapper call on its arguments
+        broadcast to one contiguous shape (meta tensors stand in for the
+        card's here)."""
+        seen = {}
+
+        def record(name):
+            def run(*args):
+                seen[name] = [(tuple(a.shape), a.is_contiguous(), a.device)
+                              for a in args]
+                return torch.empty_like(args[0])
+            return run
+
+        q = torch.empty(6, 1, dtype=torch.float32, device="meta")
+        dphi = torch.empty(6, 1, dtype=torch.float32, device="meta")
+        x1 = torch.empty(1, 4, dtype=torch.float32, device="meta")
+        with mock.patch.object(roche, "findi_kernel", record("findi")), \
+                mock.patch.object(roche, "xl1_kernel", record("xl1")), \
+                mock.patch.object(roche, "lobe_radius_kernel",
+                                  record("lobe")):
+            assert tg.xl1(q).shape == (6, 1)
+            assert tg.findi(q, dphi, x1, x1).shape == (6, 4)
+            assert tg.inscribed_radius(q, x1, x1).shape == (6, 4)
+        assert seen["xl1"] == [((6, 1), True, q.device)]
+        assert seen["findi"] == [((6, 4), True, q.device)] * 4
+        assert seen["lobe"] == [((6, 4), True, q.device)] * 6
