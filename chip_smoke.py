@@ -23,8 +23,9 @@ x 256 walkers.  Phases:
      local memory (K3's are the forward kernel with and without the kept
      state and the reverse kernel, in both dtypes); and of K4-K6
      (roche.cu, float32 and float64), with no spill and no frame but the
-     32 / 40 bytes sinf / cosf keep for arguments beyond 105615 in K4's
-     (ROCHE_FRAMES);
+     40 bytes sin / cos keep for arguments beyond 105615 in K4's float64
+     one (ROCHE_FRAMES), and the warps an SM holds of each K4 / K6
+     instantiation (at least 8);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
@@ -182,7 +183,11 @@ x 256 walkers.  Phases:
      the north star's solves (1024 walkers; 5120 radii) and a stress set
      of 8192 with infeasible pairs and a NaN q, float32 and float64: the
      same bits and NaN pattern; each kernel's time, its plain loop's, its
-     bound and its chain floor (a model); the float32, float64 and precise
+     bound and its chain floor (a model, per round for K4 and K6) and the
+     operations K4's and K6's groups execute (a model); K4 and K6 built
+     at each group depth d of tools/torch_roche_depths.py, their bits on
+     the north star's solves and their times, launched back to back in
+     turns; the float32, float64 and precise
      evaluations (1024 walkers) and value_and_grad (256 chains) through
      K4-K6 and through the plain loops: the same bits of ln p and flux (or
      gradient), K4 = K5 = 1 launch an evaluation (2 precise), and the
@@ -329,18 +334,29 @@ ROCHE_REPLACES = {
     "lobe_radius": "lfit_python_tpu/roche/geometry.py:1140 (lobe_radius's "
                    "54-step lax.fori_loop, :1169; inscribed_radius :539; "
                    "no pallas_call)"}
-# sinf / cosf (sin / cos in float64) keep an array in local memory for the
-# Payne-Hanek reduction of |x| > 105615, which K4's angles never reach
-# (ptxas of CUDA 12.8 for sm_90a): K4's stack frame is that array and
-# nothing else, and the other four instantiations have none
-ROCHE_FRAMES = {"findi_kernel<f32>": 32, "findi_kernel<f64>": 40,
+# sin / cos in float64 keep an array in local memory for the Payne-Hanek
+# reduction of |x| > 105615, which K4's angles never reach (ptxas of CUDA
+# 12.8 for sm_90a): K4's float64 stack frame is that array and nothing
+# else.  sinf / cosf kept one too (32 bytes) in a one-thread-a-solve K4;
+# the group kernel's float32 build keeps none.  K5 and K6 have none
+ROCHE_FRAMES = {"findi_kernel<f32>": 0, "findi_kernel<f64>": 40,
                 "xl1_kernel<f32>": 0, "xl1_kernel<f64>": 0,
                 "lobe_radius_kernel<f32>": 0, "lobe_radius_kernel<f64>": 0}
+# K4 and K6 run a group of 2^d lanes a solve, d set by these macros of
+# roche.cu
+ROCHE_DEPTH_MACROS = {"findi": "FINDI_DEPTH", "lobe_radius": "LOBE_DEPTH"}
+# K4's and K6's blocks (128 threads: 4 warps); an SM holds at most 64 warps
+# and 32 blocks, and allocates registers to a warp 256 at a time
+ROCHE_GROUP_BLOCK_WARPS = 4
 # operations per bisection step and per solve outside the loop, counted by
 # hand from roche.cu (each divide, sqrt, rsqrt, sin and cos, compare and
 # select as one): K4 a step 253 (the clearance's setup 25, 4 Newton steps
 # of 41, 3 values of g of 19, the end selects 7), per solve 8 and the
-# clearance at 90 deg once more; K5 14 a step, 5 a solve; K6 32, 5
+# clearance at 90 deg once more; K5 14 a step, 5 a solve; K6 32, 5.  The
+# bound counts this, the sequential algorithm's work, whatever runs it;
+# K4's and K6's groups execute more: a round of r levels tests all 2^r - 1
+# of its midpoints (a model, printed in phase 22: the replay of their
+# paths and the walk not counted)
 ROCHE_OPS = {"findi": (253, 8 + 253), "xl1": (14, 5), "lobe_radius": (32, 5)}
 # the inputs of each solve (its output is one more number)
 ROCHE_INPUTS = {"findi": 4, "xl1": 1, "lobe_radius": 6}
@@ -348,12 +364,17 @@ ROCHE_INPUTS = {"findi": 4, "xl1": 1, "lobe_radius": 6}
 # (adds, multiplies, compares and selects; divides; square roots; rsqrts;
 # sin), and the latencies in cycles assumed for each (a float32 add 4, a
 # float64 one 8; the IEEE divide and sqrt, the rsqrt with its fix-up and
-# sinf's reduction and polynomial).  Steps x chain over the SM clock is the
-# chain floor: a model number beside the measured time, not a measurement
+# sinf's reduction and polynomial).  K5's chain floor is steps x chain; K4's
+# and K6's is rounds x (chain + the deepest lane's replay of r - 1 levels
+# and the walk's r, 3 dependent adds, multiplies or selects a level, + a
+# ballot of ROCHE_BALLOT_CYCLES), K4's feasibility test in the last
+# round.  Over the SM clock: a model number beside the measured time, not
+# a measurement
 ROCHE_CHAIN = {"findi": (88, 4, 1, 5, 1), "xl1": (8, 1, 0, 0, 0),
                "lobe_radius": (13, 1, 1, 0, 0)}
 ROCHE_LATENCY = {"float32": (4, 40, 40, 20, 60),
                  "float64": (8, 100, 100, 60, 160)}
+ROCHE_BALLOT_CYCLES = 20
 # K4-K6 launches of one evaluation (forward or value_and_grad; K4 and K5
 # twice in the precise mode): findi and xl1 once, the inscribed radius
 # for the contact rows and for the white dwarf's certain-occultation guard
@@ -491,6 +512,22 @@ def _sm_clock_hz():
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0])
+
+
+def _roche_warps_per_sm(regs):
+    """The warps an SM holds of a K4 / K6 instantiation of ``regs``
+    registers a thread, in whole blocks of ROCHE_GROUP_BLOCK_WARPS."""
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(32, 65536 // (per_warp * ROCHE_GROUP_BLOCK_WARPS),
+                 64 // ROCHE_GROUP_BLOCK_WARPS)
+    return blocks * ROCHE_GROUP_BLOCK_WARPS
+
+
+def _roche_depth(name):
+    """The group depth d (2^d lanes a solve) roche.cu builds K4 ("findi")
+    or K6 ("lobe_radius") at."""
+    return int(re.search(rf"#define {ROCHE_DEPTH_MACROS[name]} (\d+)",
+                         (ROOT / ROCHE_SOURCE).read_text()).group(1))
 
 
 def _short_entry(entry):
@@ -2120,6 +2157,43 @@ def _tools_phase(smi):
                    f"{tag}: K1 was not launched in each mode")
 
 
+def _rounds(iters, depth):
+    """The levels of each round of roche.cu's k-section at group depth
+    ``depth``: rounds of ``depth`` and a short last one, at least one."""
+    full, rest = divmod(iters, depth)
+    return [depth] * full + [rest] * (rest > 0 or full == 0)
+
+
+def _roche_executed_ops(name, solves, iters, depth):
+    """The operations K4's or K6's groups execute at group depth
+    ``depth`` (a model: ROCHE_OPS's for each of the 2^r - 1 midpoints a
+    round of r levels tests, and each solve's own; the replay of their
+    paths and the walk not counted)."""
+    per_step, per_solve = ROCHE_OPS[name]
+    return solves * (sum(2 ** r - 1 for r in _rounds(iters, depth))
+                     * per_step + per_solve)
+
+
+def _roche_chain_ms(name, iters, depth, dtype, clock):
+    """(K4-K6's chain floor in ms, how it was modelled): ROCHE_CHAIN's
+    latency for each step of K5 (``depth`` None), and for each round of K4
+    and K6 at group depth ``depth`` with the deepest lane's replay, the
+    walk and the ballot (ROCHE_CHAIN)."""
+    lat = ROCHE_LATENCY[dtype]
+    chain = sum(c * t for c, t in zip(ROCHE_CHAIN[name], lat))
+    if depth is None:
+        return (iters * chain / clock * 1e3,
+                f"{iters} steps x {chain} cycles at {clock / 1e9:.2f} GHz")
+    rounds = _rounds(iters, depth)
+    cycles = sum(chain + 3 * lat[0] * (2 * r - 1) + ROCHE_BALLOT_CYCLES
+                 for r in rounds)
+    return (cycles / clock * 1e3,
+            f"{len(rounds)} rounds at d {depth}, each {chain} cycles of "
+            f"evaluation + 3 x {lat[0]} a replayed or walked level + "
+            f"{ROCHE_BALLOT_CYCLES} for the ballot: {cycles} cycles at "
+            f"{clock / 1e9:.2f} GHz")
+
+
 def _same_bits(a, b):
     """(the same NaN pattern and the same values elsewhere, max |a - b|
     over the entries finite in both)."""
@@ -2137,7 +2211,9 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
     """Phase 22: K4-K6 against their plain loops, bit for bit, on the
     north star's solves (``roche_args``: phase 2's recorded inputs, 1024
     walkers) and a stress set of 8192, float32 and float64; each kernel's
-    time, its plain loop's, its bound and its chain floor; the float32,
+    time, its plain loop's, its bound and its chain floor; K4 and K6 built
+    at each group depth of tools/torch_roche_depths.py, their bits and
+    times on the north star's solves; the float32,
     float64 and precise posteriors and the gradient through the kernels
     and through the plain loops (equal bits), the launches of one
     evaluation of each; and the device kernels of one forward, precise
@@ -2200,6 +2276,31 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
         print(f"[22 roche] {tag} set, {str(dtype)[6:]}: kernel against its "
               f"plain loop: " + "; ".join(line))
 
+    # K4 and K6 at each group depth, each a build of its own (the kept
+    # depths and those measured beside them), launched back to back in turns
+    import torch_roche_depths
+
+    grouped = tuple(ROCHE_DEPTH_MACROS)
+    kept = {n: _roche_depth(n) for n in grouped}
+    by_depth = torch_roche_depths.measure(
+        torch_roche_depths.build(), {n: roche_args[n] for n in grouped},
+        traced=False)
+    for n in grouped:
+        for dt in ("float32", "float64"):
+            rows = {int(lb[1:]): r[f"{n}_{dt}"]
+                    for lb, r in by_depth.items()}
+            _check(all(r["same_bits"] for r in rows.values()),
+                   f"{n} built at d {sorted(rows)} differs from its plain "
+                   f"loop in {dt}: {rows}")
+            print(f"[22 roche] {n}_kernel, {rows[kept[n]]['solves']} "
+                  f"solves, {dt}, by group depth (tools/torch_roche_depths"
+                  f".py builds; the same bits at each), us a launch back to "
+                  f"back, median of {len(rows[kept[n]]['us_turns'])} turns: "
+                  + ", ".join(f"d {d} {r['us']:.2f}"
+                              for d, r in sorted(rows.items()))
+                  + f"; roche.cu keeps d {kept[n]}, the fastest here d "
+                  f"{min(rows, key=lambda d: rows[d]['us'])}; {smi}")
+
     # times, bounds and chain floors at the north star's shapes
     clock = _sm_clock_hz()
     for n, args in roche_args.items():
@@ -2214,28 +2315,38 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
             nbytes = (r["solves"] * (ROCHE_INPUTS[n] + 1)
                       * a[0].element_size())
             bound, by = _bound(ops, nbytes, str(dtype)[6:])
-            lat = ROCHE_LATENCY[str(dtype)[6:]]
-            chain = sum(c * t for c, t in zip(ROCHE_CHAIN[n], lat))
-            floor_ms = ((iters[n] + (n == "findi")) * chain / clock * 1e3)
+            dt = str(dtype)[6:]
             res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": by, "ops": ops, "bytes": nbytes,
-                   "chain_floor_ms": floor_ms}
+                   "bound_by": by, "ops": ops, "bytes": nbytes}
+            depth = kept.get(n)
+            floor_ms, how = _roche_chain_ms(n, iters[n], depth, dt, clock)
+            executed = (_roche_executed_ops(n, r["solves"], iters[n], depth)
+                        if depth else None)
+            res["chain_floor_ms"] = floor_ms
+            # the chain floor against the traced time where there is one:
+            # an event-timed loop of wrapper calls is host-paced
+            traced_ms = roche_us[n] / 1e3 if dtype == f32 else None
             if dtype == f32:
                 r.update(res)
                 r["traced_us"] = roche_us[n]
             else:
                 r["float64"] = res
             print(f"[22 roche] {n}_kernel, {r['solves']} solves, "
-                  f"{str(dtype)[6:]}: {ms:.4f} ms a call (event-timed"
+                  f"{dt}: {ms:.4f} ms a call (event-timed"
                   + (f"; {roche_us[n]:.1f} us traced in phase 2"
                      if dtype == f32 else "")
                   + f"), plain loop {plain_ms:.2f} ms "
                   f"({plain_ms / ms:.0f}x); {ops / 1e6:.2f} M operations, "
                   f"{nbytes} bytes: bound {bound * 1e3:.3f} us (set by {by}; "
-                  f"the kernel at {bound / ms:.2%} of it); chain floor (a "
-                  f"model: {iters[n] + (n == 'findi')} steps x {chain} "
-                  f"cycles at {clock / 1e9:.2f} GHz) {floor_ms * 1e3:.1f} us, "
-                  f"the kernel at {ms / floor_ms:.1f}x it; {smi}")
+                  f"the kernel at {bound / ms:.2%} of it)"
+                  + (f"; executed at d {depth} (a model: every midpoint of "
+                     f"a round, ROCHE_OPS's evaluations) "
+                     f"{executed / 1e6:.2f} M" if depth else "")
+                  + f"; chain floor (a model: {how}) "
+                  f"{floor_ms * 1e3:.1f} us, the kernel at "
+                  + (f"{traced_ms / floor_ms:.1f}x it traced"
+                     if traced_ms else f"{ms / floor_ms:.1f}x it event-timed")
+                  + f"; {smi}")
 
     # the posteriors and the gradient, through the kernels and the loops
     model_w = with_calib_widths(build_model(
@@ -2382,7 +2493,7 @@ def main():
         _check(len(frames) == n_inst
                and not any(b for b, _ in frames.values()),
                f"a {tag} instantiation keeps an array in local memory")
-    # K4-K6: no spill, and no stack frame but the one sinf / cosf keep for
+    # K4-K6: no spill, and no stack frame but the one sin / cos keep for
     # arguments beyond 105615 (ROCHE_FRAMES)
     log = _build.PTXAS_LOGS["roche"].read_text()
     frames = {_short_entry(e): v for e, v in _stack_frames(log).items()}
@@ -2391,13 +2502,23 @@ def main():
     print("[1 device] K4-K6 stack frames (bytes) and registers, ptxas: "
           + ", ".join(f"{e} {b} bytes, {r} registers"
                       for e, (b, r) in sorted(frames.items()))
-          + f"; spill stores and loads {sum(spills)} bytes; the findi "
-          f"kernels' frame is sinf / cosf's slow-path array (|x| > 105615, "
-          f"never reached)")
+          + f"; spill stores and loads {sum(spills)} bytes; the float64 "
+          f"findi kernel's frame is sin / cos's slow-path array (|x| > "
+          f"105615, never reached)")
     _check({e: b for e, (b, _) in frames.items()} == ROCHE_FRAMES
            and not any(spills),
            f"roche.cu's stack frames {frames} are not {ROCHE_FRAMES}, or it "
            f"spills")
+    occupancy = {e: _roche_warps_per_sm(r) for e, r in
+                 registers["roche"].items() if not e.startswith("xl1")}
+    print("[1 device] K4 and K6 warps an SM (128-thread blocks, from "
+          "ptxas's registers): " + ", ".join(
+              f"{e} {w}" for e, w in sorted(occupancy.items()))
+          + "; groups of 2^d lanes a solve, " + ", ".join(
+              f"{n} d {_roche_depth(n)}" for n in ROCHE_DEPTH_MACROS))
+    _check(all(w >= 8 for w in occupancy.values()),
+           f"a K4 / K6 instantiation fits fewer than 8 warps an SM: "
+           f"{occupancy}")
 
     sys.path.insert(0, str(ROOT / "tools"))
     from k1_sass_counts import built_sass, counts

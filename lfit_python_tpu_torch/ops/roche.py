@@ -9,9 +9,12 @@ plain versions are the iteration loops of :mod:`..roche.geometry`
 :func:`~..roche.geometry.findi`, :func:`~..roche.geometry.xl1` and
 :func:`~..roche.geometry.lobe_radius` run under ``no_grad`` on CPU
 tensors and replace by one call here on CUDA tensors; the
-implicit-function-theorem tangents stay in PyTorch.  Each kernel is one
-thread per solve and repeats its loop's operations in order, so it gives
-the loop's bits.
+implicit-function-theorem tangents stay in PyTorch.  K5 is one thread per
+solve; K4 and K6 run a group of 2^d lanes per solve that evaluates the
+bisection's next d levels at once (a k-section) and walks them from one
+ballot, d fixed when ``roche.cu`` is built (``FINDI_DEPTH``,
+``LOBE_DEPTH``).  Each repeats its loop's operations in order, so it
+gives the loop's bits.
 
 Every wrapper takes tensors of one shape, one float dtype and one device,
 contiguous, and returns the solution in that shape.  CUDA tensors launch

@@ -11,6 +11,8 @@ card it runs on its own:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import sys
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -987,6 +989,46 @@ def test_roche_kernel_bit_identical(cuda, name, dtype):
     if name == "findi":
         assert bool(torch.isnan(k[-3:]).all())
         assert 0.5 * k.numel() < int(torch.isfinite(k).sum()) < k.numel()
+
+
+ROCHE_ITERS = {"findi": "_FINDI_ITERS", "lobe_radius": "_LOBE_ITERS"}
+
+
+@pytest.mark.parametrize("iters", [1, 5, 6, 54])
+@pytest.mark.parametrize("name", sorted(ROCHE_ITERS))
+def test_roche_group_kernels_bit_identical(cuda, name, iters):
+    """K4 and K6 (groups of 2^d lanes a solve, d levels a round) give the
+    loops' bits at solve counts around a warp, a block and the north
+    star's, with the bisection cut to 1, 5 or 6 steps (a short round, a
+    whole one, one step more) and at its own 54, in both dtypes."""
+    fn = getattr(roche, f"{name}_kernel")
+    with mock.patch.object(tg, ROCHE_ITERS[name], iters):
+        for dtype in (torch.float32, torch.float64):
+            args = roche_inputs(cuda, dtype, n=5121)[name]
+            for n in (1, 31, 33, 1023, 1024, 5121):
+                a = [t[:n] for t in args] if n < 5121 else args
+                assert same_bits(fn(*a), ROCHE_LOOPS[name](*a)), (dtype, n)
+
+
+def test_roche_every_depth_bit_identical(cuda):
+    """roche.cu built at each group depth that tools/torch_roche_depths.py
+    times (the kept one and those measured beside it) gives the loops'
+    bits, K4 and K6 in both dtypes; its launches count nothing."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import torch_roche_depths as depths
+
+    libs = depths.build()
+    iters = {"findi": tg._FINDI_ITERS, "lobe_radius": tg._LOBE_ITERS}
+    before = (roche.FINDI_LAUNCHES, roche.LOBE_LAUNCHES)
+    for dtype in (torch.float32, torch.float64):
+        inputs = roche_inputs(cuda, dtype)
+        for name in sorted(ROCHE_ITERS):
+            ref = ROCHE_LOOPS[name](*inputs[name])
+            for label, (lib, _) in libs.items():
+                out = torch.empty_like(ref)
+                depths.launcher(lib, name, inputs[name], out, iters[name])()
+                assert same_bits(out, ref), (label, name, dtype)
+    assert (roche.FINDI_LAUNCHES, roche.LOBE_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("name", sorted(ROCHE_LOOPS))

@@ -183,16 +183,27 @@ def test_native_resumed_file_appends(tmp_path):
 
 
 def test_native_write_speed(tmp_path):
+    """The native writer beats numpy's: each timed as the least of 5
+    repeats, the two interleaved, so that a stall of the machine in one
+    run (other tests share its cores) decides nothing."""
     rows = np.random.default_rng(0).standard_normal((20000, 32))
     rows[:, 0] = np.arange(20000) % 64
     native.load()
-    t0 = time.perf_counter()
-    native.chain_write(tmp_path / "big.txt", rows)
-    t_nat = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with (tmp_path / "big_np.txt").open("w") as fh:
-        np.savetxt(fh, rows, fmt=["%d"] + ["%.10e"] * 31)
-    t_np = time.perf_counter() - t0
+
+    def write_native():
+        native.chain_write(tmp_path / "big.txt", rows)
+
+    def write_numpy():
+        with (tmp_path / "big_np.txt").open("w") as fh:
+            np.savetxt(fh, rows, fmt=["%d"] + ["%.10e"] * 31)
+
+    times = {write_native: [], write_numpy: []}
+    for _ in range(5):
+        for fn, ts in times.items():
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+    t_nat, t_np = min(times[write_native]), min(times[write_numpy])
     assert t_nat < t_np
 
 

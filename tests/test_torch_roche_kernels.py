@@ -54,11 +54,23 @@ static inline double rsqrt(double v) { return 1.0 / std::sqrt(v); }
 """
 
 _HOST = r"""
-template <typename T>
+// a group of 2^D lanes, one lane after another: ballot(vote) sets bit l of
+// the round's mask to lane l's vote, as __ballot_sync does on the card
+template <int D> struct HostGroup {
+  template <typename Vote> unsigned operator()(Vote vote) const {
+    unsigned mask = 0;
+    for (unsigned lane = 0; lane < (1u << D); ++lane)
+      mask |= unsigned(vote(lane)) << lane;
+    return mask;
+  }
+};
+
+template <int D, typename T>
 static void findi_rows(const T* q, const T* hw, const T* x1, const T* pl1,
                        T* out, int n, int iters) {
   for (int i = 0; i < n; ++i)
-    out[i] = findi_solve(q[i], hw[i], x1[i], pl1[i], iters);
+    out[i] = findi_solve<D>(q[i], hw[i], x1[i], pl1[i], iters,
+                            HostGroup<D>());
 }
 
 template <typename T>
@@ -66,22 +78,72 @@ static void xl1_rows(const T* q, T* out, int n, int iters) {
   for (int i = 0; i < n; ++i) out[i] = xl1_solve(q[i], iters);
 }
 
-template <typename T>
+template <int D, typename T>
 static void lobe_rows(const T* q, const T* x1, const T* pl1, const T* dx,
                       const T* dy, const T* dz, T* out, int n, int iters) {
   for (int i = 0; i < n; ++i)
-    out[i] = lobe_solve(q[i], x1[i], pl1[i], dx[i], dy[i], dz[i], iters);
+    out[i] = lobe_solve<D>(q[i], x1[i], pl1[i], dx[i], dy[i], dz[i], iters,
+                           HostGroup<D>());
 }
 
+template <int D>
+static void findi_typed(int is_double, const void* q, const void* hw,
+                        const void* x1, const void* pl1, void* out, int n,
+                        int iters) {
+  if (is_double)
+    findi_rows<D>((const double*)q, (const double*)hw, (const double*)x1,
+                  (const double*)pl1, (double*)out, n, iters);
+  else
+    findi_rows<D>((const float*)q, (const float*)hw, (const float*)x1,
+                  (const float*)pl1, (float*)out, n, iters);
+}
+
+template <int D>
+static void lobe_typed(int is_double, const void* q, const void* x1,
+                       const void* pl1, const void* dx, const void* dy,
+                       const void* dz, void* out, int n, int iters) {
+  if (is_double)
+    lobe_rows<D>((const double*)q, (const double*)x1, (const double*)pl1,
+                 (const double*)dx, (const double*)dy, (const double*)dz,
+                 (double*)out, n, iters);
+  else
+    lobe_rows<D>((const float*)q, (const float*)x1, (const float*)pl1,
+                 (const float*)dx, (const float*)dy, (const float*)dz,
+                 (float*)out, n, iters);
+}
+
+// K4 and K6 in groups of 2^depth lanes, depth 1 (the loop itself) to 5
+extern "C" void findi_host_at(int depth, int is_double, const void* q,
+                              const void* hw, const void* x1,
+                              const void* pl1, void* out, int n, int iters) {
+  switch (depth) {
+    case 1: findi_typed<1>(is_double, q, hw, x1, pl1, out, n, iters); break;
+    case 2: findi_typed<2>(is_double, q, hw, x1, pl1, out, n, iters); break;
+    case 3: findi_typed<3>(is_double, q, hw, x1, pl1, out, n, iters); break;
+    case 4: findi_typed<4>(is_double, q, hw, x1, pl1, out, n, iters); break;
+    case 5: findi_typed<5>(is_double, q, hw, x1, pl1, out, n, iters); break;
+  }
+}
+
+extern "C" void lobe_radius_host_at(int depth, int is_double, const void* q,
+                                    const void* x1, const void* pl1,
+                                    const void* dx, const void* dy,
+                                    const void* dz, void* out, int n,
+                                    int iters) {
+  switch (depth) {
+    case 1: lobe_typed<1>(is_double, q, x1, pl1, dx, dy, dz, out, n, iters); break;
+    case 2: lobe_typed<2>(is_double, q, x1, pl1, dx, dy, dz, out, n, iters); break;
+    case 3: lobe_typed<3>(is_double, q, x1, pl1, dx, dy, dz, out, n, iters); break;
+    case 4: lobe_typed<4>(is_double, q, x1, pl1, dx, dy, dz, out, n, iters); break;
+    case 5: lobe_typed<5>(is_double, q, x1, pl1, dx, dy, dz, out, n, iters); break;
+  }
+}
+
+// at the depth the card's launchers take
 extern "C" void findi_host(int is_double, const void* q, const void* hw,
                            const void* x1, const void* pl1, void* out, int n,
                            int iters) {
-  if (is_double)
-    findi_rows((const double*)q, (const double*)hw, (const double*)x1,
-               (const double*)pl1, (double*)out, n, iters);
-  else
-    findi_rows((const float*)q, (const float*)hw, (const float*)x1,
-               (const float*)pl1, (float*)out, n, iters);
+  findi_host_at(FINDI_DEPTH, is_double, q, hw, x1, pl1, out, n, iters);
 }
 
 extern "C" void xl1_host(int is_double, const void* q, void* out, int n,
@@ -97,26 +159,22 @@ extern "C" void lobe_radius_host(int is_double, const void* q,
                                  const void* dx, const void* dy,
                                  const void* dz, void* out, int n,
                                  int iters) {
-  if (is_double)
-    lobe_rows((const double*)q, (const double*)x1, (const double*)pl1,
-              (const double*)dx, (const double*)dy, (const double*)dz,
-              (double*)out, n, iters);
-  else
-    lobe_rows((const float*)q, (const float*)x1, (const float*)pl1,
-              (const float*)dx, (const float*)dy, (const float*)dz,
-              (float*)out, n, iters);
+  lobe_radius_host_at(LOBE_DEPTH, is_double, q, x1, pl1, dx, dy, dz, out, n,
+                      iters);
 }
+
+extern "C" int findi_depth_host(void) { return FINDI_DEPTH; }
+extern "C" int lobe_radius_depth_host(void) { return LOBE_DEPTH; }
 """
 
 
-@pytest.fixture(scope="module")
-def source_lib(tmp_path_factory):
+def build_source(build, defines=()):
     """roche.cu above its ``// ---- kernel and launcher`` line, built by g++
-    (no contraction of products and sums, as --fmad=false) with host loops
-    in the kernels' place."""
+    in the directory ``build`` (no contraction of products and sums, as
+    --fmad=false) with host loops in the kernels' place, and the macros
+    ``defines`` ("NAME=value") set as nvcc's -D sets them."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source's arithmetic")
-    build = tmp_path_factory.mktemp("roche_source")
     (build / "cuda_runtime.h").write_text(_SHIM)
     head, marker, _ = SOURCE.read_text().partition(
         "// ---- kernel and launcher")
@@ -124,7 +182,8 @@ def source_lib(tmp_path_factory):
     (build / "host.cpp").write_text(head + _HOST)
     so = build / "libhost.so"
     subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", f"-I{build}", "-o", str(so),
+                    "-shared", "-fPIC", f"-I{build}",
+                    *(f"-D{d}" for d in defines), "-o", str(so),
                     str(build / "host.cpp")], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
@@ -133,21 +192,33 @@ def source_lib(tmp_path_factory):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (n_in + 1)
                        + [ctypes.c_int] * 2)
         fn.restype = None
+    for fn, n_in in ((lib.findi_host_at, 4), (lib.lobe_radius_host_at, 6)):
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * (n_in + 1)
+                       + [ctypes.c_int] * 2)
+        fn.restype = None
     return lib
 
 
-def stand_in(lib, name, iters):
+@pytest.fixture(scope="module")
+def source_lib(tmp_path_factory):
+    """roche.cu's arithmetic with host loops, at the card's depths."""
+    return build_source(tmp_path_factory.mktemp("roche_source"))
+
+
+def stand_in(lib, name, iters, depth=None):
     """A function of broadcastable CPU tensors that runs the source's
     solve ``name`` on them, as ``geometry._solve`` hands a kernel its
-    arguments: broadcast to one contiguous shape."""
-    fn = getattr(lib, f"{name}_host")
+    arguments: broadcast to one contiguous shape.  K4 and K6 run at the
+    card's group depth, or in groups of 2^``depth`` lanes."""
+    fn = getattr(lib, f"{name}_host" if depth is None else f"{name}_host_at")
+    pre = () if depth is None else (depth,)
 
     def run(*args):
         shape = torch.broadcast_shapes(*(a.shape for a in args))
         ts = [a.expand(shape).contiguous() for a in args]
         out = torch.empty(shape, dtype=ts[0].dtype)
-        fn(int(out.dtype == torch.float64), *(t.data_ptr() for t in ts),
-           out.data_ptr(), out.numel(), iters)
+        fn(*pre, int(out.dtype == torch.float64),
+           *(t.data_ptr() for t in ts), out.data_ptr(), out.numel(), iters)
         return out
     return run
 
@@ -271,6 +342,91 @@ class TestAgainstPlainLoops:
         got, ref = solves["findi"](*args), tg._findi_loop(*args)
         assert 0 < int(torch.isnan(ref).sum()) < 512
         same_nan_then_close(got, ref, 1e-5)
+
+
+# ---- the k-section schedule: every group depth gives the loop's bits ----
+
+# iteration counts around the depths: none, fewer than a round, whole
+# rounds, a short last round, and the solves' own 54 and 64
+SCHEDULE_ITERS = (0, 1, 4, 5, 6, 9, 54, 64)
+
+
+def schedule_inputs(dtype, n=4096):
+    """draws() and n random solves (q 0.03-3, dphi 0.005-0.15): (findi's
+    arguments, lobe_radius's along random unit directions, half of them
+    the pole)."""
+    q0, dphi0 = draws(dtype)
+    rng = np.random.default_rng(17)
+    q = torch.cat([q0, torch.tensor(rng.uniform(0.03, 3.0, n), dtype=dtype)])
+    dphi = torch.cat([dphi0, torch.tensor(rng.uniform(0.005, 0.15, n),
+                                          dtype=dtype)])
+    d = directions(q.numel(), seed=19)
+    d[: q.numel() // 2] = (0.0, 0.0, 1.0)
+    d = torch.tensor(d, dtype=dtype)
+    q_, hw, x1, pl1 = geometry_inputs(q, dphi)
+    return {"findi": (q_, hw, x1, pl1),
+            "lobe_radius": (q, x1, pl1, d[:, 0], d[:, 1], d[:, 2])}
+
+
+def same_bits(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(a[~na], b[~nb]))
+
+
+class TestSchedule:
+    """The source's K4 and K6 with a group of 2^d lanes emulated by a host
+    loop over its lanes (the mask filled lane by lane, then the walk):
+    each depth d = 2 .. 5 against d = 1, the loop itself operation for
+    operation, bit for bit, over draws(), 4096 random solves, the
+    infeasible pairs and the NaN q, at iteration counts that end on a
+    whole round, in a short one and before the first."""
+
+    @pytest.mark.parametrize("depth", [2, 3, 4, 5])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("name", ["findi", "lobe_radius"])
+    def test_depth_gives_the_loops_bits(self, source_lib, name, dtype,
+                                        depth):
+        args = schedule_inputs(dtype)[name]
+        for iters in SCHEDULE_ITERS:
+            got = stand_in(source_lib, name, iters, depth)(*args)
+            ref = stand_in(source_lib, name, iters, 1)(*args)
+            assert same_bits(got, ref), (name, depth, iters)
+        if name == "findi":
+            assert bool(torch.isnan(got[24:27]).all())
+            assert int(torch.isnan(got).sum()) < got.numel() // 2
+
+    @pytest.mark.parametrize("name", ["findi", "lobe_radius"])
+    def test_iteration_counts_against_the_plain_loops(self, source_lib,
+                                                      name):
+        """The card's depth at each iteration count against the plain
+        loop run for as many steps (float64, the JAX tests' tolerance):
+        the rounds take exactly ``iters`` steps."""
+        args = schedule_inputs(torch.float64, n=256)[name]
+        loop = {"findi": tg._findi_loop, "lobe_radius": tg._lobe_loop}[name]
+        attr = {"findi": "_FINDI_ITERS", "lobe_radius": "_LOBE_ITERS"}[name]
+        for iters in SCHEDULE_ITERS:
+            with mock.patch.object(tg, attr, iters):
+                ref = loop(*args)
+            same_nan_then_close(stand_in(source_lib, name, iters)(*args),
+                                ref, 1e-10)
+
+    @pytest.mark.parametrize("name", ["findi", "lobe_radius"])
+    def test_depth_is_set_when_the_source_is_built(self, source_lib,
+                                                   tmp_path, name):
+        """The card's depths are among those held to the loop above, and
+        a build that sets them (-D, as tools/torch_roche_depths.py builds
+        the depths not kept) runs its kernels at the depth it set, with
+        the loop's bits."""
+        assert 2 <= source_lib.findi_depth_host() <= 5
+        assert 2 <= source_lib.lobe_radius_depth_host() <= 5
+        depth = {"findi": 3, "lobe_radius": 4}[name]
+        lib = build_source(tmp_path, (f"FINDI_DEPTH={depth}",
+                                      f"LOBE_DEPTH={depth}"))
+        assert getattr(lib, f"{name}_depth_host")() == depth
+        args = schedule_inputs(torch.float32, n=512)[name]
+        for iters in (6, 54):
+            assert same_bits(stand_in(lib, name, iters)(*args),
+                             stand_in(source_lib, name, iters, 1)(*args))
 
 
 # ---- the posterior with the stand-in in the loops' place ---------------

@@ -28,7 +28,10 @@ line:
   and float64) and, where the checkout has it, K3's recorded forward and
   its backward pass on the same series' first 256 walkers; and the device
   time of the backward kernel and of K3's forward kernel alone, as the
-  profiler traces them (the least of 5 calls);
+  profiler traces them (the least of 5 calls); where the checkout has
+  them, K4 (``findi_kernel``, 1024 solves) and K6 (``lobe_radius_kernel``,
+  the first call's 5120 radii) on the inputs one evaluation hands them,
+  float32 and float64, event-timed and traced;
 - a SHA-256 of each kernel's outputs (for K1's backward, of its six
   gradients), so that two checkouts whose kernels give the same bits
   print the same digests.
@@ -174,10 +177,38 @@ def main():
                                                     with_sens=sens)
             kernels[f"k2_{str(dt)[6:]}{'_sens' if sens else ''}"] = {
                 "ms": event_ms(k2, 5), "sha256": digest(k2())}
+    roche_kernels(lp, pos, kernels)
     print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
                       "eval_ms": ev, "value_and_grad_ms": vg,
                       "gp_eval_ms": gp_turns(spec, pos, kernels),
                       "kernels": kernels}))
+
+
+def roche_kernels(lp, pos, kernels):
+    """Add K4's and K6's times and digests, on the inputs the first call
+    of each wrapper gets in one evaluation of ``lp`` at ``pos``, in
+    float32 and float64, to ``kernels``; nothing for a checkout without
+    them."""
+    try:
+        from lfit_python_tpu_torch.ops import roche
+    except ImportError:
+        return
+    names = ("findi", "lobe_radius")
+    with mock.patch.object(roche, "findi_kernel",
+                           wraps=roche.findi_kernel) as rec4, \
+            mock.patch.object(roche, "lobe_radius_kernel",
+                              wraps=roche.lobe_radius_kernel) as rec6, \
+            torch.inference_mode():
+        lp(pos)
+    for name, rec in zip(names, (rec4, rec6)):
+        fn = getattr(roche, f"{name}_kernel")
+        for dt in (F32, F64):
+            args = [a.to(dt) for a in rec.call_args_list[0].args]
+            kernels[f"k{4 if name == 'findi' else 6}_{str(dt)[6:]}"] = {
+                "solves": args[0].numel(),
+                "ms": event_ms(lambda: fn(*args), 20),
+                "traced_us": traced_us(lambda: fn(*args), f"{name}_kernel"),
+                "sha256": digest([fn(*args)])}
 
 
 def k1_mode_rows(contacts, model, pos):
