@@ -24,7 +24,7 @@ x 256 walkers.  Phases:
      state and the reverse kernel, in both dtypes); and of K4-K6
      (roche.cu, float32 and float64), with no spill and no frame but the
      40 bytes sin / cos keep for arguments beyond 105615 in K4's float64
-     one (ROCHE_FRAMES), and the warps an SM holds of each K4 / K6
+     one (ROCHE_FRAMES), and the warps an SM holds of each K4-K6
      instantiation (at least 8);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
@@ -180,14 +180,13 @@ x 256 walkers.  Phases:
      tools/torch_parity.py (PERF.md section 2's parity limits); their
      lines printed;
   22. K4-K6 (findi, xl1, the lobe radius) against their plain loops on
-     the north star's solves (1024 walkers; 5120 radii) and a stress set
+     the north star's solves (1024 walkers; 1024 radii) and a stress set
      of 8192 with infeasible pairs and a NaN q, float32 and float64: the
      same bits and NaN pattern; each kernel's time, its plain loop's, its
-     bound and its chain floor (a model, per round for K4 and K6) and the
-     operations K4's and K6's groups execute (a model); K4 and K6 built
-     at each group depth d of tools/torch_roche_depths.py, their bits on
-     the north star's solves and their times, launched back to back in
-     turns; the float32, float64 and precise
+     bound and its chain floor (a model, per round) and the operations
+     their groups execute (a model); K4-K6 built at each group depth d of
+     tools/torch_roche_depths.py, their bits on the north star's solves
+     and their times, launched back to back in turns; the float32, float64 and precise
      evaluations (1024 walkers) and value_and_grad (256 chains) through
      K4-K6 and through the plain loops: the same bits of ln p and flux (or
      gradient), K4 = K5 = 1 launch an evaluation (2 precise), and the
@@ -342,10 +341,11 @@ ROCHE_REPLACES = {
 ROCHE_FRAMES = {"findi_kernel<f32>": 0, "findi_kernel<f64>": 40,
                 "xl1_kernel<f32>": 0, "xl1_kernel<f64>": 0,
                 "lobe_radius_kernel<f32>": 0, "lobe_radius_kernel<f64>": 0}
-# K4 and K6 run a group of 2^d lanes a solve, d set by these macros of
+# K4-K6 run a group of 2^d lanes a solve, d set by these macros of
 # roche.cu
-ROCHE_DEPTH_MACROS = {"findi": "FINDI_DEPTH", "lobe_radius": "LOBE_DEPTH"}
-# K4's and K6's blocks (128 threads: 4 warps); an SM holds at most 64 warps
+ROCHE_DEPTH_MACROS = {"findi": "FINDI_DEPTH", "xl1": "XL1_DEPTH",
+                      "lobe_radius": "LOBE_DEPTH"}
+# K4-K6's blocks (128 threads: 4 warps); an SM holds at most 64 warps
 # and 32 blocks, and allocates registers to a warp 256 at a time
 ROCHE_GROUP_BLOCK_WARPS = 4
 # operations per bisection step and per solve outside the loop, counted by
@@ -354,7 +354,7 @@ ROCHE_GROUP_BLOCK_WARPS = 4
 # of 41, 3 values of g of 19, the end selects 7), per solve 8 and the
 # clearance at 90 deg once more; K5 14 a step, 5 a solve; K6 32, 5.  The
 # bound counts this, the sequential algorithm's work, whatever runs it;
-# K4's and K6's groups execute more: a round of r levels tests all 2^r - 1
+# the kernels' groups execute more: a round of r levels tests all 2^r - 1
 # of its midpoints (a model, printed in phase 22: the replay of their
 # paths and the walk not counted)
 ROCHE_OPS = {"findi": (253, 8 + 253), "xl1": (14, 5), "lobe_radius": (32, 5)}
@@ -364,11 +364,10 @@ ROCHE_INPUTS = {"findi": 4, "xl1": 1, "lobe_radius": 6}
 # (adds, multiplies, compares and selects; divides; square roots; rsqrts;
 # sin), and the latencies in cycles assumed for each (a float32 add 4, a
 # float64 one 8; the IEEE divide and sqrt, the rsqrt with its fix-up and
-# sinf's reduction and polynomial).  K5's chain floor is steps x chain; K4's
-# and K6's is rounds x (chain + the deepest lane's replay of r - 1 levels
-# and the walk's r, 3 dependent adds, multiplies or selects a level, + a
-# ballot of ROCHE_BALLOT_CYCLES), K4's feasibility test in the last
-# round.  Over the SM clock: a model number beside the measured time, not
+# sinf's reduction and polynomial).  The chain floor is rounds x (chain +
+# the deepest lane's replay of r - 1 levels and the walk's r, 3 dependent
+# adds, multiplies or selects a level, + a ballot of ROCHE_BALLOT_CYCLES),
+# K4's feasibility test in the last round.  Over the SM clock: a model number beside the measured time, not
 # a measurement
 ROCHE_CHAIN = {"findi": (88, 4, 1, 5, 1), "xl1": (8, 1, 0, 0, 0),
                "lobe_radius": (13, 1, 1, 0, 0)}
@@ -376,9 +375,10 @@ ROCHE_LATENCY = {"float32": (4, 40, 40, 20, 60),
                  "float64": (8, 100, 100, 60, 160)}
 ROCHE_BALLOT_CYCLES = 20
 # K4-K6 launches of one evaluation (forward or value_and_grad; K4 and K5
-# twice in the precise mode): findi and xl1 once, the inscribed radius
-# for the contact rows and for the white dwarf's certain-occultation guard
-ROCHE_PER_EVAL = {"k4": 1, "k5": 1, "k6": 2}
+# twice in the precise mode): findi and xl1 once, and the inscribed radius
+# once, a solve a walker, for the contact rows and the white dwarf's
+# certain-occultation guard both
+ROCHE_PER_EVAL = {"k4": 1, "k5": 1, "k6": 1}
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -515,7 +515,7 @@ def _sm_clock_hz():
 
 
 def _roche_warps_per_sm(regs):
-    """The warps an SM holds of a K4 / K6 instantiation of ``regs``
+    """The warps an SM holds of a K4-K6 instantiation of ``regs``
     registers a thread, in whole blocks of ROCHE_GROUP_BLOCK_WARPS."""
     per_warp = -(-regs * 32 // 256) * 256
     blocks = min(32, 65536 // (per_warp * ROCHE_GROUP_BLOCK_WARPS),
@@ -524,8 +524,8 @@ def _roche_warps_per_sm(regs):
 
 
 def _roche_depth(name):
-    """The group depth d (2^d lanes a solve) roche.cu builds K4 ("findi")
-    or K6 ("lobe_radius") at."""
+    """The group depth d (2^d lanes a solve) roche.cu builds K4 ("findi"),
+    K5 ("xl1") or K6 ("lobe_radius") at."""
     return int(re.search(rf"#define {ROCHE_DEPTH_MACROS[name]} (\d+)",
                          (ROOT / ROCHE_SOURCE).read_text()).group(1))
 
@@ -2165,7 +2165,7 @@ def _rounds(iters, depth):
 
 
 def _roche_executed_ops(name, solves, iters, depth):
-    """The operations K4's or K6's groups execute at group depth
+    """The operations K4's, K5's or K6's groups execute at group depth
     ``depth`` (a model: ROCHE_OPS's for each of the 2^r - 1 midpoints a
     round of r levels tests, and each solve's own; the replay of their
     paths and the walk not counted)."""
@@ -2176,14 +2176,10 @@ def _roche_executed_ops(name, solves, iters, depth):
 
 def _roche_chain_ms(name, iters, depth, dtype, clock):
     """(K4-K6's chain floor in ms, how it was modelled): ROCHE_CHAIN's
-    latency for each step of K5 (``depth`` None), and for each round of K4
-    and K6 at group depth ``depth`` with the deepest lane's replay, the
-    walk and the ballot (ROCHE_CHAIN)."""
+    latency for each round at group depth ``depth`` with the deepest
+    lane's replay, the walk and the ballot (ROCHE_CHAIN)."""
     lat = ROCHE_LATENCY[dtype]
     chain = sum(c * t for c, t in zip(ROCHE_CHAIN[name], lat))
-    if depth is None:
-        return (iters * chain / clock * 1e3,
-                f"{iters} steps x {chain} cycles at {clock / 1e9:.2f} GHz")
     rounds = _rounds(iters, depth)
     cycles = sum(chain + 3 * lat[0] * (2 * r - 1) + ROCHE_BALLOT_CYCLES
                  for r in rounds)
@@ -2211,9 +2207,9 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
     """Phase 22: K4-K6 against their plain loops, bit for bit, on the
     north star's solves (``roche_args``: phase 2's recorded inputs, 1024
     walkers) and a stress set of 8192, float32 and float64; each kernel's
-    time, its plain loop's, its bound and its chain floor; K4 and K6 built
-    at each group depth of tools/torch_roche_depths.py, their bits and
-    times on the north star's solves; the float32,
+    time, its plain loop's, its bound and its chain floor; K4-K6 built at
+    each group depth of tools/torch_roche_depths.py, their bits and times
+    on the north star's solves; the float32,
     float64 and precise posteriors and the gradient through the kernels
     and through the plain loops (equal bits), the launches of one
     evaluation of each; and the device kernels of one forward, precise
@@ -2276,16 +2272,14 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
         print(f"[22 roche] {tag} set, {str(dtype)[6:]}: kernel against its "
               f"plain loop: " + "; ".join(line))
 
-    # K4 and K6 at each group depth, each a build of its own (the kept
-    # depths and those measured beside them), launched back to back in turns
+    # K4-K6 at each group depth, each a build of its own (the kept depths
+    # and those measured beside them), launched back to back in turns
     import torch_roche_depths
 
-    grouped = tuple(ROCHE_DEPTH_MACROS)
-    kept = {n: _roche_depth(n) for n in grouped}
+    kept = {n: _roche_depth(n) for n in ROCHE_DEPTH_MACROS}
     by_depth = torch_roche_depths.measure(
-        torch_roche_depths.build(), {n: roche_args[n] for n in grouped},
-        traced=False)
-    for n in grouped:
+        torch_roche_depths.build(), roche_args, traced=False)
+    for n in ROCHE_DEPTH_MACROS:
         for dt in ("float32", "float64"):
             rows = {int(lb[1:]): r[f"{n}_{dt}"]
                     for lb, r in by_depth.items()}
@@ -2318,10 +2312,9 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
             dt = str(dtype)[6:]
             res = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": by, "ops": ops, "bytes": nbytes}
-            depth = kept.get(n)
+            depth = kept[n]
             floor_ms, how = _roche_chain_ms(n, iters[n], depth, dt, clock)
-            executed = (_roche_executed_ops(n, r["solves"], iters[n], depth)
-                        if depth else None)
+            executed = _roche_executed_ops(n, r["solves"], iters[n], depth)
             res["chain_floor_ms"] = floor_ms
             # the chain floor against the traced time where there is one:
             # an event-timed loop of wrapper calls is host-paced
@@ -2338,10 +2331,9 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
                   + f"), plain loop {plain_ms:.2f} ms "
                   f"({plain_ms / ms:.0f}x); {ops / 1e6:.2f} M operations, "
                   f"{nbytes} bytes: bound {bound * 1e3:.3f} us (set by {by}; "
-                  f"the kernel at {bound / ms:.2%} of it)"
-                  + (f"; executed at d {depth} (a model: every midpoint of "
-                     f"a round, ROCHE_OPS's evaluations) "
-                     f"{executed / 1e6:.2f} M" if depth else "")
+                  f"the kernel at {bound / ms:.2%} of it); executed at d "
+                  f"{depth} (a model: every midpoint of a round, "
+                  f"ROCHE_OPS's evaluations) {executed / 1e6:.2f} M"
                   + f"; chain floor (a model: {how}) "
                   f"{floor_ms * 1e3:.1f} us, the kernel at "
                   + (f"{traced_ms / floor_ms:.1f}x it traced"
@@ -2509,15 +2501,15 @@ def main():
            and not any(spills),
            f"roche.cu's stack frames {frames} are not {ROCHE_FRAMES}, or it "
            f"spills")
-    occupancy = {e: _roche_warps_per_sm(r) for e, r in
-                 registers["roche"].items() if not e.startswith("xl1")}
-    print("[1 device] K4 and K6 warps an SM (128-thread blocks, from "
+    occupancy = {e: _roche_warps_per_sm(r)
+                 for e, r in registers["roche"].items()}
+    print("[1 device] K4-K6 warps an SM (128-thread blocks, from "
           "ptxas's registers): " + ", ".join(
               f"{e} {w}" for e, w in sorted(occupancy.items()))
           + "; groups of 2^d lanes a solve, " + ", ".join(
               f"{n} d {_roche_depth(n)}" for n in ROCHE_DEPTH_MACROS))
     _check(all(w >= 8 for w in occupancy.values()),
-           f"a K4 / K6 instantiation fits fewer than 8 warps an SM: "
+           f"a K4-K6 instantiation fits fewer than 8 warps an SM: "
            f"{occupancy}")
 
     sys.path.insert(0, str(ROOT / "tools"))
@@ -2849,6 +2841,8 @@ def main():
     _check(k2_steps == 2 * n_ens, "K2 did not launch once per half-step")
     _check(c_ens["k4"] - c_init["k4"] == c_ens["k5"] - c_init["k5"]
            == 2 * n_ens, "K4 / K5 did not launch once per half-step")
+    _check(c_ens["k6"] - c_init["k6"] == 2 * n_ens * ROCHE_PER_EVAL["k6"],
+           "K6 did not launch once per half-step")
     _check(c_ens["k1_bwd"] == 0 and c_ens["k1_bwd_kernel"] == 0
            and c_ens["k2_sens"] == 0,
            "the ensemble path ran a gradient")
@@ -3055,8 +3049,9 @@ def main():
     _check(per["k1"] == per["k1_bwd"] == per["k1_bwd_kernel"] == per["k2"]
            == per["k2_sens"] == N_LEAPFROG,
            "not one K1, K1 backward kernel and K2 per leapfrog")
-    _check(per["k4"] == per["k5"] == N_LEAPFROG,
-           f"not one K4 and K5 per leapfrog: {per}")
+    _check(per["k4"] == per["k5"] == N_LEAPFROG
+           and per["k6"] == N_LEAPFROG * ROCHE_PER_EVAL["k6"],
+           f"not one K4, K5 and K6 per leapfrog: {per}")
     _check(bool(torch.isfinite(hs.positions).all()), "non-finite positions")
     _check(bool(torch.isfinite(hs.log_prob).all()), "non-finite log_prob")
     _check(bool(torch.isfinite(hchain_lp).all()), "non-finite chain_lp")

@@ -243,7 +243,7 @@ def spot_flux(q, incl_deg, phases, positions, weights, fis, normal,
 
 
 def element_intervals(q, incl_deg, positions, xl1_val, phi_l1,
-                      precise=None, positions64=None):
+                      precise=None, positions64=None, r_ins=None):
     """Per-element eclipse intervals, one root-find per element.
 
     ``q``, ``incl_deg``, ``xl1_val``, ``phi_l1``: (...); ``positions``:
@@ -253,15 +253,18 @@ def element_intervals(q, incl_deg, positions, xl1_val, phi_l1,
     backward).  ``precise``: optional (q, incl, xl1, pl1) solved in
     float64, (...) each, with ``positions64`` the positions in float64:
     the mixed-precision solve of ``ops.contacts.element_intervals`` (K1 in
-    mixed precision on the card; no gradient).  Returns (phi_in, phi_out,
-    eclipsed), each (..., N)."""
+    mixed precision on the card; no gradient).  ``r_ins``: the
+    :func:`~..roche.geometry.inscribed_radius` of (q, xl1, pl1), (...),
+    solved here when None.  Returns (phi_in, phi_out, eclipsed), each
+    (..., N)."""
     lead = positions.shape[:-2]
     n = positions.shape[-2]
 
     def rows(a):
         return a.expand(lead).reshape(-1)
 
-    r_ins = inscribed_radius(q, xl1_val, phi_l1)
+    if r_ins is None:
+        r_ins = inscribed_radius(q, xl1_val, phi_l1)
     px = positions[..., 0].reshape(-1, n).contiguous()
     py = positions[..., 1].reshape(-1, n).contiguous()
     args = (rows(q), rows(incl_deg), px, py, rows(xl1_val), rows(phi_l1),

@@ -21,7 +21,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.stream import stream_impacts
-from ..roche.geometry import earth_vector, findi, l1_potential, xl1
+from ..roche.geometry import (earth_vector, findi, inscribed_radius,
+                              l1_potential, xl1)
 from . import components as comp
 
 __all__ = [
@@ -92,6 +93,9 @@ class CVGeometry(NamedTuple):
     # (q, incl, x1, pl1) solved in float64 for the mixed-precision mode,
     # or None (the mode is off, or the working dtype is float64)
     precise: tuple | None = None
+    # the inscribed radius of (q, x1, pl1) for the white dwarf's guard and
+    # the contact solve, or None: cv_fluxes solves it once
+    r_ins: torch.Tensor | None = None
 
 
 def cv_geometry(pars, config: CVConfig = CVConfig()) -> CVGeometry:
@@ -175,6 +179,9 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
     x1, pl1, incl, rdisc = (geometry.x1, geometry.pl1, geometry.incl,
                             geometry.rdisc)
     precise = geometry.precise
+    r_ins = geometry.r_ins
+    if r_ins is None:
+        r_ins = inscribed_radius(q, x1, pl1)
 
     if precise is not None:
         # the disc grid in float64, cast down: float32 rounding of the
@@ -215,7 +222,7 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
     # ---- white dwarf -----------------------------------------------------
     y = comp.wd_flux(per_walker(q), per_walker(incl), sub, per_walker(rwd),
                      per_walker(ulimb), per_walker(x1), per_walker(pl1),
-                     precise=None if precise is None
+                     r_ins=per_walker(r_ins), precise=None if precise is None
                      else tuple(per_walker(a) for a in precise))
     if n_sub > 1:
         y = y.reshape(y.shape[:-1] + (-1, n_sub)).mean(dim=-1)
@@ -244,7 +251,7 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
                  else solved(disc_pos64, spot_pos.to(torch.float64)))
     intervals = comp.element_intervals(q, incl, all_pos, x1, pl1,
                                        precise=precise,
-                                       positions64=all_pos64)
+                                       positions64=all_pos64, r_ins=r_ins)
     if mirror:
         s_in, s_out, s_ecl = intervals
         half_az = n_az // 2

@@ -29,8 +29,8 @@ import torch
 from ..device import resolve_device
 from ..ops.gp import segmented_matern32_ln_like
 from ..ops.stream import stream_impacts
-from ..roche.geometry import (findi, l1_potential, origin_shadow_distance,
-                              xl1)
+from ..roche.geometry import (findi, inscribed_radius, l1_potential,
+                              origin_shadow_distance, xl1)
 from ..roche.stream import stream_steps_for
 from .components import DonorGrid, donor_curve_nodes, donor_grid, sum_last
 from .cv import (CVConfig, CVGeometry, core_precise, cv_physical_ok,
@@ -187,12 +187,15 @@ class Posterior:
         return full, lp, cvp, geom, cv_physical_ok(cvp, geom)
 
     def _flux(self, cvp, geom):
-        """Model flux (W, E, P) on the solved geometry.  The donor grid,
-        and with ``n_donor_quad`` the donor curve's quadrature nodes, are
-        core-node quantities: solved once per walker."""
+        """Model flux (W, E, P) on the solved geometry.  The inscribed
+        radius, the donor grid and, with ``n_donor_quad``, the donor
+        curve's quadrature nodes are core-node quantities: solved once per
+        walker (the prior alone needs none of them)."""
         cfg = self.config
-        dgrid = donor_grid(cvp[:, :1, 4], geom.x1, geom.pl1,
-                           cfg.n_donor_lat, cfg.n_donor_lon)
+        q = cvp[:, :1, 4]
+        geom = geom._replace(r_ins=inscribed_radius(q, geom.x1, geom.pl1))
+        dgrid = donor_grid(q, geom.x1, geom.pl1, cfg.n_donor_lat,
+                           cfg.n_donor_lon)
         nodes = None
         if cfg.n_donor_quad:
             nodes = donor_curve_nodes(

@@ -25,25 +25,25 @@
 // rate nor its memory rate can be approached: the floor is the chain's
 // latency (chip_smoke.py's chain model, PERF.md section 6).
 //
-// What the design does about it.  K5 runs one thread a solve.  K4 and K6
-// shorten the chain by k-section: a group of G = 2^D lanes runs one solve,
-// and the next D levels of the bisection are a complete binary tree of
-// 2^D - 1 midpoints, each of which a lane computes exactly as the loop
-// would, by replaying its path from the round's bracket.  The lanes test
+// What the design does about it.  Each kernel shortens the chain by
+// k-section: a group of G = 2^D lanes runs one solve, and the next D
+// levels of the bisection are a complete binary tree of 2^D - 1
+// midpoints, each of which a lane computes exactly as the loop would, by
+// replaying its path from the round's bracket.  The lanes test
 // their midpoints at once, one __ballot_sync gathers the signs, and every
 // lane walks the D levels from that mask: each level reads the sign at
 // the node the loop would have visited, so the walk is the loop's D steps,
 // bit for bit, whatever the function's shape (a NaN test is false, as in
 // torch.where).  K4's 54 dependent clearance evaluations (and the
 // feasibility test, which lane 0 makes in the last round) become 11
-// rounds at D = 5.  The terms that do not change from step to step (mu,
-// 1 - mu, the squared sphere radius, the phase angle's cos and sin) are
-// computed once, in every lane; each is the value the plain version
-// recomputes, so no bit moves.  D is a template parameter of the
-// schedule; the card's kernels are built at one depth each, FINDI_DEPTH and
-// LOBE_DEPTH, the depths measured fastest on the H100 (PERF.md section 6).
-// A build may set them (-DFINDI_DEPTH=d), as tools/torch_roche_depths.py
-// does to time the other depths.
+// rounds at D = 5, K5's 64 steps 13.  The terms that do not change from
+// step to step (mu, 1 - mu, the squared sphere radius, the phase angle's
+// cos and sin) are computed once, in every lane; each is the value the
+// plain version recomputes, so no bit moves.  D is a template parameter of
+// the schedule; the card's kernels are built at one depth each,
+// FINDI_DEPTH, XL1_DEPTH and LOBE_DEPTH, the depths measured fastest on the
+// H100 (PERF.md section 6).  A build may set them (-DXL1_DEPTH=d), as
+// tools/torch_roche_depths.py does to time the other depths.
 //
 // Bit-identity with the plain version: each expression below is one
 // PyTorch operation per operator, in the plain version's order; built
@@ -70,7 +70,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define ROCHE_BLOCK 32
 #define ROCHE_FN __device__ __forceinline__
 
 template <typename T> ROCHE_FN T rsqrt_(T v);
@@ -101,31 +100,15 @@ template <typename T> ROCHE_FN T clamp_min(T v, T lo) {
 #define ROCHE_PI_180 0.017453292519943295769236907684886127134428718885417
 #define ROCHE_TWO_PI (2.0 * 3.141592653589793)
 
-// ---- K5: _xl1_loop ------------------------------------------------------
-
-// bisection of d(Phi)/dx on the line of centres over (1e-6, 1 - 1e-6):
-// (1 - mu) / (x x) - mu / ((1 - x) ** 2) - (x - mu) > 0 keeps the upper half
-template <typename T> ROCHE_FN T xl1_solve(T q, int iters) {
-  const T mu = q / (T(1) + q);
-  const T omu = T(1) - mu;
-  T lo = T(1e-6), hi = T(1.0 - 1e-6);
-  for (int k = 0; k < iters; ++k) {
-    const T mid = T(0.5) * (lo + hi);
-    const T a = T(1) - mid;
-    const T f = omu / (mid * mid) - mu / (a * a) - (mid - mu);
-    const bool pos = f > T(0);
-    lo = pos ? mid : lo;
-    hi = pos ? hi : mid;
-  }
-  return T(0.5) * (lo + hi);
-}
-
-// ---- the k-section schedule of K4 and K6 ---------------------------------
+// ---- the k-section schedule of K4-K6 -------------------------------------
 
 // the depth D of the kernels' groups (G = 2^D lanes a solve, 1 <= D <= 5),
 // measured fastest on the H100 for each kernel (PERF.md section 6)
 #ifndef FINDI_DEPTH
 #define FINDI_DEPTH 5
+#endif
+#ifndef XL1_DEPTH
+#define XL1_DEPTH 5
 #endif
 #ifndef LOBE_DEPTH
 #define LOBE_DEPTH 3
@@ -179,6 +162,32 @@ ROCHE_FN void ksection(T& lo, T& hi, int iters, Round round) {
     walk(lo, hi, round(r, done + r >= iters), r);
     done += r;
   } while (done < iters);
+}
+
+// ---- K5: _xl1_loop ------------------------------------------------------
+
+// d(Phi)/dx on the line of centres at mid, > 0: the loop keeps the upper
+// half, (1 - mu) / (x x) - mu / ((1 - x) ** 2) - (x - mu) > 0
+template <typename T> ROCHE_FN bool xl1_up(T mu, T omu, T mid) {
+  const T a = T(1) - mid;
+  const T f = omu / (mid * mid) - mu / (a * a) - (mid - mu);
+  return f > T(0);
+}
+
+// bisection of d(Phi)/dx on the line of centres over (1e-6, 1 - 1e-6) in
+// groups of 2^D lanes: lanes 1 .. 2^r - 1 vote at their nodes' midpoints
+template <int D, typename T, typename Ballot>
+ROCHE_FN T xl1_solve(T q, int iters, Ballot ballot) {
+  const T mu = q / (T(1) + q);
+  const T omu = T(1) - mu;
+  T lo = T(1e-6), hi = T(1.0 - 1e-6);
+  ksection<D>(lo, hi, iters, [&](int r, bool) {
+    return ballot([&](unsigned lane) {
+      return lane >= 1u && lane < (1u << r)
+             && xl1_up(mu, omu, node_mid<D>(lo, hi, lane));
+    });
+  });
+  return T(0.5) * (lo + hi);
 }
 
 // ---- K4: _findi_loop ----------------------------------------------------
@@ -332,7 +341,7 @@ ROCHE_FN T lobe_solve(T q, T x1, T pl1, T dx, T dy, T dz, int iters,
 
 // ---- kernel and launcher ------------------------------------------------
 
-// K4 and K6: blocks of GROUP_BLOCK threads, one group of G = 2^D lanes a
+// K4-K6: blocks of GROUP_BLOCK threads, one group of G = 2^D lanes a
 // solve (G <= 32, so a group never straddles a warp).  Every lane of a
 // warp reaches each __ballot_sync with the full mask: a lane past the last
 // solve solves a copy of it and stores nothing.  A group reads its own
@@ -368,10 +377,13 @@ findi_kernel(const T* __restrict__ q, const T* __restrict__ half_w,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(ROCHE_BLOCK)
+__global__ void __launch_bounds__(GROUP_BLOCK)
 xl1_kernel(const T* __restrict__ q, T* __restrict__ out, int n, int iters) {
-  const int i = blockIdx.x * ROCHE_BLOCK + threadIdx.x;
-  if (i < n) out[i] = xl1_solve(q[i], iters);
+  const Group<XL1_DEPTH> g;
+  const int i = g.solve < n ? g.solve : n - 1;
+  const T r = xl1_solve<XL1_DEPTH>(
+      q[i], iters, [&](auto vote) { return g.ballot(vote); });
+  if (g.solve < n && g.lane == 0u) out[i] = r;
 }
 
 template <typename T>
@@ -391,8 +403,6 @@ lobe_radius_kernel(const T* __restrict__ q, const T* __restrict__ x1,
 static bool bad_size(int n, int iters) {
   return n < 1 || n > (1 << 30) || iters < 0;
 }
-
-static dim3 grid_of(int n) { return dim3((n + ROCHE_BLOCK - 1) / ROCHE_BLOCK); }
 
 static dim3 group_grid(int n, int depth) {
   return dim3((unsigned)((((long long)n << depth) + GROUP_BLOCK - 1)
@@ -423,11 +433,12 @@ extern "C" int xl1_launch(int is_double, const void* q, void* out, int n,
                           int iters, void* stream) {
   if (bad_size(n, iters)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = group_grid(n, XL1_DEPTH);
   if (is_double)
-    xl1_kernel<double><<<grid_of(n), ROCHE_BLOCK, 0, s>>>(
+    xl1_kernel<double><<<grid, GROUP_BLOCK, 0, s>>>(
         (const double*)q, (double*)out, n, iters);
   else
-    xl1_kernel<float><<<grid_of(n), ROCHE_BLOCK, 0, s>>>(
+    xl1_kernel<float><<<grid, GROUP_BLOCK, 0, s>>>(
         (const float*)q, (float*)out, n, iters);
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,12 @@ plain versions are the iteration loops of :mod:`..roche.geometry`
 :func:`~..roche.geometry.findi`, :func:`~..roche.geometry.xl1` and
 :func:`~..roche.geometry.lobe_radius` run under ``no_grad`` on CPU
 tensors and replace by one call here on CUDA tensors; the
-implicit-function-theorem tangents stay in PyTorch.  K5 is one thread per
-solve; K4 and K6 run a group of 2^d lanes per solve that evaluates the
-bisection's next d levels at once (a k-section) and walks them from one
-ballot, d fixed when ``roche.cu`` is built (``FINDI_DEPTH``,
-``LOBE_DEPTH``).  Each repeats its loop's operations in order, so it
-gives the loop's bits.
+implicit-function-theorem tangents stay in PyTorch.  Each kernel runs a
+group of 2^d lanes per solve that evaluates the bisection's next d levels
+at once (a k-section) and walks them from one ballot, d fixed when
+``roche.cu`` is built (``FINDI_DEPTH``, ``XL1_DEPTH``, ``LOBE_DEPTH``).
+Each repeats its loop's operations in order, so it gives the loop's
+bits.
 
 Every wrapper takes tensors of one shape, one float dtype and one device,
 contiguous, and returns the solution in that shape.  CUDA tensors launch
@@ -118,7 +118,8 @@ def findi_kernel(q, half_w, x1, pl1):
 
 def xl1_kernel(q):
     """K5: the L1 point's distance from the primary, by
-    :func:`~..roche.geometry._xl1_loop`'s bisection."""
+    :func:`~..roche.geometry._xl1_loop`'s bisection, in groups of
+    2^``XL1_DEPTH`` lanes a solve."""
     global XL1_LAUNCHES
     if _checked("K5", ("q",), (q,)):
         return plain._xl1_loop(q)

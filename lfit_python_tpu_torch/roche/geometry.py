@@ -425,11 +425,17 @@ def lobe_radius(q, direction, xl1_val=None, phi_l1=None):
     ``direction`` (..., 3): bisection of Phi(c2 + r d) = Phi_L1 on
     (0, 1 - xl1], with the IFT tangent (F_r = grad(Phi) . d).  The
     bracket's dependence on xl1 carries no gradient."""
+    return _lobe_radius(q, direction[..., 0], direction[..., 1],
+                        direction[..., 2], xl1_val, phi_l1)
+
+
+def _lobe_radius(q, dx, dy, dz, xl1_val=None, phi_l1=None):
+    """:func:`lobe_radius` along the direction's components (dx, dy,
+    dz), each broadcasting with ``q``."""
     if xl1_val is None:
         xl1_val = xl1(q)
     if phi_l1 is None:
         phi_l1 = l1_potential(q, xl1_val)
-    dx, dy, dz = direction[..., 0], direction[..., 1], direction[..., 2]
     recording = _recording(q, phi_l1)
     with torch.no_grad():
         qd, pl1 = q.detach(), phi_l1.detach()
@@ -454,9 +460,11 @@ def lobe_radius(q, direction, xl1_val=None, phi_l1=None):
 def inscribed_radius(q, xl1_val=None, phi_l1=None):
     """Radius of a donor-centred sphere certainly inside the Roche lobe:
     0.995 x the polar lobe radius (the contact solver's certain-eclipsed
-    bracket end)."""
-    pole = torch.tensor([0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
-    return 0.995 * lobe_radius(q, pole, xl1_val, phi_l1)
+    bracket end).  The pole's components are made on ``q``'s device in
+    its shape (no host copy, and on the card no stream sync)."""
+    zero = torch.zeros_like(q)
+    return 0.995 * _lobe_radius(q, zero, zero, torch.ones_like(q), xl1_val,
+                                phi_l1)
 
 
 def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins,

@@ -991,16 +991,17 @@ def test_roche_kernel_bit_identical(cuda, name, dtype):
         assert 0.5 * k.numel() < int(torch.isfinite(k).sum()) < k.numel()
 
 
-ROCHE_ITERS = {"findi": "_FINDI_ITERS", "lobe_radius": "_LOBE_ITERS"}
+ROCHE_ITERS = {"findi": "_FINDI_ITERS", "xl1": "_XL1_ITERS",
+               "lobe_radius": "_LOBE_ITERS"}
 
 
 @pytest.mark.parametrize("iters", [1, 5, 6, 54])
 @pytest.mark.parametrize("name", sorted(ROCHE_ITERS))
 def test_roche_group_kernels_bit_identical(cuda, name, iters):
-    """K4 and K6 (groups of 2^d lanes a solve, d levels a round) give the
+    """K4-K6 (groups of 2^d lanes a solve, d levels a round) give the
     loops' bits at solve counts around a warp, a block and the north
     star's, with the bisection cut to 1, 5 or 6 steps (a short round, a
-    whole one, one step more) and at its own 54, in both dtypes."""
+    whole one, one step more) and at 54, in both dtypes."""
     fn = getattr(roche, f"{name}_kernel")
     with mock.patch.object(tg, ROCHE_ITERS[name], iters):
         for dtype in (torch.float32, torch.float64):
@@ -1013,13 +1014,14 @@ def test_roche_group_kernels_bit_identical(cuda, name, iters):
 def test_roche_every_depth_bit_identical(cuda):
     """roche.cu built at each group depth that tools/torch_roche_depths.py
     times (the kept one and those measured beside it) gives the loops'
-    bits, K4 and K6 in both dtypes; its launches count nothing."""
+    bits, K4-K6 in both dtypes; its launches count nothing."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
     import torch_roche_depths as depths
 
     libs = depths.build()
-    iters = {"findi": tg._FINDI_ITERS, "lobe_radius": tg._LOBE_ITERS}
-    before = (roche.FINDI_LAUNCHES, roche.LOBE_LAUNCHES)
+    iters = {"findi": tg._FINDI_ITERS, "xl1": tg._XL1_ITERS,
+             "lobe_radius": tg._LOBE_ITERS}
+    before = (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES, roche.LOBE_LAUNCHES)
     for dtype in (torch.float32, torch.float64):
         inputs = roche_inputs(cuda, dtype)
         for name in sorted(ROCHE_ITERS):
@@ -1028,7 +1030,101 @@ def test_roche_every_depth_bit_identical(cuda):
                 out = torch.empty_like(ref)
                 depths.launcher(lib, name, inputs[name], out, iters[name])()
                 assert same_bits(out, ref), (label, name, dtype)
-    assert (roche.FINDI_LAUNCHES, roche.LOBE_LAUNCHES) == before
+    assert (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES,
+            roche.LOBE_LAUNCHES) == before
+
+
+def north_star_walkers(dev, n=1024, dtype=torch.float32):
+    """The north-star model (5 eclipses x 128 points, 2 bands) and n
+    walkers around its start, as chip_smoke.py draws them (seed 0)."""
+    model = build_model(n_eclipses=5, complex_spot=[False] * 5,
+                        n_points=128, bands=("g", "r")).compile()
+    start = model.var_start()
+    rng = np.random.default_rng(0)
+    pos = torch.tensor(start[None] + 0.001 * np.abs(start)[None]
+                       * rng.standard_normal((n, start.size)),
+                       dtype=dtype, device=dev)
+    return model, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_xl1_kernel_on_the_north_star_and_stress_sets(cuda, dtype):
+    """K5 at its kept depth gives ``_xl1_loop``'s bits on the north
+    star's 1024 q (one float32 evaluation's, cast) and on chip_smoke.py
+    phase 22's stress set (8192: q 0.03-3, a NaN) with q <= 0, 1e3 and
+    inf beside it; one call is one ``xl1_kernel`` event and one count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, pos = north_star_walkers(cuda)
+    with torch.inference_mode():
+        q_ns = model.cv_params(model.full_from_var(pos))[:, 0, 4]
+    rng = np.random.default_rng(22)
+    q_st = np.r_[rng.uniform(0.03, 3.0, 8189), 0.05, 0.05, np.nan,
+                 0.0, -0.3, -1.0, 1e3, np.inf]
+    sets = (q_ns.to(dtype).contiguous(),
+            torch.tensor(q_st, dtype=dtype, device=cuda))
+    for q in sets:
+        roche.xl1_kernel(q)
+    torch.cuda.synchronize()
+    before = roche.XL1_LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = [roche.xl1_kernel(q) for q in sets]
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert roche.XL1_LAUNCHES == before + 2
+    assert len(names) == 2 and all("xl1_kernel" in n for n in names), names
+    for q, k in zip(sets, got):
+        assert same_bits(k, tg._xl1_loop(q))
+    assert q_ns.numel() == 1024
+
+
+def test_forward_evaluation_solves_the_inscribed_radius_once(cuda):
+    """One forward evaluation (the north star, 256 walkers, float32)
+    launches K6 once, on one radius a walker, and its profiler trace
+    shows one ``lobe_radius_kernel`` and, inside ``inscribed_radius``, no
+    host-to-device copy and no synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from lfit_python_tpu_torch.models import likelihood
+
+    model, pos = north_star_walkers(cuda, n=256)
+    lp = make_ln_prob(model, dtype=torch.float32, device=cuda)
+    solve = likelihood.inscribed_radius
+
+    def marked(*args, **kw):
+        with record_function("inscribed_radius"):
+            return solve(*args, **kw)
+
+    with mock.patch.object(likelihood, "inscribed_radius", marked), \
+            mock.patch.object(roche, "lobe_radius_kernel",
+                              wraps=roche.lobe_radius_kernel) as rec:
+        lp(pos)
+        torch.cuda.synchronize()
+        assert rec.call_count == 1
+        assert tuple(rec.call_args.args[0].shape) == (256, 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lp(pos)
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = [e for e in events if e.name == "inscribed_radius"
+            and e.device_type == DeviceType.CPU]
+    assert len(span) == 1
+    t0, t1 = span[0].time_range.start, span[0].time_range.end
+    inside = [e.name for e in events if e.device_type == DeviceType.CPU
+              and t0 <= e.time_range.start <= t1]
+    # the span holds the runtime's records (the pole's fills, K6's
+    # launch), and no copy (a host tensor's is a cudaMemcpyAsync, with
+    # a cudaStreamSynchronize after it) and no sync
+    assert "cudaLaunchKernel" in inside, inside
+    assert not [n for n in inside if "Memcpy" in n or "Synchronize" in n],\
+        inside
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    assert sum("lobe_radius_kernel" in n for n in kernels) == 1
 
 
 @pytest.mark.parametrize("name", sorted(ROCHE_LOOPS))
@@ -1087,7 +1183,7 @@ def test_roche_routing_on_the_card(cuda):
 def test_posterior_through_roche_kernels_matches_plain_loops(cuda, mode):
     """ln p and flux at 256 walkers on the north-star tree: the same bits
     through K4-K6 and through the plain loops; findi and xl1 once an
-    evaluation (twice in the precise mode)."""
+    evaluation (twice in the precise mode), the inscribed radius once."""
     model = build_model(n_eclipses=5, complex_spot=[False] * 5,
                         n_points=128, bands=("g", "r")).compile()
     dtype = torch.float64 if mode == "float64" else torch.float32
@@ -1098,11 +1194,11 @@ def test_posterior_through_roche_kernels_matches_plain_loops(cuda, mode):
     pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
                        * rng.standard_normal((256, start.size)),
                        dtype=dtype, device=cuda)
-    before = (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES)
+    before = (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES, roche.LOBE_LAUNCHES)
     a = lp(pos)
     n_core = 2 if mode == "precise" else 1
-    assert (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES) == (
-        before[0] + n_core, before[1] + n_core)
+    assert (roche.FINDI_LAUNCHES, roche.XL1_LAUNCHES, roche.LOBE_LAUNCHES) \
+        == (before[0] + n_core, before[1] + n_core, before[2] + 1)
     fa = lp.model_flux(pos)
     with mock.patch.object(roche, "findi_kernel", tg._findi_loop), \
             mock.patch.object(roche, "xl1_kernel", tg._xl1_loop), \

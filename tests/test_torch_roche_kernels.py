@@ -34,6 +34,7 @@ from lfit_python_tpu.models.likelihood import make_ln_prob as jmake
 from lfit_python_tpu.roche import geometry as jg
 from lfit_python_tpu_torch.convert import from_jax_model
 from lfit_python_tpu_torch.examples import build_model
+from lfit_python_tpu_torch.models import components as comp
 from lfit_python_tpu_torch.models.cv import CVConfig
 from lfit_python_tpu_torch.models.likelihood import make_ln_prob
 from lfit_python_tpu_torch.ops import roche
@@ -73,9 +74,10 @@ static void findi_rows(const T* q, const T* hw, const T* x1, const T* pl1,
                             HostGroup<D>());
 }
 
-template <typename T>
+template <int D, typename T>
 static void xl1_rows(const T* q, T* out, int n, int iters) {
-  for (int i = 0; i < n; ++i) out[i] = xl1_solve(q[i], iters);
+  for (int i = 0; i < n; ++i)
+    out[i] = xl1_solve<D>(q[i], iters, HostGroup<D>());
 }
 
 template <int D, typename T>
@@ -99,6 +101,15 @@ static void findi_typed(int is_double, const void* q, const void* hw,
 }
 
 template <int D>
+static void xl1_typed(int is_double, const void* q, void* out, int n,
+                      int iters) {
+  if (is_double)
+    xl1_rows<D>((const double*)q, (double*)out, n, iters);
+  else
+    xl1_rows<D>((const float*)q, (float*)out, n, iters);
+}
+
+template <int D>
 static void lobe_typed(int is_double, const void* q, const void* x1,
                        const void* pl1, const void* dx, const void* dy,
                        const void* dz, void* out, int n, int iters) {
@@ -112,7 +123,7 @@ static void lobe_typed(int is_double, const void* q, const void* x1,
                  (float*)out, n, iters);
 }
 
-// K4 and K6 in groups of 2^depth lanes, depth 1 (the loop itself) to 5
+// K4-K6 in groups of 2^depth lanes, depth 1 (the loop itself) to 5
 extern "C" void findi_host_at(int depth, int is_double, const void* q,
                               const void* hw, const void* x1,
                               const void* pl1, void* out, int n, int iters) {
@@ -122,6 +133,17 @@ extern "C" void findi_host_at(int depth, int is_double, const void* q,
     case 3: findi_typed<3>(is_double, q, hw, x1, pl1, out, n, iters); break;
     case 4: findi_typed<4>(is_double, q, hw, x1, pl1, out, n, iters); break;
     case 5: findi_typed<5>(is_double, q, hw, x1, pl1, out, n, iters); break;
+  }
+}
+
+extern "C" void xl1_host_at(int depth, int is_double, const void* q,
+                            void* out, int n, int iters) {
+  switch (depth) {
+    case 1: xl1_typed<1>(is_double, q, out, n, iters); break;
+    case 2: xl1_typed<2>(is_double, q, out, n, iters); break;
+    case 3: xl1_typed<3>(is_double, q, out, n, iters); break;
+    case 4: xl1_typed<4>(is_double, q, out, n, iters); break;
+    case 5: xl1_typed<5>(is_double, q, out, n, iters); break;
   }
 }
 
@@ -148,10 +170,7 @@ extern "C" void findi_host(int is_double, const void* q, const void* hw,
 
 extern "C" void xl1_host(int is_double, const void* q, void* out, int n,
                          int iters) {
-  if (is_double)
-    xl1_rows((const double*)q, (double*)out, n, iters);
-  else
-    xl1_rows((const float*)q, (float*)out, n, iters);
+  xl1_host_at(XL1_DEPTH, is_double, q, out, n, iters);
 }
 
 extern "C" void lobe_radius_host(int is_double, const void* q,
@@ -164,6 +183,7 @@ extern "C" void lobe_radius_host(int is_double, const void* q,
 }
 
 extern "C" int findi_depth_host(void) { return FINDI_DEPTH; }
+extern "C" int xl1_depth_host(void) { return XL1_DEPTH; }
 extern "C" int lobe_radius_depth_host(void) { return LOBE_DEPTH; }
 """
 
@@ -192,7 +212,8 @@ def build_source(build, defines=()):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (n_in + 1)
                        + [ctypes.c_int] * 2)
         fn.restype = None
-    for fn, n_in in ((lib.findi_host_at, 4), (lib.lobe_radius_host_at, 6)):
+    for fn, n_in in ((lib.findi_host_at, 4), (lib.xl1_host_at, 1),
+                     (lib.lobe_radius_host_at, 6)):
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * (n_in + 1)
                        + [ctypes.c_int] * 2)
         fn.restype = None
@@ -349,12 +370,15 @@ class TestAgainstPlainLoops:
 # iteration counts around the depths: none, fewer than a round, whole
 # rounds, a short last round, and the solves' own 54 and 64
 SCHEDULE_ITERS = (0, 1, 4, 5, 6, 9, 54, 64)
+# xl1's q beyond the draws' (which hold a NaN): q <= 0 (mu = -inf at q =
+# -1), a large and a tiny q, and inf (mu NaN)
+XL1_EXTREMES = (0.0, -0.3, -1.0, -2.5, 1e3, 1e-7, np.inf)
 
 
 def schedule_inputs(dtype, n=4096):
-    """draws() and n random solves (q 0.03-3, dphi 0.005-0.15): (findi's
-    arguments, lobe_radius's along random unit directions, half of them
-    the pole)."""
+    """draws() and n random solves (q 0.03-3, dphi 0.005-0.15): {name:
+    arguments} of findi, of xl1 (with XL1_EXTREMES) and of lobe_radius
+    along random unit directions, half of them the pole."""
     q0, dphi0 = draws(dtype)
     rng = np.random.default_rng(17)
     q = torch.cat([q0, torch.tensor(rng.uniform(0.03, 3.0, n), dtype=dtype)])
@@ -365,6 +389,7 @@ def schedule_inputs(dtype, n=4096):
     d = torch.tensor(d, dtype=dtype)
     q_, hw, x1, pl1 = geometry_inputs(q, dphi)
     return {"findi": (q_, hw, x1, pl1),
+            "xl1": (torch.cat([q, torch.tensor(XL1_EXTREMES, dtype=dtype)]),),
             "lobe_radius": (q, x1, pl1, d[:, 0], d[:, 1], d[:, 2])}
 
 
@@ -374,16 +399,17 @@ def same_bits(a, b):
 
 
 class TestSchedule:
-    """The source's K4 and K6 with a group of 2^d lanes emulated by a host
+    """The source's K4-K6 with a group of 2^d lanes emulated by a host
     loop over its lanes (the mask filled lane by lane, then the walk):
     each depth d = 2 .. 5 against d = 1, the loop itself operation for
     operation, bit for bit, over draws(), 4096 random solves, the
     infeasible pairs and the NaN q, at iteration counts that end on a
-    whole round, in a short one and before the first."""
+    whole round, in a short one and before the first; K5 at every depth
+    against the plain loop itself at every step count."""
 
     @pytest.mark.parametrize("depth", [2, 3, 4, 5])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-    @pytest.mark.parametrize("name", ["findi", "lobe_radius"])
+    @pytest.mark.parametrize("name", ["findi", "xl1", "lobe_radius"])
     def test_depth_gives_the_loops_bits(self, source_lib, name, dtype,
                                         depth):
         args = schedule_inputs(dtype)[name]
@@ -395,22 +421,39 @@ class TestSchedule:
             assert bool(torch.isnan(got[24:27]).all())
             assert int(torch.isnan(got).sum()) < got.numel() // 2
 
-    @pytest.mark.parametrize("name", ["findi", "lobe_radius"])
+    @pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_xl1_gives_the_plain_loops_bits(self, source_lib, dtype, depth):
+        """K5 at each depth against ``_xl1_loop`` itself, bit for bit (its
+        test is four operators and a compare, rounded alike by g++ and by
+        PyTorch's CPU kernels), at every step count 0-64: in float32 the
+        bracket reaches adjacent floats after ~25 steps, and the steps
+        after it still move lo and hi by the loop's selects."""
+        q, = schedule_inputs(dtype)["xl1"]
+        for iters in range(tg._XL1_ITERS + 1):
+            with mock.patch.object(tg, "_XL1_ITERS", iters):
+                ref = tg._xl1_loop(q)
+            got = stand_in(source_lib, "xl1", iters, depth)(q)
+            assert same_bits(got, ref), (depth, iters)
+
+    @pytest.mark.parametrize("name", ["findi", "xl1", "lobe_radius"])
     def test_iteration_counts_against_the_plain_loops(self, source_lib,
                                                       name):
         """The card's depth at each iteration count against the plain
         loop run for as many steps (float64, the JAX tests' tolerance):
         the rounds take exactly ``iters`` steps."""
         args = schedule_inputs(torch.float64, n=256)[name]
-        loop = {"findi": tg._findi_loop, "lobe_radius": tg._lobe_loop}[name]
-        attr = {"findi": "_FINDI_ITERS", "lobe_radius": "_LOBE_ITERS"}[name]
+        loop = {"findi": tg._findi_loop, "xl1": tg._xl1_loop,
+                "lobe_radius": tg._lobe_loop}[name]
+        attr = {"findi": "_FINDI_ITERS", "xl1": "_XL1_ITERS",
+                "lobe_radius": "_LOBE_ITERS"}[name]
         for iters in SCHEDULE_ITERS:
             with mock.patch.object(tg, attr, iters):
                 ref = loop(*args)
             same_nan_then_close(stand_in(source_lib, name, iters)(*args),
                                 ref, 1e-10)
 
-    @pytest.mark.parametrize("name", ["findi", "lobe_radius"])
+    @pytest.mark.parametrize("name", ["findi", "xl1", "lobe_radius"])
     def test_depth_is_set_when_the_source_is_built(self, source_lib,
                                                    tmp_path, name):
         """The card's depths are among those held to the loop above, and
@@ -418,9 +461,11 @@ class TestSchedule:
         the depths not kept) runs its kernels at the depth it set, with
         the loop's bits."""
         assert 2 <= source_lib.findi_depth_host() <= 5
+        assert 2 <= source_lib.xl1_depth_host() <= 5
         assert 2 <= source_lib.lobe_radius_depth_host() <= 5
-        depth = {"findi": 3, "lobe_radius": 4}[name]
+        depth = {"findi": 3, "xl1": 3, "lobe_radius": 4}[name]
         lib = build_source(tmp_path, (f"FINDI_DEPTH={depth}",
+                                      f"XL1_DEPTH={depth}",
                                       f"LOBE_DEPTH={depth}"))
         assert getattr(lib, f"{name}_depth_host")() == depth
         args = schedule_inputs(torch.float32, n=512)[name]
@@ -494,6 +539,60 @@ def test_posterior_through_the_source_matches_jax(solves):
     ok = np.isfinite(ref)
     np.testing.assert_allclose(got[ok], ref[ok], rtol=1e-9)
     np.testing.assert_allclose(got[ok], plain[ok], rtol=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["float64", "float32", "precise"])
+def test_the_inscribed_radius_is_solved_once_a_walker(mode):
+    """One forward evaluation (ln p, and the model flux) solves the
+    inscribed radius (K6 along the pole) once, at one solve a walker, and
+    the prior alone never; its ln p and fluxes are the bits of an
+    evaluation in which the white dwarf's guard and the contact solve
+    each solve their own radius at (walker, eclipse), as they did before
+    the posterior shared one (whose solve then goes unused).  Two
+    eclipses (one complex spot), 16 points, 5 walkers, one infeasible;
+    float64, float32 and float32 in mixed precision."""
+    model = build_model(n_eclipses=2, complex_spot=[False, True],
+                        n_points=16, bands=("g",)).compile()
+    dtype = torch.float64 if mode == "float64" else torch.float32
+    post = make_ln_prob(model, CVConfig(mixed_precision=mode == "precise",
+                                        **TINY), dtype=dtype, device="cpu")
+    start = model.var_start()
+    rng = np.random.default_rng(4)
+    pos = start[None] + 0.001 * np.abs(start)[None] * rng.standard_normal(
+        (5, start.size))
+    names = model.var_names()
+    pos[-1, names.index("q_core")] = 0.04
+    pos[-1, names.index("dphi_core")] = 0.19
+    p = torch.tensor(pos, dtype=dtype)
+    loop, solves = tg._lobe_loop, []
+
+    def counted(q, x1, pl1, dx, dy, dz):
+        if bool((dx == 0).all() & (dy == 0).all() & (dz == 1).all()):
+            solves.append(tuple(torch.broadcast_shapes(
+                q.shape, x1.shape, pl1.shape, dx.shape, dy.shape,
+                dz.shape)))
+        return loop(q, x1, pl1, dx, dy, dz)
+
+    def own_radius(fn):
+        def run(*args, **kw):
+            kw.pop("r_ins", None)
+            return fn(*args, **kw)
+        return run
+
+    with mock.patch.object(tg, "_lobe_loop", counted):
+        post.ln_prior(p)
+        assert solves == []
+        got = (post(p), post.model_flux(p))
+        assert solves == [(5, 1)] * 2
+        solves.clear()
+        with mock.patch.object(comp, "wd_flux", own_radius(comp.wd_flux)), \
+                mock.patch.object(comp, "element_intervals",
+                                  own_radius(comp.element_intervals)):
+            ref = (post(p), post.model_flux(p))
+        assert sorted(solves) == sorted([(5, 1), (5, 2), (5, 2, 1)] * 2)
+    assert torch.isfinite(got[0][:-1]).all() and got[0][-1] == -np.inf
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and same_bits(a, b)
 
 
 # ---- routing ---------------------------------------------------------

@@ -109,7 +109,7 @@ def patched(**which):
                           phases)))
     if which.get("contacts"):
         def fake_intervals(q, incl, pos, x1, pl1, precise=None,
-                           positions64=None):
+                           positions64=None, r_ins=None):
             lead = pos.shape[:-1]
             return (torch.full(lead, -0.01, dtype=pos.dtype,
                                device=pos.device),

@@ -29,11 +29,15 @@ line:
   its backward pass on the same series' first 256 walkers; and the device
   time of the backward kernel and of K3's forward kernel alone, as the
   profiler traces them (the least of 5 calls); where the checkout has
-  them, K4 (``findi_kernel``, 1024 solves) and K6 (``lobe_radius_kernel``,
-  the first call's 5120 radii) on the inputs one evaluation hands them,
-  float32 and float64, event-timed and traced;
+  them, K4 (``findi_kernel``), K5 (``xl1_kernel``) and K6
+  (``lobe_radius_kernel``, its first call: 5120 radii in a checkout that
+  solves the inscribed radius per eclipse, 1024 in one that solves it
+  once a walker) on the inputs one evaluation hands them, float32 and
+  float64, event-timed and traced;
 - a SHA-256 of each kernel's outputs (for K1's backward, of its six
-  gradients), so that two checkouts whose kernels give the same bits
+  gradients), and of the ln p and model flux of one float32, float64 and
+  precise evaluation at 1024 walkers and of the value_and_grad above, so
+  that two checkouts whose kernels and posteriors give the same bits
   print the same digests.
 
 The evaluations are host-bound, so compare two checkouts only within one
@@ -42,6 +46,7 @@ call, each in its own process, in the order a, b, b, a:
     for r in OLD NEW NEW OLD; do python3 tools/torch_eval_turns.py $r; done
 """
 
+import contextlib
 import hashlib
 import json
 import re
@@ -180,31 +185,51 @@ def main():
     roche_kernels(lp, pos, kernels)
     print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
                       "eval_ms": ev, "value_and_grad_ms": vg,
+                      "eval_sha256": eval_digests(model, pos, lpw, posw),
                       "gp_eval_ms": gp_turns(spec, pos, kernels),
                       "kernels": kernels}))
 
 
+def eval_digests(model, pos, lpw, posw):
+    """{mode: digest}: of ln p and the model flux of one float32, float64
+    and precise evaluation of ``model`` at ``pos``, and of ``lpw``'s
+    value_and_grad at ``posw``."""
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+
+    out = {}
+    for mode, config, dt in (("float32", CVConfig(), F32),
+                             ("float64", CVConfig(), F64),
+                             ("precise", CVConfig(mixed_precision=True),
+                              F32)):
+        post = make_ln_prob(model, config, dtype=dt, device=DEV)
+        p = pos.to(dt)
+        with torch.inference_mode():
+            out[mode] = digest([post(p), post.model_flux(p)])
+    out["value_and_grad"] = digest(lpw.value_and_grad(posw))
+    return out
+
+
 def roche_kernels(lp, pos, kernels):
-    """Add K4's and K6's times and digests, on the inputs the first call
-    of each wrapper gets in one evaluation of ``lp`` at ``pos``, in
+    """Add K4's, K5's and K6's times and digests, on the inputs the first
+    call of each wrapper gets in one evaluation of ``lp`` at ``pos``, in
     float32 and float64, to ``kernels``; nothing for a checkout without
     them."""
     try:
         from lfit_python_tpu_torch.ops import roche
     except ImportError:
         return
-    names = ("findi", "lobe_radius")
-    with mock.patch.object(roche, "findi_kernel",
-                           wraps=roche.findi_kernel) as rec4, \
-            mock.patch.object(roche, "lobe_radius_kernel",
-                              wraps=roche.lobe_radius_kernel) as rec6, \
-            torch.inference_mode():
+    names = {"findi": 4, "xl1": 5, "lobe_radius": 6}
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        recs = {n: stack.enter_context(mock.patch.object(
+            roche, f"{n}_kernel", wraps=getattr(roche, f"{n}_kernel")))
+            for n in names}
         lp(pos)
-    for name, rec in zip(names, (rec4, rec6)):
+    for name, rec in recs.items():
         fn = getattr(roche, f"{name}_kernel")
         for dt in (F32, F64):
             args = [a.to(dt) for a in rec.call_args_list[0].args]
-            kernels[f"k{4 if name == 'findi' else 6}_{str(dt)[6:]}"] = {
+            kernels[f"k{names[name]}_{str(dt)[6:]}"] = {
                 "solves": args[0].numel(),
                 "ms": event_ms(lambda: fn(*args), 20),
                 "traced_us": traced_us(lambda: fn(*args), f"{name}_kernel"),

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Time K4 (``findi_kernel``) and K6 (``lobe_radius_kernel``) of
-``roche.cu`` at each group depth d, and optionally another tree's
-``roche.cu`` beside them, in turns on one CUDA card.
+"""Time K4 (``findi_kernel``), K5 (``xl1_kernel``) and K6
+(``lobe_radius_kernel``) of ``roche.cu`` at each group depth d, and
+optionally another tree's ``roche.cu`` beside them, in turns on one CUDA
+card.
 
     python3 tools/torch_roche_depths.py [--parent TREE]
 
-``roche.cu`` builds K4 and K6 at one depth each (``FINDI_DEPTH``,
-``LOBE_DEPTH``: 2^d lanes a solve).  This builds the checkout's source
-once for each d of DEPTHS with ``-DFINDI_DEPTH=d -DLOBE_DEPTH=d`` (nvcc
-with the port's flags, all builds at once, into
-``build/roche_depths/``) and, with ``--parent``, TREE's ``roche.cu`` as
-it stands (any tree whose launchers take the same arguments: PR 13's
-one thread a solve, say), and launches each through its C entry point.
-The inputs are the north star's: the arguments one float32 evaluation
-at 1024 walkers hands K4 (1024 solves) and the first K6 call (5120
-radii), and the same cast to float64.  It prints one JSON line with,
+``roche.cu`` builds K4-K6 at one depth each (``FINDI_DEPTH``,
+``XL1_DEPTH``, ``LOBE_DEPTH``: 2^d lanes a solve).  This builds the
+checkout's source once for each d of DEPTHS with ``-DFINDI_DEPTH=d
+-DXL1_DEPTH=d -DLOBE_DEPTH=d`` (nvcc with the port's flags, all builds
+at once, into ``build/roche_depths/``) and, with ``--parent``, TREE's
+``roche.cu`` as it stands (any tree whose launchers take the same
+arguments: one whose K5 runs one thread a solve, say), and launches each
+through its C entry point.  The inputs are the north star's: the
+arguments one float32 evaluation at 1024 walkers hands K4, K5 and K6
+(1024 solves each; its first K6 call, where a tree makes two), and the
+same cast to float64.  It prints one JSON line with,
 for each build, kernel and dtype: whether the output has the plain
 loop's bits and a SHA-256 of it; the device time as the profiler traces
 it (the least of 5 launches, in the process's one profiler window); us
@@ -25,6 +27,7 @@ registers and stack frame of each build's kernels.
 """
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -44,7 +47,7 @@ OUT = ROOT / "build" / "roche_depths"
 # the group depths timed (2^d lanes a solve; a warp holds at most 32)
 DEPTHS = (3, 4, 5)
 # each kernel's launcher and its number of input arrays
-LAUNCHERS = {"findi": 4, "lobe_radius": 6}
+LAUNCHERS = {"findi": 4, "xl1": 1, "lobe_radius": 6}
 F32, F64 = torch.float32, torch.float64
 
 
@@ -56,7 +59,8 @@ def build(depths=DEPTHS, parent=None):
     sys.path.insert(0, str(ROOT))
     from lfit_python_tpu_torch.ops import _build
 
-    jobs = {f"d{d}": (SOURCE, (f"-DFINDI_DEPTH={d}", f"-DLOBE_DEPTH={d}"))
+    jobs = {f"d{d}": (SOURCE, (f"-DFINDI_DEPTH={d}", f"-DXL1_DEPTH={d}",
+                               f"-DLOBE_DEPTH={d}"))
             for d in depths}
     if parent is not None:
         jobs["parent"] = (Path(parent) / SOURCE.relative_to(ROOT), ())
@@ -91,8 +95,8 @@ def build(depths=DEPTHS, parent=None):
 
 
 def launcher(lib, name, args, out, iters):
-    """A function of no arguments that launches ``name`` ("findi" or
-    "lobe_radius") from a library of ``build`` on the contiguous card
+    """A function of no arguments that launches ``name`` ("findi", "xl1"
+    or "lobe_radius") from a library of ``build`` on the contiguous card
     tensors ``args``, into ``out``, on the current stream, and raises if
     the launch fails.  Its arguments are read once, here, so that
     back-to-back launches are paced by the card rather than the host."""
@@ -109,8 +113,8 @@ def launcher(lib, name, args, out, iters):
 
 
 def ptxas(log):
-    """{``findi_kernel<f32>``: (registers, stack frame bytes)} of K4's and
-    K6's instantiations in a ``-Xptxas -v`` log."""
+    """{``findi_kernel<f32>``: (registers, stack frame bytes)} of K4-K6's
+    instantiations in a ``-Xptxas -v`` log."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)I([fd])",
@@ -129,9 +133,9 @@ def ptxas(log):
 
 
 def north_star_inputs(dev):
-    """{"findi": args, "lobe_radius": args}: the arguments one float32
-    evaluation of the north-star model at 1024 walkers hands K4 and (its
-    first call) K6."""
+    """{"findi": args, "xl1": args, "lobe_radius": args}: the arguments
+    one float32 evaluation of the north-star model at 1024 walkers hands
+    K4, K5 and (its first call) K6."""
     sys.path.insert(0, str(ROOT))
     from torch_eval_turns import walkers
 
@@ -142,21 +146,20 @@ def north_star_inputs(dev):
     model = build_model(n_eclipses=5, complex_spot=[False] * 5,
                         n_points=128, bands=("g", "r")).compile()
     lp = make_ln_prob(model, dtype=F32, device=dev)
-    with mock.patch.object(roche, "findi_kernel",
-                           wraps=roche.findi_kernel) as rec4, \
-            mock.patch.object(roche, "lobe_radius_kernel",
-                              wraps=roche.lobe_radius_kernel) as rec6, \
-            torch.inference_mode():
+    recs = {n: mock.patch.object(roche, f"{n}_kernel",
+                                 wraps=getattr(roche, f"{n}_kernel"))
+            for n in LAUNCHERS}
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        rec = {n: stack.enter_context(r) for n, r in recs.items()}
         lp(walkers(model.var_start(), 1024, 0))
-    return {"findi": rec4.call_args_list[0].args,
-            "lobe_radius": rec6.call_args_list[0].args}
+    return {n: r.call_args_list[0].args for n, r in rec.items()}
 
 
 def measure(libs, inputs, reps=200, n_turns=4, traced=True):
     """{label: {"findi_float32": {...}, ...}} for each build of ``libs``
-    (``build``'s), K4 and K6, float32 and float64 (``inputs``: float32
-    arguments of each, on the card): ``same_bits`` against the plain loop,
-    ``sha256``, ``us`` (us a launch over ``reps`` back-to-back launches,
+    (``build``'s), each kernel of ``inputs`` ({name: its float32
+    arguments, on the card}), float32 and float64: ``same_bits`` against
+    the plain loop, ``sha256``, ``us`` (us a launch over ``reps`` back-to-back launches,
     the median of ``n_turns`` turns; each turn in ``us_turns``) and, if
     ``traced``, ``traced_us`` (the least device time of 5 launches, all
     in one profiler window: only a process's first keeps every record)."""
@@ -164,6 +167,7 @@ def measure(libs, inputs, reps=200, n_turns=4, traced=True):
     from lfit_python_tpu_torch.roche import geometry
 
     loops = {"findi": (geometry._findi_loop, geometry._FINDI_ITERS),
+             "xl1": (geometry._xl1_loop, geometry._XL1_ITERS),
              "lobe_radius": (geometry._lobe_loop, geometry._LOBE_ITERS)}
     cases = []
     for name, args in inputs.items():
@@ -201,11 +205,11 @@ def measure(libs, inputs, reps=200, n_turns=4, traced=True):
             torch.cuda.synchronize()
         kern = sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA
-                       and re.search(r"\b(findi|lobe_radius)_kernel\b",
-                                     e.name)),
+                       and re.search(
+                           r"\b(findi|xl1|lobe_radius)_kernel\b", e.name)),
                       key=lambda e: e.time_range.start)
         if len(kern) != 5 * len(order):
-            raise RuntimeError(f"the trace holds {len(kern)} K4 / K6 "
+            raise RuntimeError(f"the trace holds {len(kern)} K4-K6 "
                                f"kernels of {5 * len(order)} launched")
         for k, (label, i) in enumerate(order):
             name, dt = cases[i][:2]
