@@ -25,15 +25,19 @@ x 256 walkers.  Phases:
      (roche.cu, float32 and float64), with no spill and no frame but the
      40 bytes sin / cos keep for arguments beyond 105615 in K4's float64
      one (ROCHE_FRAMES), and the warps an SM holds of each K4-K6
-     instantiation (at least 8);
+     instantiation (at least 8); and of K7, K8 and their backward kernels
+     (sweeps.cu: float32 and float64, with and without widths), with no
+     spill and no stack frame;
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
      device launches of one call of each wrapper (K1, K1 with its
      backward kernel, K2, K2 with sensitivities, K3 (one gp_kernel and no
      other device event), K3 with its reverse pass (at most 3 events), and
-     K4, K5, K6 on the inputs that evaluation hands them (one event each)),
-     read by the profiler;
+     K4, K5, K6 on the inputs that evaluation hands them (one event each),
+     K7 and K8 on the disc rows and the donor rows that evaluation hands
+     them, their backward kernels on those of one gradient evaluation of
+     the GP widths model (one event each)), read by the profiler;
   3. the posterior with K1 against the same posterior with the plain
      contact solver, at the same 1024 walkers, timed in turns; ms per
      evaluation, the stream scan (K2) alone, peak device memory, and the
@@ -194,6 +198,24 @@ x 256 walkers.  Phases:
      15000 fewer); the forward evaluation's ms either way, in turns.
      Phases 5, 8 and 14 count K4 = K5 = 1 per evaluation too, and every
      path of the kernels line launched K4, K5 and K6.
+  23. K7 and K8 (the flux curves' sweeps: the disc and spot element
+     curve, the donor sum) and their backward kernels against their plain
+     versions on the rows one north-star evaluation (1024 walkers) and
+     one gradient evaluation of the widths model (256 chains) hand them,
+     and on a stress set (NaN intervals, non-eclipsed elements, phases on
+     the contacts and the wrap, widths at the 1e-12 clamp; mu exactly 0
+     and negative): the forward kernels the same bits in float32 and
+     float64, the backward kernels within 1e-9 of the largest |gradient|
+     of autograd on the plain forward in float64 and at PERF.md's float32
+     gate, two launches the same bits; each kernel's time (traced in
+     phase 2, and event-timed), its plain version's, its bound, and the
+     torch.bmm of the materialised (rows, P, N) terms by the weights (the
+     TPU's reduction alone, TF32 off); the forward evaluation's and the
+     gradient evaluation's device kernels, device time and peak memory
+     through the kernels and through the plain sweeps, the host ms of the
+     forward in turns.  Every path counts K7 = K8 = 2 per evaluation of
+     K1 (K8 = 1 with the donor quadrature) and their backward kernels 2
+     per gradient evaluation.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -379,6 +401,43 @@ ROCHE_BALLOT_CYCLES = 20
 # once, a solve a walker, for the contact rows and the white dwarf's
 # certain-occultation guard both
 ROCHE_PER_EVAL = {"k4": 1, "k5": 1, "k6": 1}
+# K7, K8 (sweeps.cu): the flux curves' sweeps and their backward kernels,
+# port-only kernels where the TPU fused the (P, N) terms into a reduction
+SWEEPS_SOURCE = "lfit_python_tpu_torch/ops/csrc/sweeps.cu"
+SWEEPS_REPLACES = {
+    "element_curve": "lfit_python_tpu/models/components.py:346 "
+                     "(element_flux_curve: an XLA fusion into jnp.dot, :378; "
+                     "visible_fraction_interval lfit_python_tpu/roche/"
+                     "geometry.py:1119; no pallas_call)",
+    "element_curve_backward": "lfit_python_tpu/models/components.py:346 "
+                              "(jax.grad of element_flux_curve; no "
+                              "pallas_call)",
+    "donor_sum": "lfit_python_tpu/models/components.py:598 (donor_flux: an "
+                 "XLA input fusion into jnp.sum, :626; no pallas_call)",
+    "donor_sum_backward": "lfit_python_tpu/models/components.py:598 "
+                          "(jax.grad of donor_flux; no pallas_call)"}
+# K7 and K8 launches of one evaluation (forward, or the forward of a
+# gradient evaluation): K7 for the disc and the spot, K8 for the donor
+# curve and its quadrature normaliser; with n_donor_quad K8 once, the
+# nodes.  A gradient evaluation launches each backward kernel as often
+SWEEPS_PER_EVAL = {"k7": 2, "k8": 2}
+SWEEPS_PER_GRAD = {"k7": 2, "k7_bwd": 2, "k8": 2, "k8_bwd": 2}
+# operations per term (rows x P x N of them), one per PyTorch operation of
+# the plain chain, counted from sweeps.cu: K7 without widths ph - pin,
+# floor, the subtraction, the compare, its conversion, 1 - x, the product
+# by w and the add of the sum (8); with widths hw - pin, remainder, dur -
+# rel, clamp, minimum, rel + w, - 1, clamp, minimum, the sum, clamp,
+# minimum, the divide, the select, 1 - frac, the product, the add (17);
+# K8 the dot (5), clamp, the three products and the add of the weight,
+# the product by the area and the add (12).  The backward's per term:
+# without widths d w alone (vis, the product, the add: 8); with widths the
+# overlap again (12), the visibility (3), and the adjoint by autograd's
+# rules (21: g w, its negation, select and divide, the two minima's and
+# three clamps' shares, d rel and d dur, the adds into d ph, d pin, d pout
+# and d w and the product g vis); K8 the weight again (10), d a (2), g a,
+# d mu (6), the clamp's share, d e and d n (12): 32
+SWEEP_OPS = {"instant": 8, "widths": 17, "donor": 12}
+SWEEP_BWD_OPS = {"instant": 8, "widths": 36, "donor": 32}
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -608,6 +667,39 @@ def _roche_wrappers(roche, make):
             for n in ("findi", "xl1", "lobe_radius")}
 
 
+@contextlib.contextmanager
+def _sweep_wrappers(sweeps):
+    """Each K7 / K8 wrapper of ``sweeps`` (forward and backward) wrapped
+    by a recording mock while the context lasts; yields {name: mock}."""
+    names = ("element_curve", "element_curve_backward", "donor_sum",
+             "donor_sum_backward")
+    with contextlib.ExitStack() as stack:
+        yield {n: stack.enter_context(mock.patch.object(
+            sweeps, f"{n}_kernel", wraps=getattr(sweeps, f"{n}_kernel")))
+            for n in names}
+
+
+SWEEP_ROWS = {"element_curve": ("disc", "spot"),
+              "donor_sum": ("curve", "normaliser")}
+
+
+def _sweep_calls(fwd, bwd):
+    """(tag, kernel name, arguments) of the calls of K7, K8 and their
+    backward kernels that phases 2 and 23 read: the disc's and the spot's
+    curves and the donor curve and its normaliser of a forward evaluation
+    (``fwd``), the disc's and the donor curve's cotangents of a gradient
+    evaluation (``bwd``)."""
+    calls = [(f"K{k} {n} {row}", n, fwd[n][i])
+             for k, n in ((7, "element_curve"), (8, "donor_sum"))
+             for i, row in enumerate(SWEEP_ROWS[n])]
+    # autograd runs the backward kernels in the reverse order: the larger
+    # call (the disc's elements, the donor curve's phases) is the main one
+    return calls + [(f"K{k} {n}_backward {SWEEP_ROWS[n][0]}", f"{n}_backward",
+                     max(bwd[f"{n}_backward"],
+                         key=lambda a: a[0].shape[1] * a[2].shape[-1]))
+                    for k, n in ((7, "element_curve"), (8, "donor_sum"))]
+
+
 def _walkers(start, n, seed, dtype, dev):
     import torch
 
@@ -618,8 +710,8 @@ def _walkers(start, n, seed, dtype, dev):
 
 
 def _zero_counts(contacts, stream, gp):
-    """Sets every kernel wrapper's launch count to 0 (K4-K6's too)."""
-    from lfit_python_tpu_torch.ops import roche
+    """Sets every kernel wrapper's launch count to 0 (K4-K8's too)."""
+    from lfit_python_tpu_torch.ops import roche, sweeps
 
     contacts.LAUNCHES = contacts.BACKWARD_CALLS = 0
     contacts.BACKWARD_LAUNCHES = 0
@@ -627,10 +719,12 @@ def _zero_counts(contacts, stream, gp):
     stream.LAUNCHES = stream.SENS_LAUNCHES = 0
     gp.LAUNCHES = gp.BACKWARD_LAUNCHES = 0
     roche.FINDI_LAUNCHES = roche.XL1_LAUNCHES = roche.LOBE_LAUNCHES = 0
+    sweeps.CURVE_LAUNCHES = sweeps.CURVE_BACKWARD_LAUNCHES = 0
+    sweeps.DONOR_LAUNCHES = sweeps.DONOR_BACKWARD_LAUNCHES = 0
 
 
 def _counts(contacts, stream, gp):
-    from lfit_python_tpu_torch.ops import roche
+    from lfit_python_tpu_torch.ops import roche, sweeps
 
     return {"k1": contacts.LAUNCHES, "k1_f64": contacts.F64_LAUNCHES,
             "k1_mixed": contacts.MIXED_LAUNCHES,
@@ -639,7 +733,10 @@ def _counts(contacts, stream, gp):
             "k2": stream.LAUNCHES, "k2_sens": stream.SENS_LAUNCHES,
             "k3": gp.LAUNCHES, "k3_bwd": gp.BACKWARD_LAUNCHES,
             "k4": roche.FINDI_LAUNCHES, "k5": roche.XL1_LAUNCHES,
-            "k6": roche.LOBE_LAUNCHES}
+            "k6": roche.LOBE_LAUNCHES, "k7": sweeps.CURVE_LAUNCHES,
+            "k7_bwd": sweeps.CURVE_BACKWARD_LAUNCHES,
+            "k8": sweeps.DONOR_LAUNCHES,
+            "k8_bwd": sweeps.DONOR_BACKWARD_LAUNCHES}
 
 
 def _delta(after, before):
@@ -691,6 +788,12 @@ def _k2_against_plain(stream, q, rd, x1, n_steps, with_sens):
 def _k1_launches(contacts):
     """K1's launches in its three modes."""
     return contacts.LAUNCHES + contacts.F64_LAUNCHES + contacts.MIXED_LAUNCHES
+
+
+def _k1_launches_of(c):
+    """K1's launches in its three modes in the counts ``c``: the path's
+    evaluations."""
+    return c["k1"] + c["k1_f64"] + c["k1_mixed"]
 
 
 def _paths_agree(tag, post, p, plain_path, contacts):
@@ -1754,6 +1857,10 @@ def _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp):
     _check(same_inf, "the donor quadrature changed the -inf pattern")
     _check(all(c["k1"] == c["k2"] == 1 for c in counts.values()),
            f"not one K1 and one K2 per evaluation: {counts}")
+    _check(counts[0]["k7"] == counts[256]["k7"] == 2
+           and counts[0]["k8"] == 2 and counts[256]["k8"] == 1,
+           f"K7 twice and K8 twice (once with the quadrature: its nodes) "
+           f"per evaluation: {counts}")
     return {"posterior_quad": counts[256]}
 
 
@@ -1764,7 +1871,7 @@ def _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp):
 _HOST_FIT = r"""
 import contextlib, json, sys
 from lfit_python_tpu_torch import cli
-from lfit_python_tpu_torch.ops import contacts, roche, stream
+from lfit_python_tpu_torch.ops import contacts, roche, stream, sweeps
 from lfit_python_tpu_torch.utils import tracing
 
 real, span = tracing.trace_to, {}
@@ -1790,7 +1897,8 @@ rc = cli.main(sys.argv[1:])
 print("HOST_FIT " + json.dumps(dict(
     rc=rc, k1_total=contacts.LAUNCHES, k2_total=stream.LAUNCHES,
     k4_total=roche.FINDI_LAUNCHES, k5_total=roche.XL1_LAUNCHES,
-    k6_total=roche.LOBE_LAUNCHES, **span)))
+    k6_total=roche.LOBE_LAUNCHES, k7_total=sweeps.CURVE_LAUNCHES,
+    k8_total=sweeps.DONOR_LAUNCHES, **span)))
 sys.exit(rc)
 """
 
@@ -1934,9 +2042,9 @@ def _host_surface_phase(dev, smi):
     _check(same, "the native chain writer wrote other bytes")
     counts = dict.fromkeys(("k1", "k1_f64", "k1_mixed", "k1_bwd",
                             "k1_bwd_kernel", "k2", "k2_sens", "k3",
-                            "k3_bwd"), 0)
+                            "k3_bwd", "k7_bwd", "k8_bwd"), 0)
     counts.update({k: rec[f"{k}_total"]
-                   for k in ("k1", "k2", "k4", "k5", "k6")})
+                   for k in ("k1", "k2", "k4", "k5", "k6", "k7", "k8")})
     return counts
 
 
@@ -2422,6 +2530,394 @@ def _roche_phase(dev, smi, model, pos, roche_args, roche_us, contacts,
     return out
 
 
+def _curve_stress(dev, dtype, R=64, P=128, N=992, widths=True, seed=23):
+    """K7's stress rows: non-eclipsed elements (dur 0), NaN intervals (not
+    eclipsed in row 0, eclipsed in row 1), an interval across the wrap at
+    1; phases on the contacts, a float either side and a cycle on; widths
+    at and below the 1e-12 clamp, and 0."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pin = rng.uniform(-0.06, 0.04, (R, N))
+    pout = pin + rng.uniform(0.0, 0.05, (R, N))
+    ecl = rng.uniform(size=(R, N)) < 0.75
+    mid = 0.5 * (pin + pout)
+    pin, pout = np.where(ecl, pin, mid), np.where(ecl, pout, mid)
+    pin[:, 1], pout[:, 1], ecl[:, 1] = 0.96, 1.02, True
+    pin[0, 2] = pout[0, 2] = np.nan
+    ecl[0, 2] = False
+    pin[1, 3], ecl[1, 3] = np.nan, True
+    w = rng.uniform(0.0, 1.0, (R, N))
+    w /= w.sum(-1, keepdims=True)
+    ph = rng.uniform(-0.15, 0.15, (R, P))
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    pin, pout = pin.astype(np_dt), pout.astype(np_dt)
+    for r in range(R):
+        vals = [x for n in range(6) for v in (pin[r, n], pout[r, n])
+                for x in (v, np.nextafter(v, np_dt(-1)),
+                          np.nextafter(v, np_dt(2)), v + np_dt(1))
+                if np.isfinite(x)][:P]
+        ph[r, :len(vals)] = vals
+    wd = None
+    if widths:
+        wd = np.full((R, P), 0.3 / 127)
+        wd[:, :3] = (1e-12, 1e-13, 0.0)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+    return (t(ph), None if wd is None else t(wd), t(pin), t(pout),
+            torch.tensor(ecl, device=dev), t(w))
+
+
+def _donor_stress(dev, dtype, G=64, E=5, P=128, N=384, seed=23):
+    """K8's stress rows: directions at P phases for E rows of each of G
+    grids, the first along the pole; unit normals, one perpendicular to
+    the pole (mu exactly 0), one facing away (mu < 0), a zero one."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    th = np.deg2rad(rng.uniform(70.0, 88.0, (G * E, 1)))
+    ph = 2 * np.pi * rng.uniform(-0.5, 0.5, (G * E, P))
+    e = np.stack([np.sin(th) * np.cos(ph), -np.sin(th) * np.sin(ph),
+                  np.cos(th) * np.ones_like(ph)], axis=-1)
+    e[:, 0] = (0.0, 0.0, 1.0)
+    n = rng.standard_normal((G, N, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    n[:, 0], n[:, 1], n[:, 2] = (1.0, 0.0, 0.0), (0.0, 0.0, -1.0), 0.0
+    a = rng.uniform(1e-4, 3e-3, (G, N))
+    return tuple(torch.tensor(x, dtype=dtype, device=dev) for x in (e, n, a))
+
+
+def _sweep_work(name, a):
+    """(operations, bytes, terms) of one call of the sweep kernel ``name``
+    on the arguments ``a``: SWEEP_OPS / SWEEP_BWD_OPS a term (rows x P x
+    N), each input read once and each output written once."""
+    isz = a[0].element_size()
+    if name.startswith("element_curve"):
+        ph, wd, pin = a[0], a[1], a[2]
+        (R, P), N = ph.shape, pin.shape[1]
+        W = wd is not None
+        mode = "widths" if W else "instant"
+        if name == "element_curve":
+            ops = SWEEP_OPS[mode]
+            nbytes = isz * (R * P * (2 + W) + 3 * R * N) + R * N
+        else:
+            ops = SWEEP_BWD_OPS[mode]
+            nbytes = (isz * (R * P * (2 + 2 * W) + 3 * R * N
+                             + R * N * (1 + 2 * W)) + R * N)
+    else:
+        e, areas = a[0], a[2]
+        (R, P), (G, N) = e.shape[:2], areas.shape
+        if name == "donor_sum":
+            ops, nbytes = SWEEP_OPS["donor"], isz * (4 * R * P + 4 * G * N)
+        else:
+            ops = SWEEP_BWD_OPS["donor"]
+            nbytes = isz * (7 * R * P + 8 * G * N)
+    terms = R * P * N
+    return terms * ops, nbytes, terms
+
+
+def _sweep_library_ms(name, a):
+    """The yardstick of a sweep kernel: one torch.bmm, TF32 off, of the
+    (rows, P, N) terms, materialised beforehand (not timed), by the
+    weights (the forward's reduction over N) or by the cotangent (the
+    backward's over P, for d w or d area): the TPU's reduction alone."""
+    import torch
+
+    from lfit_python_tpu_torch.models import components as comp
+
+    with torch.no_grad():
+        if name.startswith("element_curve"):
+            ph, wd, pin, pout, ecl, w = a[:6]
+            if wd is None:
+                d = ph[:, :, None] - pin[:, None, :]
+                t = 1.0 - ((d - torch.floor(d))
+                           < (pout - pin)[:, None, :]).to(ph.dtype)
+                del d
+            else:
+                t = comp.visible_fraction_interval(
+                    ph[:, :, None], wd[:, :, None], pin[:, None, :],
+                    pout[:, None, :], ecl[:, None, :])
+            rhs = w[:, :, None]
+        else:
+            e, nrm, areas, u = a[:4]
+            R, G = e.shape[0], areas.shape[0]
+            rows = torch.arange(R, device=e.device) // (R // G)
+            n = nrm[rows]
+            mu = torch.clamp(torch.einsum("rpk,rnk->rpn", e, n), min=0.0)
+            t = mu * (1.0 - u) + u * mu * mu
+            del mu, n
+            rhs = areas[rows][:, :, None].contiguous()
+        if name.endswith("_backward"):
+            g = a[6] if name.startswith("element_curve") else a[4]
+            lhs = g[:, None, :].contiguous()
+            ms = _event_ms(lambda: torch.bmm(lhs, t), 5)
+        else:
+            ms = _event_ms(lambda: torch.bmm(t, rhs), 5)
+        del t
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
+                  registers):
+    """Phase 23: K7, K8 and their backward kernels against their plain
+    versions on the rows one north-star evaluation (``sweep_args``:
+    phase 2's recorded inputs, 1024 walkers) and one gradient evaluation
+    of the widths model (256 chains) hand them, and on a stress set,
+    float32 and float64: the forward kernels the same bits, the backward
+    kernels at PERF.md's gates, two launches the same bits; times, plain
+    times, bounds and the bmm yardstick; the forward and the gradient
+    evaluation through the kernels and through the plain sweeps.  Returns
+    {kernel name: results for the kernels line}."""
+    import torch
+
+    from lfit_python_tpu_torch.examples import build_model, with_calib_widths
+    from lfit_python_tpu_torch.models import components as comp
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+    from lfit_python_tpu_torch.ops import sweeps
+
+    f32, f64 = torch.float32, torch.float64
+    plain = {"element_curve": comp._element_curve_plain,
+             "donor_sum": comp._donor_sum_plain,
+             "element_curve_backward": sweeps._curve_backward_plain,
+             "donor_sum_backward": sweeps._donor_backward_plain}
+    wrap = {n: getattr(sweeps, f"{n}_kernel") for n in plain}
+
+    def cast(args, dtype):
+        return tuple(a.to(dtype) if isinstance(a, torch.Tensor)
+                     and a.is_floating_point() else a for a in args)
+
+    # the gradient evaluation of the widths model at 256 chains (phase 7's
+    # walkers): the rows and cotangents it hands the kernels
+    model_w = with_calib_widths(build_model(
+        n_eclipses=5, complex_spot=[False] * 5, n_points=128,
+        bands=("g", "r"))).compile()
+    lpw = make_ln_prob(model_w, dtype=f32, device=dev)
+    posw = _walkers(start, N_CHAINS, 1, f32, dev)
+    with _sweep_wrappers(sweeps) as rec:
+        lpw.value_and_grad(posw)
+    grad_args = {n: [tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                           for a in c.args) for c in r.call_args_list]
+                 for n, r in rec.items()}
+    _check([len(v) for v in grad_args.values()] == [2, 2, 2, 2],
+           f"the gradient evaluation's K7 / K8 calls: "
+           f"{ {n: len(v) for n, v in grad_args.items()} }")
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def stress(dtype):
+        c = [_curve_stress(dev, dtype, widths=w) for w in (False, True)]
+        d = _donor_stress(dev, dtype)
+        dn = _donor_stress(dev, dtype, P=1)
+        g = [torch.randn(x[0].shape, generator=gen, dtype=f64,
+                         device=dev).to(dtype) for x in c]
+        gd = torch.randn(d[0].shape[:2], generator=gen, dtype=f64,
+                         device=dev).to(dtype)
+        return {"element_curve": c,
+                "donor_sum": [(*d, 0.9), (*dn, 0.9)],
+                "element_curve_backward": [(*x, gx) for x, gx in zip(c, g)],
+                "donor_sum_backward": [(*d, 0.9, gd)]}
+
+    out = {n: {"max_abs_err": 0.0} for n in plain}
+    sets = {"north star": sweep_args, "gradient evaluation": grad_args}
+    # the forward kernels: the plain versions' bits, two launches alike
+    for tag in ("north star", "gradient evaluation", "stress"):
+        for dtype in (f32, f64):
+            line = []
+            src = stress(dtype) if tag == "stress" else sets[tag]
+            for n in ("element_curve", "donor_sum"):
+                for a in src[n]:
+                    a = cast(a, dtype)
+                    k, k2, p = wrap[n](*a), wrap[n](*a), plain[n](*a)
+                    same, err = _same_bits(k, p)
+                    again = _same_bits(k, k2)[0]
+                    n_nan = int(torch.isnan(p).sum())
+                    line.append(f"{n} {tuple(a[0].shape[:2])} x "
+                                f"{a[2].shape[-1]}: "
+                                + ("the same bits" if same else "DIFFER")
+                                + f", {n_nan} NaN; two launches "
+                                + ("alike" if again else "DIFFER"))
+                    _check(same and again, f"{n} differs from its plain "
+                           f"version (or from itself) on the {tag} rows in "
+                           f"{dtype}: max |d| {err}")
+                    out[n]["max_abs_err"] = max(out[n]["max_abs_err"], err)
+            print(f"[23 sweeps] {tag} rows, {str(dtype)[6:]}, against the "
+                  f"plain version: " + "; ".join(line))
+    # the backward kernels: float64 within 1e-9 of the largest |gradient|
+    # of autograd on the plain forward, float32 at PERF.md's gate
+    for tag in ("gradient evaluation", "stress"):
+        src32 = stress(f32) if tag == "stress" else grad_args
+        for n in ("element_curve_backward", "donor_sum_backward"):
+            for a in src32[n]:
+                a64 = cast(a, f64)
+                k64, p64 = wrap[n](*a64), plain[n](*a64)
+                k32, k32b, p32 = wrap[n](*a), wrap[n](*a), plain[n](*a)
+                rel, gate, again = [], [], True
+                for x64, y64, x32, x32b, y32 in zip(k64, p64, k32, k32b,
+                                                    p32):
+                    if y64 is None:
+                        _check(x64 is None and x32 is None, f"{n}: a "
+                               "cotangent the plain version does not make")
+                        continue
+                    scale = max(float(torch.nan_to_num(y64).abs().max()),
+                                1e-300)
+                    rel.append(float(torch.nan_to_num(x64 - y64).abs().max())
+                               / scale)
+                    _check(torch.equal(torch.isnan(x64), torch.isnan(y64))
+                           and torch.equal(torch.isnan(x32),
+                                           torch.isnan(y32)),
+                           f"{n}: the NaN pattern differs ({tag})")
+                    again = again and _same_bits(x32, x32b)[0]
+                    x32, y32 = torch.nan_to_num(x32), torch.nan_to_num(y32)
+                    y64 = torch.nan_to_num(y64)
+                    near = (x32 - y32).abs() <= 1e-5 + 2e-3 * y32.abs()
+                    lim = float((y32.double() - y64).abs().max())
+                    far = float((x32.double() - y64).abs().max())
+                    gate.append((bool(near.all()), far, lim,
+                                 float((x32 - y32).abs().max())))
+                    ok = near | ((x32.double() - y64).abs() <= lim)
+                    _check(bool(ok.all()), f"{n}, {tag} rows: float32 "
+                           f"outside the gate (farthest from float64 {far}, "
+                           f"plain float32 {lim})")
+                _check(max(rel) <= 1e-9 and again, f"{n}, {tag} rows: "
+                       f"float64 max |d| / max |g| {rel}, or two launches "
+                       f"differ")
+                out[n]["max_abs_err"] = max(out[n]["max_abs_err"],
+                                            max(g[3] for g in gate))
+                out[n].setdefault("max_rel_err_float64", 0.0)
+                out[n]["max_rel_err_float64"] = max(
+                    out[n]["max_rel_err_float64"], max(rel))
+                print(f"[23 sweeps] {n}, {tag} rows "
+                      f"{tuple(a[0].shape[:2])} x {a[2].shape[-1]}: float64 "
+                      f"max |d| / max |g| "
+                      + ", ".join(f"{r:.1e}" for r in rel)
+                      + " (limit 1e-9); float32 within 1e-5 + 2e-3 |g| of "
+                      "plain float32: "
+                      + ", ".join("all" if a_ else f"no (farthest from "
+                                  f"float64 {f:.1e}, plain {lim_:.1e})"
+                                  for a_, f, lim_, _ in gate)
+                      + "; two launches the same bits")
+
+    # times, bounds and the bmm yardstick at the main paths' shapes
+    for tag, n, a in _sweep_calls(sweep_args, grad_args):
+        row = tag.split()[-1]
+        ms = _event_ms(lambda: wrap[n](*a), 20)
+        ms64 = _event_ms(lambda: wrap[n](*cast(a, f64)), 10)
+        plain_ms = _event_ms(lambda: plain[n](*a), 3, warmup=1)
+        ops, nbytes, terms = _sweep_work(n, a)
+        bound, by = _bound(ops, nbytes)
+        traced = sweep_us[tag]
+        lib_ms = _sweep_library_ms(n, a)
+        res = {"rows": a[0].shape[0], "phases": a[0].shape[1],
+               "elements": a[2].shape[-1], "terms": terms,
+               "ms": ms, "traced_us": traced, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "ops": ops,
+               "bytes": nbytes, "library_ms": lib_ms, "float64_ms": ms64}
+        first = row == SWEEP_ROWS[n.replace("_backward", "")][0]
+        if first:
+            out[n].update(res)
+        else:
+            out[n][row] = res
+        print(f"[23 sweeps] {tag}: {res['rows']} x {res['phases']} x "
+              f"{res['elements']} ({terms / 1e6:.1f} M terms), float32: "
+              f"{traced:.1f} us traced in phase 2, {ms:.4f} ms a call "
+              f"event-timed (float64 {ms64:.4f}); plain {plain_ms:.2f} ms "
+              f"({plain_ms / ms:.0f}x); {ops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB: bound {bound * 1e3:.2f} us (set by "
+              f"{by}; the kernel at {bound * 1e3 / max(traced, 1e-9):.1%} of "
+              f"it traced); torch.bmm of the materialised terms (the "
+              f"reduction alone, TF32 off) {lib_ms:.4f} ms; {smi}")
+    for n in out:
+        out[n]["registers"] = {e: r for e, r in registers["sweeps"].items()
+                               if e.startswith(f"{n}_kernel")}
+
+    # the forward and the gradient evaluation through the kernels and
+    # through the plain sweeps
+    lp32 = make_ln_prob(model, dtype=f32, device=dev)
+
+    def plain_sweeps():
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            sweeps, "element_curve", comp._element_curve_plain))
+        stack.enter_context(mock.patch.object(
+            sweeps, "donor_sum", comp._donor_sum_plain))
+        return stack
+
+    def fwd():
+        with torch.inference_mode():
+            return lp32(pos)
+
+    def vg():
+        return lpw.value_and_grad(posw)
+
+    evals = {}
+    for tag, fn in (("forward", fwd), ("value_and_grad", vg)):
+        res = {}
+        for path in ("plain", "kernels"):
+            ctx = plain_sweeps() if path == "plain" else contextlib.nullcontext()
+            with ctx:
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                c0 = (sweeps.CURVE_LAUNCHES, sweeps.DONOR_LAUNCHES)
+                got = fn()
+                torch.cuda.synchronize()
+                launched = (sweeps.CURVE_LAUNCHES - c0[0],
+                            sweeps.DONOR_LAUNCHES - c0[1])
+                peak = torch.cuda.max_memory_allocated()
+                busy, n_k, wall, by_name = _device_kernels(fn)
+            res[path] = {"kernels": n_k, "device_ms": busy / 1e3,
+                         "busy": busy / wall, "peak_gib": peak / 2**30,
+                         "out": got, "launched": launched,
+                         "traced": [any(f"{k}_kernel" in nm for nm in by_name)
+                                    for k in ("element_curve", "donor_sum")]}
+        a, b = res["kernels"], res["plain"]
+        first = (lambda o: o[0]) if tag == "value_and_grad" else (
+            lambda o: o)
+        same = _same_bits(first(a["out"]), first(b["out"]))[0]
+        n_walk = pos.shape[0] if tag == "forward" else posw.shape[0]
+        print(f"[23 sweeps] one {tag} evaluation ({n_walk} walkers), plain "
+              f"sweeps -> K7 / K8: device kernels "
+              f"{b['kernels']} -> {a['kernels']} ({b['kernels'] - a['kernels']}"
+              f" fewer), device ms {b['device_ms']:.2f} -> "
+              f"{a['device_ms']:.2f}, busy share {b['busy']:.1%} -> "
+              f"{a['busy']:.1%}, peak memory {b['peak_gib']:.2f} -> "
+              f"{a['peak_gib']:.2f} GiB; K7 / K8 launched {a['launched']} "
+              f"(plain sweeps {b['launched']}), in the trace {a['traced']} "
+              f"(plain sweeps {b['traced']}); ln p "
+              + ("the same bits" if same else "DIFFERS") + f"; {smi}")
+        _check(same, f"{tag}: ln p through K7 / K8 differs from the plain "
+               "sweeps")
+        if tag == "forward":
+            _check(a["launched"] == (2, 2) and b["launched"] == (0, 0)
+                   and a["traced"] == [True, True]
+                   and b["traced"] == [False, False],
+                   f"the forward evaluation: K7 / K8 launched "
+                   f"{a['launched']} (plain sweeps {b['launched']}), in the "
+                   f"trace {a['traced']} (plain sweeps {b['traced']})")
+            _check(b["kernels"] - a["kernels"] >= 250,
+                   f"the forward evaluation's device kernels fell by "
+                   f"{b['kernels'] - a['kernels']} (< 250)")
+        evals[tag] = {p: {k: v for k, v in r.items() if k != "out"}
+                      for p, r in res.items()}
+
+    # the forward evaluation's host time, in turns
+    turns = {"plain": [], "kernels": []}
+    for path in ("plain", "kernels", "kernels", "plain"):
+        ctx = plain_sweeps() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            turns[path].append(_sync_time(fwd, 3))
+    print(f"[23 sweeps] north-star forward evaluation, {N_WALKERS} walkers, "
+          f"float32, ms: K7 / K8 {min(turns['kernels']):.1f} (turns "
+          f"{turns['kernels'][0]:.1f}, {turns['kernels'][1]:.1f}), plain "
+          f"sweeps {min(turns['plain']):.1f} (turns {turns['plain'][0]:.1f}, "
+          f"{turns['plain'][1]:.1f}); {smi}")
+    out["element_curve"]["evaluations"] = evals
+    out["element_curve"]["forward_ms_in_turns"] = {p: min(t) for p, t in
+                                                   turns.items()}
+    return out
+
+
 def main():
     import torch
 
@@ -2437,7 +2933,8 @@ def main():
     from lfit_python_tpu_torch.models.cv import CVConfig, cv_fluxes
     from lfit_python_tpu_torch.models.likelihood import (make_ln_prob,
                                                          make_ln_prob_parts)
-    from lfit_python_tpu_torch.ops import _build, contacts, gp, roche, stream
+    from lfit_python_tpu_torch.ops import (_build, contacts, gp, roche, stream,
+                                           sweeps)
     from lfit_python_tpu_torch.roche.geometry import xl1
     from lfit_python_tpu_torch.sampling.ensemble import (init_walkers,
                                                          run_sampler)
@@ -2457,26 +2954,29 @@ def main():
     print(f"[1 device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:       # one nvcc per source, at once
+    with ThreadPoolExecutor(6) as pool:       # one nvcc per source, at once
         for fut in [pool.submit(contacts._kernel_fn),
                     pool.submit(contacts._backward_kernel_fn),
                     pool.submit(stream._kernel), pool.submit(gp._kernel),
-                    pool.submit(roche._kernel)]:
+                    pool.submit(roche._kernel), pool.submit(sweeps._kernel)]:
             fut.result()
     build_s = time.perf_counter() - t0
-    for name in ("contacts", "contacts_backward", "stream", "gp", "roche"):
+    for name in ("contacts", "contacts_backward", "stream", "gp", "roche",
+                 "sweeps"):
         nvcc_s = _build.BUILD_SECONDS.get(name)
         print(f"[1 device] {name}.cu nvcc "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}")
         for ln in _build.PTXAS_LOGS[name].read_text().splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
-    print(f"[1 device] K1, K1's backward, K2, K3 and K4-K6 built and loaded "
-          f"in {build_s:.2f} s")
+    print(f"[1 device] K1, K1's backward, K2, K3, K4-K6 and K7, K8 with "
+          f"their backward kernels built and loaded in {build_s:.2f} s")
     registers = {}
     for tag, name, n_inst in (("K1", "contacts", 3),
                               ("K1's backward", "contacts_backward", 2),
-                              ("K2", "stream", 4), ("K3", "gp", 6)):
+                              ("K2", "stream", 4), ("K3", "gp", 6),
+                              ("K7, K8 and their backward kernels", "sweeps",
+                               12)):
         frames = _stack_frames(_build.PTXAS_LOGS[name].read_text())
         registers[name] = {_short_entry(e): r for e, (_, r) in frames.items()}
         print(f"[1 device] {tag} stack frames (bytes) and registers, ptxas: "
@@ -2485,6 +2985,9 @@ def main():
         _check(len(frames) == n_inst
                and not any(b for b, _ in frames.values()),
                f"a {tag} instantiation keeps an array in local memory")
+    _check(not any(int(v) for v in re.findall(
+        r"(\d+) bytes spill", _build.PTXAS_LOGS["sweeps"].read_text())),
+           "a K7 / K8 instantiation spills")
     # K4-K6: no spill, and no stack frame but the one sin / cos keep for
     # arguments beyond 105615 (ROCHE_FRAMES)
     log = _build.PTXAS_LOGS["roche"].read_text()
@@ -2536,9 +3039,19 @@ def main():
     with mock.patch.object(contacts, "element_intervals_kernel",
                            wraps=contacts.element_intervals_kernel) as rec, \
             _roche_wrappers(roche, lambda n, w: mock.MagicMock(
-                wraps=w)) as rec_roche:
+                wraps=w)) as rec_roche, \
+            _sweep_wrappers(sweeps) as rec_sweeps:
         lp_kernel = lp32(pos)
     _check(rec.call_count == 1, f"K1 called {rec.call_count} times per eval")
+    # K7's and K8's inputs on the main path: the disc and the spot, the
+    # donor curve and its normaliser
+    sweep_args = {n: [c.args for c in r.call_args_list]
+                  for n, r in rec_sweeps.items()}
+    _check([len(sweep_args[n]) for n in ("element_curve", "donor_sum")]
+           == [2, 2] and tuple(sweep_args["element_curve"][0][0].shape)
+           == (N_WALKERS * 5, 128),
+           f"K7 / K8 calls per eval: "
+           f"{ {n: len(a) for n, a in sweep_args.items()} }")
     # K4-K6's inputs on the main path: the first call of each
     roche_args = {name: r.call_args_list[0].args
                   for name, r in rec_roche.items()}
@@ -2612,8 +3125,17 @@ def main():
     with mock.patch.object(gp, "segmented_matern32_kernel",
                            wraps=gp.segmented_matern32_kernel) as rec, \
             mock.patch.object(contacts, "element_intervals_diff",
-                              wraps=contacts.element_intervals_diff) as rec_c:
+                              wraps=contacts.element_intervals_diff) as rec_c, \
+            _sweep_wrappers(sweeps) as rec_sweeps:
         lp_gpw.value_and_grad(pos_gpw)
+    sweep_bwd_args = {n: [c.args for c in r.call_args_list]
+                      for n, r in rec_sweeps.items()}
+    _check([len(sweep_bwd_args[n]) for n in (
+        "element_curve", "element_curve_backward", "donor_sum",
+        "donor_sum_backward")] == [2, 2, 2, 2]
+           and sweep_bwd_args["element_curve_backward"][0][1] is not None,
+           f"K7 / K8 and their backward kernels per gradient eval: "
+           f"{ {n: len(a) for n, a in sweep_bwd_args.items()} }")
     _check(rec.call_count == 1, "K3 not called once per gradient evaluation")
     _check(rec_c.call_count == 1, "element_intervals_diff not called once")
     ga = [a.detach() for a in rec.call_args.args]
@@ -2649,7 +3171,10 @@ def main():
         "K3": lambda: gp.segmented_matern32_kernel(*gp_args, **gp_kw),
         **{f"K{k} {name}": (lambda name=name: getattr(
             roche, f"{name}_kernel")(*roche_args[name]))
-           for k, name in ((4, "findi"), (5, "xl1"), (6, "lobe_radius"))}})
+           for k, name in ((4, "findi"), (5, "xl1"), (6, "lobe_radius"))},
+        **{tag: (lambda name=name, a=a: getattr(
+            sweeps, f"{name}_kernel")(*a))
+           for tag, name, a in _sweep_calls(sweep_args, sweep_bwd_args)}})
     k1_launch = _check_launches("K1", events["K1"], "contacts_kernel")
     roche_launch, roche_us = {}, {}
     for k, name in ((4, "findi"), (5, "xl1"), (6, "lobe_radius")):
@@ -2658,6 +3183,14 @@ def main():
                                              f"{name}_kernel")
         roche_us[name] = sum(device_us[tag].values())
         _check(roche_launch[name][1] == 1, f"a {tag} call runs device "
+               f"kernels besides {name}_kernel: "
+               f"{[nm[:60] for nm in events[tag]]}")
+    sweep_launch, sweep_us = {}, {}
+    for tag, name, _ in _sweep_calls(sweep_args, sweep_bwd_args):
+        sweep_launch[tag] = _check_launches(tag, events[tag],
+                                            f"{name}_kernel")
+        sweep_us[tag] = sum(device_us[tag].values())
+        _check(sweep_launch[tag][1] == 1, f"a {tag} call runs device "
                f"kernels besides {name}_kernel: "
                f"{[nm[:60] for nm in events[tag]]}")
     k2_launch = {sens: _check_launches(tag, events[tag], "stream_kernel")
@@ -2843,6 +3376,10 @@ def main():
            == 2 * n_ens, "K4 / K5 did not launch once per half-step")
     _check(c_ens["k6"] - c_init["k6"] == 2 * n_ens * ROCHE_PER_EVAL["k6"],
            "K6 did not launch once per half-step")
+    _check(all(c_ens[k] - c_init[k] == 2 * n_ens * v
+               for k, v in SWEEPS_PER_EVAL.items())
+           and c_ens["k7_bwd"] == c_ens["k8_bwd"] == 0,
+           f"K7 / K8 not twice per half-step: {_delta(c_ens, c_init)}")
     _check(c_ens["k1_bwd"] == 0 and c_ens["k1_bwd_kernel"] == 0
            and c_ens["k2_sens"] == 0,
            "the ensemble path ran a gradient")
@@ -2898,7 +3435,7 @@ def main():
           f"sensitivities {c_one['k2_sens']})")
     _check(c_one == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
                      "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 0,
-                     "k3_bwd": 0, **ROCHE_PER_EVAL},
+                     "k3_bwd": 0, **ROCHE_PER_EVAL, **SWEEPS_PER_GRAD},
            "K1's backward kernel or K2's sensitivities not once per "
            "evaluation")
     _check(bool(torch.isfinite(lp_g).all()), "a chain's ln p is not finite")
@@ -3052,6 +3589,9 @@ def main():
     _check(per["k4"] == per["k5"] == N_LEAPFROG
            and per["k6"] == N_LEAPFROG * ROCHE_PER_EVAL["k6"],
            f"not one K4, K5 and K6 per leapfrog: {per}")
+    _check(all(per[k] == N_LEAPFROG * v for k, v in SWEEPS_PER_GRAD.items()),
+           f"K7, K8 and their backward kernels not twice per leapfrog: "
+           f"{per}")
     _check(bool(torch.isfinite(hs.positions).all()), "non-finite positions")
     _check(bool(torch.isfinite(hs.log_prob).all()), "non-finite log_prob")
     _check(bool(torch.isfinite(hchain_lp).all()), "non-finite chain_lp")
@@ -3300,7 +3840,8 @@ def main():
     peak_c5 = torch.cuda.max_memory_allocated()
     _check(c_gp_c5 == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 0,
                        "k1_bwd_kernel": 0, "k2": 1, "k2_sens": 0, "k3": 1,
-                       "k3_bwd": 0, **ROCHE_PER_EVAL},
+                       "k3_bwd": 0, **ROCHE_PER_EVAL, **SWEEPS_PER_EVAL,
+                       "k7_bwd": 0, "k8_bwd": 0},
            f"config-5 evaluation launches: {c_gp_c5}")
     prior_ok = torch.isfinite(prior_c5(pos_c5))
     k3_c5_ms = _event_ms(lambda: gp.segmented_matern32_kernel(
@@ -3326,7 +3867,7 @@ def main():
     c_gp_vg = _counts(contacts, stream, gp)
     _check(c_gp_vg == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
                        "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 1,
-                       "k3_bwd": 1, **ROCHE_PER_EVAL},
+                       "k3_bwd": 1, **ROCHE_PER_EVAL, **SWEEPS_PER_GRAD},
            f"GP value_and_grad launches: {c_gp_vg}")
     _check(bool(torch.isfinite(lp_gg).all()), "a GP chain's ln p not finite")
     _check(bool(torch.isfinite(g_gp).all()), "a GP gradient is not finite")
@@ -3410,8 +3951,8 @@ def main():
           f"reverse kernel {c_gp_hmc['k3_bwd']} (16 each expected)")
     _check(c_gp_hmc == {**dict.fromkeys(c_gp_hmc, N_LEAPFROG),
                         "k1_f64": 0, "k1_mixed": 0,
-                        **{k: N_LEAPFROG * v
-                           for k, v in ROCHE_PER_EVAL.items()}},
+                        **{k: N_LEAPFROG * v for k, v in
+                           {**ROCHE_PER_EVAL, **SWEEPS_PER_GRAD}.items()}},
            "GP hmc_step: not one K1, K1 backward kernel, K2, K3 and K3 "
            "reverse kernel per leapfrog")
     _check(bool(torch.isfinite(hs_gp2.positions).all()
@@ -3561,6 +4102,12 @@ def main():
                            contacts, stream, gp)
     print(f"[22 roche] phase 22 took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 23. the flux curves' sweeps K7, K8 and their backward kernels --
+    t0 = time.perf_counter()
+    k_sweeps = _sweeps_phase(dev, smi, model, pos, start, sweep_args,
+                             sweep_us, registers)
+    print(f"[23 sweeps] phase 23 took {time.perf_counter() - t0:.1f} s")
+
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
              "nuts": c_nuts, "fit": c_fit, **c_modes, **c_branches,
@@ -3580,10 +4127,32 @@ def main():
                                 "plot_eclipse")),
                     ("k1_mixed", ("posterior_precise", "fit_precise",
                                   "compat")),
-                    ("k4", paths), ("k5", paths), ("k6", paths)):
+                    ("k4", paths), ("k5", paths), ("k6", paths),
+                    ("k7", paths), ("k8", paths),
+                    ("k7_bwd", ("hmc", "gp", "nuts", "fit_hmc", "fit_nuts",
+                                "fit_hmc_shard")),
+                    ("k8_bwd", ("hmc", "gp", "nuts", "fit_hmc", "fit_nuts",
+                                "fit_hmc_shard"))):
         for name in on:
             _check(paths[name][key] > 0,
                    f"the {name} path never launched {key.upper()}")
+    # K7 and K8 a fixed count per evaluation on every path (an evaluation
+    # is one launch of K1 in its mode), their backward kernels per
+    # gradient evaluation (one launch of K1's backward kernel)
+    for name, c in paths.items():
+        evals = _k1_launches_of(c)
+        want = {"k7": 2 * evals,
+                "k8": (1 if name == "posterior_quad" else 2) * evals,
+                "k7_bwd": 2 * c["k1_bwd_kernel"],
+                "k8_bwd": 2 * c["k1_bwd_kernel"]}
+        _check(all(c[k] == v for k, v in want.items()),
+               f"the {name} path: K7 / K8 launches "
+               f"{ {k: c[k] for k in want} }, expected {want}")
+    print("[23 sweeps] launches by path (K7, K7 backward, K8, K8 backward): "
+          + ", ".join(f"{n} {c['k7']}/{c['k7_bwd']}/{c['k8']}/{c['k8_bwd']}"
+                      for n, c in paths.items())
+          + "; every path K7 = 2 and K8 = 2 an evaluation (K8 = 1 with the "
+          "donor quadrature), each backward kernel 2 a gradient evaluation")
 
     def k1_mode(mode, key):
         r = k1_modes[mode]
@@ -3741,6 +4310,23 @@ def main():
                "line of centres"),
               ("lobe_radius", "k6", "a fixed-iteration bisection of the "
                "Roche potential along a direction"))),
+        *({"name": n, "route": "cuda", "source": SWEEPS_SOURCE,
+           "replaces": SWEEPS_REPLACES[n],
+           "launches": sum(by_path(key).values()),
+           "launches_by_path": by_path(key),
+           "device_launches_per_call": sweep_launch[tag][0],
+           "device_events_per_call": sweep_launch[tag][1],
+           "library_call": "torch.bmm of the materialised (rows, P, N) "
+                           "terms by the " + what + " (TF32 off): the "
+                           "reduction alone, not the terms",
+           **k_sweeps[n]}
+          for n, key, tag, what in (
+              ("element_curve", "k7", "K7 element_curve disc", "weights"),
+              ("element_curve_backward", "k7_bwd",
+               "K7 element_curve_backward disc", "cotangent (d w)"),
+              ("donor_sum", "k8", "K8 donor_sum curve", "areas"),
+              ("donor_sum_backward", "k8_bwd", "K8 donor_sum_backward curve",
+               "cotangent (d area, per row)"))),
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,8 @@ __all__ = [
     "donor_curve_eval",
 ]
 
-# elements per chunk of the (rows, P, N) sweeps in element_flux_curve and
-# donor_flux: 2**25 f32 elements = 128 MiB per intermediate, so the
+# elements per chunk of the plain (rows, P, N) sweeps (_element_curve_plain,
+# _donor_sum_plain): 2**25 f32 elements = 128 MiB per intermediate, so the
 # north-star shapes (GBs if materialised whole) stay at a few hundred MiB
 _CHUNK_ELEMS = 1 << 25
 
@@ -304,29 +304,49 @@ def _row_chunks(n_rows, per_row):
         yield slice(i, min(i + step, n_rows))
 
 
-def element_flux_curve(phases, widths, intervals, weights):
-    """Weighted visible-fraction light curve of an element set.
+def _pad32(a, dim=-1, value=0):
+    """``a`` padded along ``dim`` with ``value`` to a multiple of 32 (at
+    least 32) entries: the sweeps' pad elements."""
+    n = a.shape[dim]
+    pad = max(32, -(-n // 32) * 32) - n
+    if not pad:
+        return a
+    shape = list(a.shape)
+    shape[dim] = pad
+    return torch.cat([a, a.new_full(shape, value)], dim=dim)
 
-    ``phases`` (..., P), ``widths`` (..., P) or None, ``intervals`` from
-    :func:`element_intervals` (each (..., N)), ``weights`` (..., N).
-    Returns (..., P).  The (P, N) visibility sweep is chunked over the
-    flattened leading axes to bound memory.  The weighted sum over N is a
-    product and :func:`sum_last`, not a batched matrix product: a matrix
-    product on the card picks its algorithm (and its float32 summation
-    order) by the chunk's row count, so a row's flux, and through small
-    error bars its ln p, would depend on the batch it came in."""
-    phi_in, phi_out, ecl = intervals
-    lead = torch.broadcast_shapes(phases.shape[:-1], weights.shape[:-1])
-    P, N = phases.shape[-1], weights.shape[-1]
 
-    def flat(a, last):
-        return a.expand(lead + (last,)).reshape(-1, last)
+def _slab_sum(t):
+    """``t`` summed over its last axis (a multiple of 32) in the order of
+    the sweep kernels K7 and K8 (``ops/csrc/sweeps.cu``): 32 running sums,
+    one a lane of the 32-wide slabs, each the first slab's term and then
+    the next slab's added in order; then halved pairwise, entry j plus
+    entry j + h for h = 16, 8, 4, 2, 1.  Every add is an elementwise op,
+    so a row's sum does not depend on its batch."""
+    t = t.unflatten(-1, (t.shape[-1] // 32, 32))
+    acc = t[..., 0, :]
+    for k in range(1, t.shape[-2]):
+        acc = acc + t[..., k, :]
+    h = 16
+    while h:
+        acc = acc[..., :h] + acc[..., h:]
+        h //= 2
+    return acc[..., 0]
 
-    ph, pin, pout = flat(phases, P), flat(phi_in, N), flat(phi_out, N)
-    wts, ec = flat(weights, N), flat(ecl, N)
-    wd = None if widths is None else flat(widths, P)
+
+def _element_curve_plain(ph, wd, pin, pout, ecl, w):
+    """The plain version of the sweep kernel K7: ``ph`` (R, P), ``wd`` (R,
+    P) or None, ``pin``, ``pout``, ``w`` (R, N) and ``ecl`` (R, N) bool;
+    returns (R, P).  The (rows, P, N) visibility is made in chunks of rows
+    to bound memory, and summed over N by :func:`_slab_sum` with N padded
+    by elements that contribute an exact 0 (phi_in = phi_out = 0, not
+    eclipsed, weight 0).  Differentiable by autograd."""
+    P = ph.shape[-1]
+    pin, pout, w = _pad32(pin), _pad32(pout), _pad32(w)
+    ecl = _pad32(ecl, value=False)
+    n = pin.shape[-1]
     out = []
-    for s in _row_chunks(ph.shape[0], P * N):
+    for s in _row_chunks(ph.shape[0], P * n):
         if wd is None:
             # instantaneous indicator: occulted iff mod(phase - phi_in, 1)
             # < dur (non-eclipsed elements have dur == 0)
@@ -337,9 +357,41 @@ def element_flux_curve(phases, widths, intervals, weights):
         else:
             vis = visible_fraction_interval(
                 ph[s, :, None], wd[s, :, None], pin[s, None, :],
-                pout[s, None, :], ec[s, None, :])
-        out.append(sum_last(vis * wts[s, None, :]))
-    return torch.cat(out).reshape(lead + (P,))
+                pout[s, None, :], ecl[s, None, :])
+        out.append(_slab_sum(vis * w[s, None, :]))
+    return torch.cat(out) if out else ph.new_zeros(ph.shape)
+
+
+def element_flux_curve(phases, widths, intervals, weights):
+    """Weighted visible-fraction light curve of an element set.
+
+    ``phases`` (..., P), ``widths`` (..., P) or None, ``intervals`` from
+    :func:`element_intervals` (each (..., N)), ``weights`` (..., N).
+    Returns (..., P).  The leading axes are flattened into rows, each
+    summed over N in one fixed order (:func:`_slab_sum`), so a row's flux,
+    and through small error bars its ln p, does not depend on the batch
+    it came in: ``ops.sweeps.element_curve``, the kernel K7 (and its
+    backward kernel) on the card, the chunked sweep
+    :func:`_element_curve_plain` on the CPU.  ``widths`` get no
+    gradient."""
+    from ..ops import sweeps
+
+    phi_in, phi_out, ecl = intervals
+    lead = torch.broadcast_shapes(phases.shape[:-1], weights.shape[:-1])
+    P, N = phases.shape[-1], weights.shape[-1]
+    dt = torch.promote_types(phases.dtype, weights.dtype)
+    dt = torch.promote_types(dt, phi_in.dtype)
+
+    def flat(a, last):
+        return a.expand(lead + (last,)).reshape(-1, last).contiguous()
+
+    ph, pin, pout = (flat(a.to(dt), m) for a, m in ((phases, P),
+                                                     (phi_in, N),
+                                                     (phi_out, N)))
+    wd = None if widths is None else flat(widths.to(dt), P)
+    out = sweeps.element_curve(ph, wd, pin, pout, flat(ecl, N),
+                               flat(weights.to(dt), N))
+    return out.reshape(lead + (P,))
 
 
 class DonorGrid(NamedTuple):
@@ -437,29 +489,73 @@ def donor_grid(q, xl1_val, phi_l1, n_lat=16, n_lon=24):
                      torch.stack([nx, ny, nz], dim=-1), areas)
 
 
+def _donor_sum_plain(e, normals, areas, ulimb_donor):
+    """The plain version of the sweep kernel K8: ``e`` (R, P, 3) unit
+    vectors to the observer, ``normals`` (G, N, 3) and ``areas`` (G, N) of
+    G grids, each shared by R / G consecutive rows; returns (R, P): per
+    element area * mu * I(mu), mu = max(n . e, 0), summed over N by
+    :func:`_slab_sum` with N padded by elements of zero normal and area.
+    Made in chunks of grids to bound memory.  Differentiable by
+    autograd."""
+    R, P = e.shape[:2]
+    G = areas.shape[0]
+    nrm, areas = _pad32(normals, dim=-2), _pad32(areas)
+    n = areas.shape[-1]
+    e = e.reshape(G, R // G if G else 0, P, 3)
+    out = []
+    for s in _row_chunks(G, e.shape[1] * P * n):
+        es, ns = e[s][:, :, :, None, :], nrm[s][:, None, None, :, :]
+        mu = (es[..., 0] * ns[..., 0] + es[..., 1] * ns[..., 1]
+              + es[..., 2] * ns[..., 2])
+        mu = torch.clamp(mu, min=0.0)
+        w = mu * (1.0 - ulimb_donor) + ulimb_donor * mu * mu
+        out.append(_slab_sum(w * areas[s][:, None, None, :]))
+    if not out:
+        return e.new_zeros((R, P))
+    return torch.cat(out).reshape(R, P)
+
+
+def _rows_per_grid(grid_lead, lead):
+    """E where the grid's leading shape ``grid_lead``, broadcast to
+    ``lead``, gives row r (of ``lead`` flattened) grid r // E of its own
+    flattened: its axes are ``lead``'s first ones and 1 after; else
+    None."""
+    g = (1,) * (len(lead) - len(grid_lead)) + tuple(grid_lead)
+    j = len(lead)
+    while j and g[j - 1] == 1:
+        j -= 1
+    if g[:j] != tuple(lead[:j]):
+        return None
+    return math.prod(lead[j:])
+
+
 def donor_flux(incl_deg, phases, grid: DonorGrid, ulimb_donor=0.9):
     """Donor light curve, unnormalised: per element area * mu * I(mu) for
     mu = n . e(phase) > 0 (Lambertian + linear limb darkening).
 
     ``incl_deg`` (...), ``phases`` (..., P), ``grid`` of (..., N)
-    elements; returns (..., P).  The (P, N) sweep is chunked over the
-    flattened leading axes, and each chunk summed by :func:`sum_last`."""
+    elements; returns (..., P).  The leading axes are flattened into rows;
+    a grid shared by consecutive rows (a walker's eclipses) is taken once,
+    by index, not copied to each.  Each row is summed over N in one fixed
+    order: ``ops.sweeps.donor_sum``, the kernel K8 (and its backward
+    kernel) on the card, :func:`_donor_sum_plain` on the CPU."""
+    from ..ops import sweeps
+
     e = earth_vector(phases, incl_deg[..., None])             # (..., P, 3)
-    lead = torch.broadcast_shapes(e.shape[:-2], grid.areas.shape[:-1])
+    glead = grid.areas.shape[:-1]
+    lead = torch.broadcast_shapes(e.shape[:-2], glead)
     P, N = e.shape[-2], grid.areas.shape[-1]
-    e = e.expand(lead + (P, 3)).reshape(-1, P, 3)
-    nrm = grid.normals.expand(lead + (N, 3)).reshape(-1, N, 3)
-    areas = grid.areas.expand(lead + (N,)).reshape(-1, N)
-    out = []
-    for s in _row_chunks(e.shape[0], P * N):
-        es, ns = e[s], nrm[s]
-        mu = (es[:, :, None, 0] * ns[:, None, :, 0]
-              + es[:, :, None, 1] * ns[:, None, :, 1]
-              + es[:, :, None, 2] * ns[:, None, :, 2])
-        mu = torch.clamp(mu, min=0.0)
-        w = mu * (1.0 - ulimb_donor) + ulimb_donor * mu * mu
-        out.append(sum_last(w * areas[s, None, :]))
-    return torch.cat(out).reshape(lead + (P,))
+    e = e.expand(lead + (P, 3)).reshape(-1, P, 3).contiguous()
+    nrm = grid.normals.expand(glead + (N, 3))
+    areas = grid.areas
+    if _rows_per_grid(glead, lead) is None:
+        nrm = nrm.expand(lead + (N, 3))
+        areas = areas.expand(lead + (N,))
+    nrm = nrm.reshape(-1, N, 3).contiguous()
+    areas = areas.reshape(-1, N).contiguous()
+    out = sweeps.donor_sum(e, nrm.to(e.dtype), areas.to(e.dtype),
+                           ulimb_donor)
+    return out.reshape(lead + (P,))
 
 
 def donor_curve_nodes(incl_deg, grid: DonorGrid, ulimb_donor=0.9,

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (contacts: float32, float64 and mixed precision) and
 its backward, K2 (gas stream), K3 (GP recursion) and its reverse kernel,
-and K4-K6 (the core geometry's bisections) on the card, against their
+K4-K6 (the core geometry's bisections), and K7 and K8 (the flux curves'
+sweeps) and their backward kernels on the card, against their
 plain PyTorch versions, the posterior and its gradient through them, and
 the fit command, its chunked sampling loop and its checkpoints on the card.
 
@@ -22,7 +23,7 @@ import torch
 from lfit_python_tpu_torch.examples import build_model, with_calib_widths
 from lfit_python_tpu_torch.models.cv import CVConfig
 from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-from lfit_python_tpu_torch.ops import contacts, gp, roche, stream
+from lfit_python_tpu_torch.ops import contacts, gp, roche, stream, sweeps
 from lfit_python_tpu_torch.roche import geometry as tg
 
 pytestmark = pytest.mark.cuda
@@ -1206,3 +1207,294 @@ def test_posterior_through_roche_kernels_matches_plain_loops(cuda, mode):
         b, fb = lp(pos), lp.model_flux(pos)
     assert int(torch.isfinite(a).sum()) > 128
     assert same_bits(a, b) and same_bits(fa, fb)
+
+
+# ---- K7, K8: the flux curves' sweeps and their backward kernels --------
+
+def curve_rows(dev, dtype, R, P, N, widths, seed=0):
+    """K7's inputs: contact intervals with non-eclipsed elements (dur 0),
+    NaN intervals (not eclipsed in row 0, eclipsed in row 1), an interval
+    across the wrap at 1; phases on the contacts, a float either side and
+    a cycle on; widths at and below the 1e-12 clamp, and 0."""
+    rng = np.random.default_rng(seed)
+    pin = rng.uniform(-0.06, 0.04, (R, N))
+    pout = pin + rng.uniform(0.0, 0.05, (R, N))
+    ecl = rng.uniform(size=(R, N)) < 0.75
+    mid = 0.5 * (pin + pout)
+    pin, pout = np.where(ecl, pin, mid), np.where(ecl, pout, mid)
+    if N > 4:
+        pin[:, 1], pout[:, 1], ecl[:, 1] = 0.96, 1.02, True
+        pin[0, 2] = pout[0, 2] = np.nan
+        ecl[0, 2] = False
+        pin[1, 3], ecl[1, 3] = np.nan, True
+    w = rng.uniform(0.0, 1.0, (R, N))
+    w /= w.sum(-1, keepdims=True)
+    ph = rng.uniform(-0.15, 0.15, (R, P))
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    pin, pout = pin.astype(np_dt), pout.astype(np_dt)
+    for r in range(R):
+        vals = [x for n in range(min(N, 6)) for v in (pin[r, n], pout[r, n])
+                for x in (v, np.nextafter(v, np_dt(-1)),
+                          np.nextafter(v, np_dt(2)), v + np_dt(1))
+                if np.isfinite(x)][:P]
+        ph[r, :len(vals)] = vals
+    wd = None
+    if widths:
+        wd = np.full((R, P), 0.3 / 127)
+        wd[:, :min(P, 3)] = [1e-12, 1e-13, 0.0][:min(P, 3)]
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+    return (t(ph), None if wd is None else t(wd), t(pin), t(pout),
+            torch.tensor(ecl, device=dev), t(w))
+
+
+def donor_rows(dev, dtype, G, E, P, N, seed=1):
+    """K8's inputs: directions at P phases for E rows of each of G grids;
+    unit normals, one perpendicular to the first direction (mu exactly 0),
+    one facing away (mu < 0), a zero one; areas ~1e-3."""
+    rng = np.random.default_rng(seed)
+    th = np.deg2rad(rng.uniform(70.0, 88.0, (G * E, 1)))
+    ph = 2 * np.pi * rng.uniform(-0.5, 0.5, (G * E, P))
+    e = np.stack([np.sin(th) * np.cos(ph), -np.sin(th) * np.sin(ph),
+                  np.cos(th) * np.ones_like(ph)], axis=-1)
+    e[:, 0] = (0.0, 0.0, 1.0)
+    n = rng.standard_normal((G, N, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    if N > 3:
+        n[:, 0], n[:, 1], n[:, 2] = (1.0, 0.0, 0.0), (0.0, 0.0, -1.0), 0.0
+    a = rng.uniform(1e-4, 3e-3, (G, N))
+    return tuple(torch.tensor(x, dtype=dtype, device=dev) for x in (e, n, a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("widths", [False, True])
+@pytest.mark.parametrize("N,P,R", [(1, 1, 3), (33, 257, 17), (992, 128, 64),
+                                   (32, 128, 5120)])
+def test_element_curve_kernel_gives_the_plain_bits(cuda, dtype, widths, N, P,
+                                                   R):
+    """K7 repeats its plain version's operations in its order: the same
+    bits (and NaN pattern), the same bits from two launches, one launch a
+    call."""
+    args = curve_rows(cuda, dtype, R, P, N, widths)
+    before = sweeps.CURVE_LAUNCHES
+    k = sweeps.element_curve_kernel(*args)
+    k2 = sweeps.element_curve_kernel(*args)
+    p = sweeps.plain._element_curve_plain(*args)
+    assert sweeps.CURVE_LAUNCHES == before + 2
+    assert same_bits(k, p) and same_bits(k, k2)
+    if widths and N > 4:
+        assert bool(torch.isnan(k[1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,P,E,G", [(1, 1, 1, 2), (33, 257, 1, 3),
+                                     (384, 128, 5, 1024), (384, 1, 5, 64),
+                                     (384, 257, 1, 64)])
+def test_donor_sum_kernel_gives_the_plain_bits(cuda, dtype, N, P, E, G):
+    e, n, a = donor_rows(cuda, dtype, G, E, P, N)
+    before = sweeps.DONOR_LAUNCHES
+    for u in (0.9, 0.37):
+        k = sweeps.donor_sum_kernel(e, n, a, u)
+        assert same_bits(k, sweeps.donor_sum_kernel(e, n, a, u))
+        assert same_bits(k, sweeps.plain._donor_sum_plain(e, n, a, u))
+    assert sweeps.DONOR_LAUNCHES == before + 4
+
+
+def _f32_gate(k32, p32, p64):
+    """Each entry within 1e-5 + 2e-3 |g| of plain float32, or no farther
+    from plain float64 than plain float32's largest distance from it."""
+    assert torch.equal(torch.isnan(k32), torch.isnan(p32))
+    k32, p32 = torch.nan_to_num(k32), torch.nan_to_num(p32)
+    p64 = torch.nan_to_num(p64)
+    near = (k32 - p32).abs() <= 1e-5 + 2e-3 * p32.abs()
+    lim = float((p32.double() - p64).abs().max())
+    return bool((near | ((k32.double() - p64).abs() <= lim)).all())
+
+
+def _f64_close(k, p):
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    scale = max(float(torch.nan_to_num(p).abs().max()), 1e-300)
+    return float(torch.nan_to_num(k - p).abs().max()) <= 1e-9 * scale
+
+
+@pytest.mark.parametrize("widths", [False, True])
+@pytest.mark.parametrize("N,P,R", [(1, 1, 3), (33, 257, 17),
+                                   (992, 128, 64)])
+def test_element_curve_backward_kernel_matches_autograd(cuda, widths, N, P,
+                                                        R):
+    """K7's backward kernel against autograd on the plain forward: float64
+    within 1e-9 of the largest |gradient|, float32 at PERF.md's gate; two
+    launches the same bits."""
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        args = curve_rows(cuda, dtype, R, P, N, widths)
+        g = torch.tensor(np.random.default_rng(2).standard_normal((R, P)),
+                         dtype=dtype, device=cuda)
+        k = sweeps.element_curve_backward_kernel(*args, g)
+        k2 = sweeps.element_curve_backward_kernel(*args, g)
+        p = sweeps._curve_backward_plain(*args, g)
+        grads[dtype] = k, p
+        for a, b in zip(k, k2):
+            assert (a is None) == (b is None)
+            assert a is None or same_bits(a, b)
+    for i in range(4):
+        k64, p64 = (x[i] for x in grads[torch.float64])
+        k32, p32 = (x[i] for x in grads[torch.float32])
+        assert (k64 is None) == (p64 is None) == (not widths and i < 3)
+        if k64 is not None:
+            assert _f64_close(k64, p64), i
+            assert _f32_gate(k32, p32, p64), i
+
+
+@pytest.mark.parametrize("N,P,E,G", [(1, 1, 1, 2), (33, 257, 1, 3),
+                                     (384, 128, 5, 256), (384, 1, 5, 64)])
+def test_donor_sum_backward_kernel_matches_autograd(cuda, N, P, E, G):
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        e, n, a = donor_rows(cuda, dtype, G, E, P, N)
+        g = torch.tensor(np.random.default_rng(3).standard_normal(
+            (G * E, P)), dtype=dtype, device=cuda)
+        k = sweeps.donor_sum_backward_kernel(e, n, a, 0.9, g)
+        k2 = sweeps.donor_sum_backward_kernel(e, n, a, 0.9, g)
+        assert all(same_bits(x, y) for x, y in zip(k, k2))
+        grads[dtype] = k, sweeps._donor_backward_plain(e, n, a, 0.9, g)
+    for i in range(3):
+        k64, p64 = (x[i] for x in grads[torch.float64])
+        k32, p32 = (x[i] for x in grads[torch.float32])
+        assert _f64_close(k64, p64), i
+        assert _f32_gate(k32, p32, p64), i
+
+
+def test_sweep_kernels_are_one_device_event_each(cuda):
+    """One call of each of the four wrappers is one launch of its kernel
+    and no other device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    c = curve_rows(cuda, torch.float32, 64, 128, 992, True)
+    gc = torch.ones_like(c[0])
+    e, n, a = donor_rows(cuda, torch.float32, 64, 5, 128, 384)
+    ge = torch.ones(e.shape[:2], dtype=e.dtype, device=cuda)
+    calls = {
+        "element_curve_kernel": lambda: sweeps.element_curve_kernel(*c),
+        "element_curve_backward_kernel":
+            lambda: sweeps.element_curve_backward_kernel(*c, gc),
+        "donor_sum_kernel": lambda: sweeps.donor_sum_kernel(e, n, a, 0.9),
+        "donor_sum_backward_kernel":
+            lambda: sweeps.donor_sum_backward_kernel(e, n, a, 0.9, ge)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        # a window opened after many untraced launches may lose its first
+        # kernel records: a spin kernel goes first
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in ev.name]
+        assert len(names) == 1 and name in names[0], (name, names)
+
+
+def test_sweeps_routing_on_the_card(cuda):
+    """element_flux_curve and donor_flux on CUDA tensors launch K7 and K8
+    (the plain sweeps never run); under inference_mode nothing is saved;
+    the widths take no gradient; the wrappers refuse what the kernels
+    cannot take."""
+    c = curve_rows(cuda, torch.float32, 8, 16, 40, True)
+    with mock.patch.object(sweeps.plain, "_element_curve_plain",
+                           side_effect=AssertionError("plain K7 ran")), \
+            mock.patch.object(sweeps.plain, "_donor_sum_plain",
+                              side_effect=AssertionError("plain K8 ran")):
+        leaves = [c[0].clone().requires_grad_(), c[1], c[2], c[3], c[4],
+                  c[5].clone().requires_grad_()]
+        with torch.inference_mode():
+            out = sweeps.element_curve(*leaves)
+        assert out.grad_fn is None
+        out = sweeps.element_curve(*leaves)
+        before = sweeps.CURVE_BACKWARD_LAUNCHES
+        out.sum().backward()
+        assert sweeps.CURVE_BACKWARD_LAUNCHES == before + 1
+        assert leaves[0].grad is not None and leaves[5].grad is not None
+        e, n, a = donor_rows(cuda, torch.float32, 2, 3, 8, 40)
+        with torch.inference_mode():
+            assert sweeps.donor_sum(e.requires_grad_(), n, a, 0.9).grad_fn \
+                is None
+    with pytest.raises(ValueError, match="widths"):
+        sweeps.element_curve(c[0], c[1].clone().requires_grad_(), *c[2:])
+    with pytest.raises(TypeError):
+        sweeps.element_curve_kernel(c[0].double(), *c[1:])
+    with pytest.raises(ValueError):
+        sweeps.element_curve_kernel(c[0], c[1], c[2].cpu(), *c[3:])
+    with pytest.raises(ValueError):
+        sweeps.donor_sum_kernel(e[:5], n, a, 0.9)
+    with pytest.raises(TypeError):
+        sweeps.donor_sum_kernel(e, n, a, torch.tensor(0.9))
+
+
+@pytest.mark.parametrize("mode", ["float32", "float64", "precise"])
+def test_posterior_through_the_sweep_kernels_matches_plain(cuda, mode):
+    """ln p and flux at 256 walkers on the north-star tree: the same bits
+    through K7 and K8 and through their plain versions; K7 and K8 twice an
+    evaluation."""
+    model = build_model(n_eclipses=5, complex_spot=[False] * 5,
+                        n_points=128, bands=("g", "r")).compile()
+    dtype = torch.float64 if mode == "float64" else torch.float32
+    lp = make_ln_prob(model, CVConfig(mixed_precision=mode == "precise"),
+                      dtype=dtype, device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(4)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((256, start.size)),
+                       dtype=dtype, device=cuda)
+    before = (sweeps.CURVE_LAUNCHES, sweeps.DONOR_LAUNCHES)
+    a = lp(pos)
+    assert (sweeps.CURVE_LAUNCHES, sweeps.DONOR_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    fa = lp.model_flux(pos)
+    with mock.patch.object(sweeps, "element_curve",
+                           sweeps.plain._element_curve_plain), \
+            mock.patch.object(sweeps, "donor_sum",
+                              sweeps.plain._donor_sum_plain):
+        b, fb = lp(pos), lp.model_flux(pos)
+    assert int(torch.isfinite(a).sum()) > 128
+    assert same_bits(a, b) and same_bits(fa, fb)
+
+
+def test_gradient_through_the_sweep_kernels_matches_plain(cuda):
+    """value_and_grad at 256 chains on the widths model: ln p the plain
+    sweeps' bits, the gradient within PERF.md's gate of autograd on the
+    plain sweeps (float64 as referee); K7, K8 and their backward kernels
+    twice an evaluation."""
+    model = with_calib_widths(build_model(
+        n_eclipses=5, complex_spot=[False] * 5, n_points=128,
+        bands=("g", "r"))).compile()
+    start = model.var_start()
+    rng = np.random.default_rng(5)
+    pos = start[None] + 1e-3 * np.abs(start)[None] * rng.standard_normal(
+        (256, start.size))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        lp = make_ln_prob(model, dtype=dtype, device=cuda)
+        p = torch.tensor(pos, dtype=dtype, device=cuda)
+        before = (sweeps.CURVE_LAUNCHES, sweeps.CURVE_BACKWARD_LAUNCHES,
+                  sweeps.DONOR_LAUNCHES, sweeps.DONOR_BACKWARD_LAUNCHES)
+        k = lp.value_and_grad(p)
+        after = (sweeps.CURVE_LAUNCHES, sweeps.CURVE_BACKWARD_LAUNCHES,
+                 sweeps.DONOR_LAUNCHES, sweeps.DONOR_BACKWARD_LAUNCHES)
+        assert [y - x for x, y in zip(before, after)] == [2, 2, 2, 2]
+        with mock.patch.object(sweeps, "element_curve",
+                               sweeps.plain._element_curve_plain), \
+                mock.patch.object(sweeps, "donor_sum",
+                                  sweeps.plain._donor_sum_plain):
+            out[dtype] = k, lp.value_and_grad(p)
+    (v32, g32), (pv32, pg32) = out[torch.float32]
+    (v64, g64), (pv64, pg64) = out[torch.float64]
+    assert same_bits(v32, pv32) and same_bits(v64, pv64)
+    assert bool(torch.isfinite(g32).all())
+    assert _f64_close(g64, pg64)
+    assert _f32_gate(g32, pg32, pg64)

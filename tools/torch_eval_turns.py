@@ -33,7 +33,11 @@ line:
   (``lobe_radius_kernel``, its first call: 5120 radii in a checkout that
   solves the inscribed radius per eclipse, 1024 in one that solves it
   once a walker) on the inputs one evaluation hands them, float32 and
-  float64, event-timed and traced;
+  float64, event-timed and traced; and where the checkout has them, K7
+  (``element_curve_kernel``: the disc's rows) and K8 (``donor_sum_kernel``:
+  the donor curve's rows) on the inputs one evaluation hands them, and
+  their backward kernels on those of the value_and_grad above, float32
+  and float64, event-timed and traced;
 - a SHA-256 of each kernel's outputs (for K1's backward, of its six
   gradients), and of the ln p and model flux of one float32, float64 and
   precise evaluation at 1024 walkers and of the value_and_grad above, so
@@ -183,6 +187,7 @@ def main():
             kernels[f"k2_{str(dt)[6:]}{'_sens' if sens else ''}"] = {
                 "ms": event_ms(k2, 5), "sha256": digest(k2())}
     roche_kernels(lp, pos, kernels)
+    sweep_kernels(lp, pos, lpw, posw, kernels)
     print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0),
                       "eval_ms": ev, "value_and_grad_ms": vg,
                       "eval_sha256": eval_digests(model, pos, lpw, posw),
@@ -234,6 +239,50 @@ def roche_kernels(lp, pos, kernels):
                 "ms": event_ms(lambda: fn(*args), 20),
                 "traced_us": traced_us(lambda: fn(*args), f"{name}_kernel"),
                 "sha256": digest([fn(*args)])}
+
+
+def sweep_kernels(lp, pos, lpw, posw, kernels):
+    """Add K7's and K8's times and digests, on the inputs of the first
+    call of each wrapper in one evaluation of ``lp`` at ``pos`` (the
+    disc, the donor curve), and their backward kernels', on those of the
+    largest call in one value_and_grad of ``lpw`` at ``posw``, float32
+    and float64, to ``kernels``; nothing for a checkout without them."""
+    try:
+        from lfit_python_tpu_torch.ops import sweeps
+    except ImportError:
+        return
+    names = {"element_curve": "k7", "donor_sum": "k8",
+             "element_curve_backward": "k7_backward",
+             "donor_sum_backward": "k8_backward"}
+
+    def recorded(run):
+        with contextlib.ExitStack() as stack:
+            recs = {n: stack.enter_context(mock.patch.object(
+                sweeps, f"{n}_kernel", wraps=getattr(sweeps, f"{n}_kernel")))
+                for n in names}
+            run()
+        return {n: [[a.detach() if isinstance(a, torch.Tensor) else a
+                     for a in c.args] for c in r.call_args_list]
+                for n, r in recs.items()}
+
+    def forward():
+        with torch.inference_mode():
+            lp(pos)
+    fwd = recorded(forward)
+    bwd = recorded(lambda: lpw.value_and_grad(posw))
+    for name, key in names.items():
+        calls = bwd[name] if name.endswith("backward") else fwd[name][:1]
+        args = max(calls, key=lambda a: a[0].shape[1] * a[2].shape[-1])
+        fn = getattr(sweeps, f"{name}_kernel")
+        for dt in (F32, F64):
+            a = [x.to(dt) if isinstance(x, torch.Tensor)
+                 and x.is_floating_point() else x for x in args]
+            kernels[f"{key}_{str(dt)[6:]}"] = {
+                "shape": [a[0].shape[0], a[0].shape[1], a[2].shape[-1]],
+                "ms": event_ms(lambda: fn(*a), 20),
+                "traced_us": traced_us(lambda: fn(*a), f"{name}_kernel"),
+                "sha256": digest([x for x in fn(*a) if x is not None]
+                                 if name.endswith("backward") else [fn(*a)])}
 
 
 def k1_mode_rows(contacts, model, pos):
