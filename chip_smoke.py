@@ -26,8 +26,9 @@ x 256 walkers.  Phases:
      40 bytes sin / cos keep for arguments beyond 105615 in K4's float64
      one (ROCHE_FRAMES), and the warps an SM holds of each K4-K6
      instantiation (at least 8); and of K7, K8 and their backward kernels
-     (sweeps.cu: float32 and float64, with and without widths), with no
-     spill and no stack frame;
+     (sweeps.cu: float32 and float64; K7 with and without widths, K8 a
+     thread a phase and a warp a (row, phase) pair), with no spill and no
+     stack frame;
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
@@ -210,7 +211,13 @@ x 256 walkers.  Phases:
      gate, two launches the same bits; each kernel's time (traced in
      phase 2, and event-timed), its plain version's, its bound, and the
      torch.bmm of the materialised (rows, P, N) terms by the weights (the
-     TPU's reduction alone, TF32 off); the forward evaluation's and the
+     TPU's reduction alone, TF32 off), its operations' time at one an FP32
+     lane and clock (the issue floor under --fmad=false); ptxas's
+     registers, frame and spills of K7's backward's and K8's
+     instantiations (0 bytes of frame and spill), and the instructions a
+     term of their main ones from the build's SASS
+     (tools/sweeps_sass_counts.py; SWEEPS_SASS_PER_TERM) with their time
+     at the issue rate and each pipe's; the forward evaluation's and the
      gradient evaluation's device kernels, device time and peak memory
      through the kernels and through the plain sweeps, the host ms of the
      forward in turns.  Every path counts K7 = K8 = 2 per evaluation of
@@ -438,6 +445,23 @@ SWEEPS_PER_GRAD = {"k7": 2, "k7_bwd": 2, "k8": 2, "k8_bwd": 2}
 # d mu (6), the clamp's share, d e and d n (12): 32
 SWEEP_OPS = {"instant": 8, "widths": 17, "donor": 12}
 SWEEP_BWD_OPS = {"instant": 8, "widths": 36, "donor": 32}
+# instructions issued a term by the main paths' instantiations of K7's
+# backward and K8, from the build's SASS (tools/sweeps_sass_counts.py:
+# its main term loop's instructions over its terms a trip); after an edit
+# of sweeps.cu that changes their code, run that tool on the card and
+# paste its counts
+SWEEPS_SASS_PER_TERM = {
+    "element_curve_backward_kernel<f32, widths>": 56.25,
+    "element_curve_backward_kernel<f64, widths>": 87.0,
+    "donor_sum_kernel<f32, threads>": 14.156,
+    "donor_sum_kernel<f64, threads>": 16.156,
+    "donor_sum_kernel<f32, lanes>": 26.75,
+    "donor_sum_kernel<f64, lanes>": 28.0}
+# the instantiation of each main call, float32
+SWEEP_SASS_OF = {"K7 element_curve_backward disc":
+                 "element_curve_backward_kernel<f32, widths>",
+                 "K8 donor_sum curve": "donor_sum_kernel<f32, threads>",
+                 "K8 donor_sum normaliser": "donor_sum_kernel<f32, lanes>"}
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -521,19 +545,29 @@ def _bound(ops, nbytes, dtype="float32"):
 def _stack_frames(ptxas_log):
     """{kernel entry: (stack-frame bytes, registers)} from an ``-Xptxas
     -v`` report."""
-    frames, entry = {}, None
+    return {e: (v["frame"], v.get("registers"))
+            for e, v in _ptxas_entries(ptxas_log).items()}
+
+
+def _ptxas_entries(ptxas_log):
+    """{kernel entry: {"frame": stack-frame bytes, "spill": spilled bytes
+    (stores and loads), "registers": n}} from an ``-Xptxas -v``
+    report."""
+    out, entry = {}, None
     for ln in ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             entry = m.group(1)
-        m = re.search(r"(\d+) bytes stack frame", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m and entry is not None:
-            frames[entry] = [int(m.group(1)), None]
+            out[entry] = {"frame": int(m.group(1)),
+                          "spill": int(m.group(2)) + int(m.group(3))}
         m = re.search(r"Used (\d+) registers", ln)
-        if m and entry in frames:
-            frames[entry][1] = int(m.group(1))
+        if m and entry in out:
+            out[entry]["registers"] = int(m.group(1))
             entry = None
-    return {e: tuple(v) for e, v in frames.items()}
+    return out
 
 
 def _executed(kernel, n_el, n_ecl):
@@ -681,6 +715,14 @@ def _sweep_wrappers(sweeps):
 
 SWEEP_ROWS = {"element_curve": ("disc", "spot"),
               "donor_sum": ("curve", "normaliser")}
+
+
+def _cast(args, dtype):
+    """``args`` with each floating tensor in ``dtype``."""
+    import torch
+
+    return tuple(a.to(dtype) if isinstance(a, torch.Tensor)
+                 and a.is_floating_point() else a for a in args)
 
 
 def _sweep_calls(fwd, bwd):
@@ -2675,18 +2717,16 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
     from lfit_python_tpu_torch.examples import build_model, with_calib_widths
     from lfit_python_tpu_torch.models import components as comp
     from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-    from lfit_python_tpu_torch.ops import sweeps
+    from lfit_python_tpu_torch.ops import _build, sweeps
 
     f32, f64 = torch.float32, torch.float64
+    issue_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
+                   * SM_LANES["fp32"] * _sm_clock_hz())
     plain = {"element_curve": comp._element_curve_plain,
              "donor_sum": comp._donor_sum_plain,
              "element_curve_backward": sweeps._curve_backward_plain,
              "donor_sum_backward": sweeps._donor_backward_plain}
     wrap = {n: getattr(sweeps, f"{n}_kernel") for n in plain}
-
-    def cast(args, dtype):
-        return tuple(a.to(dtype) if isinstance(a, torch.Tensor)
-                     and a.is_floating_point() else a for a in args)
 
     # the gradient evaluation of the widths model at 256 chains (phase 7's
     # walkers): the rows and cotangents it hands the kernels
@@ -2727,7 +2767,7 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
             src = stress(dtype) if tag == "stress" else sets[tag]
             for n in ("element_curve", "donor_sum"):
                 for a in src[n]:
-                    a = cast(a, dtype)
+                    a = _cast(a, dtype)
                     k, k2, p = wrap[n](*a), wrap[n](*a), plain[n](*a)
                     same, err = _same_bits(k, p)
                     again = _same_bits(k, k2)[0]
@@ -2749,7 +2789,7 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
         src32 = stress(f32) if tag == "stress" else grad_args
         for n in ("element_curve_backward", "donor_sum_backward"):
             for a in src32[n]:
-                a64 = cast(a, f64)
+                a64 = _cast(a, f64)
                 k64, p64 = wrap[n](*a64), plain[n](*a64)
                 k32, k32b, p32 = wrap[n](*a), wrap[n](*a), plain[n](*a)
                 rel, gate, again = [], [], True
@@ -2802,17 +2842,21 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
     for tag, n, a in _sweep_calls(sweep_args, grad_args):
         row = tag.split()[-1]
         ms = _event_ms(lambda: wrap[n](*a), 20)
-        ms64 = _event_ms(lambda: wrap[n](*cast(a, f64)), 10)
+        ms64 = _event_ms(lambda: wrap[n](*_cast(a, f64)), 10)
         plain_ms = _event_ms(lambda: plain[n](*a), 3, warmup=1)
         ops, nbytes, terms = _sweep_work(n, a)
         bound, by = _bound(ops, nbytes)
-        traced = sweep_us[tag]
+        # built with --fmad=false no counted operation fuses: each takes
+        # an issue slot of an FP32 lane
+        floor_ms = ops / issue_per_s * 1e3
+        traced, traced64 = sweep_us[tag], sweep_us[f"{tag} float64"]
         lib_ms = _sweep_library_ms(n, a)
         res = {"rows": a[0].shape[0], "phases": a[0].shape[1],
                "elements": a[2].shape[-1], "terms": terms,
                "ms": ms, "traced_us": traced, "plain_ms": plain_ms,
                "bound_ms": bound, "bound_by": by, "ops": ops,
-               "bytes": nbytes, "library_ms": lib_ms, "float64_ms": ms64}
+               "bytes": nbytes, "library_ms": lib_ms, "float64_ms": ms64,
+               "traced_float64_us": traced64, "issue_floor_ms": floor_ms}
         first = row == SWEEP_ROWS[n.replace("_backward", "")][0]
         if first:
             out[n].update(res)
@@ -2820,16 +2864,60 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
             out[n][row] = res
         print(f"[23 sweeps] {tag}: {res['rows']} x {res['phases']} x "
               f"{res['elements']} ({terms / 1e6:.1f} M terms), float32: "
-              f"{traced:.1f} us traced in phase 2, {ms:.4f} ms a call "
-              f"event-timed (float64 {ms64:.4f}); plain {plain_ms:.2f} ms "
-              f"({plain_ms / ms:.0f}x); {ops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB: bound {bound * 1e3:.2f} us (set by "
-              f"{by}; the kernel at {bound * 1e3 / max(traced, 1e-9):.1%} of "
-              f"it traced); torch.bmm of the materialised terms (the "
-              f"reduction alone, TF32 off) {lib_ms:.4f} ms; {smi}")
+              f"{traced:.1f} us traced in phase 2 (float64 {traced64:.1f}), "
+              f"{ms:.4f} ms a call event-timed (float64 {ms64:.4f}); plain "
+              f"{plain_ms:.2f} ms ({plain_ms / ms:.0f}x); {ops / 1e9:.3f} "
+              f"GFLOP, {nbytes / 1e6:.1f} MB: bound {bound * 1e3:.2f} us "
+              f"(set by {by}; the kernel at "
+              f"{bound * 1e3 / max(traced, 1e-9):.1%} of it traced); at one "
+              f"operation an FP32 lane and clock {floor_ms * 1e3:.2f} us "
+              f"({floor_ms * 1e3 / max(traced, 1e-9):.1%}); torch.bmm of "
+              f"the materialised terms (the reduction alone, TF32 off) "
+              f"{lib_ms:.4f} ms; {smi}")
     for n in out:
         out[n]["registers"] = {e: r for e, r in registers["sweeps"].items()
                                if e.startswith(f"{n}_kernel")}
+    # the redesigned kernels' instantiations: nothing in local memory
+    entries = {_short_entry(e): v for e, v in _ptxas_entries(
+        _build.PTXAS_LOGS["sweeps"].read_text()).items()
+        if re.search(r"\d(element_curve_backward|donor_sum)_kernelI", e)}
+    print("[23 sweeps] ptxas, K7's backward and K8: " + ", ".join(
+        f"{e} {v['registers']} registers, {v['frame']} bytes stack frame, "
+        f"{v['spill']} bytes spilled" for e, v in sorted(entries.items())))
+    _check(len(entries) == 8 and not any(v["frame"] or v["spill"]
+                                         for v in entries.values()),
+           f"K7's backward or K8 keeps something in local memory: {entries}")
+    # what each issues a term, from the build's SASS, and that count's
+    # time at the schedulers' rate (a warp instruction a scheduler and
+    # clock) and at each pipe's (the tool's LANES: the ALU and FP64 pipes
+    # take two clocks a warp instruction)
+    sys.path.insert(0, str(ROOT / "tools"))
+    import sweeps_sass_counts
+
+    sass = sweeps_sass_counts.counts(sweeps_sass_counts.built_sass())
+    issue = {k: sass[k].get("issue_cycles_per_term")
+             for k in SWEEPS_SASS_PER_TERM}
+    print("[23 sweeps] instructions a term (SASS, tools/sweeps_sass_counts"
+          ".py): " + ", ".join(f"{k} {v} ({sass[k]['per_term']})"
+                               for k, v in issue.items()))
+    _check(issue == SWEEPS_SASS_PER_TERM, "SWEEPS_SASS_PER_TERM is not "
+           f"this build's count: {issue}")
+    warp_clocks = issue_per_s / SM_LANES["fp32"] * 4   # warp issue slots/s
+    for tag, kernel in SWEEP_SASS_OF.items():
+        name = tag.split()[1]
+        res = out[name] if tag.endswith(("disc", "curve")) else \
+            out[name][tag.split()[-1]]
+        cyc = sass[kernel]["cycles_per_term"]
+        at = {"issue": issue[kernel], **cyc}
+        res["sass_per_term"] = sass[kernel]["per_term"]
+        res["sass_ms"] = {k: res["terms"] / 32 * c / warp_clocks * 1e3
+                          for k, c in at.items()}
+        print(f"[23 sweeps] {tag}: {kernel}'s {res['terms'] / 1e6:.1f} M "
+              f"terms at the issue rate "
+              f"{res['sass_ms']['issue'] * 1e3:.1f} us, "
+              + ", ".join(f"{k} pipe {v * 1e3:.1f} us"
+                          for k, v in res["sass_ms"].items() if k != "issue")
+              + f"; traced {res['traced_us']:.1f} us; {smi}")
 
     # the forward and the gradient evaluation through the kernels and
     # through the plain sweeps
@@ -2976,7 +3064,7 @@ def main():
                               ("K1's backward", "contacts_backward", 2),
                               ("K2", "stream", 4), ("K3", "gp", 6),
                               ("K7, K8 and their backward kernels", "sweeps",
-                               12)):
+                               14)):
         frames = _stack_frames(_build.PTXAS_LOGS[name].read_text())
         registers[name] = {_short_entry(e): r for e, (_, r) in frames.items()}
         print(f"[1 device] {tag} stack frames (bytes) and registers, ptxas: "
@@ -3174,6 +3262,9 @@ def main():
            for k, name in ((4, "findi"), (5, "xl1"), (6, "lobe_radius"))},
         **{tag: (lambda name=name, a=a: getattr(
             sweeps, f"{name}_kernel")(*a))
+           for tag, name, a in _sweep_calls(sweep_args, sweep_bwd_args)},
+        **{f"{tag} float64": (lambda name=name, a=_cast(a, f64): getattr(
+            sweeps, f"{name}_kernel")(*a))
            for tag, name, a in _sweep_calls(sweep_args, sweep_bwd_args)}})
     k1_launch = _check_launches("K1", events["K1"], "contacts_kernel")
     roche_launch, roche_us = {}, {}
@@ -3186,7 +3277,8 @@ def main():
                f"kernels besides {name}_kernel: "
                f"{[nm[:60] for nm in events[tag]]}")
     sweep_launch, sweep_us = {}, {}
-    for tag, name, _ in _sweep_calls(sweep_args, sweep_bwd_args):
+    for tag, name in [(t + d, n) for t, n, _ in _sweep_calls(
+            sweep_args, sweep_bwd_args) for d in ("", " float64")]:
         sweep_launch[tag] = _check_launches(tag, events[tag],
                                             f"{name}_kernel")
         sweep_us[tag] = sum(device_us[tag].values())

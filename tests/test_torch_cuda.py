@@ -1290,7 +1290,8 @@ def test_element_curve_kernel_gives_the_plain_bits(cuda, dtype, widths, N, P,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("N,P,E,G", [(1, 1, 1, 2), (33, 257, 1, 3),
                                      (384, 128, 5, 1024), (384, 1, 5, 64),
-                                     (384, 257, 1, 64)])
+                                     (384, 257, 1, 64), (384, 1, 5, 1024),
+                                     (1000, 7, 2, 5)])
 def test_donor_sum_kernel_gives_the_plain_bits(cuda, dtype, N, P, E, G):
     e, n, a = donor_rows(cuda, dtype, G, E, P, N)
     before = sweeps.DONOR_LAUNCHES
@@ -1320,12 +1321,13 @@ def _f64_close(k, p):
 
 @pytest.mark.parametrize("widths", [False, True])
 @pytest.mark.parametrize("N,P,R", [(1, 1, 3), (33, 257, 17),
-                                   (992, 128, 64)])
+                                   (992, 128, 64), (1100, 300, 4)])
 def test_element_curve_backward_kernel_matches_autograd(cuda, widths, N, P,
                                                         R):
     """K7's backward kernel against autograd on the plain forward: float64
     within 1e-9 of the largest |gradient|, float32 at PERF.md's gate; two
-    launches the same bits."""
+    launches the same bits (N = 1100: two passes of a block's warps; P =
+    300: three tiles of staged phases)."""
     grads = {}
     for dtype in (torch.float64, torch.float32):
         args = curve_rows(cuda, dtype, R, P, N, widths)

@@ -6,18 +6,22 @@ A CUDA kernel cannot run here, so the kernel source's own arithmetic, the
 part above its ``// ---- kernel and launcher`` line, is built by g++
 behind a small shim header (``-ffp-contract=off``: no product and sum
 contracted, as nvcc's ``--fmad=false``), with host loops in the kernels'
-place: each row's elements (and, for a backward's element sweep, its
-phases) staged whole, the sums in the kernels' order.  The forward
-stand-ins give the plain versions' bits in float32 and float64 on inputs
-with NaN intervals, non-eclipsed elements, phases on and across the
-contacts and the wrap at 1, widths at and below the 1e-12 clamp, mu
-exactly 0 and negative, at N = 1, 31, 32, 33, 384, 992 and P = 1, 128,
-257.  The plain versions are held to the JAX package's
+place and in their orders: a row's elements staged whole where a kernel
+stages them, and a warp's 32 lanes run one after another where a kernel
+spreads a sum over them (K8 below 32 phases, K7's fused backward), their
+shuffle halving as ``Slabs::total``.  The forward stand-ins give the
+plain versions' bits in float32 and float64 on inputs with NaN intervals,
+non-eclipsed elements, phases on and across the contacts and the wrap at
+1, widths at and below the 1e-12 clamp, mu exactly 0 and negative, at N
+= 1-992 and P = 1-257.  The plain versions are held to the JAX package's
 ``element_flux_curve`` and ``donor_flux`` (vmapped over rows): float64
 within 1e-12 and float32 within 1e-6 of the sum of |weights|.  The
 backward stand-ins are held to autograd on the plain forward in float64
-(1e-9 of the largest |gradient|), with ties of torch.minimum's arguments
-among the inputs.  Then the ``autograd.Function``s with the stand-in in
+(1e-9 of the largest |gradient|) and in float32 (PERF.md's gate), with
+ties of torch.minimum's arguments among the inputs, also built at another
+layout; each autograd rule of K7's fused backward, broken in a copy of
+the source, fails a check; the floor-form remainder is held to
+torch.remainder.  Then the ``autograd.Function``s with the stand-in in
 the launcher's place, through a posterior's value and gradient, against
 the CPU path; and the routing: CPU tensors launch nothing, the wrappers
 check their inputs, the widths take no gradient.
@@ -81,53 +85,67 @@ static void curve_rows(const T* ph, const T* wd, const T* pin,
   }
 }
 
-// K7's backward: the phase sweep (widths) and the element sweep of each
-// row, its elements and phases staged whole
+// K7's backward: the fused sweep of each row as the kernel runs it, its
+// warps' 32 lanes one after another: each pass loads lane j of warp v
+// with slab lane j of the slabs k0 + v + s warps (CurveGradLane), every
+// phase runs each lane's terms, a warp's d ph partials are halved as
+// __shfl_down_sync halves them (Slabs::total) and the warps' totals added
+// in warp order, the passes in order
 template <typename T, bool W>
 static void curve_backward_rows(const T* ph, const T* wd, const T* pin,
                                 const T* pout, const unsigned char* ecl,
                                 const T* w, const T* g, T* g_ph, T* g_pin,
                                 T* g_pout, T* g_w, int R, int P, int N) {
-  const int K = n_slabs(N), M = K * SWEEP_SLAB;
-  std::vector<T> a(M), b(M), c(M), e(P), f(P), h(P), k(P);
-  std::vector<unsigned char> d(M);
-  const CurveElems<T> s = {a.data(), b.data(), c.data(), d.data()};
-  const CurvePhases<T> ps = {e.data(), f.data(), h.data(), k.data()};
+  const int k_all = n_slabs(N), warps = curve_grad_warps(N);
+  std::vector<CurveGradLane<T, W, K7B_SLABS>> lanes(warps * SWEEP_SLAB);
+  std::vector<T> part(warps);
   for (long long r = 0; r < R; ++r) {
-    for (int i = 0; i < M; ++i)
-      s.stage(i, pin + r * N, pout + r * N, ecl + r * N, w + r * N, i, N);
-    for (int p = 0; p < P; ++p)
-      ps.template stage<W>(p, ph + r * P, W ? wd + r * P : nullptr,
-                           g + r * P, p);
-    if (W) {
+    for (int k0 = 0; k0 < k_all; k0 += warps * K7B_SLABS) {
+      for (int i = 0; i < warps * SWEEP_SLAB; ++i)
+        lanes[i].load(pin + r * N, pout + r * N, ecl + r * N, w + r * N,
+                      k0 + i / SWEEP_SLAB, warps, k_all, i % SWEEP_SLAB, N);
       for (int p = 0; p < P; ++p) {
-        CurvePhase<T, true> q;
-        q.set(ph[r * P + p], wd[r * P + p]);
-        Slabs<T> acc;
-        acc.init();
-        curve_grad_phase(acc, q, g[r * P + p], s, 0, K);
-        g_ph[r * P + p] = acc.total();
+        CurveGradPhase<T> q;
+        q.template set<W>(ph[r * P + p], W ? wd[r * P + p] : T(0.0),
+                          g[r * P + p]);
+        for (int v = 0; v < warps; ++v) {
+          Slabs<T> x;
+          for (int j = 0; j < SWEEP_SLAB; ++j)
+            x.acc[j] = lanes[v * SWEEP_SLAB + j].phase(q);
+          part[v] = x.total();
+        }
+        if (W) {
+          const T t = warps_total(part.data(), warps, 1);
+          g_ph[r * P + p] = k0 == 0 ? t : g_ph[r * P + p] + t;
+        }
       }
-    }
-    for (int n = 0; n < N; ++n) {
-      const long long i = r * N + n;
-      T gi = T(0.0), go = T(0.0), gw = T(0.0);
-      curve_grad_elem<T, W>(gi, go, gw, pin[i], pout[i] - pin[i], ecl[i],
-                            w[i], ps, 0, P);
-      g_w[i] = gw;
-      if (W) {
-        g_pin[i] = gi;
-        g_pout[i] = go;
-      }
+      for (int i = 0; i < warps * SWEEP_SLAB; ++i)
+        lanes[i].store(g_pin + r * N, g_pout + r * N, g_w + r * N,
+                       k0 + i / SWEEP_SLAB, warps, i % SWEEP_SLAB, N);
     }
   }
 }
 
-// K8: each grid's elements staged whole, then every row that shares it
+// K8 as its two layouts run it: a row of fewer than DONOR_LANES_BELOW
+// phases a warp a (row, phase) pair, each of its 32 lanes' running sums
+// (donor_lane) and then the lanes halved as __shfl_down_sync halves them
+// (Slabs::total); a longer row a thread a phase, its grid staged whole
 template <typename T>
 static void donor_rows(const T* e, const T* nrm, const T* areas, double c1,
                        double c2, T* out, int R, int P, int N, int E) {
   const int K = n_slabs(N), M = K * SWEEP_SLAB;
+  if (P < DONOR_LANES_BELOW) {
+    for (long long rp = 0; rp < (long long)R * P; ++rp) {
+      const long long gr = rp / P / E;
+      Slabs<T> x;
+      for (int j = 0; j < SWEEP_SLAB; ++j)
+        x.acc[j] = donor_lane(e[3 * rp], e[3 * rp + 1], e[3 * rp + 2],
+                              nrm + 3 * gr * N, areas + gr * N, j, N, K,
+                              T(c1), T(c2));
+      out[rp] = x.total();
+    }
+    return;
+  }
   std::vector<T> a(M), b(M), c(M), d(M);
   const DonorElems<T> s = {a.data(), b.data(), c.data(), d.data()};
   for (long long gr = 0; gr < R / E; ++gr) {
@@ -251,39 +269,78 @@ extern "C" int donor_sum_backward_host(int is_double, const void* e,
                         E);
   return 0;
 }
+
+// elementwise, for the tests of the helpers: the floor-form remainder, and
+// in rows of out (5, n) autograd's shares of g (clamp_min_grad for a
+// through clamp(min=0) into minimum(., b), min_grad_b, clamp_grad of a)
+// and the backward's NaN-passing minimum and clamp
+template <typename T>
+static void helpers(const T* a, const T* b, const T* g, T* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    const T h = T(0.5) * g[i];
+    out[i] = clamp_min_grad(a[i], b[i], g[i], h);
+    out[n + i] = min_grad_b(a[i], b[i], g[i], h);
+    out[2 * n + i] = clamp_grad(a[i], g[i]);
+    out[3 * n + i] = min_nan(a[i], b[i]);
+    out[4 * n + i] = max0_nan(a[i]);
+  }
+}
+
+extern "C" int remainder1_host(int is_double, const void* x, void* out,
+                               int n) {
+  for (int i = 0; i < n; ++i) {
+    if (is_double)
+      ((double*)out)[i] = remainder1(((const double*)x)[i]);
+    else
+      ((float*)out)[i] = remainder1(((const float*)x)[i]);
+  }
+  return 0;
+}
+
+extern "C" int rules_host(int is_double, const void* a, const void* b,
+                          const void* g, void* out, int n) {
+  if (is_double)
+    helpers((const double*)a, (const double*)b, (const double*)g,
+            (double*)out, n);
+  else
+    helpers((const float*)a, (const float*)b, (const float*)g, (float*)out,
+            n);
+  return 0;
+}
 """
 
 _HOST_FNS = {"curve": "element_curve_host",
              "curve_backward": "element_curve_backward_host",
              "donor": "donor_sum_host",
-             "donor_backward": "donor_sum_backward_host"}
+             "donor_backward": "donor_sum_backward_host",
+             "remainder1": "remainder1_host", "rules": "rules_host"}
 
 
-@pytest.fixture(scope="module")
-def source_lib(tmp_path_factory):
-    """sweeps.cu above its ``// ---- kernel and launcher`` line, built by
-    g++ (no contraction, as --fmad=false) with host loops in the kernels'
-    place: {launcher name: its host stand-in}, each taking the launcher's
-    arguments but the stream."""
+def build_source(build, text=None, defines=()):
+    """sweeps.cu (or ``text``, an edited copy of it) above its ``// ----
+    kernel and launcher`` line, built by g++ in the directory ``build``
+    (no contraction, as --fmad=false; ``defines`` as -D flags) with host
+    loops in the kernels' place: {launcher name: its host stand-in}, each
+    taking the launcher's arguments but the stream."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel source's arithmetic")
-    build = tmp_path_factory.mktemp("sweeps_source")
     (build / "cuda_runtime.h").write_text(_SHIM)
-    head, marker, _ = SOURCE.read_text().partition(
-        "// ---- kernel and launcher")
+    head, marker, _ = (SOURCE.read_text() if text is None else text
+                       ).partition("// ---- kernel and launcher")
     assert marker, "the kernel source lost its marker line"
     (build / "host.cpp").write_text(head + _HOST)
     so = build / "libhost.so"
     subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", f"-I{build}", "-o", str(so),
-                    str(build / "host.cpp")], check=True,
-                   capture_output=True, text=True)
+                    *(f"-D{d}" for d in defines), "-shared", "-fPIC",
+                    f"-I{build}", "-o", str(so), str(build / "host.cpp")],
+                   check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     i, p, d = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
     types = {"curve": [i, i] + [p] * 7 + [i] * 3,
              "curve_backward": [i, i] + [p] * 11 + [i] * 3,
              "donor": [i] + [p] * 3 + [d, d, p] + [i] * 4,
-             "donor_backward": [i] + [p] * 3 + [d, d] + [p] * 4 + [i] * 4}
+             "donor_backward": [i] + [p] * 3 + [d, d] + [p] * 4 + [i] * 4,
+             "remainder1": [i, p, p, i], "rules": [i] + [p] * 4 + [i]}
     fns = {}
     for name, fn_name in _HOST_FNS.items():
         fn = getattr(lib, fn_name)
@@ -291,6 +348,23 @@ def source_lib(tmp_path_factory):
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+@pytest.fixture(scope="module")
+def source_lib(tmp_path_factory):
+    """The source's stand-in as the card builds it."""
+    return build_source(tmp_path_factory.mktemp("sweeps_source"))
+
+
+# the stand-in at another layout: K7's backward one slab a lane and two
+# warps a block (N = 992 in 16 passes)
+SMALL_LAYOUT = ("K7B_SLABS=1", "K7B_WARPS=2")
+
+
+@pytest.fixture(scope="module")
+def small_layout_lib(tmp_path_factory):
+    return build_source(tmp_path_factory.mktemp("sweeps_small"),
+                        defines=SMALL_LAYOUT)
 
 
 def host_launch(fns):
@@ -427,7 +501,7 @@ def test_element_curve_source_gives_the_plain_bits(source_lib, dtype,
 @pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
 @pytest.mark.parametrize("N,P,E", [(1, 1, 1), (31, 128, 2), (32, 257, 1),
                                    (33, 1, 5), (384, 128, 5), (384, 257, 1),
-                                   (384, 1, 5)])
+                                   (384, 1, 5), (33, 31, 2), (384, 32, 1)])
 def test_donor_source_gives_the_plain_bits(source_lib, dtype, N, P, E):
     G = 2
     e, n, a = donor_inputs(G, E, P, N, dtype)
@@ -517,28 +591,253 @@ def _grad_close(got, want, what):
     assert err <= 1e-9, (what, err)
 
 
-@pytest.mark.parametrize("widths", [False, True], ids=["instant", "widths"])
-@pytest.mark.parametrize("N,P", [(1, 1), (33, 128), (300, 257)])
-def test_element_curve_backward_source_matches_autograd(source_lib, widths,
-                                                        N, P):
-    """float64: the backward stand-in against autograd on the plain
-    forward, each cotangent within 1e-9 of its largest |value|."""
-    R = 3
-    args = curve_inputs(R, P, N, widths, F64, seed=6)
-    if widths and N > 6:
-        args = _with_ties(args)
-    g = _t(np.random.default_rng(7).standard_normal((R, P)), F64)
-    want = sweeps._curve_backward_plain(*args, g)
+def _curve_backward_host(fns, args, g, widths):
+    """The backward stand-in's (d ph, d pin, d pout, d w) on ``args``
+    for the cotangent ``g``; without widths the first three None."""
+    (R, P), N = args[0].shape, args[2].shape[1]
     got = [None if a is None else torch.empty_like(a)
            for a in (args[0], args[2], args[3], args[5])]
     if not widths:
         got[:3] = [None] * 3
-    host_launch(source_lib)("curve_backward", args[0], int(widths), *args, g,
-                            *got, R, P, N)
+    host_launch(fns)("curve_backward", args[0], int(widths), *args, g, *got,
+                     R, P, N)
+    return got
+
+
+def _curve_backward_case(N, P, widths, dtype, seed=6):
+    R = 3
+    args = curve_inputs(R, P, N, widths, dtype, seed=seed)
+    if widths and N > 6:
+        args = _with_ties(args)
+    g = _t(np.random.default_rng(seed + 1).standard_normal((R, P)), dtype)
+    return args, g
+
+
+@pytest.mark.parametrize("widths", [False, True], ids=["instant", "widths"])
+@pytest.mark.parametrize("N,P", [(1, 1), (33, 128), (300, 257), (1100, 64)])
+def test_element_curve_backward_source_matches_autograd(source_lib, widths,
+                                                        N, P):
+    """float64: the fused backward stand-in against autograd on the plain
+    forward, each cotangent within 1e-9 of its largest |value|; N = 1100
+    takes two passes of the card's layout."""
+    args, g = _curve_backward_case(N, P, widths, F64)
+    want = sweeps._curve_backward_plain(*args, g)
+    got = _curve_backward_host(source_lib, args, g, widths)
     for name, a, b in zip(("ph", "pin", "pout", "w"), got, want):
         assert (a is None) == (b is None), name
         if a is not None:
             _grad_close(a, b, name)
+
+
+def _f32_gate(k32, p32, p64):
+    """PERF.md's float32 gate: each entry within 1e-5 + 2e-3 |g| of plain
+    float32, or no farther from plain float64 than plain float32's
+    largest distance from it; the same NaN pattern."""
+    assert torch.equal(torch.isnan(k32), torch.isnan(p32))
+    k32, p32 = torch.nan_to_num(k32), torch.nan_to_num(p32)
+    p64 = torch.nan_to_num(p64)
+    near = (k32 - p32).abs() <= 1e-5 + 2e-3 * p32.abs()
+    lim = float((p32.double() - p64).abs().max())
+    return bool((near | ((k32.double() - p64).abs() <= lim)).all())
+
+
+@pytest.mark.parametrize("widths", [False, True], ids=["instant", "widths"])
+@pytest.mark.parametrize("N,P", [(33, 128), (300, 257), (992, 128)])
+def test_element_curve_backward_source_float32(source_lib, widths, N, P):
+    """float32: the fused backward stand-in (one reciprocal of the width a
+    phase, its own sum orders) against autograd on the plain forward in
+    float32 and float64, at PERF.md's float32 gate."""
+    args, g = _curve_backward_case(N, P, widths, F32)
+    got = _curve_backward_host(source_lib, args, g, widths)
+    p32 = sweeps._curve_backward_plain(*args, g)
+    a64 = [a.double() if a is not None and a.is_floating_point() else a
+           for a in args]
+    p64 = sweeps._curve_backward_plain(*a64, g.double())
+    for name, k, a, b in zip(("ph", "pin", "pout", "w"), got, p32, p64):
+        assert (k is None) == (a is None), name
+        if k is not None:
+            assert _f32_gate(k, a, b), name
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+def test_small_layout_gives_the_same_results(small_layout_lib, source_lib,
+                                             dtype):
+    """The source built at another layout of K7's backward (1 slab a lane,
+    2 warps: 16 passes at N = 992): within 1e-9 of autograd in float64
+    and at the float32 gate, and the same d pin, d pout, d w bits as the
+    card's layout (each element's cotangents sum the same terms in phase
+    order; only d ph's order differs)."""
+    for widths in (False, True):
+        args, g = _curve_backward_case(992, 128, widths, dtype)
+        got = _curve_backward_host(small_layout_lib, args, g, widths)
+        card = _curve_backward_host(source_lib, args, g, widths)
+        want = sweeps._curve_backward_plain(*args, g)
+        if dtype == F32:
+            a64 = [x.double() if x is not None and x.is_floating_point()
+                   else x for x in args]
+            want64 = sweeps._curve_backward_plain(*a64, g.double())
+        for i, (k, c, p) in enumerate(zip(got, card, want)):
+            if k is None:
+                continue
+            if i > 0:
+                assert same_bits(k, c), i
+            if dtype == F64:
+                _grad_close(k, p, i)
+            else:
+                assert _f32_gate(k, p, want64[i]), i
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == F64 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+def test_the_floor_form_remainder(source_lib, dtype):
+    """remainder1 (x - floor(x)) against torch.remainder(x, 1.0): the same
+    bits wherever the result is not zero (the same NaN pattern); where it
+    is zero, +0, and torch's -0 exactly at -0 and the negative integers."""
+    np_dt = np.float64 if dtype == F64 else np.float32
+    tiny = np.finfo(np_dt).tiny
+    vals = [0.0, -0.0, np.nan, np.inf, -np.inf, tiny, -tiny, tiny / 4,
+            -tiny / 4, 1e30, -1e30, 2.0 ** 52, -(2.0 ** 52) - 0.5, 0.5,
+            -0.5, 0.999, -0.999]
+    for k in range(-4, 5):
+        x = np_dt(k)
+        vals += [x, np.nextafter(x, np_dt(-np.inf)),
+                 np.nextafter(x, np_dt(np.inf))]
+    rng = np.random.default_rng(12)
+    vals += list(rng.uniform(-5.0, 5.0, 4000)) + list(
+        rng.uniform(-1e-6, 1e-6, 1000)) + list(rng.uniform(-1e7, 1e7, 1000))
+    x = torch.tensor(np.asarray(vals, dtype=np_dt))
+    got = torch.empty_like(x)
+    source_lib["remainder1"](int(dtype == F64), x.data_ptr(), got.data_ptr(),
+                             x.numel())
+    want = torch.remainder(x, 1.0)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    nz = ~torch.isnan(want) & (want != 0)
+    assert torch.equal(_bits(got[nz]), _bits(want[nz]))
+    zero = want == 0
+    assert bool((got[zero] == 0).all()) and not bool(
+        torch.signbit(got[zero]).any())
+    neg_int = torch.isfinite(x) & (torch.floor(x) == x) & torch.signbit(x)
+    assert torch.equal(torch.signbit(want) & zero, neg_int)
+
+
+def _rules_hold(fns):
+    """Whether the stand-in's clamp_min_grad, min_grad_b and clamp_grad
+    give autograd's shares for torch.minimum(torch.clamp(a, min=0), b)'s
+    a, torch.minimum(a, b)'s b and torch.clamp(a, min=0)'s a, and min_nan
+    / max0_nan torch.minimum's / torch.clamp's values, at ties, signed
+    zeros, NaN and inf, float64."""
+    v = [0.0, -0.0, 1.0, -1.0, 0.25, np.nan, np.inf, -np.inf]
+    a, b = (torch.tensor(x, dtype=F64) for x in zip(*[
+        (x, y) for x in v for y in v]))
+    g = torch.linspace(0.5, 2.0, a.numel(), dtype=F64)
+    out = torch.empty((5, a.numel()), dtype=F64)
+    fns["rules"](1, a.data_ptr(), b.data_ptr(), g.data_ptr(), out.data_ptr(),
+                 a.numel())
+    la, lb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    (gca,) = torch.autograd.grad(
+        torch.minimum(torch.clamp(la, min=0.0), b), [la], g)
+    (gb,) = torch.autograd.grad(torch.minimum(a, lb), [lb], g)
+    lc = a.clone().requires_grad_()
+    (gc,) = torch.autograd.grad(torch.clamp(lc, min=0.0), [lc], g)
+    return (same_bits(out[0], gca) and same_bits(out[1], gb)
+            and same_bits(out[2], gc)
+            and same_bits(out[3], torch.minimum(a, b))
+            and same_bits(out[4], torch.clamp(a, min=0.0)))
+
+
+def _rule_inputs():
+    """The widths case's inputs (float64) on which each rule of the
+    chain's adjoint shows: the ties of _with_ties, NaN intervals, elements
+    not eclipsed, and an eclipsed element of zero duration (row 2,
+    element 7) at a phase (row 2, phase 3) whose exposure ends just past
+    its contact, so that the overlaps' sum is exactly 0 where the clamp's
+    inclusive bound passes the gradient on."""
+    args, g = _curve_backward_case(33, 128, True, F64)
+    ph, wd, pin, pout, ecl, w = args
+    pin[2, 7] = pout[2, 7] = 0.1
+    ecl[2, 7] = True
+    ph[2, 3] = 0.105                         # wd 0.02: rel = 0.995
+    return (ph, wd, pin, pout, ecl, w), g
+
+
+def _chain_holds(fns):
+    """Whether the fused backward stand-in is within 1e-9 of autograd on
+    the plain forward on _rule_inputs."""
+    args, g = _rule_inputs()
+    want = sweeps._curve_backward_plain(*args, g)
+    got = _curve_backward_host(fns, args, g, True)
+    for a, b in zip(got, want):
+        scale = max(float(torch.nan_to_num(b).abs().max()), 1e-300)
+        if not torch.equal(torch.isnan(a), torch.isnan(b)) or float(
+                torch.nan_to_num(a - b).abs().max()) > 1e-9 * scale:
+            return False
+    return True
+
+
+def test_the_rules_hold_in_the_source(source_lib):
+    assert _rules_hold(source_lib)
+    assert _chain_holds(source_lib)
+
+
+# each autograd rule of the fused chain, broken: (source text, its
+# replacement)
+MUTATIONS = {
+    "clamp_inclusive": ("const bool on = T(0.0) <= v;",
+                        "const bool on = T(0.0) < v;"),
+    "clamp_nan_passes_nothing": ("const bool on = T(0.0) <= v;",
+                                 "const bool on = !(v < T(0.0));"),
+    "min_tie_half_a": ("on && v == b ? h : T(0.0)",
+                       "on && v == b ? g : T(0.0)"),
+    "min_tie_half_b": ("return a == b ? h : (a < b",
+                       "return a == b ? g : (a < b"),
+    "min_nan_whole_a": ("on && !(v >= b) ? g", "on && v < b ? g"),
+    "min_nan_whole_b": ("(a < b ? T(0.0) : g)", "(!(a >= b) ? T(0.0) : g)"),
+    "where_false_side": ("const T g_overlap = ecl ? w * gn : T(0.0);",
+                         "const T g_overlap = w * gn;"),
+    "remainder_passes": ("g_pin = g_pin - (g_rel + g_dur);",
+                         "g_pin = g_pin - g_dur;"),
+}
+
+
+@pytest.mark.parametrize("rule", list(MUTATIONS))
+def test_a_broken_rule_fails(tmp_path, rule):
+    """Each autograd rule that the fused backward keeps (clamp's inclusive
+    bound and its NaN, the minimum's halves at a tie and its whole at NaN,
+    where's false side, the remainder passing the gradient to phi_in),
+    broken in a copy of the source, fails _rules_hold or _chain_holds (the
+    minimum's NaN rule only the former: a NaN minimum makes the sum NaN,
+    whose clamp passes nothing, so the chain never shows it)."""
+    old, new = MUTATIONS[rule]
+    text = SOURCE.read_text()
+    assert text.count(old) == 1, rule
+    fns = build_source(tmp_path, text.replace(old, new))
+    assert not (_rules_hold(fns) and _chain_holds(fns))
+
+
+def test_k7_keeps_its_bits_where_the_remainder_is_a_signed_zero(source_lib):
+    """With widths, phases whose hw - phi_in is exactly a negative integer
+    (torch.remainder -0, the floor form +0) and 0: K7's stand-in gives
+    the plain version's bits, signed zeros included."""
+    for dtype in (F32, F64):
+        R, P, N = 2, 64, 40
+        ph, wd, pin, pout, ecl, w = curve_inputs(R, P, N, True, dtype, seed=13)
+        wd[:] = 0.5
+        pin[:, :8] = 0.25
+        pout[:, :8] = torch.tensor([0.25, 0.3, 0.5, 0.75, 0.25, 0.3, 1.0,
+                                    1.5], dtype=dtype)
+        ecl[:, :8] = True
+        # hw = ph - 0.25: hw - 0.25 = -1, -2, 0, 1, -3
+        ph[:, :5] = torch.tensor([-0.5, -1.5, 0.5, 1.5, -2.5], dtype=dtype)
+        args = (ph, wd, pin, pout, ecl, w)
+        want = comp._element_curve_plain(*args)
+        got = torch.empty_like(want)
+        host_launch(source_lib)("curve", ph, 1, *args, got, R, P, N)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert torch.equal(_bits(got[ok]), _bits(want[ok]))
 
 
 @pytest.mark.parametrize("N,P,E", [(1, 1, 1), (33, 128, 5), (384, 257, 1),

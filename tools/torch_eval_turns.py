@@ -35,7 +35,8 @@ line:
   once a walker) on the inputs one evaluation hands them, float32 and
   float64, event-timed and traced; and where the checkout has them, K7
   (``element_curve_kernel``: the disc's rows) and K8 (``donor_sum_kernel``:
-  the donor curve's rows) on the inputs one evaluation hands them, and
+  the donor curve's rows, and its normaliser's at P = 1: ``k8_p1``) on
+  the inputs one evaluation hands them, and
   their backward kernels on those of the value_and_grad above, float32
   and float64, event-timed and traced;
 - a SHA-256 of each kernel's outputs (for K1's backward, of its six
@@ -244,7 +245,8 @@ def roche_kernels(lp, pos, kernels):
 def sweep_kernels(lp, pos, lpw, posw, kernels):
     """Add K7's and K8's times and digests, on the inputs of the first
     call of each wrapper in one evaluation of ``lp`` at ``pos`` (the
-    disc, the donor curve), and their backward kernels', on those of the
+    disc, the donor curve; and K8's second, the normaliser), and their
+    backward kernels', on those of the
     largest call in one value_and_grad of ``lpw`` at ``posw``, float32
     and float64, to ``kernels``; nothing for a checkout without them."""
     try:
@@ -270,9 +272,13 @@ def sweep_kernels(lp, pos, lpw, posw, kernels):
             lp(pos)
     fwd = recorded(forward)
     bwd = recorded(lambda: lpw.value_and_grad(posw))
-    for name, key in names.items():
-        calls = bwd[name] if name.endswith("backward") else fwd[name][:1]
-        args = max(calls, key=lambda a: a[0].shape[1] * a[2].shape[-1])
+    rows = [(key, name, max(bwd[name] if name.endswith("backward")
+                            else fwd[name][:1],
+                            key=lambda a: a[0].shape[1] * a[2].shape[-1]))
+            for name, key in names.items()]
+    # and K8 on the donor's normaliser (its second call: P = 1)
+    rows.append(("k8_p1", "donor_sum", fwd["donor_sum"][1]))
+    for key, name, args in rows:
         fn = getattr(sweeps, f"{name}_kernel")
         for dt in (F32, F64):
             a = [x.to(dt) if isinstance(x, torch.Tensor)
