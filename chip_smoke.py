@@ -208,14 +208,18 @@ x 256 walkers.  Phases:
      and negative): the forward kernels the same bits in float32 and
      float64, the backward kernels within 1e-9 of the largest |gradient|
      of autograd on the plain forward in float64 and at PERF.md's float32
-     gate, two launches the same bits; each kernel's time (traced in
+     gate, two launches the same bits; at each main call (the disc's and
+     the spot's curves, the donor curve and its normaliser; of the
+     gradient evaluation the disc's curve with widths and the backward
+     kernels on the disc's rows, the donor curve's and its normaliser's)
+     each kernel's time (traced in
      phase 2, and event-timed), its plain version's, its bound, and the
      torch.bmm of the materialised (rows, P, N) terms by the weights (the
      TPU's reduction alone, TF32 off), its operations' time at one an FP32
      lane and clock (the issue floor under --fmad=false); ptxas's
-     registers, frame and spills of K7's backward's and K8's
-     instantiations (0 bytes of frame and spill), and the instructions a
-     term of their main ones from the build's SASS
+     registers, frame and spills of the 14 instantiations (0 bytes of
+     frame and spill), and the instructions a term of the main ones from
+     the build's SASS
      (tools/sweeps_sass_counts.py; SWEEPS_SASS_PER_TERM) with their time
      at the issue rate and each pipe's; the forward evaluation's and the
      gradient evaluation's device kernels, device time and peak memory
@@ -445,23 +449,36 @@ SWEEPS_PER_GRAD = {"k7": 2, "k7_bwd": 2, "k8": 2, "k8_bwd": 2}
 # d mu (6), the clamp's share, d e and d n (12): 32
 SWEEP_OPS = {"instant": 8, "widths": 17, "donor": 12}
 SWEEP_BWD_OPS = {"instant": 8, "widths": 36, "donor": 32}
-# instructions issued a term by the main paths' instantiations of K7's
-# backward and K8, from the build's SASS (tools/sweeps_sass_counts.py:
-# its main term loop's instructions over its terms a trip); after an edit
-# of sweeps.cu that changes their code, run that tool on the card and
-# paste its counts
+# instructions issued a term by the main paths' instantiations of K7, K8
+# and their backward kernels, from the build's SASS
+# (tools/sweeps_sass_counts.py: its main term loop's instructions over its
+# terms a trip); after an edit of sweeps.cu that changes their code, run
+# that tool on the card and paste its counts
 SWEEPS_SASS_PER_TERM = {
+    "element_curve_kernel<f32, instant>": 5.484,
+    "element_curve_kernel<f64, instant>": 10.375,
+    "element_curve_kernel<f32, widths>": 22.875,
+    "element_curve_kernel<f64, widths>": 40.656,
     "element_curve_backward_kernel<f32, widths>": 56.25,
     "element_curve_backward_kernel<f64, widths>": 87.0,
     "donor_sum_kernel<f32, threads>": 14.156,
     "donor_sum_kernel<f64, threads>": 16.156,
     "donor_sum_kernel<f32, lanes>": 26.75,
-    "donor_sum_kernel<f64, lanes>": 28.0}
+    "donor_sum_kernel<f64, lanes>": 28.0,
+    "donor_sum_backward_kernel<f32>": 23.25,
+    "donor_sum_backward_kernel<f64>": 35.75}
 # the instantiation of each main call, float32
-SWEEP_SASS_OF = {"K7 element_curve_backward disc":
+SWEEP_SASS_OF = {"K7 element_curve disc": "element_curve_kernel<f32, instant>",
+                 "K7 element_curve widths":
+                 "element_curve_kernel<f32, widths>",
+                 "K7 element_curve_backward disc":
                  "element_curve_backward_kernel<f32, widths>",
                  "K8 donor_sum curve": "donor_sum_kernel<f32, threads>",
-                 "K8 donor_sum normaliser": "donor_sum_kernel<f32, lanes>"}
+                 "K8 donor_sum normaliser": "donor_sum_kernel<f32, lanes>",
+                 "K8 donor_sum_backward curve":
+                 "donor_sum_backward_kernel<f32>",
+                 "K8 donor_sum_backward normaliser":
+                 "donor_sum_backward_kernel<f32>"}
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -729,17 +746,25 @@ def _sweep_calls(fwd, bwd):
     """(tag, kernel name, arguments) of the calls of K7, K8 and their
     backward kernels that phases 2 and 23 read: the disc's and the spot's
     curves and the donor curve and its normaliser of a forward evaluation
-    (``fwd``), the disc's and the donor curve's cotangents of a gradient
-    evaluation (``bwd``)."""
+    (``fwd``); of a gradient evaluation (``bwd``) the disc's curve with
+    widths, and the disc's, the donor curve's and its normaliser's
+    cotangents."""
     calls = [(f"K{k} {n} {row}", n, fwd[n][i])
              for k, n in ((7, "element_curve"), (8, "donor_sum"))
              for i, row in enumerate(SWEEP_ROWS[n])]
+
+    def size(a):
+        return a[0].shape[1] * a[2].shape[-1]
     # autograd runs the backward kernels in the reverse order: the larger
     # call (the disc's elements, the donor curve's phases) is the main one
-    return calls + [(f"K{k} {n}_backward {SWEEP_ROWS[n][0]}", f"{n}_backward",
-                     max(bwd[f"{n}_backward"],
-                         key=lambda a: a[0].shape[1] * a[2].shape[-1]))
-                    for k, n in ((7, "element_curve"), (8, "donor_sum"))]
+    return calls + [
+        ("K7 element_curve widths", "element_curve",
+         max(bwd["element_curve"], key=size)),
+        *((f"K{k} {n}_backward {SWEEP_ROWS[n][0]}", f"{n}_backward",
+           max(bwd[f"{n}_backward"], key=size))
+          for k, n in ((7, "element_curve"), (8, "donor_sum"))),
+        ("K8 donor_sum_backward normaliser", "donor_sum_backward",
+         min(bwd["donor_sum_backward"], key=size))]
 
 
 def _walkers(start, n, seed, dtype, dev):
@@ -2753,10 +2778,12 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
                          device=dev).to(dtype) for x in c]
         gd = torch.randn(d[0].shape[:2], generator=gen, dtype=f64,
                          device=dev).to(dtype)
+        gdn = torch.randn(dn[0].shape[:2], generator=gen, dtype=f64,
+                          device=dev).to(dtype)
         return {"element_curve": c,
                 "donor_sum": [(*d, 0.9), (*dn, 0.9)],
                 "element_curve_backward": [(*x, gx) for x, gx in zip(c, g)],
-                "donor_sum_backward": [(*d, 0.9, gd)]}
+                "donor_sum_backward": [(*d, 0.9, gd), (*dn, 0.9, gdn)]}
 
     out = {n: {"max_abs_err": 0.0} for n in plain}
     sets = {"north star": sweep_args, "gradient evaluation": grad_args}
@@ -2877,16 +2904,17 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
     for n in out:
         out[n]["registers"] = {e: r for e, r in registers["sweeps"].items()
                                if e.startswith(f"{n}_kernel")}
-    # the redesigned kernels' instantiations: nothing in local memory
+    # every instantiation: nothing in local memory
     entries = {_short_entry(e): v for e, v in _ptxas_entries(
         _build.PTXAS_LOGS["sweeps"].read_text()).items()
-        if re.search(r"\d(element_curve_backward|donor_sum)_kernelI", e)}
-    print("[23 sweeps] ptxas, K7's backward and K8: " + ", ".join(
-        f"{e} {v['registers']} registers, {v['frame']} bytes stack frame, "
-        f"{v['spill']} bytes spilled" for e, v in sorted(entries.items())))
-    _check(len(entries) == 8 and not any(v["frame"] or v["spill"]
-                                         for v in entries.values()),
-           f"K7's backward or K8 keeps something in local memory: {entries}")
+        if re.search(r"\d(element_curve|donor_sum)\w*_kernelI", e)}
+    print("[23 sweeps] ptxas, K7, K8 and their backward kernels: "
+          + ", ".join(f"{e} {v['registers']} registers, {v['frame']} bytes "
+                      f"stack frame, {v['spill']} bytes spilled"
+                      for e, v in sorted(entries.items())))
+    _check(len(entries) == 14 and not any(v["frame"] or v["spill"]
+                                          for v in entries.values()),
+           f"a sweep kernel keeps something in local memory: {entries}")
     # what each issues a term, from the build's SASS, and that count's
     # time at the schedulers' rate (a warp instruction a scheduler and
     # clock) and at each pipe's (the tool's LANES: the ALU and FP64 pipes

@@ -24,22 +24,29 @@
 // (rows, P, N) chains whose arithmetic each kernel repeats operation for
 // operation.
 //
-// What bounds them: the issue of instructions.  A term is one phase and
-// one element; the inputs are O(rows (P + N)) numbers and the terms O(rows
-// P N).  Built with --fmad=false, no product and sum fuse.  Issued a term
-// (float32, from the SASS: tools/sweeps_sass_counts.py): K7 ~7 without
-// widths, ~46 with (its divide); K8 ~14 (7 products, 4 sums, a clamp);
-// K7's backward ~56, of which ~28 are compares, selects and min / max on
-// the ALU pipe, at half the FP32 rate: that pipe bounds it.
+// What bounds them: the issue of instructions, and the pipes some of them
+// take.  A term is one phase and one element; the inputs are O(rows (P +
+// N)) numbers and the terms O(rows P N).  Built with --fmad=false, no
+// product and sum fuse unless the source asks (fma_).  A floor (FRND) and
+// a conversion issue at 16 lanes an SM a clock, compares, selects and min
+// / max at 64, adds and products at 128 (tools/conv_pipe_rate.py).  Issued
+// a term (float32, from the SASS: tools/sweeps_sass_counts.py): see
+// chip_smoke.py's SWEEPS_SASS_PER_TERM.
 //
-// The designs.  K7 (forward) and K8's backward: a block of threads runs
-// one row (K8's backward: one grid), its threads over the row's phases;
-// the elements are staged in shared memory a tile of SWEEP_TILE at a
-// time, and every thread sums all of them for its phase (K8's backward
-// also runs a sweep with its threads over the elements); K8 (forward)
-// too for rows of at least DONOR_LANES_BELOW phases.  A shorter row (the
-// donor curve's normaliser, P = 1) runs a warp a (row, phase) pair, lane j
-// the elements j, 32 + j, ... (slab lane j), the lanes' sums halved by
+// The designs.  K7 (forward) and K8 for rows of at least
+// DONOR_LANES_BELOW phases: a block of threads runs one row, its threads
+// over the row's phases; the elements are staged in shared memory a tile
+// of SWEEP_TILE at a time, and every thread sums all of them for its
+// phase.  K7 takes the floor off the term path where it can: without
+// widths, where every phase of the block lies within a cycle of each of a
+// tile's contacts (the kernel checks each tile against its block's least
+// and largest phase: every tile of the north star), d - floor(d) is d + (d
+// < 0), a comparison, and acc + vis w one fused rounding (vis is 0 or 1);
+// with widths the quotient overlap / wc by the phase's reciprocal and one
+// correction (quot_rcp) and the minima and clamps by min.NaN / max.NaN.
+// Elsewhere the floor and the divide.  A shorter row of K8 (the donor
+// curve's normaliser, P = 1) runs a warp a (row, phase) pair, lane j the
+// elements j, 32 + j, ... (slab lane j), the lanes' sums halved by
 // __shfl_down_sync.  K7's backward: one fused sweep, a block a row; its
 // warps split the row's slabs, lane j holding slab lane j of K7B_SLABS
 // slabs in registers with their three running cotangents; the block
@@ -48,9 +55,16 @@
 // its rel and dur (d ph, d pin, d pout), with the fewest ALU instructions
 // the rules allow (min.NaN / max.NaN, clamp_min_grad); a warp's d ph
 // partials are halved by __shfl_down_sync and the warps' added in warp
-// order through shared memory.  No atomics: each output is summed in a
-// fixed order, so a row's result does not depend on its batch, and two
-// launches give the same bits.
+// order through shared memory.  K8's backward: one fused sweep, a block a
+// grid; its warps split the grid's slabs (slab groups) and its E rows'
+// (row, phase) pairs (phase groups), lane j holding slab lane j of
+// K8B_SLABS slabs with their four running cotangents; each term computes
+// its dot, clamp and weight once for d a, d n and d e; a pair's d e is
+// totalled over a warp's lanes by a packed xor halving (warp_totals3) and
+// over the slab groups in order, an element's d n and d a over the phase
+// groups in order.  No atomics: each output is summed in a fixed order, so
+// a row's result does not depend on its batch, and two launches give the
+// same bits.
 //
 // The summation order of the forward sums, which the plain versions write
 // out in tensor ops (components.py, _slab_sum): N is padded with elements
@@ -62,10 +76,14 @@
 // (x, h) on lane j is the same add.  The backward sums are not held to
 // bits: each is in a fixed order (K7's d ph: a lane's slabs in order, the
 // warp's lanes halved as above, the warps in order, the passes in order;
-// the others over the phases in order).
+// K8's d e: a lane's slabs in order, warp_totals3, the slab groups in
+// order, the passes in order; the others over their phases in order, the
+// phase groups in order).
 //
 // Bit-identity with the plain version: each expression below is one
-// PyTorch operation per operator, in the plain version's order; built
+// PyTorch operation per operator, in the plain version's order, or an
+// exact rewrite of it (K7's comparison for the floor, its fused acc + vis
+// w, its corrected quotient, each argued where it is defined); built
 // with --fmad=false, so no multiply-add is contracted.  Python's double
 // constants enter PyTorch's kernels rounded to the tensor's type: T(double).
 // torch.minimum / clamp(min=) propagate NaN and so do nmin and clamp_min
@@ -85,10 +103,11 @@
 // and the minimum it feeds in one step, clamp_min_grad, where the clamp's
 // value is its input); where(ecl, overlap / w, 0)
 // routes nothing to the false side; remainder passes the gradient to its
-// first argument.  The backward is held to a tolerance, not to bits: it
-// divides by the clamped width through one reciprocal a phase.  Without
-// widths the visibility is an indicator, whose derivative is 0: only d w
-// is made.
+// first argument.  The backward kernels are held to a tolerance, not to
+// bits: K7's divides by the clamped width through one reciprocal a phase,
+// K8's fuses products and sums and takes each element's area out of its d
+// n.  Without widths the visibility is an indicator, whose derivative is
+// 0: only d w is made.
 //
 // Everything above the "kernel and launcher" line is plain arithmetic on
 // staged arrays and registers: host loops over the rows, the phases and
@@ -102,10 +121,12 @@
 
 #define SWEEP_FN __device__ __forceinline__
 
-// the slab width of the forward sums (a warp's lanes) and the elements (or
-// phases) K7 and K8's backward stage at once: a multiple of it
+// the slab width of the forward sums (a warp's lanes) and the elements K7
+// and K8 stage at once: a multiple of it
 #define SWEEP_SLAB 32
 #define SWEEP_TILE 256
+// the forward kernels' blocks over phases (fewer for a short row)
+#define SWEEP_THREADS 128
 
 // K7's backward: the slabs a lane holds, the warps a block has at most and
 // the phases it stages at once
@@ -117,14 +138,41 @@
 #endif
 #define K7B_PHASES 128
 
+// K7 without widths in float32: the phases a thread sums, each staged
+// element read once for all of them (with widths, and float64: one, their
+// registers)
+#ifndef K7_PHASES
+#define K7_PHASES 2
+#endif
+
 // K8: rows of fewer phases than a warp run a warp a (row, phase) pair
 #ifndef DONOR_LANES_BELOW
 #define DONOR_LANES_BELOW 32
 #endif
 
+// K8's backward: the slabs a lane holds, the warps a block has at most and
+// the (row, phase) pairs it stages at once
+#ifndef K8B_SLABS
+#define K8B_SLABS 4
+#endif
+#ifndef K8B_WARPS
+#define K8B_WARPS 12
+#endif
+#define K8B_PAIRS 64
+
 template <typename T> SWEEP_FN T floor_(T v);
 template <> SWEEP_FN float floor_<float>(float v) { return floorf(v); }
 template <> SWEEP_FN double floor_<double>(double v) { return floor(v); }
+
+// a product and a sum rounded once (the backward kernels, which are held
+// to a tolerance, not to bits)
+template <typename T> SWEEP_FN T fma_(T a, T b, T c);
+template <> SWEEP_FN float fma_<float>(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+template <> SWEEP_FN double fma_<double>(double a, double b, double c) {
+  return fma(a, b, c);
+}
 
 // torch.minimum / torch.clamp(min=): NaN passes
 template <typename T> SWEEP_FN T nmin(T a, T b) {
@@ -212,7 +260,32 @@ static __host__ __device__ __forceinline__ int n_slabs(int n) {
   return n > SWEEP_SLAB ? (n + SWEEP_SLAB - 1) / SWEEP_SLAB : 1;
 }
 
+// the forward kernels' blocks over phases: a multiple of 32 threads, no
+// more than P needs
+static __host__ __device__ __forceinline__ unsigned phase_threads(int P) {
+  const int t = (P + 31) / 32 * 32;
+  return (unsigned)(t < SWEEP_THREADS ? t : SWEEP_THREADS);
+}
+
 // ---- K7: the element curve --------------------------------------------
+
+// overlap / wc through the phase's reciprocal iw = 1 / wc (rounded once)
+// and one correction (Markstein): q = o iw, r = o - q wc (exact in a
+// fused product and sum), q + r iw rounded once.  That is the correctly
+// rounded quotient wherever nothing underflows: for o = 0 and o >= 2^-100
+// (float32; 2^-900 float64) at wc in [1e-12, QUOT_WC_MAX].  Below, both
+// quotients are under 2^-60 (wc >= 1e-12), so 1 - frac rounds to 1 for
+// either: the visibility keeps its bits for every overlap.  The kernel
+// divides at a phase whose width is above QUOT_WC_MAX, infinite or NaN
+// (where iw is 0 or subnormal)
+template <typename T> SWEEP_FN T quot_rcp(T o, T wc, T iw) {
+  const T q = o * iw;
+  const T r = fma_(-q, wc, o);
+  return fma_(r, iw, q);
+}
+template <typename T> SWEEP_FN T quot_wc_max();
+template <> SWEEP_FN float quot_wc_max<float>() { return 0x1p50f; }
+template <> SWEEP_FN double quot_wc_max<double>() { return 0x1p400; }
 
 // staged elements: phi_in, the duration phi_out - phi_in (once per
 // element, as the plain version), the weight and the eclipsed flag
@@ -221,10 +294,14 @@ template <typename T> struct CurveElems {
   T* dur;
   T* w;
   unsigned char* ecl;
-  // element n of a row of n_el as entry i; past n_el the pad element
-  SWEEP_FN void stage(int i, const T* pin_r, const T* pout_r,
+  // element n of a row of n_el as entry i; past n_el the pad element.
+  // Whether the fast path takes it: with widths, always; without, if each
+  // phase of the block (in [lo, hi] but NaN) is within [-1, 1) of phi_in
+  // (fl(ph - pin) is monotone in ph)
+  template <bool WIDTHS>
+  SWEEP_FN bool stage(int i, const T* pin_r, const T* pout_r,
                       const unsigned char* ecl_r, const T* w_r, int n,
-                      int n_el) const {
+                      int n_el, T lo, T hi) const {
     const bool in = n < n_el;
     const T a = in ? pin_r[n] : T(0.0);
     const T b = in ? pout_r[n] : T(0.0);
@@ -232,51 +309,99 @@ template <typename T> struct CurveElems {
     dur[i] = b - a;
     w[i] = in ? w_r[n] : T(0.0);
     ecl[i] = in ? ecl_r[n] : (unsigned char)0;
+    return WIDTHS || (lo - a >= T(-1.0) && hi - a < T(1.0));
   }
 };
 
-// without widths the indicator 1 - (d - floor(d) < dur), d = ph - pin
+// without widths the indicator 1 - (rel < dur), rel = d - floor(d), d = ph
+// - pin
+template <typename T> SWEEP_FN T indicator(T rel, T dur) {
+  return T(1.0) - (rel < dur ? T(1.0) : T(0.0));
+}
 template <typename T> SWEEP_FN T indicator_vis(T ph, T pin, T dur) {
   const T d = ph - pin;
-  const T rel = d - floor_(d);
-  return T(1.0) - (rel < dur ? T(1.0) : T(0.0));
+  return indicator(d - floor_(d), dur);
+}
+
+// d - floor(d) for d in [-1, 1) (the kernel checks each tile's range
+// against its block's phases): the floor is -1 below 0 and 0 else, so it
+// is d + (d < 0), the same rounding, by a comparison where the floor
+// costs a conversion (FRND: 16 lanes an SM a clock); at d = -0 it is +0 as
+// the floor form's, and NaN stays NaN
+template <typename T> SWEEP_FN T rel_near(T d) {
+  return d + (d < T(0.0) ? T(1.0) : T(0.0));
 }
 
 // one phase: without widths the indicator; with widths
 // visible_fraction_interval's exposure overlap, wc = clamp(width,
-// min=1e-12) and hw = ph - 0.5 wc once per phase
+// min=1e-12), hw = ph - 0.5 wc and iw = 1 / wc once per phase.  Its
+// minima and clamps are min_nan / max0_nan: they may give a zero the
+// other sign than torch's, which reaches only the quotient's zero, and 1 -
+// frac is 1 for either.  FAST: without widths rel_near (the kernel checks
+// each tile's range), with widths the quotient by quot_rcp (where the
+// phase's width is in its range: fast); else the floor, the divide
 template <typename T, bool WIDTHS> struct CurvePhase {
-  T ph, wc, hw;
+  T ph, wc, hw, iw;
+  bool fast;
   SWEEP_FN void set(T phase, T width) {
     ph = phase;
     if (WIDTHS) {
       wc = clamp_min(width, T(1e-12));
       hw = ph - T(0.5) * wc;
+      iw = T(1.0) / wc;
+      fast = wc <= quot_wc_max<T>();
     }
   }
+  template <bool FAST>
   SWEEP_FN T vis(T pin, T dur, unsigned char ecl) const {
-    if (!WIDTHS) return indicator_vis(ph, pin, dur);
     const T rel = remainder1(hw - pin);
-    const T ov_this = nmin(clamp_min(dur - rel, T(0.0)), wc);
-    const T ov_next = nmin(clamp_min((rel + wc) - T(1.0), T(0.0)), dur);
-    const T overlap = nmin(clamp_min(ov_this + ov_next, T(0.0)), wc);
-    const T frac = ecl ? overlap / wc : T(0.0);
+    const T ov_this = min_nan(max0_nan(dur - rel), wc);
+    const T ov_next = min_nan(max0_nan((rel + wc) - T(1.0)), dur);
+    const T overlap = min_nan(max0_nan(ov_this + ov_next), wc);
+    const T frac = ecl ? (FAST ? quot_rcp(overlap, wc, iw) : overlap / wc)
+                       : T(0.0);
     return T(1.0) - frac;
+  }
+  // a term into its running sum: acc + vis w.  Without widths vis is 0 or
+  // 1, so vis w is exact and one rounding of vis w + acc gives its bits
+  template <bool FAST>
+  SWEEP_FN T add(T acc, T pin, T dur, unsigned char ecl, T w) const {
+    if (WIDTHS) return acc + vis<FAST>(pin, dur, ecl) * w;
+    const T d = ph - pin;
+    return fma_(indicator(FAST ? rel_near(d) : d - floor_(d), dur), w, acc);
   }
 };
 
-// K7 forward: the terms of staged slabs [k0, k1) at phase p into acc
-template <typename T, bool WIDTHS>
-SWEEP_FN void curve_slabs(Slabs<T>& acc, const CurvePhase<T, WIDTHS>& p,
+// K7: the phases a thread sums
+template <typename T, bool WIDTHS> struct CurveThread {
+  static constexpr int phases = 1;
+};
+template <> struct CurveThread<float, false> {
+  static constexpr int phases = K7_PHASES;
+};
+
+// K7 forward: the terms of staged slabs [k0, k1) at the PH phases p into
+// acc, each element read once
+template <typename T, bool WIDTHS, bool FAST, int PH>
+SWEEP_FN void curve_slabs(Slabs<T> (&acc)[PH],
+                          const CurvePhase<T, WIDTHS> (&p)[PH],
                           const CurveElems<T>& s, int k0, int k1) {
   for (int k = k0; k < k1; ++k) {
 #pragma unroll
     for (int j = 0; j < SWEEP_SLAB; ++j) {
       const int i = k * SWEEP_SLAB + j;
-      acc.acc[j] = acc.acc[j] + p.vis(s.pin[i], s.dur[i], s.ecl[i]) * s.w[i];
+      const T pin = s.pin[i], dur = s.dur[i], w = s.w[i];
+      const unsigned char ecl = WIDTHS ? s.ecl[i] : (unsigned char)0;
+#pragma unroll
+      for (int h = 0; h < PH; ++h)
+        acc[h].acc[j] = p[h].template add<FAST>(acc[h].acc[j], pin, dur,
+                                                ecl, w);
     }
   }
 }
+
+// NaN as x, any other v as itself
+template <typename T> SWEEP_FN T nan_as(T v, T x) { return v != v ? x : v; }
 
 // K7's backward: one phase as its terms take it: the phase (without
 // widths) or hw = ph - 0.5 wc, the clamped width wc and its reciprocal,
@@ -422,15 +547,6 @@ SWEEP_FN T donor_weight(T e0, T e1, T e2, T n0, T n1, T n2, T c1, T c2) {
   return mu * c1 + (mu * c2) * mu;
 }
 
-// the cotangent of a term's e . n for the cotangent gw of its weight
-template <typename T>
-SWEEP_FN T donor_dot_grad(T e0, T e1, T e2, T n0, T n1, T n2, T c1, T c2,
-                          T gw) {
-  const T m = (e0 * n0 + e1 * n1) + e2 * n2;
-  const T mu = clamp_min(m, T(0.0));
-  return clamp_grad(m, gw * c1 + (gw * mu) * c2 + gw * (mu * c2));
-}
-
 // K8 forward, threads over phases: the terms of staged slabs [k0, k1) at
 // direction e into acc
 template <typename T>
@@ -468,58 +584,91 @@ SWEEP_FN T donor_lane(T e0, T e1, T e2, const T* nrm_g, const T* a_g, int j,
   return acc;
 }
 
-// K8 backward, threads over phases: d e of one direction with cotangent
-// gp over staged elements [i0, i1), in order
-template <typename T>
-SWEEP_FN void donor_grad_phase(T& g0, T& g1, T& g2, T e0, T e1, T e2, T gp,
-                               const DonorElems<T>& s, T c1, T c2, int i0,
-                               int i1) {
-  for (int i = i0; i < i1; ++i) {
-    const T gm = donor_dot_grad(e0, e1, e2, s.n0[i], s.n1[i], s.n2[i], c1,
-                                c2, gp * s.a[i]);
-    g0 = g0 + gm * s.n0[i];
-    g1 = g1 + gm * s.n1[i];
-    g2 = g2 + gm * s.n2[i];
-  }
-}
-
-// staged directions (one row's phases) and their cotangents
-template <typename T> struct DonorPhases {
-  T* e0;
-  T* e1;
-  T* e2;
-  T* g;
-  SWEEP_FN void stage(int i, const T* e_r, const T* g_r, int p) const {
-    e0[i] = e_r[3 * (long long)p];
-    e1[i] = e_r[3 * (long long)p + 1];
-    e2[i] = e_r[3 * (long long)p + 2];
-    g[i] = g_r[p];
+// K8's backward, one (row, phase) pair as its terms take it: the direction
+// e and, of its cotangent g, g c1, g c2 and g 2 c2 (exact)
+template <typename T> struct alignas(8 * sizeof(T)) DonorGradPair {
+  T e0, e1, e2, gc1, gc2, g2c2;
+  SWEEP_FN void set(const T* e_rp, T cot, T c1, T c2) {
+    e0 = e_rp[0];
+    e1 = e_rp[1];
+    e2 = e_rp[2];
+    gc1 = cot * c1;
+    gc2 = cot * c2;
+    g2c2 = gc2 + gc2;
   }
 };
 
-// K8 backward, threads over elements: one element's d normal and d area
-// over staged phases [i0, i1), in order
-template <typename T>
-SWEEP_FN void donor_grad_elem(T& g0, T& g1, T& g2, T& ga, T n0, T n1, T n2,
-                              T a, const DonorPhases<T>& s, T c1, T c2,
-                              int i0, int i1) {
-  for (int i = i0; i < i1; ++i) {
-    const T gp = s.g[i];
-    ga = ga + gp * donor_weight(s.e0[i], s.e1[i], s.e2[i], n0, n1, n2, c1,
-                                c2);
-    const T gm = donor_dot_grad(s.e0[i], s.e1[i], s.e2[i], n0, n1, n2, c1,
-                                c2, gp * a);
-    g0 = g0 + gm * s.e0[i];
-    g1 = g1 + gm * s.e1[i];
-    g2 = g2 + gm * s.e2[i];
+// K8's backward: one lane's elements, slab lane j of the slabs k, k +
+// stride, ... (S of them, ns before the grid's last; past n_el, and in a
+// slab past the grid's last, the pad element), held with their running
+// cotangents: each pair's terms add their d n (before the element's area:
+// a u e) and d a (g wgt), and give the lane's share of the pair's d e
+// (sum of u a n, a n held).  A term computes m = e . n, mu = max(m, 0)
+// and the weight's factor once: g wgt = mu g (c1 + c2 mu) for d a, u = g
+// (c1 + 2 c2 mu) where m >= 0 (clamp's inclusive bound; NaN: 0) for d e
+// and d n.  NaN passes as autograd's: a NaN m gives d a NaN and nothing to
+// d e or d n; but a NaN area makes d e NaN for every pair of its grid
+// (autograd's: where its m >= 0), and so does a cotangent that is not
+// finite where a pad element meets it (autograd's: where some m >= 0).
+// A pad element adds 0 to d e otherwise; its d n and d a are not stored
+template <typename T, int S> struct DonorGradLane {
+  T n0[S], n1[S], n2[S], an0[S], an1[S], an2[S];
+  T gn0[S], gn1[S], gn2[S], ga[S];
+  int ns;
+  SWEEP_FN void load(const T* nrm_g, const T* a_g, int k, int stride,
+                     int k_all, int j, int n_el) {
+    ns = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const long long n = (long long)(k + s * stride) * SWEEP_SLAB + j;
+      const bool in = k + s * stride < k_all && n < n_el;
+      const T a = in ? a_g[n] : T(0.0);
+      n0[s] = in ? nrm_g[3 * n] : T(0.0);
+      n1[s] = in ? nrm_g[3 * n + 1] : T(0.0);
+      n2[s] = in ? nrm_g[3 * n + 2] : T(0.0);
+      an0[s] = a * n0[s];
+      an1[s] = a * n1[s];
+      an2[s] = a * n2[s];
+      gn0[s] = gn1[s] = gn2[s] = ga[s] = T(0.0);
+      if (k + s * stride < k_all) ns = s + 1;
+    }
   }
+  // the terms of pair q: the lane's share of its d e in x, its slabs in
+  // order
+  SWEEP_FN void pair(const DonorGradPair<T>& q, T& x0, T& x1, T& x2) {
+    x0 = x1 = x2 = T(0.0);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const T m = fma_(q.e2, n2[s], fma_(q.e1, n1[s], q.e0 * n0[s]));
+      const T mu = max0_nan(m);
+      const T h = fma_(mu, q.gc2, q.gc1);
+      ga[s] = fma_(mu, h, ga[s]);
+      const T u = clamp_grad(m, fma_(mu, q.gc2, h));
+      gn0[s] = fma_(u, q.e0, gn0[s]);
+      gn1[s] = fma_(u, q.e1, gn1[s]);
+      gn2[s] = fma_(u, q.e2, gn2[s]);
+      x0 = fma_(u, an0[s], x0);
+      x1 = fma_(u, an1[s], x1);
+      x2 = fma_(u, an2[s], x2);
+    }
+  }
+};
+
+// K8's backward: the slab groups of a grid's block (warps that split its
+// slabs, at most K8B_WARPS) and its phase groups (warps that split its
+// pairs, one a pair at most: groups x phase groups <= K8B_WARPS)
+static __host__ __device__ __forceinline__ int donor_grad_groups(int n) {
+  const int w = (n_slabs(n) + K8B_SLABS - 1) / K8B_SLABS;
+  return w < K8B_WARPS ? w : K8B_WARPS;
+}
+static __host__ __device__ __forceinline__ int donor_grad_phase_groups(
+    int n, int pairs) {
+  const int p = K8B_WARPS / donor_grad_groups(n);
+  return p < pairs ? p : pairs;
 }
 
 // ---- kernel and launcher ------------------------------------------------
 
-// blocks of SWEEP_THREADS (the forward kernels: fewer for a short row of
-// phases, a multiple of 32)
-#define SWEEP_THREADS 128
 
 // a warp's 32 values halved pairwise: lane j adds lane j + h's for h = 16,
 // 8, 4, 2, 1 (Slabs::total's adds); lane 0 holds the total
@@ -536,7 +685,8 @@ template <typename T> struct CurveShared {
   __device__ CurveElems<T> elems() { return {pin, dur, w, ecl}; }
 };
 
-// K7: block (r, c) runs row r's phases c blockDim.x .. (c + 1) blockDim.x
+// K7: block (r, c) runs row r's phases c PH blockDim.x .. (c + 1) PH
+// blockDim.x, thread t the phases t + h blockDim.x (h < PH)
 template <typename T, bool WIDTHS>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 element_curve_kernel(const T* __restrict__ ph, const T* __restrict__ wd,
@@ -544,31 +694,75 @@ element_curve_kernel(const T* __restrict__ ph, const T* __restrict__ wd,
                      const unsigned char* __restrict__ ecl,
                      const T* __restrict__ w, T* __restrict__ out, int P,
                      int N) {
+  constexpr int PH = CurveThread<T, WIDTHS>::phases;
   __shared__ CurveShared<T> sh;
   const CurveElems<T> s = sh.elems();
   const long long r = blockIdx.x;
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = p < P;
-  const long long rp = r * P + (live ? p : P - 1);
-  CurvePhase<T, WIDTHS> q;
-  q.set(ph[rp], WIDTHS ? wd[rp] : T(0.0));
+  CurvePhase<T, WIDTHS> q[PH];
+  long long rp[PH];
+  bool live[PH];
+  bool fast = true;
+  // without widths: the least and the largest of the block's phases that
+  // are not NaN
+  T lo = T(INFINITY), hi = T(-INFINITY);
+#pragma unroll
+  for (int h = 0; h < PH; ++h) {
+    const int p = (blockIdx.y * PH + h) * blockDim.x + threadIdx.x;
+    live[h] = p < P;
+    rp[h] = r * P + (live[h] ? p : P - 1);
+    q[h].set(ph[rp[h]], WIDTHS ? wd[rp[h]] : T(0.0));
+    fast = fast && (!WIDTHS || q[h].fast);
+    const T x = live[h] ? q[h].ph : T(NAN);
+    lo = nan_as(x, lo) < lo ? x : lo;
+    hi = nan_as(x, hi) > hi ? x : hi;
+  }
+  if (!WIDTHS) {
+    __shared__ T range[2][SWEEP_THREADS / SWEEP_SLAB];
+#pragma unroll
+    for (int h = SWEEP_SLAB / 2; h > 0; h /= 2) {
+      const T a = __shfl_xor_sync(0xffffffffu, lo, h);
+      const T b = __shfl_xor_sync(0xffffffffu, hi, h);
+      lo = a < lo ? a : lo;
+      hi = b > hi ? b : hi;
+    }
+    if (threadIdx.x % SWEEP_SLAB == 0) {
+      range[0][threadIdx.x / SWEEP_SLAB] = lo;
+      range[1][threadIdx.x / SWEEP_SLAB] = hi;
+    }
+    __syncthreads();
+    for (int v = 0; v < (int)blockDim.x / SWEEP_SLAB; ++v) {
+      lo = range[0][v] < lo ? range[0][v] : lo;
+      hi = range[1][v] > hi ? range[1][v] : hi;
+    }
+  }
   const T* pin_r = pin + r * N;
   const T* pout_r = pout + r * N;
   const unsigned char* ecl_r = ecl + r * N;
   const T* w_r = w + r * N;
-  Slabs<T> acc;
-  acc.init();
+  Slabs<T> acc[PH];
+#pragma unroll
+  for (int h = 0; h < PH; ++h) acc[h].init();
   const int k_all = n_slabs(N);
   for (int k0 = 0; k0 < k_all; k0 += SWEEP_TILE / SWEEP_SLAB) {
     __syncthreads();
+    bool ok = true;
     for (int i = threadIdx.x; i < SWEEP_TILE; i += blockDim.x)
-      s.stage(i, pin_r, pout_r, ecl_r, w_r, k0 * SWEEP_SLAB + i, N);
-    __syncthreads();
+      ok = s.template stage<WIDTHS>(i, pin_r, pout_r, ecl_r, w_r,
+                                    k0 * SWEEP_SLAB + i, N, lo, hi) && ok;
+    // whether the whole tile takes the fast path (with widths, if each of
+    // this thread's phases does)
+    ok = __syncthreads_and(ok);
     const int k1 = min(k_all - k0, SWEEP_TILE / SWEEP_SLAB);
-    curve_slabs(acc, q, s, 0, k1);
+    if (ok && fast)
+      curve_slabs<T, WIDTHS, true, PH>(acc, q, s, 0, k1);
+    else
+      curve_slabs<T, WIDTHS, false, PH>(acc, q, s, 0, k1);
   }
-  const T total = acc.total();
-  if (live) out[rp] = total;
+#pragma unroll
+  for (int h = 0; h < PH; ++h) {
+    const T total = acc[h].total();
+    if (live[h]) out[rp[h]] = total;
+  }
 }
 
 // K7's backward: block r runs row r, curve_grad_warps(N) warps; a pass
@@ -681,78 +875,108 @@ donor_sum_kernel(const T* __restrict__ e, const T* __restrict__ nrm,
   if (live) out[rp] = total;
 }
 
+// a warp's lanes' totals of three values: lane l ends with value (l >> 3)
+// & 3's (the fourth: 0).  xor 16 trades the slots' halves (the low lanes
+// keep values 0, 1 and take the high lanes' of them, the high lanes 2 and
+// the fourth), xor 8 the halves again, then xor 4, 2, 1 add; lane 0 holds
+// the total of x0, lane 8 of x1, lane 16 of x2
+template <typename T>
+__device__ __forceinline__ T warp_totals3(T x0, T x1, T x2, int lane) {
+  const unsigned full = 0xffffffffu;
+  const bool h16 = lane & 16, h8 = lane & 8;
+  T k0 = h16 ? x2 : x0, k1 = h16 ? T(0.0) : x1;
+  const T s0 = h16 ? x0 : x2, s1 = h16 ? x1 : T(0.0);
+  k0 = k0 + __shfl_xor_sync(full, s0, 16);
+  k1 = k1 + __shfl_xor_sync(full, s1, 16);
+  T k = h8 ? k1 : k0;
+  k = k + __shfl_xor_sync(full, h8 ? k0 : k1, 8);
+#pragma unroll
+  for (int h = 4; h > 0; h /= 2) k = k + __shfl_xor_sync(full, k, h);
+  return k;
+}
+
 template <typename T> struct DonorGradShared {
-  DonorShared<T> el;
-  T e0[SWEEP_TILE], e1[SWEEP_TILE], e2[SWEEP_TILE], g[SWEEP_TILE];
-  __device__ DonorPhases<T> phases() { return {e0, e1, e2, g}; }
+  DonorGradPair<T> q[K8B_PAIRS];
+  T part[K8B_WARPS][3][K8B_PAIRS];       // a pair's d e by slab group
+  T acc[K8B_WARPS][4][SWEEP_SLAB];       // one slab's d n, d a by warp
 };
 
-// K8's backward: block (g, 0) runs grid g's element sweep (d nrm, d a over
-// its E rows' phases, row by row), block (g, 1) its rows' phase sweep (d e)
+// K8's backward: one fused sweep, block g grid g, donor_grad_groups(N) x
+// donor_grad_phase_groups(N, E P) warps: warp w (slab group w % groups,
+// phase group w / groups) takes its lane j through slab lane j of the
+// slabs k0 + group + s groups (s < K8B_SLABS) and the grid's E rows'
+// pairs of its phase group (pair i of each staged tile where i % phase
+// groups is its own), K8B_PAIRS staged at once.  A pair's d e: each
+// warp's lanes by warp_totals3, the slab groups in order (the passes in
+// order); an element's d n and d a: the phase groups in order
 template <typename T>
-__global__ void __launch_bounds__(SWEEP_THREADS)
+__global__ void __launch_bounds__(K8B_WARPS * SWEEP_SLAB)
 donor_sum_backward_kernel(const T* __restrict__ e, const T* __restrict__ nrm,
                           const T* __restrict__ areas, double c1d,
                           double c2d, const T* __restrict__ g,
                           T* __restrict__ g_e, T* __restrict__ g_nrm,
                           T* __restrict__ g_a, int P, int N, int E) {
   __shared__ DonorGradShared<T> sh;
-  const long long gr = blockIdx.x;
+  const int wid = threadIdx.x / SWEEP_SLAB, lane = threadIdx.x % SWEEP_SLAB;
+  const int Q = E * P;
+  const int groups = donor_grad_groups(N);
+  const int phase_groups = blockDim.x / SWEEP_SLAB / groups;
+  const int sg = wid % groups, pg = wid / groups;
+  const long long gr = blockIdx.x, q0 = gr * Q;
   const T c1 = T(c1d), c2 = T(c2d);
   const T* nrm_g = nrm + 3 * gr * N;
   const T* a_g = areas + gr * N;
-  if (blockIdx.y == 1) {
-    const DonorElems<T> s = sh.el.elems();
-    for (long long r = gr * E; r < (gr + 1) * E; ++r) {
-      for (int p0 = 0; p0 < P; p0 += blockDim.x) {
-        const int p = p0 + threadIdx.x;
-        const bool live = p < P;
-        const long long rp = r * P + (live ? p : P - 1);
-        const T e0 = e[3 * rp], e1 = e[3 * rp + 1], e2 = e[3 * rp + 2];
-        const T gp = g[rp];
-        T g0 = T(0.0), g1 = T(0.0), g2 = T(0.0);
-        for (int i0 = 0; i0 < N; i0 += SWEEP_TILE) {
-          const int m = min(N - i0, SWEEP_TILE);
-          __syncthreads();
-          for (int i = threadIdx.x; i < m; i += blockDim.x)
-            s.stage(i, nrm_g, a_g, i0 + i, N);
-          __syncthreads();
-          donor_grad_phase(g0, g1, g2, e0, e1, e2, gp, s, c1, c2, 0, m);
-        }
-        if (live) {
-          g_e[3 * rp] = g0;
-          g_e[3 * rp + 1] = g1;
-          g_e[3 * rp + 2] = g2;
-        }
+  const int k_all = n_slabs(N);
+  for (int k0 = 0; k0 < k_all; k0 += groups * K8B_SLABS) {
+    DonorGradLane<T, K8B_SLABS> el;
+    el.load(nrm_g, a_g, k0 + sg, groups, k_all, lane, N);
+    for (int i0 = 0; i0 < Q; i0 += K8B_PAIRS) {
+      const int m = min(Q - i0, K8B_PAIRS);
+      __syncthreads();
+      for (int i = threadIdx.x; i < m; i += blockDim.x)
+        sh.q[i].set(e + 3 * (q0 + i0 + i), g[q0 + i0 + i], c1, c2);
+      __syncthreads();
+      for (int i = pg; i < m; i += phase_groups) {
+        const DonorGradPair<T> q = sh.q[i];
+        T x0, x1, x2;
+        el.pair(q, x0, x1, x2);
+        const T t = warp_totals3(x0, x1, x2, lane);
+        if (lane % 8 == 0 && lane < 24) sh.part[sg][lane / 8][i] = t;
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < 3 * m; i += blockDim.x) {
+        const int p = i / 3, v = i % 3;
+        T t = sh.part[0][v][p];
+        for (int s = 1; s < groups; ++s) t = t + sh.part[s][v][p];
+        T* o = g_e + 3 * (q0 + i0 + p) + v;
+        *o = k0 == 0 ? t : *o + t;
       }
     }
-    return;
-  }
-  const DonorPhases<T> s = sh.phases();
-  for (int n0 = 0; n0 < N; n0 += blockDim.x) {
-    const int n = n0 + threadIdx.x;
-    const bool live = n < N;
-    const long long nc = live ? n : N - 1;
-    const T n0v = nrm_g[3 * nc], n1v = nrm_g[3 * nc + 1],
-            n2v = nrm_g[3 * nc + 2];
-    const T a = a_g[nc];
-    T g0 = T(0.0), g1 = T(0.0), g2 = T(0.0), ga = T(0.0);
-    for (long long r = gr * E; r < (gr + 1) * E; ++r) {
-      for (int i0 = 0; i0 < P; i0 += SWEEP_TILE) {
-        const int m = min(P - i0, SWEEP_TILE);
-        __syncthreads();
-        for (int i = threadIdx.x; i < m; i += blockDim.x)
-          s.stage(i, e + 3 * r * P, g + r * P, i0 + i);
-        __syncthreads();
-        donor_grad_elem(g0, g1, g2, ga, n0v, n1v, n2v, a, s, c1, c2, 0, m);
+#pragma unroll
+    for (int s = 0; s < K8B_SLABS; ++s) {
+      __syncthreads();
+      sh.acc[wid][0][lane] = el.gn0[s];
+      sh.acc[wid][1][lane] = el.gn1[s];
+      sh.acc[wid][2][lane] = el.gn2[s];
+      sh.acc[wid][3][lane] = el.ga[s];
+      __syncthreads();
+      const long long n = (long long)(k0 + sg + s * groups) * SWEEP_SLAB
+                          + lane;
+      if (pg == 0 && s < el.ns && n < N) {
+        T t[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          t[v] = sh.acc[sg][v][lane];
+          for (int q = 1; q < phase_groups; ++q)
+            t[v] = t[v] + sh.acc[q * groups + sg][v][lane];
+        }
+        const T a = a_g[n];
+        const long long gn = gr * N + n;
+        g_nrm[3 * gn] = a * t[0];
+        g_nrm[3 * gn + 1] = a * t[1];
+        g_nrm[3 * gn + 2] = a * t[2];
+        g_a[gn] = t[3];
       }
-    }
-    if (live) {
-      const long long gn = gr * N + n;
-      g_nrm[3 * gn] = g0;
-      g_nrm[3 * gn + 1] = g1;
-      g_nrm[3 * gn + 2] = g2;
-      g_a[gn] = ga;
     }
   }
 }
@@ -763,12 +987,6 @@ static bool bad_size(int R, int P, int N, int E) {
          || (long long)R * N * 3 > (1LL << 31) - 1;
 }
 
-// the forward kernels' blocks over phases: a multiple of 32 threads, no
-// more than P needs
-static unsigned phase_threads(int P) {
-  const int t = (P + 31) / 32 * 32;
-  return (unsigned)(t < SWEEP_THREADS ? t : SWEEP_THREADS);
-}
 
 // Each launcher runs on ``stream`` and returns the cudaError_t of the
 // launch (0 = ok); is_double selects float64 (1) or float32 (0) for every
@@ -782,8 +1000,10 @@ extern "C" int element_curve_launch(int is_double, int widths,
                                     void* stream) {
   if (bad_size(R, P, N, 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned t = phase_threads(P);
-  const dim3 grid((unsigned)R, (P + t - 1) / t);
+  const int span = is_double || widths ? 1
+                                       : CurveThread<float, false>::phases;
+  const unsigned t = phase_threads((P + span - 1) / span);
+  const dim3 grid((unsigned)R, (P + t * span - 1) / (t * span));
   const unsigned char* ec = (const unsigned char*)ecl;
 #define K7_LAUNCH(TT, WW)                                                   \
   element_curve_kernel<TT, WW><<<grid, t, 0, s>>>(                          \
@@ -855,14 +1075,16 @@ extern "C" int donor_sum_backward_launch(int is_double, const void* e,
                                          void* stream) {
   if (bad_size(R, P, N, E)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)(R / E), 2u);
+  const unsigned t = (unsigned)(donor_grad_groups(N)
+                                * donor_grad_phase_groups(N, E * P)
+                                * SWEEP_SLAB);
   if (is_double)
-    donor_sum_backward_kernel<double><<<grid, SWEEP_THREADS, 0, s>>>(
+    donor_sum_backward_kernel<double><<<(unsigned)(R / E), t, 0, s>>>(
         (const double*)e, (const double*)nrm, (const double*)areas, c1, c2,
         (const double*)g, (double*)g_e, (double*)g_nrm, (double*)g_a, P, N,
         E);
   else
-    donor_sum_backward_kernel<float><<<grid, SWEEP_THREADS, 0, s>>>(
+    donor_sum_backward_kernel<float><<<(unsigned)(R / E), t, 0, s>>>(
         (const float*)e, (const float*)nrm, (const float*)areas, c1, c2,
         (const float*)g, (float*)g_e, (float*)g_nrm, (float*)g_a, P, N, E);
   return (int)cudaGetLastError();

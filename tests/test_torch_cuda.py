@@ -1287,6 +1287,85 @@ def test_element_curve_kernel_gives_the_plain_bits(cuda, dtype, widths, N, P,
         assert bool(torch.isnan(k[1]).all())
 
 
+def curve_stress_rows(dev, dtype, P, N, widths, seed=14):
+    """K7's per-tile paths' stress rows (N past one tile of 256: a short
+    last tile): row 0 phases several cycles wide, some at integers as are
+    some contacts, intervals across the wrap and longer than a cycle (the
+    floor's path); row 1 phases within a cycle of every contact in its
+    first tile, d exactly -1, -0 and 0 (the comparison's path), and d >= 1
+    in its second; row 2 NaN and infinite phases, contacts and widths;
+    row 3 contacts and phases down to the subnormals and a contact 5
+    cycles off in its second tile, widths above the quotient's range up to
+    where 1 / wc is subnormal, with intervals as long, and a negative
+    weight; row 4 row 1 with an infinite weight on an element its phase 0
+    occults."""
+    rng = np.random.default_rng(seed)
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    R = 5
+    pin = rng.uniform(-0.5, 0.5, (R, N))
+    pout = pin + rng.uniform(0.0, 0.3, (R, N))
+    ecl = rng.uniform(size=(R, N)) < 0.8
+    ph = np.sort(rng.uniform(-0.2, 0.2, (R, P)), axis=-1)
+    ph[0] = np.sort(rng.uniform(-3.5, 3.5, P))
+    pout[0, ::7] = pin[0, ::7] + 1.5
+    pin[0, 1::9], pout[0, 1::9] = 0.9, 1.1
+    ints = np.array([-2.0, -1.0, -0.0, 0.0, 1.0, 2.0])
+    ph[0, :6] = ints
+    pin[0, 2::5] = np.resize(ints, pin[0, 2::5].size)
+    ph[1, :P // 2] = np.resize([-0.5, -0.0, 0.0, 0.25, 0.49], P // 2)
+    pin[1, ::3] = np.resize([0.5, 0.0, -0.0, 0.25, -0.25], pin[1, ::3].size)
+    pout[1, ::3] = pin[1, ::3] + np.resize([0.0, 0.25, 0.75],
+                                           pin[1, ::3].size)
+    pin[1, 260], pout[1, 260] = -0.9, -0.6
+    ph[4], pin[4], pout[4], ecl[4] = ph[1], pin[1], pout[1], True
+    w = rng.uniform(0.0, 1.0, (R, N))
+    w[4, 3], w[3, 290] = np.inf, -0.5
+    ph[2, :6] = [np.nan, np.inf, -np.inf, np.nan, 0.5, -0.5]
+    pin[2, 3:6], pout[2, 3:7] = [np.nan, np.inf, -np.inf], [0.1, np.inf,
+                                                          0.2, np.nan]
+    ecl[2, 3:7] = True
+    tiny = [1e-30, -1e-30, 1e-44, -1e-44, 3e-39]
+    pin[3, 256:261] = tiny
+    pout[3, 256:261] = np.array(tiny) + np.array([0.0, 1e-30, 0.1, 1e-44,
+                                                  0.0])
+    ecl[3, 256:261] = True
+    pin[3, 266], pout[3, 266] = 5.0, 5.02
+    big = 3e38 if dtype == torch.float32 else 1e308
+    pin[3, 7:9], pout[3, 7:9], ecl[3, 7:9] = 0.0, big, True
+    ph[3, :4] = [1e-30, -1e-44, 2.0 ** -60, 0.0]
+    wd = None
+    if widths:
+        wd = rng.uniform(0.0, 0.05, (R, P))
+        wd[2, :3] = [np.nan, np.inf, 0.0]
+        wd[3, 4:10] = [2.0 ** 60, 3e38, 1e-30, 0.0, np.inf, big]
+
+    def t(a):
+        return torch.tensor(np.asarray(a).astype(np_dt), dtype=dtype,
+                            device=dev)
+    return (t(ph), None if wd is None else t(wd), t(pin), t(pout),
+            torch.tensor(ecl, device=dev), t(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("widths", [False, True])
+@pytest.mark.parametrize("N,P", [(300, 64), (600, 128), (300, 300)])
+def test_element_curve_kernel_on_the_stress_rows(cuda, dtype, widths, N, P):
+    """K7's fast paths (the comparison for the floor where a tile's phases
+    are within a cycle of its contacts, the reciprocal for the width's
+    divide) and their fallbacks on curve_stress_rows: the plain version's
+    bits and NaN pattern, two launches alike (P = 300: three blocks of
+    phases, each with its own range)."""
+    args = curve_stress_rows(cuda, dtype, P, N, widths)
+    k = sweeps.element_curve_kernel(*args)
+    k2 = sweeps.element_curve_kernel(*args)
+    p = sweeps.plain._element_curve_plain(*args)
+    assert same_bits(k, p) and same_bits(k, k2)
+    ok = ~torch.isnan(p)
+    ints = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(k[ok].view(ints), p[ok].view(ints))   # signed zeros
+    assert bool(torch.isnan(p[4]).any()) and bool(torch.isinf(p[4]).any())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("N,P,E,G", [(1, 1, 1, 2), (33, 257, 1, 3),
                                      (384, 128, 5, 1024), (384, 1, 5, 64),
@@ -1350,8 +1429,14 @@ def test_element_curve_backward_kernel_matches_autograd(cuda, widths, N, P,
 
 
 @pytest.mark.parametrize("N,P,E,G", [(1, 1, 1, 2), (33, 257, 1, 3),
-                                     (384, 128, 5, 256), (384, 1, 5, 64)])
+                                     (384, 128, 5, 256), (384, 1, 5, 64),
+                                     (384, 1, 5, 256), (992, 128, 5, 16),
+                                     (2000, 257, 1, 3), (100, 1, 1, 7)])
 def test_donor_sum_backward_kernel_matches_autograd(cuda, N, P, E, G):
+    """K8's fused backward against autograd on the plain forward: float64
+    within 1e-9 of the largest |gradient|, float32 at PERF.md's gate, two
+    launches the same bits; the main call's shape and the normaliser's (P
+    = 1), N = 2000 in two passes of the slab groups."""
     grads = {}
     for dtype in (torch.float64, torch.float32):
         e, n, a = donor_rows(cuda, dtype, G, E, P, N)
@@ -1375,17 +1460,23 @@ def test_sweep_kernels_are_one_device_event_each(cuda):
     from torch.profiler import ProfilerActivity, profile
 
     c = curve_rows(cuda, torch.float32, 64, 128, 992, True)
+    ci = curve_rows(cuda, torch.float32, 64, 128, 992, False)
     gc = torch.ones_like(c[0])
     e, n, a = donor_rows(cuda, torch.float32, 64, 5, 128, 384)
     ge = torch.ones(e.shape[:2], dtype=e.dtype, device=cuda)
-    calls = {
-        "element_curve_kernel": lambda: sweeps.element_curve_kernel(*c),
-        "element_curve_backward_kernel":
-            lambda: sweeps.element_curve_backward_kernel(*c, gc),
-        "donor_sum_kernel": lambda: sweeps.donor_sum_kernel(e, n, a, 0.9),
-        "donor_sum_backward_kernel":
-            lambda: sweeps.donor_sum_backward_kernel(e, n, a, 0.9, ge)}
-    for name, fn in calls.items():
+    e1, n1, a1 = donor_rows(cuda, torch.float32, 64, 5, 1, 384)
+    ge1 = torch.ones(e1.shape[:2], dtype=e1.dtype, device=cuda)
+    calls = [
+        ("element_curve_kernel", lambda: sweeps.element_curve_kernel(*c)),
+        ("element_curve_kernel", lambda: sweeps.element_curve_kernel(*ci)),
+        ("element_curve_backward_kernel",
+         lambda: sweeps.element_curve_backward_kernel(*c, gc)),
+        ("donor_sum_kernel", lambda: sweeps.donor_sum_kernel(e, n, a, 0.9)),
+        ("donor_sum_backward_kernel",
+         lambda: sweeps.donor_sum_backward_kernel(e, n, a, 0.9, ge)),
+        ("donor_sum_backward_kernel",
+         lambda: sweeps.donor_sum_backward_kernel(e1, n1, a1, 0.9, ge1))]
+    for name, fn in calls:
         fn()
         torch.cuda.synchronize()
         # a window opened after many untraced launches may lose its first
@@ -1400,6 +1491,30 @@ def test_sweep_kernels_are_one_device_event_each(cuda):
                  if ev.device_type == DeviceType.CUDA
                  and "spin_kernel" not in ev.name]
         assert len(names) == 1 and name in names[0], (name, names)
+
+
+def test_sweep_kernels_keep_nothing_in_local_memory(cuda):
+    """ptxas's report of the sweeps library: each of the 14
+    instantiations (K7 and its backward in two dtypes with and without
+    widths, K8 in two dtypes and layouts, K8's backward in two dtypes)
+    has no stack frame and spills nothing."""
+    import re
+
+    from lfit_python_tpu_torch.ops import _build
+
+    sweeps._kernel()
+    entries, cur = {}, None
+    for line in _build.PTXAS_LOGS["sweeps"].read_text().splitlines():
+        m = re.search(r"Compiling entry function '(_Z\d+(element_curve|"
+                      r"donor_sum)\w*)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if cur and m:
+            entries[cur] = tuple(int(x) for x in m.groups())
+    assert len(entries) == 14, sorted(entries)
+    assert all(v == (0, 0, 0) for v in entries.values()), entries
 
 
 def test_sweeps_routing_on_the_card(cuda):

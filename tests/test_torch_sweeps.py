@@ -60,27 +60,71 @@ _SHIM = r"""
 """
 
 _HOST = r"""
+#include <algorithm>
 #include <vector>
 
-// K7: each row's elements staged whole, then every phase over all slabs
+// the least and the largest of n phases that are not NaN (+inf and -inf
+// where all are), as the kernel reduces its block's
+template <typename T>
+static void phase_range(const T* ph, int n, T& lo, T& hi) {
+  lo = T(INFINITY);
+  hi = T(-INFINITY);
+  for (int i = 0; i < n; ++i) {
+    lo = nan_as(ph[i], lo) < lo ? ph[i] : lo;
+    hi = nan_as(ph[i], hi) > hi ? ph[i] : hi;
+  }
+}
+
+// K7: each row's phases in the kernel's blocks (phase_threads of the
+// row's phases over PH, each thread PH phases a block's width apart),
+// each block's elements staged whole with each tile of SWEEP_TILE
+// elements' fast-path flag (without widths against the block's phase
+// range), then every thread's phases over their slabs a tile at a time,
+// as the kernel takes them: the fast path where the tile's flag and (with
+// widths) each of the thread's phases allow
 template <typename T, bool W>
 static void curve_rows(const T* ph, const T* wd, const T* pin,
                        const T* pout, const unsigned char* ecl, const T* w,
                        T* out, int R, int P, int N) {
+  constexpr int PH = CurveThread<T, W>::phases;
   const int K = n_slabs(N), M = K * SWEEP_SLAB;
+  const int KT = SWEEP_TILE / SWEEP_SLAB;
+  const int B = (int)phase_threads((P + PH - 1) / PH);
   std::vector<T> a(M), b(M), c(M);
   std::vector<unsigned char> d(M);
+  std::vector<bool> ok((K + KT - 1) / KT);
   const CurveElems<T> s = {a.data(), b.data(), c.data(), d.data()};
   for (long long r = 0; r < R; ++r) {
-    for (int i = 0; i < M; ++i)
-      s.stage(i, pin + r * N, pout + r * N, ecl + r * N, w + r * N, i, N);
-    for (int p = 0; p < P; ++p) {
-      CurvePhase<T, W> q;
-      q.set(ph[r * P + p], W ? wd[r * P + p] : T(0.0));
-      Slabs<T> acc;
-      acc.init();
-      curve_slabs(acc, q, s, 0, K);
-      out[r * P + p] = acc.total();
+    for (int p0 = 0; p0 < P; p0 += B * PH) {
+      const int m = P - p0 < B * PH ? P - p0 : B * PH;
+      T lo, hi;
+      phase_range(ph + r * P + p0, m, lo, hi);
+      std::fill(ok.begin(), ok.end(), true);
+      for (int i = 0; i < M; ++i)
+        if (!s.template stage<W>(i, pin + r * N, pout + r * N, ecl + r * N,
+                                 w + r * N, i, N, lo, hi))
+          ok[i / SWEEP_TILE] = false;
+      for (int th = 0; th < B; ++th) {
+        CurvePhase<T, W> q[PH];
+        Slabs<T> acc[PH];
+        bool fast = true;
+        for (int h = 0; h < PH; ++h) {
+          const int p = p0 + th + h * B < P ? p0 + th + h * B : P - 1;
+          q[h].set(ph[r * P + p], W ? wd[r * P + p] : T(0.0));
+          fast = fast && (!W || q[h].fast);
+          acc[h].init();
+        }
+        for (int k0 = 0; k0 < K; k0 += KT) {
+          const int k1 = k0 + KT < K ? k0 + KT : K;
+          if (ok[k0 / KT] && fast)
+            curve_slabs<T, W, true, PH>(acc, q, s, k0, k1);
+          else
+            curve_slabs<T, W, false, PH>(acc, q, s, k0, k1);
+        }
+        for (int h = 0; h < PH; ++h)
+          if (p0 + th + h * B < P) out[r * P + p0 + th + h * B] =
+              acc[h].total();
+      }
     }
   }
 }
@@ -162,43 +206,96 @@ static void donor_rows(const T* e, const T* nrm, const T* areas, double c1,
   }
 }
 
-// K8's backward: each grid's rows' phase sweep, then its element sweep
-// over the rows in order
+// the lanes' totals of three values as the kernel's warp_totals3 makes
+// them: xor 16 trades the slots' halves, xor 8 again, xor 4, 2, 1 add;
+// value v in lane 8 v
+template <typename T>
+static void lanes_totals3(const std::vector<T>& x, T* out) {
+  T k0[SWEEP_SLAB], k1[SWEEP_SLAB], k[SWEEP_SLAB], t[SWEEP_SLAB];
+  for (int l = 0; l < SWEEP_SLAB; ++l) {
+    const int p = l ^ 16;
+    k0[l] = l & 16 ? x[3 * l + 2] + x[3 * p + 2] : x[3 * l] + x[3 * p];
+    k1[l] = l & 16 ? T(0.0) + T(0.0) : x[3 * l + 1] + x[3 * p + 1];
+  }
+  for (int l = 0; l < SWEEP_SLAB; ++l)
+    k[l] = l & 8 ? k1[l] + k1[l ^ 8] : k0[l] + k0[l ^ 8];
+  for (int h = 4; h > 0; h /= 2) {
+    for (int l = 0; l < SWEEP_SLAB; ++l) t[l] = k[l] + k[l ^ h];
+    for (int l = 0; l < SWEEP_SLAB; ++l) k[l] = t[l];
+  }
+  out[0] = k[0];
+  out[1] = k[8];
+  out[2] = k[16];
+}
+
+// K8's backward: the fused sweep of each grid as the kernel runs it, its
+// warps' 32 lanes one after another: each pass loads lane j of warp w
+// (slab group w % groups, phase group w / groups) with slab lane j of the
+// slabs k0 + group + s groups (DonorGradLane); each staged tile's pair i
+// runs the lanes of the warps of phase group i % phase groups, each
+// warp's d e totalled as warp_totals3 makes it, the slab groups' in
+// order, the passes in order; then each element's d n and d a, the phase
+// groups' in order
 template <typename T>
 static void donor_backward_rows(const T* e, const T* nrm, const T* areas,
-                                double c1, double c2, const T* g, T* g_e,
+                                double c1d, double c2d, const T* g, T* g_e,
                                 T* g_nrm, T* g_a, int R, int P, int N,
                                 int E) {
-  std::vector<T> a(N + 1), b(N + 1), c(N + 1), d(N + 1), u(P), v(P), x(P),
-      y(P);
-  const DonorElems<T> s = {a.data(), b.data(), c.data(), d.data()};
-  const DonorPhases<T> ps = {u.data(), v.data(), x.data(), y.data()};
+  const int Q = E * P, k_all = n_slabs(N), groups = donor_grad_groups(N);
+  const int phase_groups = donor_grad_phase_groups(N, Q);
+  const int warps = groups * phase_groups;
+  const T c1 = T(c1d), c2 = T(c2d);
+  std::vector<DonorGradLane<T, K8B_SLABS>> lanes(warps * SWEEP_SLAB);
+  std::vector<T> x(3 * SWEEP_SLAB), part(3 * groups);
   for (long long gr = 0; gr < R / E; ++gr) {
-    for (int i = 0; i < N; ++i)
-      s.stage(i, nrm + 3 * gr * N, areas + gr * N, i, N);
-    for (long long r = gr * E; r < (gr + 1) * E; ++r)
-      for (int p = 0; p < P; ++p) {
-        const long long rp = r * P + p;
-        T g0 = T(0.0), g1 = T(0.0), g2 = T(0.0);
-        donor_grad_phase(g0, g1, g2, e[3 * rp], e[3 * rp + 1],
-                         e[3 * rp + 2], g[rp], s, T(c1), T(c2), 0, N);
-        g_e[3 * rp] = g0;
-        g_e[3 * rp + 1] = g1;
-        g_e[3 * rp + 2] = g2;
+    const T* nrm_g = nrm + 3 * gr * N;
+    const T* a_g = areas + gr * N;
+    for (int k0 = 0; k0 < k_all; k0 += groups * K8B_SLABS) {
+      for (int i = 0; i < warps * SWEEP_SLAB; ++i)
+        lanes[i].load(nrm_g, a_g, k0 + i / SWEEP_SLAB % groups, groups,
+                      k_all, i % SWEEP_SLAB, N);
+      for (int i0 = 0; i0 < Q; i0 += K8B_PAIRS) {
+        const int m = Q - i0 < K8B_PAIRS ? Q - i0 : K8B_PAIRS;
+        for (int i = 0; i < m; ++i) {
+          const long long rp = gr * Q + i0 + i;
+          DonorGradPair<T> q;
+          q.set(e + 3 * rp, g[rp], c1, c2);
+          const int pg = i % phase_groups;
+          for (int sg = 0; sg < groups; ++sg) {
+            for (int j = 0; j < SWEEP_SLAB; ++j)
+              lanes[(pg * groups + sg) * SWEEP_SLAB + j].pair(
+                  q, x[3 * j], x[3 * j + 1], x[3 * j + 2]);
+            lanes_totals3(x, &part[3 * sg]);
+          }
+          for (int v = 0; v < 3; ++v) {
+            T t = part[v];
+            for (int sg = 1; sg < groups; ++sg) t = t + part[3 * sg + v];
+            g_e[3 * rp + v] = k0 == 0 ? t : g_e[3 * rp + v] + t;
+          }
+        }
       }
-    for (int n = 0; n < N; ++n) {
-      T g0 = T(0.0), g1 = T(0.0), g2 = T(0.0), ga = T(0.0);
-      for (long long r = gr * E; r < (gr + 1) * E; ++r) {
-        for (int p = 0; p < P; ++p)
-          ps.stage(p, e + 3 * r * P, g + r * P, p);
-        donor_grad_elem(g0, g1, g2, ga, s.n0[n], s.n1[n], s.n2[n], s.a[n],
-                        ps, T(c1), T(c2), 0, P);
-      }
-      const long long gn = gr * N + n;
-      g_nrm[3 * gn] = g0;
-      g_nrm[3 * gn + 1] = g1;
-      g_nrm[3 * gn + 2] = g2;
-      g_a[gn] = ga;
+      for (int sg = 0; sg < groups; ++sg)
+        for (int j = 0; j < SWEEP_SLAB; ++j) {
+          const DonorGradLane<T, K8B_SLABS>& l0 =
+              lanes[sg * SWEEP_SLAB + j];
+          for (int s = 0; s < l0.ns; ++s) {
+            const long long n = (long long)(k0 + sg + s * groups)
+                                * SWEEP_SLAB + j;
+            if (n >= N) continue;
+            T t[4] = {l0.gn0[s], l0.gn1[s], l0.gn2[s], l0.ga[s]};
+            for (int pg = 1; pg < phase_groups; ++pg) {
+              const DonorGradLane<T, K8B_SLABS>& l =
+                  lanes[(pg * groups + sg) * SWEEP_SLAB + j];
+              t[0] = t[0] + l.gn0[s];
+              t[1] = t[1] + l.gn1[s];
+              t[2] = t[2] + l.gn2[s];
+              t[3] = t[3] + l.ga[s];
+            }
+            const long long gn = gr * N + n;
+            for (int v = 0; v < 3; ++v) g_nrm[3 * gn + v] = a_g[n] * t[v];
+            g_a[gn] = t[3];
+          }
+        }
     }
   }
 }
@@ -297,6 +394,21 @@ extern "C" int remainder1_host(int is_double, const void* x, void* out,
   return 0;
 }
 
+// quot_rcp with the reciprocal rounded once, elementwise
+extern "C" int quot_host(int is_double, const void* o, const void* wc,
+                         void* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    if (is_double) {
+      const double x = ((const double*)o)[i], y = ((const double*)wc)[i];
+      ((double*)out)[i] = quot_rcp(x, y, 1.0 / y);
+    } else {
+      const float x = ((const float*)o)[i], y = ((const float*)wc)[i];
+      ((float*)out)[i] = quot_rcp(x, y, 1.0f / y);
+    }
+  }
+  return 0;
+}
+
 extern "C" int rules_host(int is_double, const void* a, const void* b,
                           const void* g, void* out, int n) {
   if (is_double)
@@ -313,7 +425,8 @@ _HOST_FNS = {"curve": "element_curve_host",
              "curve_backward": "element_curve_backward_host",
              "donor": "donor_sum_host",
              "donor_backward": "donor_sum_backward_host",
-             "remainder1": "remainder1_host", "rules": "rules_host"}
+             "remainder1": "remainder1_host", "rules": "rules_host",
+             "quot": "quot_host"}
 
 
 def build_source(build, text=None, defines=()):
@@ -340,7 +453,8 @@ def build_source(build, text=None, defines=()):
              "curve_backward": [i, i] + [p] * 11 + [i] * 3,
              "donor": [i] + [p] * 3 + [d, d, p] + [i] * 4,
              "donor_backward": [i] + [p] * 3 + [d, d] + [p] * 4 + [i] * 4,
-             "remainder1": [i, p, p, i], "rules": [i] + [p] * 4 + [i]}
+             "remainder1": [i, p, p, i], "rules": [i] + [p] * 4 + [i],
+             "quot": [i] + [p] * 3 + [i]}
     fns = {}
     for name, fn_name in _HOST_FNS.items():
         fn = getattr(lib, fn_name)
@@ -356,9 +470,12 @@ def source_lib(tmp_path_factory):
     return build_source(tmp_path_factory.mktemp("sweeps_source"))
 
 
-# the stand-in at another layout: K7's backward one slab a lane and two
-# warps a block (N = 992 in 16 passes)
-SMALL_LAYOUT = ("K7B_SLABS=1", "K7B_WARPS=2")
+# the stand-in at another layout: K7 three phases a thread in float32;
+# K7's backward one slab a lane and two warps a block (N = 992 in 16
+# passes); K8's backward one slab a lane and five warps a block (N = 33: 2
+# slab groups x 2 phase groups; N = 384: 5 slab groups in 3 passes)
+SMALL_LAYOUT = ("K7_PHASES=3", "K7B_SLABS=1", "K7B_WARPS=2", "K8B_SLABS=1",
+                "K8B_WARPS=5")
 
 
 @pytest.fixture(scope="module")
@@ -513,6 +630,155 @@ def test_donor_source_gives_the_plain_bits(source_lib, dtype, N, P, E):
                                 got, G * E, P, N, E)
         assert same_bits(got, want)
         assert bool(torch.isfinite(want).all())
+
+
+def curve_stress_inputs(P, N, widths, dtype, seed=14):
+    """Five rows that the kernel's per-tile paths must take as the plain
+    version does, N past one tile of 256 elements (a short last tile):
+    row 0 phases several cycles wide, some at integers as are some
+    contacts, and intervals across the wrap, some longer than a cycle
+    (the floor's path); row 1 phases within a cycle of every contact, d
+    exactly -1, -0 and 0 (the comparison's path); row 2 NaN and infinite
+    phases, contacts and widths; row 3 contacts and phases below the
+    quotient's grain (1e-30, subnormal) and a contact 5 cycles off in the
+    second tile only, and widths above the quotient's range at some
+    phases, up to where 1 / wc is subnormal, with intervals as long, so
+    that one row takes each path in one tile and not in the other; row 4
+    row 1 with an infinite weight on an element its phase 0 occults (0 w
+    is NaN), and a negative weight in row 3 (0 w is -0)."""
+    rng = np.random.default_rng(seed)
+    np_dt = np.float64 if dtype == F64 else np.float32
+    R = 5
+    pin = rng.uniform(-0.5, 0.5, (R, N))
+    pout = pin + rng.uniform(0.0, 0.3, (R, N))
+    ecl = rng.uniform(size=(R, N)) < 0.8
+    ph = np.sort(rng.uniform(-0.2, 0.2, (R, P)), axis=-1)
+    ph[0] = np.sort(rng.uniform(-3.5, 3.5, P))
+    pout[0, ::7] = pin[0, ::7] + 1.5                  # longer than a cycle
+    pin[0, 1::9], pout[0, 1::9] = 0.9, 1.1            # across the wrap
+    ints = np.array([-2.0, -1.0, -0.0, 0.0, 1.0, 2.0])
+    ph[0, :6] = ints
+    pin[0, 2::5] = np.resize(ints, pin[0, 2::5].size)
+    near = np.array([-0.5, -0.0, 0.0, 0.25, 0.49])     # d = -1, -0, 0, ...
+    ph[1, :P // 2] = np.resize(near, P // 2)
+    pin[1, ::3] = np.resize([0.5, 0.0, -0.0, 0.25, -0.25], pin[1, ::3].size)
+    pout[1, ::3] = pin[1, ::3] + np.resize([0.0, 0.25, 0.75],
+                                           pin[1, ::3].size)
+    ph[2, :6] = [np.nan, np.inf, -np.inf, np.nan, 0.5, -0.5]
+    pin[2, 3:6] = [np.nan, np.inf, -np.inf]
+    pout[2, 3:6] = [0.1, np.inf, 0.2]
+    pout[2, 6] = np.nan
+    ecl[2, 3:7] = True
+    tiny = [1e-30, -1e-30, 1e-44, -1e-44, 3e-39]
+    pin[3, 256:256 + 5] = tiny
+    pout[3, 256:256 + 5] = np.array(tiny) + np.array([0.0, 1e-30, 0.1,
+                                                      1e-44, 0.0])
+    ecl[3, 256:256 + 5] = True
+    pin[3, 266], pout[3, 266] = 5.0, 5.02           # d < -1 in tile 2
+    pin[1, 260], pout[1, 260] = -0.9, -0.6          # d >= 1 in tile 2
+    ph[4], pin[4], pout[4], ecl[4] = ph[1], pin[1], pout[1], True
+    w = rng.uniform(0.0, 1.0, (R, N))
+    w[4, 3], w[3, 290] = np.inf, -0.5               # 0 w is NaN, -0
+    big = 3e38 if dtype == F32 else 1e308            # 1 / wc subnormal
+    pin[3, 7:9], pout[3, 7:9], ecl[3, 7:9] = 0.0, big, True
+    ph[3, :4] = [1e-30, -1e-44, 2.0 ** -60, 0.0]
+    wd = None
+    if widths:
+        wd = rng.uniform(0.0, 0.05, (R, P))
+        wd[2, :3] = [np.nan, np.inf, 0.0]
+        wd[3, 4:10] = [2.0 ** 60, 3e38, 1e-30, 0.0, np.inf, big]
+    return (_t(ph.astype(np_dt), dtype),
+            None if wd is None else _t(wd.astype(np_dt), dtype),
+            _t(pin.astype(np_dt), dtype), _t(pout.astype(np_dt), dtype),
+            torch.tensor(ecl), _t(w, dtype))
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("widths", [False, True], ids=["instant", "widths"])
+@pytest.mark.parametrize("N,P", [(300, 64), (600, 128)])
+def test_element_curve_source_on_the_stress_rows(source_lib, dtype, widths,
+                                                 N, P):
+    """K7's stand-in on curve_stress_inputs: the plain version's bits
+    (signed zeros and infinities included), the same NaN pattern, in both
+    dtypes."""
+    args = curve_stress_inputs(P, N, widths, dtype)
+    want = comp._element_curve_plain(*args)
+    got = torch.empty_like(want)
+    host_launch(source_lib)("curve", args[0], int(widths), *args, got, 5, P,
+                            N)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(_bits(got[ok]), _bits(want[ok]))
+    assert bool(torch.isfinite(want[0]).all())
+    assert bool(torch.isnan(want[4]).any()) and bool(torch.isinf(want[4]).any())
+
+
+@pytest.mark.parametrize("widths", [False, True], ids=["instant", "widths"])
+def test_element_curve_small_layout_gives_the_plain_bits(small_layout_lib,
+                                                         widths):
+    """K7 built three phases a thread (float32; float64 keeps one): the
+    plain version's bits on the stress rows and on rows of 257 phases (a
+    short last block)."""
+    for dtype in (F32, F64):
+        for args, (R, P, N) in (
+                (curve_stress_inputs(128, 300, widths, dtype), (5, 128, 300)),
+                (curve_inputs(3, 257, 33, widths, dtype), (3, 257, 33))):
+            want = comp._element_curve_plain(*args)
+            got = torch.empty_like(want)
+            host_launch(small_layout_lib)("curve", args[0], int(widths),
+                                          *args, got, R, P, N)
+            assert same_bits(got, want)
+
+
+def _quot_pairs(dtype, n, seed=15):
+    """(o, wc): n random pairs with wc in [1e-12, its range's top] and o
+    in [0, wc] over every exponent down to the subnormals, and edge
+    pairs: o = 0, o = wc, mantissas of all ones and of 1, the range's
+    ends."""
+    rng = np.random.default_rng(seed)
+    np_dt, bits = ((np.float64, np.uint64) if dtype == F64
+                   else (np.float32, np.uint32))
+    fi = np.finfo(np_dt)
+    top = 400 if dtype == F64 else 50
+    ew = rng.integers(-40, top + 1, n)
+    wc = np.ldexp(rng.uniform(1.0, 2.0, n), ew).astype(np_dt)
+    eo = ew - rng.integers(0, fi.maxexp - fi.minexp + fi.nmant, n)
+    o = np.ldexp(rng.uniform(1.0, 2.0, n), eo).astype(np_dt)
+    sub = rng.integers(1, 1 << (fi.nmant - 1), n // 8).astype(bits)
+    o[:n // 8] = sub.view(np_dt)                            # subnormal
+    ones = (np_dt(2.0) - fi.eps)
+    edge_w = np.array([1e-12, np.ldexp(ones, top), np.ldexp(ones, -5),
+                       np.ldexp(np_dt(1.0), top), 1.0, 3.0, 0.3 / 127],
+                      dtype=np_dt)
+    edge_o = np.array([0.0, 1.0, ones, np.ldexp(ones, -20), 2.0 ** -74,
+                       np.ldexp(np_dt(1.0), -100), fi.tiny, 1e-13],
+                      dtype=np_dt)
+    eo_, ew_ = np.meshgrid(edge_o, edge_w)
+    o = np.concatenate([o, eo_.ravel(), edge_w])
+    wc = np.concatenate([wc, ew_.ravel(), edge_w])
+    wc = np.maximum(wc, np_dt(1e-12))
+    o = np.minimum(o, wc)
+    return torch.tensor(o), torch.tensor(wc)
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+def test_the_quotient_by_the_reciprocal_is_the_divide(source_lib, dtype):
+    """quot_rcp (the reciprocal of the width and one correction) against
+    IEEE division on 10^6 random and edge pairs, subnormal overlaps
+    included: the same bits wherever the overlap is 0 or at least 2^-100
+    (float32; 2^-900 float64); below, not always, but 1 - the quotient,
+    the visibility, has the same bits for every pair."""
+    o, wc = _quot_pairs(dtype, 1_000_000)
+    got = torch.empty_like(o)
+    source_lib["quot"](int(dtype == F64), o.data_ptr(), wc.data_ptr(),
+                       got.data_ptr(), o.numel())
+    want = o / wc
+    low = 2.0 ** (-900 if dtype == F64 else -100)
+    in_range = (o == 0) | (o >= low)
+    assert int(in_range.sum()) > 600_000 and int((~in_range).sum()) > 100_000
+    assert torch.equal(_bits(got[in_range]), _bits(want[in_range]))
+    assert not torch.equal(_bits(got[~in_range]), _bits(want[~in_range]))
+    assert torch.equal(_bits(1.0 - got), _bits(1.0 - want))
 
 
 def test_the_slab_sum_is_a_sum():
@@ -840,19 +1106,69 @@ def test_k7_keeps_its_bits_where_the_remainder_is_a_signed_zero(source_lib):
         assert torch.equal(_bits(got[ok]), _bits(want[ok]))
 
 
-@pytest.mark.parametrize("N,P,E", [(1, 1, 1), (33, 128, 5), (384, 257, 1),
-                                   (384, 1, 5)])
-def test_donor_backward_source_matches_autograd(source_lib, N, P, E):
-    G = 2
-    e, n, a = donor_inputs(G, E, P, N, F64, seed=8)
-    g = _t(np.random.default_rng(9).standard_normal((G * E, P)), F64)
-    want = sweeps._donor_backward_plain(e, n, a, 0.9, g)
+def _donor_backward_case(N, P, E, dtype, G=2):
+    e, n, a = donor_inputs(G, E, P, N, dtype, seed=8)
+    g = _t(np.random.default_rng(9).standard_normal((G * E, P)), dtype)
+    return (e, n, a, 0.9, g), G * E
+
+
+def _donor_backward_host(fns, args, R):
+    e, n, a, u, g = args
+    (_, P), N = e.shape[:2], a.shape[1]
     got = [torch.empty_like(x) for x in (e, n, a)]
-    host_launch(source_lib)("donor_backward", e, e, n, a,
-                            ctypes.c_double(1.0 - 0.9), ctypes.c_double(0.9),
-                            g, *got, G * E, P, N, E)
+    host_launch(fns)("donor_backward", e, e, n, a,
+                     ctypes.c_double(1.0 - u), ctypes.c_double(u), g, *got,
+                     R, P, N, R // a.shape[0])
+    return got
+
+
+@pytest.mark.parametrize("N,P,E", [(1, 1, 1), (33, 128, 5), (384, 257, 1),
+                                   (384, 1, 5), (992, 128, 5), (96, 257, 5),
+                                   (2000, 7, 1), (5, 1, 1)])
+def test_donor_backward_source_matches_autograd(source_lib, N, P, E):
+    """float64: K8's fused backward stand-in against autograd on the plain
+    forward, each cotangent within 1e-9 of its largest |value|; N = 2000
+    takes two passes of the card's slab groups, P = 1 is the normaliser."""
+    args, R = _donor_backward_case(N, P, E, F64)
+    want = sweeps._donor_backward_plain(*args)
+    got = _donor_backward_host(source_lib, args, R)
     for name, x, y in zip(("e", "nrm", "areas"), got, want):
         _grad_close(x, y, name)
+
+
+@pytest.mark.parametrize("N,P,E", [(33, 128, 5), (384, 1, 5), (384, 128, 5),
+                                   (992, 257, 1)])
+def test_donor_backward_source_float32(source_lib, N, P, E):
+    """float32: the fused stand-in (fused products and sums, the area
+    taken out of d n, its own sum orders) at PERF.md's float32 gate
+    against autograd on the plain forward in float32 and float64."""
+    args, R = _donor_backward_case(N, P, E, F32)
+    got = _donor_backward_host(source_lib, args, R)
+    p32 = sweeps._donor_backward_plain(*args)
+    a64 = [x.double() if isinstance(x, torch.Tensor) else x for x in args]
+    p64 = sweeps._donor_backward_plain(*a64)
+    for name, k, a, b in zip(("e", "nrm", "areas"), got, p32, p64):
+        assert _f32_gate(k, a, b), name
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("N,P", [(33, 128), (384, 1), (384, 128)])
+def test_donor_backward_small_layout(small_layout_lib, dtype, N, P):
+    """K8's backward built at another layout (one slab a lane, five warps:
+    phase groups at N = 33, three passes at N = 384): within 1e-9 of
+    autograd in float64 and at the float32 gate."""
+    args, R = _donor_backward_case(N, P, 5, dtype)
+    got = _donor_backward_host(small_layout_lib, args, R)
+    want = sweeps._donor_backward_plain(*args)
+    if dtype == F64:
+        for name, x, y in zip(("e", "nrm", "areas"), got, want):
+            _grad_close(x, y, name)
+    else:
+        a64 = [x.double() if isinstance(x, torch.Tensor) else x
+               for x in args]
+        want64 = sweeps._donor_backward_plain(*a64)
+        for k, a, b in zip(got, want, want64):
+            assert _f32_gate(k, a, b)
 
 
 def _posterior(widths):

@@ -11,16 +11,19 @@ library with ``cuobjdump -sass``; with one, reads that disassembly.
 A term is one (phase, element) pair of a row.  Each kernel's terms run in
 its term loops: the innermost loops that hold the kernel's marker, an
 instruction each term issues a known number of times (``markers``: K7's
-floor-form remainder or indicator floor (FRND), or the divide's
-reciprocal estimate (MUFU) with widths; K8's seven products a term; K8's
-backward's four staged values a term).  A loop's terms per trip are its
-markers over that number, whatever the compiler unrolled; its count per
-term is every instruction of its body (each once: both sides of a branch,
-a nested loop's body once) over its terms per trip.  A kernel's count is
-its main term loop's (the most terms a trip: an unrolled loop's
-remainder loop runs the terms left over, not every term), or the sum
-over its ``SWEEPS`` main loops where each term runs in more than one
-(K8's backward: the phase sweep and the element sweep).  Counts are by
+instant product and sum, fused (FFMA or DFMA: one a term, on its
+comparison path and on its floor's); the floor-form remainder's floor
+(FRND) of K7 with widths and of K7's backward; K8's seven products a
+term; K8's backward's 11 fused products and sums a term).  A loop's terms
+per trip are its markers over that number, whatever the compiler
+unrolled; its count per term is every instruction of its body (each
+once: both sides of a branch, a nested loop's body once) over its terms
+per trip.  A kernel's count is its main term loop's: the most terms a
+trip (an unrolled loop's remainder loop runs the terms left over, not
+every term), and of those the one with the fewest MUFU and CONV, then
+the fewest instructions: K7's fast path, which the north star's rows
+take, not its fallback (the floor's FRND, the divide's MUFU).
+Counts are by
 class: FP32 (FADD, FMUL, FFMA), FP64 (DADD, DMUL, DFMA, DSETP), ALU
 (compares, selects, min / max, integer and logic: FSETP, FSEL, FMNMX,
 ISETP, IADD3, LOP3, SEL, ...), MUFU, CONV (conversions and FRND), LDST
@@ -57,8 +60,6 @@ LANES = {"FP32": 32, "FP64": 16, "ALU": 16, "MUFU": 4, "CONV": 4,
          "LDST": 8, "OTHER": 32}
 _INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z0-9_.]+)"
                   r"([^;]*);")
-# the term loops each term runs in, where more than one
-SWEEPS = {"donor_sum_backward_kernel": 2}
 _NAME = re.compile(r"\d+(element_curve_kernel|element_curve_backward_kernel|"
                    r"donor_sum_kernel|donor_sum_backward_kernel)I([fd])"
                    r"(Lb([01])|Li(\d+)E)?")
@@ -73,30 +74,20 @@ def klass(op):
     return "MUFU" if base == "MUFU" else "OTHER"
 
 
-def staged_values(code, elem_bytes):
-    """The elements the shared-memory loads of ``code`` read, at
-    ``elem_bytes`` an element (LDS.64 reads two floats, LDS.128 four)."""
-    n = 0
-    for _, _, op, _ in code:
-        if op.split(".")[0] == "LDS":
-            m = re.search(r"\.(64|128)\b", op)
-            n += (int(m.group(1)) // 8 if m else 4) // elem_bytes
-    return n
-
-
 def markers(kernel, typ, widths, code):
     """The terms the instructions ``code`` run, counted by the kernel's
     marker (None where none of it is there)."""
     ops = Counter(op.split(".")[0] for _, _, op, _ in code)
-    if kernel == "element_curve_kernel" and widths:
-        return ops["MUFU"] or None                # overlap / w: one a term
+    fma = "FFMA" if typ == "f" else "DFMA"
+    if kernel == "element_curve_kernel" and not widths:
+        return ops[fma] or None                   # acc + vis w, fused
     if kernel.startswith("element_curve"):
         return ops["FRND"] or None                # one floor a term
     if kernel == "donor_sum_kernel":
         n = ops["FMUL" if typ == "f" else "DMUL"]
         return n // 7 if n >= 7 else None         # dot 3, weight 3, area 1
-    n = staged_values(code, 4 if typ == "f" else 8)
-    return n // 4 if n >= 4 else None             # 4 staged values a term
+    # K8's backward: the dot 2, the weight 2, u 1, d n 3, d e 3
+    return ops[fma] // 11 or None
 
 
 def parse(sass):
@@ -169,9 +160,11 @@ def counts(sass):
             by = Counter(klass(op) for _, _, op, _ in code[lo:hi + 1])
             rows.append({"instructions": hi - lo + 1, "terms_per_trip": n,
                          "by_class": {c: by[c] for c in CLASSES if by[c]}})
-        main = sorted(rows, key=lambda r: (r["terms_per_trip"],
-                                           r["instructions"]), reverse=True)
-        for r in main[:SWEEPS.get(label.split("<")[0], 1)]:
+        main = sorted(rows, key=lambda r: (
+            r["terms_per_trip"], -r["by_class"].get("MUFU", 0)
+            - r["by_class"].get("CONV", 0), -r["instructions"]),
+            reverse=True)
+        for r in main[:1]:
             r["main"] = True
             for c, v in r["by_class"].items():
                 per_term[c] += v / r["terms_per_trip"]
@@ -203,9 +196,7 @@ def built_sass():
 def all_loops(sass):
     """{kernel label: [{"first", "last" (addresses), "instructions",
     "by_class", "MUFU", "FRND"}]} of every loop of every sweep kernel: for
-    reading a design whose terms this file's markers do not count (a
-    widths backward that runs each term in two sweeps, with two divides
-    in one and one in the other)."""
+    reading a design whose terms this file's markers do not count."""
     out = {}
     for label, code in sorted(parse(sass).items()):
         rows = []

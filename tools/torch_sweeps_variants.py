@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time builds of ``sweeps.cu`` side by side in turns on one CUDA card:
-K7's backward kernel and K8 on the north star's inputs.
+K7, K8 and their backward kernels on the north star's inputs.
 
     python3 tools/torch_sweeps_variants.py [--parent TREE] [--only A,B]
 
@@ -11,14 +11,18 @@ whose launchers take the same arguments), ``--only`` keeps the labels
 named.  Every source is built at once with nvcc and the port's flags into
 ``build/sweeps_variants/`` and launched through its C entry points.  The
 inputs are the arguments one float32 evaluation of the north-star model
-at 1024 walkers hands K8 (the donor curve, 5120 x 128 x 384, and its
-normaliser, 5120 x 1 x 384) and one value_and_grad of the same model
-with .calib exposure widths at 256 chains hands K7's backward kernel (the
-disc's rows, 1280 x 128 x 960), float32 and cast to float64.  It prints
-one JSON line with, for each build and case: K8's bits against its plain
-version (``same_bits``), K7's backward's largest distance from autograd
-on the plain forward in float64 over the largest |gradient| of each
-cotangent (``rel_err``), a SHA-256 of the outputs; the device time as the
+at 1024 walkers hands K7 (the disc's rows without widths, 5120 x 128 x
+960: ``k7_disc``) and K8 (the donor curve, 5120 x 128 x 384, and its
+normaliser, 5120 x 1 x 384), and one value_and_grad of the same model
+with .calib exposure widths at 256 chains hands K7 (the disc's rows with
+widths, 1280 x 128 x 960: ``k7w_disc``), K7's backward kernel (the same
+rows) and K8's (the donor curve, 1280 x 128 x 384, and its normaliser,
+1280 x 1 x 384: ``k8b_curve``, ``k8b_normaliser``), float32 and cast to
+float64.  It prints one JSON line with, for each build and case: the
+forward kernels' bits against their plain versions (``same_bits``), the
+backward kernels' largest distance from autograd on the plain forward in
+float64 over the largest |gradient| of each cotangent (``rel_err``), a
+SHA-256 of the outputs; the device time as the
 profiler traces it (the least of 5 launches, every build in one profiler
 window: only a process's first keeps every record); us a launch over
 back-to-back launches between two CUDA events, in turns (each turn runs
@@ -28,6 +32,7 @@ of its SASS (``tools/sweeps_sass_counts.py`` on ``cuobjdump -sass``).
 """
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -60,6 +65,23 @@ VARIANTS = {
     # every P (the layout of rows of 32 phases or more)
     "k8_lanes_everywhere": (("DONOR_LANES_BELOW=2147483647",), ()),
     "k8_threads_everywhere": (("DONOR_LANES_BELOW=1",), ()),
+    # K8's backward: slabs a lane and warps a block (the grid's 12 slabs:
+    # 6 slab groups x 2 phase groups, 2 x 6, 3 x 5)
+    "k8b_2slabs": (("K8B_SLABS=2",), ()),
+    "k8b_6slabs": (("K8B_SLABS=6",), ()),
+    "k8b_16warps": (("K8B_WARPS=16",), ()),
+    # K7 without widths in float32: one phase a thread; K7 at most 85
+    # registers (6 blocks of 128 threads an SM)
+    "k7_1phase": (("K7_PHASES=1",), ()),
+    "k7_6blocks": ((), ((
+        "__launch_bounds__(SWEEP_THREADS)\nelement_curve_kernel(",
+        "__launch_bounds__(SWEEP_THREADS, 6)\nelement_curve_kernel("),)),
+    # K7 without widths: the floor on every term (its fused sum kept); with
+    # widths: the divide on every term
+    "k7_floor_everywhere": ((), ((
+        "FAST ? rel_near(d) : d - floor_(d)", "d - floor_(d)"),)),
+    "k7_divide_everywhere": ((), ((
+        "fast = wc <= quot_wc_max<T>();", "fast = false;"),)),
 }
 
 
@@ -108,13 +130,17 @@ def build(labels, parent=None):
         built = list(pool.map(lambda j: _build_one(*j), jobs))
     libs = {}
     i, p, d = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
+    types = {"element_curve_launch": [i, i] + [p] * 7 + [i] * 3 + [p],
+             "element_curve_backward_launch": [i, i] + [p] * 11 + [i] * 3
+             + [p],
+             "donor_sum_launch": [i] + [p] * 3 + [d, d, p] + [i] * 4 + [p],
+             "donor_sum_backward_launch": [i] + [p] * 3 + [d, d] + [p] * 4
+             + [i] * 4 + [p]}
     for label, so, log, sass in built:
         lib = ctypes.CDLL(str(so))
-        lib.element_curve_backward_launch.argtypes = (
-            [i, i] + [p] * 11 + [i] * 3 + [p])
-        lib.donor_sum_launch.argtypes = [i] + [p] * 3 + [d, d, p] + [i] * 4 \
-            + [p]
-        for fn in (lib.element_curve_backward_launch, lib.donor_sum_launch):
+        for name, argtypes in types.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         libs[label] = (lib, log, sass)
     return libs
@@ -122,11 +148,11 @@ def build(labels, parent=None):
 
 def ptxas(log):
     """{kernel entry: [registers, stack frame bytes, spilled bytes]} of
-    K7's backward and K8 in a ``-Xptxas -v`` log."""
+    K7, K8 and their backward kernels in a ``-Xptxas -v`` log."""
     out, entry = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(_Z\d+(element_curve_"
-                      r"backward|donor_sum)_kernel\w*)'", line)
+        m = re.search(r"Compiling entry function '(_Z\d+(element_curve|"
+                      r"donor_sum)\w*_kernel\w*)'", line)
         if m:
             entry = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -142,10 +168,13 @@ def ptxas(log):
 
 
 def north_star_inputs(dev):
-    """{"k8_curve": args, "k8_normaliser": args, "k7b_disc": args}: the
-    float32 arguments of the wrappers ``donor_sum_kernel`` (an
-    evaluation's two calls) and ``element_curve_backward_kernel`` (a
-    gradient evaluation's disc call)."""
+    """{case: args}: the float32 arguments of the wrappers
+    ``element_curve_kernel`` (the disc's call of an evaluation,
+    ``k7_disc``, and of a gradient evaluation, ``k7w_disc``),
+    ``donor_sum_kernel`` (an evaluation's two calls),
+    ``element_curve_backward_kernel`` (a gradient evaluation's disc call)
+    and ``donor_sum_backward_kernel`` (a gradient evaluation's two
+    calls)."""
     sys.path.insert(0, str(ROOT))
     from torch_eval_turns import walkers
 
@@ -160,21 +189,37 @@ def north_star_inputs(dev):
     lpw = make_ln_prob(with_calib_widths(build_model(**spec)).compile(),
                        dtype=F32, device=dev)
 
-    def recorded(name, run):
-        with mock.patch.object(sweeps, f"{name}_kernel",
-                               wraps=getattr(sweeps, f"{name}_kernel")) as r:
+    def recorded(run):
+        names = ("element_curve", "element_curve_backward", "donor_sum",
+                 "donor_sum_backward")
+        with contextlib.ExitStack() as stack:
+            rec = {n: stack.enter_context(mock.patch.object(
+                sweeps, f"{n}_kernel", wraps=getattr(sweeps, f"{n}_kernel")))
+                for n in names}
             run()
-        return [[a.detach() if isinstance(a, torch.Tensor) else a
-                 for a in c.args] for c in r.call_args_list]
+        return {n: [[a.detach() if isinstance(a, torch.Tensor) else a
+                     for a in c.args] for c in r.call_args_list]
+                for n, r in rec.items()}
 
     def forward():
         with torch.inference_mode():
             lp(walkers(model.var_start(), 1024, 0))
-    donor = recorded("donor_sum", forward)
-    curve = recorded("element_curve_backward", lambda: lpw.value_and_grad(
+    fwd = recorded(forward)
+    grad = recorded(lambda: lpw.value_and_grad(
         walkers(model.var_start(), 256, 1)))
-    return {"k8_curve": donor[0], "k8_normaliser": donor[1],
-            "k7b_disc": max(curve, key=lambda a: a[2].shape[-1])}
+
+    def disc(calls):
+        return max(calls, key=lambda a: a[2].shape[-1])
+
+    def by_phases(calls):
+        return sorted(calls, key=lambda a: -a[0].shape[1])
+    return {"k7_disc": disc(fwd["element_curve"]),
+            "k7w_disc": disc(grad["element_curve"]),
+            "k8_curve": fwd["donor_sum"][0],
+            "k8_normaliser": fwd["donor_sum"][1],
+            "k7b_disc": disc(grad["element_curve_backward"]),
+            **dict(zip(("k8b_curve", "k8b_normaliser"),
+                       by_phases(grad["donor_sum_backward"])))}
 
 
 def _cast(args, dtype):
@@ -194,15 +239,23 @@ def cases(inputs):
         for dt in (F32, F64):
             a = _cast(args, dt)
             tag = f"{name}_{str(dt)[6:]}"
-            if name.startswith("k8"):
+            if name.startswith("k8b"):
+                res = [torch.empty_like(x) for x in a[:3]]
+                plain = sweeps._donor_backward_plain(*_cast(args, F64))
+                out.append((tag, "donor_backward", a, res, list(plain)))
+            elif name.startswith("k8"):
                 e, nrm, areas, u = a
                 res = [torch.empty(e.shape[:2], dtype=dt, device=e.device)]
                 plain = [comp._donor_sum_plain(e, nrm, areas, u)]
                 out.append((tag, "donor", a, res, plain))
-            else:
+            elif name.startswith("k7b"):
                 res = [torch.empty_like(a[i]) for i in (0, 2, 3, 5)]
                 plain = sweeps._curve_backward_plain(*_cast(args, F64))
                 out.append((tag, "curve_backward", a, res, list(plain)))
+            else:
+                res = [torch.empty_like(a[0])]
+                plain = [comp._element_curve_plain(*a)]
+                out.append((tag, "curve", a, res, plain))
     return out
 
 
@@ -212,13 +265,23 @@ def launcher(lib, kernel, a, res):
     fails.  Its arguments are read once, here."""
     stream = torch.cuda.current_stream().cuda_stream
     dbl = int(res[0].dtype == F64)
-    if kernel == "donor":
-        e, nrm, areas, u = a
+    if kernel.startswith("donor"):
+        e, nrm, areas, u = a[:4]
         (R, P), (G, N) = e.shape[:2], areas.shape
         fn = lib.donor_sum_launch
         call = (dbl, e.data_ptr(), nrm.data_ptr(), areas.data_ptr(),
-                1.0 - u, float(u), res[0].data_ptr(), R, P, N, R // G,
-                stream)
+                1.0 - u, float(u), *(x.data_ptr() for x in (*a[4:], *res)),
+                R, P, N, R // G, stream)
+        if kernel == "donor_backward":
+            fn = lib.donor_sum_backward_launch
+    elif kernel == "curve":
+        ph, wd, pin, pout, ecl, w = a
+        (R, P), N = ph.shape, pin.shape[1]
+        fn = lib.element_curve_launch
+        call = (dbl, int(wd is not None), ph.data_ptr(),
+                None if wd is None else wd.data_ptr(), pin.data_ptr(),
+                pout.data_ptr(), ecl.data_ptr(), w.data_ptr(),
+                res[0].data_ptr(), R, P, N, stream)
     else:
         ph, wd, pin, pout, ecl, w, g = a
         (R, P), N = ph.shape, pin.shape[1]
@@ -247,7 +310,7 @@ def measure(libs, inputs, reps=20, n_turns=4):
             torch.cuda.synchronize()
             r = {"sha256": hashlib.sha256(b"".join(
                 x.cpu().numpy().tobytes() for x in res)).hexdigest()[:16]}
-            if kernel == "donor":
+            if kernel in ("donor", "curve"):
                 k, p = res[0], plain[0]
                 nan = torch.isnan(k)
                 r["same_bits"] = bool(torch.equal(nan, torch.isnan(p))
@@ -270,7 +333,7 @@ def measure(libs, inputs, reps=20, n_turns=4):
         torch.cuda.synchronize()
     kern = sorted((e for e in prof.events()
                    if e.device_type == DeviceType.CUDA and re.search(
-                       r"\b(element_curve_backward|donor_sum)_kernel\b",
+                       r"\b(element_curve|donor_sum)(_backward)?_kernel\b",
                        e.name)), key=lambda e: e.time_range.start)
     if len(kern) != 5 * len(order):
         raise RuntimeError(f"the trace holds {len(kern)} sweep kernels of "
@@ -318,9 +381,7 @@ def main():
         sass[label] = {k: {c: v.get(c) for c in ("per_term",
                                                  "issue_cycles_per_term",
                                                  "cycles_per_term")}
-                       for k, v in counts(listing).items()
-                       if re.match(r"(element_curve_backward|donor_sum)_"
-                                   r"kernel", k)}
+                       for k, v in counts(listing).items()}
     print(json.dumps({"card": smi, "variants": {
         lb: {"defines": VARIANTS[lb][0], "substitutions": len(VARIANTS[lb][1])}
         for lb in labels},
@@ -328,7 +389,8 @@ def main():
         "sass_per_term": sass, "kernels": res}))
     if not all(c.get("same_bits", True) for r in res.values()
                for c in r.values()):
-        raise SystemExit("a build's K8 differs from its plain version")
+        raise SystemExit("a build's K7 or K8 differs from its plain "
+                         "version")
 
 
 if __name__ == "__main__":
