@@ -28,7 +28,9 @@ x 256 walkers.  Phases:
      instantiation (at least 8); and of K7, K8 and their backward kernels
      (sweeps.cu: float32 and float64; K7 with and without widths, K8 a
      thread a phase and a warp a (row, phase) pair), with no spill and no
-     stack frame;
+     stack frame; and of K9 and K10 (wd_donor.cu: float32 and float64,
+     K10 in its curve and distance modes), whose frames and spills are
+     WD_DONOR_FRAMES (the arrays of sin / cos's slow path);
   2. K1 against its plain version on the contact rows one posterior
      evaluation hands it (5120 rows x 512 elements); the eclipsed share
      f, K1's operation count, its bound and its share of the bound; the
@@ -38,11 +40,15 @@ x 256 walkers.  Phases:
      K4, K5, K6 on the inputs that evaluation hands them (one event each),
      K7 and K8 on the disc rows and the donor rows that evaluation hands
      them, their backward kernels on those of one gradient evaluation of
-     the GP widths model (one event each)), read by the profiler;
+     the GP widths model (one event each); K9 and K10 on the donor grid's
+     and the white dwarf's inputs of that evaluation and K10's distance
+     mode on the GP changepoints' (one event each)), read by the profiler;
   3. the posterior with K1 against the same posterior with the plain
      contact solver, at the same 1024 walkers, timed in turns; ms per
      evaluation, the stream scan (K2) alone, peak device memory, and the
-     evaluation's device-busy share;
+     evaluation's device-busy share, launches (fewer than the 1222 with the
+     donor grid and the white dwarf's sweep as eager chains) and device
+     ms, with K9 and K10 once each;
   4. float32 flux parity against the port's own float64 plain path
      (64 walkers), and float64 fluxes against tests/golden/golden_v1.npz;
   5. the ensemble sampler: init_walkers and 3 run_sampler steps at 1024
@@ -227,6 +233,22 @@ x 256 walkers.  Phases:
      forward in turns.  Every path counts K7 = K8 = 2 per evaluation of
      K1 (K8 = 1 with the donor quadrature) and their backward kernels 2
      per gradient evaluation.
+  24. K9 and K10 (the donor grid's radius solve, the white dwarf's
+     sweep: wd_donor.cu) against their plain versions on the inputs one
+     north-star evaluation hands them (1024 walkers x 384 directions;
+     5120 rows x 128 phases; K10's distance mode on the GP changepoints')
+     and on a stress set (q 0.03-3.5, inclinations 75-90 deg, phases
+     across ingress, egress and mid-eclipse, rays that miss the donor,
+     the inscribed-sphere guard), float32 and float64: the same bits;
+     each kernel's time (traced in phase 2, and event-timed), its plain
+     version's, its bound, ptxas's registers and frame; the float32,
+     float64, precise and GP forward evaluations and value_and_grad
+     through K9 / K10 and through the plain chains: the same bits, K9 = 1
+     and K10 = 1 an evaluation (0 on a gradient or precise one, 2 more for
+     the GP changepoints), the device kernels and device ms either way
+     (the forward one at least 500 fewer); the forward evaluation's host
+     ms either way, in turns.  Every path counts K9 once per evaluation
+     of K1.
 
 Every failed check raises, so the exit code is non-zero.  The last lines
 are a JSON object describing each kernel (its launches on the main paths,
@@ -245,6 +267,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -479,6 +502,49 @@ SWEEP_SASS_OF = {"K7 element_curve disc": "element_curve_kernel<f32, instant>",
                  "donor_sum_backward_kernel<f32>",
                  "K8 donor_sum_backward normaliser":
                  "donor_sum_backward_kernel<f32>"}
+# K9, K10 (wd_donor.cu): the donor grid's radius solve and the white
+# dwarf's sweep, port-only kernels where the TPU ran an XLA program with
+# its loops fused
+WD_DONOR_SOURCE = "lfit_python_tpu_torch/ops/csrc/wd_donor.cu"
+WD_DONOR_REPLACES = {
+    "donor_grid": "lfit_python_tpu/models/components.py:391 (donor_grid: "
+                  "lax.fori_loops of 54 bisections in float64, :447, of 8 "
+                  "bisections and 4 safeguarded Newton steps in float32, "
+                  ":459, :473; no pallas_call)",
+    "wd_curve": "lfit_python_tpu/models/components.py:145 (wd_flux; "
+                "origin_shadow_distance lfit_python_tpu/roche/geometry.py:"
+                "361, its 4 Newton steps unrolled :426; the edge fraction "
+                ":58; no pallas_call)"}
+# K9 and K10 launches of one evaluation: K9 the donor grid once (on a
+# gradient evaluation its radius and slope alone), K10 the white dwarf's
+# curve once on a forward evaluation (a gradient or precise one takes the
+# plain chain) and, on a GP evaluation, once for each of the
+# changepoints' two Newton steps (distance mode)
+WD_DONOR_PER_EVAL = {"k9": 1, "k10": 1}
+WD_DONOR_PER_GRAD = {"k9": 1, "k10": 0}
+WD_GP_CHANGEPOINTS = 2
+# ptxas's stack frame and spills (bytes, stores and loads) of each K9 /
+# K10 instantiation (CUDA 12.8, sm_90a; K10's flag 0 the curve, 1 the
+# distance mode): K10's frames are the arrays of sinf / cosf's and sin /
+# cos's Payne-Hanek slow path (|x| > 48039 / 105615), which no angle of the
+# sweep reaches; K9 calls no trig
+WD_DONOR_FRAMES = {"donor_grid_kernel<f32>": (0, 0),
+                   "donor_grid_kernel<f64>": (0, 0),
+                   "wd_curve_kernel<f32, 0>": (32, 0),
+                   "wd_curve_kernel<f32, 1>": (40, 8),
+                   "wd_curve_kernel<f64, 0>": (40, 0),
+                   "wd_curve_kernel<f64, 1>": (40, 0)}
+# operations counted by hand from wd_donor.cu (each add, multiply, divide,
+# sqrt, rsqrt, sin, cos, acos, compare and select as one): K9 a solve 5 to
+# set up, a bisection step 25 (the lobe's F 20), a Newton step 54 (F 20,
+# dF/dr 22), the midpoint 2, and the grid 51 (a forward evaluation's
+# launch, the one timed) or the slope 22 (a recorded graph's): with the
+# grid float32 474 (8 + 4 steps), float64 1408 (54 steps); K10 a point: the
+# distance mode 314 (the set-up 32, 4 Newton steps of 41, 3 values of g of
+# 18, the end selects 8, grad(Phi) across the sight line and d 56), the
+# curve 354 (with the guard 8, x 5 and the edge fraction 27)
+WD_DONOR_OPS = {"donor_grid": {"float32": 474, "float64": 1408},
+                "wd_curve": 354, "wd_distance": 314}
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -730,6 +796,24 @@ def _sweep_wrappers(sweeps):
             for n in names}
 
 
+@contextlib.contextmanager
+def _wd_wrappers(wd_donor):
+    """K9's and K10's wrappers (K10 in both modes) of ``wd_donor`` wrapped
+    by recording mocks while the context lasts; yields {name: mock}."""
+    names = ("donor_grid", "wd_curve", "wd_distance")
+    with contextlib.ExitStack() as stack:
+        yield {n: stack.enter_context(mock.patch.object(
+            wd_donor, f"{n}_kernel", wraps=getattr(wd_donor, f"{n}_kernel")))
+            for n in names}
+
+
+# (tag, wrapper) of the K9 / K10 calls that phases 2 and 24 read: the
+# donor grid and the white dwarf's curve of a forward evaluation, K10's
+# distance mode of a GP one (its changepoints' first Newton step)
+_WD_CALLS = (("K9 donor_grid", "donor_grid"), ("K10 wd_curve", "wd_curve"),
+             ("K10 wd_distance", "wd_distance"))
+
+
 SWEEP_ROWS = {"element_curve": ("disc", "spot"),
               "donor_sum": ("curve", "normaliser")}
 
@@ -777,8 +861,8 @@ def _walkers(start, n, seed, dtype, dev):
 
 
 def _zero_counts(contacts, stream, gp):
-    """Sets every kernel wrapper's launch count to 0 (K4-K8's too)."""
-    from lfit_python_tpu_torch.ops import roche, sweeps
+    """Sets every kernel wrapper's launch count to 0 (K4-K10's too)."""
+    from lfit_python_tpu_torch.ops import roche, sweeps, wd_donor
 
     contacts.LAUNCHES = contacts.BACKWARD_CALLS = 0
     contacts.BACKWARD_LAUNCHES = 0
@@ -788,10 +872,11 @@ def _zero_counts(contacts, stream, gp):
     roche.FINDI_LAUNCHES = roche.XL1_LAUNCHES = roche.LOBE_LAUNCHES = 0
     sweeps.CURVE_LAUNCHES = sweeps.CURVE_BACKWARD_LAUNCHES = 0
     sweeps.DONOR_LAUNCHES = sweeps.DONOR_BACKWARD_LAUNCHES = 0
+    wd_donor.DONOR_GRID_LAUNCHES = wd_donor.WD_LAUNCHES = 0
 
 
 def _counts(contacts, stream, gp):
-    from lfit_python_tpu_torch.ops import roche, sweeps
+    from lfit_python_tpu_torch.ops import roche, sweeps, wd_donor
 
     return {"k1": contacts.LAUNCHES, "k1_f64": contacts.F64_LAUNCHES,
             "k1_mixed": contacts.MIXED_LAUNCHES,
@@ -803,7 +888,8 @@ def _counts(contacts, stream, gp):
             "k6": roche.LOBE_LAUNCHES, "k7": sweeps.CURVE_LAUNCHES,
             "k7_bwd": sweeps.CURVE_BACKWARD_LAUNCHES,
             "k8": sweeps.DONOR_LAUNCHES,
-            "k8_bwd": sweeps.DONOR_BACKWARD_LAUNCHES}
+            "k8_bwd": sweeps.DONOR_BACKWARD_LAUNCHES,
+            "k9": wd_donor.DONOR_GRID_LAUNCHES, "k10": wd_donor.WD_LAUNCHES}
 
 
 def _delta(after, before):
@@ -1938,7 +2024,7 @@ def _donor_quad_phase(dev, smi, model, pos, contacts, stream, gp):
 _HOST_FIT = r"""
 import contextlib, json, sys
 from lfit_python_tpu_torch import cli
-from lfit_python_tpu_torch.ops import contacts, roche, stream, sweeps
+from lfit_python_tpu_torch.ops import contacts, roche, stream, sweeps, wd_donor
 from lfit_python_tpu_torch.utils import tracing
 
 real, span = tracing.trace_to, {}
@@ -1965,7 +2051,8 @@ print("HOST_FIT " + json.dumps(dict(
     rc=rc, k1_total=contacts.LAUNCHES, k2_total=stream.LAUNCHES,
     k4_total=roche.FINDI_LAUNCHES, k5_total=roche.XL1_LAUNCHES,
     k6_total=roche.LOBE_LAUNCHES, k7_total=sweeps.CURVE_LAUNCHES,
-    k8_total=sweeps.DONOR_LAUNCHES, **span)))
+    k8_total=sweeps.DONOR_LAUNCHES, k9_total=wd_donor.DONOR_GRID_LAUNCHES,
+    k10_total=wd_donor.WD_LAUNCHES, **span)))
 sys.exit(rc)
 """
 
@@ -2111,7 +2198,8 @@ def _host_surface_phase(dev, smi):
                             "k1_bwd_kernel", "k2", "k2_sens", "k3",
                             "k3_bwd", "k7_bwd", "k8_bwd"), 0)
     counts.update({k: rec[f"{k}_total"]
-                   for k in ("k1", "k2", "k4", "k5", "k6", "k7", "k8")})
+                   for k in ("k1", "k2", "k4", "k5", "k6", "k7", "k8", "k9",
+                             "k10")})
     return counts
 
 
@@ -2324,6 +2412,18 @@ def _tools_phase(smi):
                    f"{tag}: an ablation traced no device kernels")
             _check("--floor" in tag or rows["full"]["k1_kernels"] > 0,
                    f"{tag}: the full evaluation traced no contacts_kernel")
+            if "--floor" not in tag:
+                k = {n: r["device_kernels"] for n, r in rows.items()}
+                stages = {"the white dwarf's sweep": k["full"] - k["no_wd"],
+                          "the donor grid": k["no_donor"] - k["no_dgrid"]}
+                print(f"[21 tools] {tag}: device kernels of the full "
+                      f"evaluation {k['full']} (1222 with the eager "
+                      f"chains); of it "
+                      + ", ".join(f"{n} {v}" for n, v in stages.items())
+                      + f" (376 and 559 as eager chains; at most 5 each "
+                      f"through K10 and K9); {smi}")
+                _check(all(v <= 5 for v in stages.values()),
+                       f"{tag}: a stage kept more than 5 launches: {stages}")
         elif "accuracy" in tag:
             _check(last["k1_launches"] > 0, f"{tag}: K1 was not launched")
         else:
@@ -3034,6 +3134,288 @@ def _sweeps_phase(dev, smi, model, pos, start, sweep_args, sweep_us,
     return out
 
 
+def _wd_stress(dev, dtype, W=1024, E=2, P=128, seed=24):
+    """K9's and K10's stress inputs, {wrapper: (args, kwargs)}: W walkers
+    with q 0.03-3.5 (both ends exact) along the north star's 16 x 24
+    directions, and W x E rows at inclinations 75-90 deg (75, 80, 85 and
+    90 exact; rays that miss the donor at every phase among them), rwd
+    0.005-0.03 (every seventh row 0.2, the next 1e-4) and phases across
+    ingress, egress and mid-eclipse ([-0.15, 0.15], and 0, +-0.5, +-1e-7,
+    0.25, 0.9), the inscribed-sphere guard's certain occultation among
+    them."""
+    import torch
+
+    from lfit_python_tpu_torch.models import components as comp
+    from lfit_python_tpu_torch.roche import geometry as tg
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    q = t(np.r_[rng.uniform(0.03, 3.5, W - 2), 0.03, 3.5])
+    x1 = tg.xl1(q)
+    pl1 = tg.l1_potential(q, x1)
+    r_ins = tg.inscribed_radius(q, x1, pl1)
+    incl = rng.uniform(75.0, 90.0, W)
+    incl[:4] = (75.0, 80.0, 85.0, 90.0)
+    rwd = rng.uniform(0.005, 0.03, (W, E))
+    rwd.flat[::7] = 0.2
+    rwd.flat[1::7] = 1e-4
+    ulimb = rng.uniform(0.1, 0.6, (W, E))
+    base = np.r_[np.linspace(-0.15, 0.15, P - 8), 0.0, 0.5, -0.5, 1e-7,
+                 -1e-7, 0.25, 0.9, 0.03]
+    ph = t(base[None, None, :] + rng.uniform(-0.003, 0.003, (W, E, 1)))
+    per_walker = [a[:, None, None] for a in (q, t(incl), x1, pl1, r_ins)]
+    qw, iw, xw, pw, rw = per_walker
+    return {"donor_grid": ((q, x1, pl1, *comp._directions(16, 24, dtype,
+                                                          dev)),
+                           {"grid": True}),
+            "wd_curve": ((qw, iw, ph, t(rwd)[..., None], t(ulimb)[..., None],
+                          xw, pw, rw), {}),
+            "wd_distance": ((qw, iw, ph, xw, pw), {})}
+
+
+def _wd_outputs(fn, name, args, kwargs):
+    """The outputs of a K9 / K10 wrapper or plain version as a tuple: K9's
+    in both modes, the radius and its slope (a recorded graph's launch)
+    and the grid (a forward evaluation's)."""
+    if name == "donor_grid":
+        r, slope, _ = fn(*args, grid=False)
+        return (r, slope, *fn(*args, grid=True)[2])
+    out = fn(*args, **kwargs)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _wd_plain_fns():
+    """{wrapper name: its plain version}, called as the wrapper is."""
+    from lfit_python_tpu_torch.models import components as comp
+    from lfit_python_tpu_torch.roche import geometry as tg
+
+    def donor_grid(q, x1, pl1, dx, dy, dz, d_omega, grid=True):
+        r, slope = comp._donor_radius_loop(q, x1, pl1, dx, dy, dz)
+        if not grid:
+            return r, slope, None
+        return None, None, comp._donor_grid_plain(
+            r, (q / (1.0 + q))[:, None], dx, dy, dz, d_omega)
+
+    return {"donor_grid": donor_grid, "wd_curve": comp._wd_curve_plain,
+            "wd_distance": tg._shadow_distance_plain}
+
+
+def _broadcast_shape(args):
+    import torch
+
+    return torch.broadcast_shapes(*(a.shape for a in args))
+
+
+def _wd_work(name, args, dtype):
+    """(operations, bytes) of one K9 (with its grid, as a forward
+    evaluation launches it) / K10 call: WD_DONOR_OPS a solve or a point;
+    each input read once (a per-row parameter once a row), each output
+    written once (K9: the grid's 7 values a solve)."""
+    isz = 4 if dtype == "float32" else 8
+    if name == "donor_grid":
+        W, N = args[0].numel(), args[3].numel()
+        return (W * N * WD_DONOR_OPS[name][dtype],
+                isz * (3 * W + 4 * N + 7 * W * N))
+    n = math.prod(_broadcast_shape(args))
+    n_out = 2 if name == "wd_distance" else 1
+    return (n * WD_DONOR_OPS[name],
+            isz * (sum(a.numel() for a in args) + n_out * n))
+
+
+def _wd_donor_phase(dev, smi, model, pos, wd_args, wd_us, registers,
+                    contacts, stream, gp):
+    """Phase 24: K9 and K10 (both modes) against their plain versions, bit
+    for bit, on the north star's inputs (``wd_args``: phase 2's recorded
+    calls) and a stress set (``_wd_stress``), float32 and float64; each
+    call's time (traced in phase 2, ``wd_us``; event-timed), its plain
+    version's, its bound and ptxas's registers; the forward (float32,
+    float64, precise, GP) and gradient evaluations through K9 / K10 and
+    through the plain chains: the same bits, the launches of each, the
+    device kernels and device ms either way; the forward evaluation's
+    host ms in turns.  Returns {name: results for the kernels line}."""
+    import torch
+
+    from lfit_python_tpu_torch.examples import build_model, with_calib_widths
+    from lfit_python_tpu_torch.models.cv import CVConfig
+    from lfit_python_tpu_torch.models.likelihood import make_ln_prob
+    from lfit_python_tpu_torch.ops import wd_donor
+    from lfit_python_tpu_torch.roche import geometry as tg
+
+    f32, f64 = torch.float32, torch.float64
+    plain = _wd_plain_fns()
+    kernels = {n: getattr(wd_donor, f"{n}_kernel") for n in plain}
+
+    def plain_chains():
+        return mock.patch.object(tg, "_on_card", lambda t: False)
+
+    sets = {}
+    for dtype in (f32, f64):
+        sets[dtype, "north star"] = {n: (_cast(a, dtype), kw)
+                                     for n, (a, kw) in wd_args.items()}
+        sets[dtype, "stress"] = _wd_stress(dev, dtype)
+    out = {n: {"max_abs_err": 0.0} for n in plain}
+    for (dtype, tag), inputs in sets.items():
+        line = []
+        for n, (args, kw) in inputs.items():
+            k = _wd_outputs(kernels[n], n, args, kw)
+            p = _wd_outputs(plain[n], n, args, kw)
+            torch.cuda.synchronize()
+            res = [_same_bits(a, b) for a, b in zip(k, p)]
+            same = len(k) == len(p) and all(r[0] for r in res)
+            err = max(r[1] for r in res)
+            n_nan = sum(int(torch.isnan(b).sum()) for b in p)
+            what = ""
+            if n == "wd_curve":
+                f = p[0]
+                what = (f"; visible {int((f == 1).sum())}, occulted "
+                        f"{int((f == 0).sum())}, partial "
+                        f"{int(((f > 0) & (f < 1)).sum())}")
+                _check(tag == "north star" or all(
+                    int(c.sum()) for c in (f == 1, f == 0, (f > 0) & (f < 1))),
+                       f"the stress set lacks a kind of point: {what}")
+            elif n == "wd_distance":
+                miss = int((p[1] == 10.0).sum())
+                what = f"; rays missing the donor {miss}"
+                _check(tag == "north star" or miss > 0,
+                       "the stress set has no ray that misses the donor")
+            line.append(f"{n} {'the same bits' if same else 'DIFFER'} "
+                        f"(max |d| {err:.1e}, {n_nan} NaN of "
+                        f"{sum(b.numel() for b in p)}{what})")
+            _check(same, f"K9 / K10: {n} differs from its plain version on "
+                   f"the {tag} set in {dtype}: max |d| {err}")
+            key = "wd_curve" if n == "wd_distance" else n
+            out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
+        print(f"[24 wd_donor] {tag} set, {str(dtype)[6:]}: kernel against "
+              f"its plain version: " + "; ".join(line))
+
+    # times and bounds at the north star's shapes
+    for tag, n in _WD_CALLS:
+        for dtype in (f32, f64):
+            dt = str(dtype)[6:]
+            args, kw = sets[dtype, "north star"][n]
+            ms = _event_ms(lambda: kernels[n](*args, **kw), 20)
+            plain_ms = _event_ms(lambda: plain[n](*args, **kw), 3, warmup=1)
+            traced = wd_us[tag + ("" if dtype == f32 else " float64")]
+            ops, nbytes = _wd_work(n, args, dt)
+            bound, by = _bound(ops, nbytes, dt)
+            size = (f"{args[0].numel()} walkers x {args[3].numel()} "
+                    "directions" if n == "donor_grid" else
+                    f"{math.prod(_broadcast_shape(args))} points")
+            res = {"ms": ms, "plain_ms": plain_ms, "traced_us": traced,
+                   "bound_ms": bound, "bound_by": by, "ops": ops,
+                   "bytes": nbytes}
+            print(f"[24 wd_donor] {tag}_kernel, {size}, {dt}: {traced:.1f} "
+                  f"us traced in phase 2, {ms:.4f} ms a call event-timed "
+                  f"(host-paced below ~0.1 ms); plain {plain_ms:.3f} ms "
+                  f"({plain_ms * 1e3 / max(traced, 1e-9):.0f}x the traced "
+                  f"time); {ops / 1e6:.1f} M operations, {nbytes / 1e6:.2f} "
+                  f"MB: bound {bound * 1e3:.2f} us (set by {by}; the kernel "
+                  f"at {bound * 1e3 / max(traced, 1e-9):.1%} of it traced); "
+                  f"{smi}")
+            if n == "wd_distance":
+                out["wd_curve"].setdefault("distance", {})[dt] = res
+            elif dtype == f32:
+                out[n].update(res)
+            else:
+                out[n]["float64"] = res
+    print("[24 wd_donor] ptxas registers: " + ", ".join(
+        f"{e} {r}" for e, r in sorted(registers["wd_donor"].items())))
+
+    # the evaluations through K9 / K10 and through the plain chains
+    model_w = with_calib_widths(build_model(
+        n_eclipses=5, complex_spot=[False] * 5, n_points=128,
+        bands=("g", "r"))).compile()
+    model_gp = build_model(n_eclipses=5, complex_spot=[False] * 5,
+                           use_gp=True, n_points=128,
+                           bands=("g", "r")).compile()
+    pos_gp = _walkers(model_gp.var_start(), N_WALKERS, 0, f32, dev)
+    evals = {
+        "float32": (make_ln_prob(model, dtype=f32, device=dev), pos,
+                    WD_DONOR_PER_EVAL),
+        "float64": (make_ln_prob(model, dtype=f64, device=dev), pos.to(f64),
+                    WD_DONOR_PER_EVAL),
+        "precise": (make_ln_prob(model, CVConfig(mixed_precision=True),
+                                 dtype=f32, device=dev), pos,
+                    {"k9": 1, "k10": 0}),
+        "gp": (make_ln_prob(model_gp, dtype=f32, device=dev), pos_gp,
+               {"k9": 1, "k10": 1 + WD_GP_CHANGEPOINTS}),
+        "value_and_grad": (make_ln_prob(model_w, dtype=f32, device=dev),
+                           pos[:N_CHAINS], WD_DONOR_PER_GRAD)}
+    device = {}
+    for tag, (post, p, want) in evals.items():
+        vg = tag == "value_and_grad"
+
+        def once(post=post, p=p, vg=vg):
+            """One evaluation: ln p, or ln p and its gradient."""
+            if vg:
+                return post.value_and_grad(p)
+            with torch.inference_mode():
+                return (post(p),)
+
+        def outputs(post=post, p=p, vg=vg):
+            if vg:
+                return once()
+            with torch.inference_mode():
+                return post(p), post.model_flux(p)
+        once()
+        _zero_counts(contacts, stream, gp)
+        once()
+        c = _counts(contacts, stream, gp)
+        got = outputs()
+        with plain_chains():
+            _zero_counts(contacts, stream, gp)
+            once()
+            c_plain = _counts(contacts, stream, gp)
+            ref = outputs()
+            before = _device_kernels(once)
+        after = _device_kernels(once)
+        torch.cuda.synchronize()
+        same = all(_same_bits(a, b)[0] for a, b in zip(got, ref))
+        device[tag] = {"plain_chains": {"kernels": before[1],
+                                        "device_ms": before[0] / 1e3},
+                       "kernels": {"kernels": after[1],
+                                   "device_ms": after[0] / 1e3}}
+        print(f"[24 wd_donor] {tag} evaluation at {p.shape[0]} walkers: "
+              f"{'ln p and gradient' if vg else 'ln p and flux'} through "
+              f"K9 / K10 and through the plain chains: "
+              f"{'the same bits' if same else 'DIFFER'}; launches K9 "
+              f"{c['k9']}, K10 {c['k10']} (expected {want['k9']}, "
+              f"{want['k10']}; the plain chains {c_plain['k9']}, "
+              f"{c_plain['k10']}); device kernels {before[1]} -> {after[1]} "
+              f"({before[1] - after[1]} fewer), device ms "
+              f"{before[0] / 1e3:.3f} -> {after[0] / 1e3:.3f}; host-clock us "
+              f"of the traced call {before[2]:.0f} -> {after[2]:.0f}; {smi}")
+        _check(same, f"{tag}: K9 / K10 and the plain chains disagree")
+        _check(all(c[k] == v for k, v in want.items())
+               and c_plain["k9"] == c_plain["k10"] == 0,
+               f"{tag}: launches {c}, with the plain chains {c_plain}")
+    fwd = device["float32"]
+    _check(fwd["plain_chains"]["kernels"] - fwd["kernels"]["kernels"] >= 500,
+           f"the forward evaluation's device kernels fell by "
+           f"{fwd['plain_chains']['kernels'] - fwd['kernels']['kernels']} "
+           f"(< 500)")
+
+    # the forward evaluation's host time, in turns
+    post, p, _ = evals["float32"]
+    turns = {"plain": [], "kernels": []}
+    for path in ("plain", "kernels", "kernels", "plain"):
+        ctx = plain_chains() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            turns[path].append(_sync_time(lambda: post(p), 3))
+    print(f"[24 wd_donor] north-star forward evaluation, {N_WALKERS} "
+          f"walkers, float32, ms: K9 / K10 {min(turns['kernels']):.1f} "
+          f"(turns {turns['kernels'][0]:.1f}, {turns['kernels'][1]:.1f}), "
+          f"plain chains {min(turns['plain']):.1f} (turns "
+          f"{turns['plain'][0]:.1f}, {turns['plain'][1]:.1f}); {smi}")
+    out["donor_grid"]["evaluations"] = device
+    out["donor_grid"]["forward_ms_in_turns"] = {k: min(v)
+                                                for k, v in turns.items()}
+    return out
+
+
 def main():
     import torch
 
@@ -3050,7 +3432,7 @@ def main():
     from lfit_python_tpu_torch.models.likelihood import (make_ln_prob,
                                                          make_ln_prob_parts)
     from lfit_python_tpu_torch.ops import (_build, contacts, gp, roche, stream,
-                                           sweeps)
+                                           sweeps, wd_donor)
     from lfit_python_tpu_torch.roche.geometry import xl1
     from lfit_python_tpu_torch.sampling.ensemble import (init_walkers,
                                                          run_sampler)
@@ -3070,23 +3452,25 @@ def main():
     print(f"[1 device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:       # one nvcc per source, at once
+    with ThreadPoolExecutor(7) as pool:       # one nvcc per source, at once
         for fut in [pool.submit(contacts._kernel_fn),
                     pool.submit(contacts._backward_kernel_fn),
                     pool.submit(stream._kernel), pool.submit(gp._kernel),
-                    pool.submit(roche._kernel), pool.submit(sweeps._kernel)]:
+                    pool.submit(roche._kernel), pool.submit(sweeps._kernel),
+                    pool.submit(wd_donor._kernel)]:
             fut.result()
     build_s = time.perf_counter() - t0
     for name in ("contacts", "contacts_backward", "stream", "gp", "roche",
-                 "sweeps"):
+                 "sweeps", "wd_donor"):
         nvcc_s = _build.BUILD_SECONDS.get(name)
         print(f"[1 device] {name}.cu nvcc "
               f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}")
         for ln in _build.PTXAS_LOGS[name].read_text().splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[1 device] ptxas {name}: {ln.strip()}")
-    print(f"[1 device] K1, K1's backward, K2, K3, K4-K6 and K7, K8 with "
-          f"their backward kernels built and loaded in {build_s:.2f} s")
+    print(f"[1 device] K1, K1's backward, K2, K3, K4-K6, K7, K8 with "
+          f"their backward kernels and K9, K10 built and loaded in "
+          f"{build_s:.2f} s")
     registers = {}
     for tag, name, n_inst in (("K1", "contacts", 3),
                               ("K1's backward", "contacts_backward", 2),
@@ -3130,6 +3514,20 @@ def main():
     _check(all(w >= 8 for w in occupancy.values()),
            f"a K4-K6 instantiation fits fewer than 8 warps an SM: "
            f"{occupancy}")
+    # K9 and K10: frames and spills as WD_DONOR_FRAMES
+    wd_frames = {_short_entry(e): (v["frame"], v["spill"], v["registers"])
+                 for e, v in _ptxas_entries(
+                     _build.PTXAS_LOGS["wd_donor"].read_text()).items()}
+    registers["wd_donor"] = {e: r for e, (_, _, r) in wd_frames.items()}
+    print("[1 device] K9 and K10 stack frames, spills (bytes) and "
+          "registers, ptxas: " + ", ".join(
+              f"{e} {f} / {sp} bytes, {r} registers"
+              for e, (f, sp, r) in sorted(wd_frames.items()))
+          + "; K10's frames are sin / cos's slow-path arrays (never "
+          "reached)")
+    _check({e: (f, sp) for e, (f, sp, _) in wd_frames.items()}
+           == WD_DONOR_FRAMES, f"wd_donor.cu's stack frames and spills "
+           f"{wd_frames} are not {WD_DONOR_FRAMES}")
 
     sys.path.insert(0, str(ROOT / "tools"))
     from k1_sass_counts import built_sass, counts
@@ -3156,9 +3554,23 @@ def main():
                            wraps=contacts.element_intervals_kernel) as rec, \
             _roche_wrappers(roche, lambda n, w: mock.MagicMock(
                 wraps=w)) as rec_roche, \
-            _sweep_wrappers(sweeps) as rec_sweeps:
+            _sweep_wrappers(sweeps) as rec_sweeps, \
+            _wd_wrappers(wd_donor) as rec_wd:
         lp_kernel = lp32(pos)
     _check(rec.call_count == 1, f"K1 called {rec.call_count} times per eval")
+    # K9's and K10's inputs on the main path: the donor grid, the white
+    # dwarf's curve (K10's distance mode: the GP evaluation's below)
+    _check([rec_wd[n].call_count for n in rec_wd] == [1, 1, 0],
+           f"K9 / K10 calls per eval: "
+           f"{ {n: r.call_count for n, r in rec_wd.items()} }")
+    wd_args = {n: (r.call_args.args, r.call_args.kwargs)
+               for n, r in rec_wd.items() if r.call_count}
+    _check(tuple(wd_args["donor_grid"][0][0].shape) == (N_WALKERS,)
+           and wd_args["donor_grid"][1].get("grid") is True
+           and tuple(wd_args["wd_curve"][0][2].shape) == (N_WALKERS, 5, 128),
+           "K9 / K10 inputs of the north star (K9 to write the grid): "
+           f"{wd_args['donor_grid'][1]}, "
+           f"{[tuple(a.shape) for a in wd_args['wd_curve'][0]]}")
     # K7's and K8's inputs on the main path: the disc and the spot, the
     # donor curve and its normaliser
     sweep_args = {n: [c.args for c in r.call_args_list]
@@ -3226,9 +3638,16 @@ def main():
     pos_gp = _walkers(start_gp, N_WALKERS, 0, f32, dev)
     lp_gp32 = make_ln_prob(model_gp, dtype=f32, device=dev)
     with mock.patch.object(gp, "segmented_matern32_kernel",
-                           wraps=gp.segmented_matern32_kernel) as rec:
+                           wraps=gp.segmented_matern32_kernel) as rec, \
+            _wd_wrappers(wd_donor) as rec_wd:
         lp_gp_kernel = lp_gp32(pos_gp)
     _check(rec.call_count == 1, f"K3 called {rec.call_count} times per eval")
+    _check([rec_wd[n].call_count for n in rec_wd]
+           == [1, 1, WD_GP_CHANGEPOINTS],
+           f"K9 / K10 calls per GP eval: "
+           f"{ {n: r.call_count for n, r in rec_wd.items()} }")
+    wd_args["wd_distance"] = (rec_wd["wd_distance"].call_args_list[0].args,
+                              {})
     gp_args, gp_kw = rec.call_args.args, rec.call_args.kwargs
     n_w, n_e, n_p = gp_args[1].shape
     _check((n_w, n_e, n_p) == (N_WALKERS, 5, 128),
@@ -3293,7 +3712,12 @@ def main():
            for tag, name, a in _sweep_calls(sweep_args, sweep_bwd_args)},
         **{f"{tag} float64": (lambda name=name, a=_cast(a, f64): getattr(
             sweeps, f"{name}_kernel")(*a))
-           for tag, name, a in _sweep_calls(sweep_args, sweep_bwd_args)}})
+           for tag, name, a in _sweep_calls(sweep_args, sweep_bwd_args)},
+        **{f"{tag}{d}": (lambda name=name, a=(_cast(wd_args[name][0], dt),
+                                              wd_args[name][1]):
+                         getattr(wd_donor, f"{name}_kernel")(*a[0], **a[1]))
+           for tag, name in _WD_CALLS
+           for d, dt in (("", f32), (" float64", f64))}})
     k1_launch = _check_launches("K1", events["K1"], "contacts_kernel")
     roche_launch, roche_us = {}, {}
     for k, name in ((4, "findi"), (5, "xl1"), (6, "lobe_radius")):
@@ -3313,6 +3737,17 @@ def main():
         _check(sweep_launch[tag][1] == 1, f"a {tag} call runs device "
                f"kernels besides {name}_kernel: "
                f"{[nm[:60] for nm in events[tag]]}")
+    wd_launch, wd_us = {}, {}
+    for tag, name in _WD_CALLS:
+        kernel = "donor_grid_kernel" if name == "donor_grid" else (
+            "wd_curve_kernel")
+        for d in ("", " float64"):
+            wd_launch[tag + d] = _check_launches(tag + d, events[tag + d],
+                                                 kernel)
+            wd_us[tag + d] = sum(device_us[tag + d].values())
+            _check(wd_launch[tag + d][1] == 1, f"a {tag + d} call runs "
+                   f"device kernels besides {kernel}: "
+                   f"{[nm[:60] for nm in events[tag + d]]}")
     k2_launch = {sens: _check_launches(tag, events[tag], "stream_kernel")
                  for sens, tag in ((False, "K2"),
                                    (True, "K2 with sensitivities"))}
@@ -3413,6 +3848,19 @@ def main():
     ms_stream = _event_ms(lambda: stream.stream_impacts_kernel(
         q, rd, x1, n_steps), 5)
     busy_us, n_kern, wall_us, _ = _device_kernels(lambda: lp32(pos))
+    _zero_counts(contacts, stream, gp)
+    lp32(pos)
+    c_eval = _counts(contacts, stream, gp)
+    print(f"[3 posterior] one evaluation at {N_WALKERS} walkers: {n_kern} "
+          f"device kernels (1222 with the eager chains), {busy_us / 1e3:.3f} "
+          f"device ms; K9 "
+          f"{c_eval['k9']} and K10 {c_eval['k10']} launches (the donor grid, "
+          f"the white dwarf's curve); {smi}")
+    _check(n_kern < 1222 and all(c_eval[k] == v for k, v in
+                                 WD_DONOR_PER_EVAL.items()),
+           f"the forward evaluation: {n_kern} device kernels (not fewer "
+           f"than 1222), K9 / K10 launches {c_eval['k9']} / "
+           f"{c_eval['k10']}")
     print(f"[3 posterior] ms per eval at {N_WALKERS} walkers: kernel path "
           f"{ms_kernel:.1f} (turns {turns['kernel'][0]:.1f}, "
           f"{turns['kernel'][1]:.1f}), plain contact path {ms_plain:.1f} "
@@ -3497,6 +3945,9 @@ def main():
     _check(c_ens["k6"] - c_init["k6"] == 2 * n_ens * ROCHE_PER_EVAL["k6"],
            "K6 did not launch once per half-step")
     _check(all(c_ens[k] - c_init[k] == 2 * n_ens * v
+               for k, v in WD_DONOR_PER_EVAL.items()),
+           f"K9 / K10 not once per half-step: {_delta(c_ens, c_init)}")
+    _check(all(c_ens[k] - c_init[k] == 2 * n_ens * v
                for k, v in SWEEPS_PER_EVAL.items())
            and c_ens["k7_bwd"] == c_ens["k8_bwd"] == 0,
            f"K7 / K8 not twice per half-step: {_delta(c_ens, c_init)}")
@@ -3555,7 +4006,8 @@ def main():
           f"sensitivities {c_one['k2_sens']})")
     _check(c_one == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
                      "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 0,
-                     "k3_bwd": 0, **ROCHE_PER_EVAL, **SWEEPS_PER_GRAD},
+                     "k3_bwd": 0, **ROCHE_PER_EVAL, **SWEEPS_PER_GRAD,
+                     **WD_DONOR_PER_GRAD},
            "K1's backward kernel or K2's sensitivities not once per "
            "evaluation")
     _check(bool(torch.isfinite(lp_g).all()), "a chain's ln p is not finite")
@@ -3712,6 +4164,9 @@ def main():
     _check(all(per[k] == N_LEAPFROG * v for k, v in SWEEPS_PER_GRAD.items()),
            f"K7, K8 and their backward kernels not twice per leapfrog: "
            f"{per}")
+    _check(all(per[k] == N_LEAPFROG * v
+               for k, v in WD_DONOR_PER_GRAD.items()),
+           f"K9 not once and K10 not 0 times per leapfrog: {per}")
     _check(bool(torch.isfinite(hs.positions).all()), "non-finite positions")
     _check(bool(torch.isfinite(hs.log_prob).all()), "non-finite log_prob")
     _check(bool(torch.isfinite(hchain_lp).all()), "non-finite chain_lp")
@@ -3961,7 +4416,8 @@ def main():
     _check(c_gp_c5 == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 0,
                        "k1_bwd_kernel": 0, "k2": 1, "k2_sens": 0, "k3": 1,
                        "k3_bwd": 0, **ROCHE_PER_EVAL, **SWEEPS_PER_EVAL,
-                       "k7_bwd": 0, "k8_bwd": 0},
+                       "k7_bwd": 0, "k8_bwd": 0, "k9": 1,
+                       "k10": 1 + WD_GP_CHANGEPOINTS},
            f"config-5 evaluation launches: {c_gp_c5}")
     prior_ok = torch.isfinite(prior_c5(pos_c5))
     k3_c5_ms = _event_ms(lambda: gp.segmented_matern32_kernel(
@@ -3987,7 +4443,8 @@ def main():
     c_gp_vg = _counts(contacts, stream, gp)
     _check(c_gp_vg == {"k1": 1, "k1_f64": 0, "k1_mixed": 0, "k1_bwd": 1,
                        "k1_bwd_kernel": 1, "k2": 1, "k2_sens": 1, "k3": 1,
-                       "k3_bwd": 1, **ROCHE_PER_EVAL, **SWEEPS_PER_GRAD},
+                       "k3_bwd": 1, **ROCHE_PER_EVAL, **SWEEPS_PER_GRAD,
+                       "k9": 1, "k10": WD_GP_CHANGEPOINTS},
            f"GP value_and_grad launches: {c_gp_vg}")
     _check(bool(torch.isfinite(lp_gg).all()), "a GP chain's ln p not finite")
     _check(bool(torch.isfinite(g_gp).all()), "a GP gradient is not finite")
@@ -4072,7 +4529,8 @@ def main():
     _check(c_gp_hmc == {**dict.fromkeys(c_gp_hmc, N_LEAPFROG),
                         "k1_f64": 0, "k1_mixed": 0,
                         **{k: N_LEAPFROG * v for k, v in
-                           {**ROCHE_PER_EVAL, **SWEEPS_PER_GRAD}.items()}},
+                           {**ROCHE_PER_EVAL, **SWEEPS_PER_GRAD}.items()},
+                        "k10": N_LEAPFROG * WD_GP_CHANGEPOINTS},
            "GP hmc_step: not one K1, K1 backward kernel, K2, K3 and K3 "
            "reverse kernel per leapfrog")
     _check(bool(torch.isfinite(hs_gp2.positions).all()
@@ -4228,6 +4686,12 @@ def main():
                              sweep_us, registers)
     print(f"[23 sweeps] phase 23 took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 24. the donor grid's radius solve K9, the white dwarf's K10 -----
+    t0 = time.perf_counter()
+    k_wd = _wd_donor_phase(dev, smi, model, pos, wd_args, wd_us, registers,
+                           contacts, stream, gp)
+    print(f"[24 wd_donor] phase 24 took {time.perf_counter() - t0:.1f} s")
+
     k2_ms, k2_pms = k2[f32, False][2:]
     paths = {"ensemble": c_ens, "hmc": c_hmc, "gp": c_gp, "pt": c_pt,
              "nuts": c_nuts, "fit": c_fit, **c_modes, **c_branches,
@@ -4252,7 +4716,12 @@ def main():
                     ("k7_bwd", ("hmc", "gp", "nuts", "fit_hmc", "fit_nuts",
                                 "fit_hmc_shard")),
                     ("k8_bwd", ("hmc", "gp", "nuts", "fit_hmc", "fit_nuts",
-                                "fit_hmc_shard"))):
+                                "fit_hmc_shard")),
+                    ("k9", paths),
+                    ("k10", ("ensemble", "gp", "pt", "fit", "fit_pt",
+                             "fit_x64", "fit_shard", "posterior_f64",
+                             "posterior_quad", "fit_profiled", "compat",
+                             "plot_eclipse"))):
         for name in on:
             _check(paths[name][key] > 0,
                    f"the {name} path never launched {key.upper()}")
@@ -4264,15 +4733,19 @@ def main():
         want = {"k7": 2 * evals,
                 "k8": (1 if name == "posterior_quad" else 2) * evals,
                 "k7_bwd": 2 * c["k1_bwd_kernel"],
-                "k8_bwd": 2 * c["k1_bwd_kernel"]}
+                "k8_bwd": 2 * c["k1_bwd_kernel"], "k9": evals}
         _check(all(c[k] == v for k, v in want.items()),
-               f"the {name} path: K7 / K8 launches "
+               f"the {name} path: K7 / K8 / K9 launches "
                f"{ {k: c[k] for k in want} }, expected {want}")
     print("[23 sweeps] launches by path (K7, K7 backward, K8, K8 backward): "
           + ", ".join(f"{n} {c['k7']}/{c['k7_bwd']}/{c['k8']}/{c['k8_bwd']}"
                       for n, c in paths.items())
           + "; every path K7 = 2 and K8 = 2 an evaluation (K8 = 1 with the "
           "donor quadrature), each backward kernel 2 a gradient evaluation")
+    print("[24 wd_donor] launches by path (K9, K10): "
+          + ", ".join(f"{n} {c['k9']}/{c['k10']}" for n, c in paths.items())
+          + "; every path K9 = 1 an evaluation; K10 1 a forward evaluation "
+          "(0 on a gradient or precise one), 2 more a GP evaluation")
 
     def k1_mode(mode, key):
         r = k1_modes[mode]
@@ -4447,6 +4920,25 @@ def main():
               ("donor_sum", "k8", "K8 donor_sum curve", "areas"),
               ("donor_sum_backward", "k8_bwd", "K8 donor_sum_backward curve",
                "cotangent (d area, per row)"))),
+        *({"name": n, "route": "cuda", "source": WD_DONOR_SOURCE,
+           "replaces": WD_DONOR_REPLACES[n],
+           "launches": sum(by_path(key).values()),
+           "launches_by_path": by_path(key),
+           "device_launches_per_call": wd_launch[tag][0],
+           "device_events_per_call": wd_launch[tag][1],
+           "registers": {e: r for e, r in registers["wd_donor"].items()
+                         if e.startswith(f"{n}_kernel")},
+           "library_ms": None,
+           "library_ms_reason": NO_LIBRARY.format(what),
+           **k_wd[n]}
+          for n, key, tag, what in (
+              ("donor_grid", "k9", "K9 donor_grid", "a fixed-iteration "
+               "bisection and safeguarded Newton solve of the Roche "
+               "potential along each direction, and the grid's normals "
+               "and areas there"),
+              ("wd_curve", "k10", "K10 wd_curve", "a clamped-Newton ray "
+               "clearance, its shadow distance and a limb-darkened edge "
+               "fraction at each phase"))),
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

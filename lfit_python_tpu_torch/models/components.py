@@ -15,6 +15,7 @@ its IFT tangent, and the white dwarf's edge fraction through an
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -22,12 +23,14 @@ import torch
 
 from ..ops import contacts
 from ..ops.stream import stream_impacts
+from ..roche import geometry as _geometry
 from ..roche.geometry import (
     _recording,
+    _shadow_distance_plain,
+    _wd_kernel_route,
     earth_vector,
     implicit_tangent,
     inscribed_radius,
-    origin_shadow_distance,
     ray_clearance,
     visible_fraction_interval,
 )
@@ -125,11 +128,30 @@ def wd_flux(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins=None,
     ``precise``: optional (q, incl, xl1, pl1) solved in float64 (the
     mixed-precision mode): the shadow distance is refined in float64 and
     the edge fraction, ill-conditioned at |x| = 1, is finished in float64
-    before the curve is cast to ``phases``' dtype."""
-    d, clear = origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1,
-                                      precise=precise)
+    before the curve is cast to ``phases``' dtype.
+
+    Tensors off the CPU, with no graph recorded through them and no
+    ``precise``, take one launch of ``ops.wd_donor.wd_curve_kernel`` (the
+    kernel K10 on the card); otherwise :func:`_wd_curve_plain` runs, and
+    autograd differentiates through its Newton steps."""
     if r_ins is None:
         r_ins = inscribed_radius(q, xl1_val, phi_l1)
+    args = (q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins)
+    if _wd_kernel_route(precise, args):
+        from ..ops import wd_donor
+
+        return wd_donor.wd_curve_kernel(*args)
+    return _wd_curve_plain(*args, precise=precise)
+
+
+def _wd_curve_plain(q, incl_deg, phases, rwd, ulimb, xl1_val, phi_l1, r_ins,
+                    precise=None):
+    """:func:`wd_flux`'s chain in PyTorch operations, and the plain
+    version of the kernel K10 (``ops/csrc/wd_donor.cu``): the shadow
+    distance (:func:`~..roche.geometry._shadow_distance_plain`), the
+    guard, the edge fraction."""
+    d, clear = _shadow_distance_plain(q, incl_deg, phases, xl1_val, phi_l1,
+                                      precise=precise)
     th = 2.0 * math.pi * phases
     si = torch.sin(torch.deg2rad(incl_deg))
     tstar = si * torch.cos(th)
@@ -400,77 +422,90 @@ class DonorGrid(NamedTuple):
     areas: torch.Tensor       # (..., N) element areas
 
 
-def donor_grid(q, xl1_val, phi_l1, n_lat=16, n_lon=24):
-    """Tile the Roche-lobe-filling donor surface: directions from the
-    donor centre on an off-pole (lat x lon) grid, the lobe radius along
-    each (Phi = Phi_L1), outward normals grad(Phi)/|grad(Phi)| and areas
-    r^2 dOmega / (d . n).  ``q``, ``xl1_val``, ``phi_l1``: (...); returns a
-    :class:`DonorGrid` of (..., n_lat * n_lon) elements.
+# the donor grid's radius solve: float64 bisects to machine precision,
+# float32 takes a few bisection steps, then safeguarded Newton steps, as
+# the JAX package does (K9 has the same counts: wd_donor.cu's DonorSteps)
+_DONOR_BISECT_F64 = 54
+_DONOR_BISECT_F32 = 8
+_DONOR_NEWTON_F32 = 4
 
-    float64 bisects the radius to machine precision (54 steps); float32
-    takes 8 bisection steps and 4 safeguarded Newton steps, as the JAX
-    package does.  Either solve runs without a graph; the radius gets the
-    IFT tangent of F(r) = Phi(c2 + r d) - Phi_L1."""
-    dt, dev = q.dtype, q.device
-    th = (torch.arange(n_lat, dtype=dt, device=dev) + 0.5) / n_lat * math.pi
-    phl = (torch.arange(n_lon, dtype=dt, device=dev) + 0.5) / n_lon * (
-        2.0 * math.pi)
-    TH, PH = torch.meshgrid(th, phl, indexing="ij")
-    dx = (torch.sin(TH) * torch.cos(PH)).reshape(-1)
-    dy = (torch.sin(TH) * torch.sin(PH)).reshape(-1)
-    dz = torch.cos(TH).reshape(-1)
-    d_omega = ((math.pi / n_lat) * (2.0 * math.pi / n_lon)
-               * torch.sin(TH)).reshape(-1)
 
-    mu = (q / (1.0 + q))[..., None]
-    pl1 = phi_l1[..., None]
+@functools.lru_cache(maxsize=None)
+def _directions(n_lat, n_lon, dtype, device):
+    """The donor grid's directions (dx, dy, dz) from the donor centre on
+    the off-pole (lat x lon) grid and their solid angles d_omega, each
+    (n_lat * n_lon,): made once per grid, dtype and device and kept,
+    outside any inference mode so that a graph may use them."""
+    dt, dev = dtype, device
+    with torch.inference_mode(False), torch.no_grad():
+        th = (torch.arange(n_lat, dtype=dt, device=dev) + 0.5) / n_lat \
+            * math.pi
+        phl = (torch.arange(n_lon, dtype=dt, device=dev) + 0.5) / n_lon * (
+            2.0 * math.pi)
+        TH, PH = torch.meshgrid(th, phl, indexing="ij")
+        dx = (torch.sin(TH) * torch.cos(PH)).reshape(-1)
+        dy = (torch.sin(TH) * torch.sin(PH)).reshape(-1)
+        dz = torch.cos(TH).reshape(-1)
+        d_omega = ((math.pi / n_lat) * (2.0 * math.pi / n_lon)
+                   * torch.sin(TH)).reshape(-1)
+    return dx, dy, dz, d_omega
 
-    def lobe_f(r, mu=mu, pl1=pl1):
-        i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
-        cx = 1.0 + r * dx - mu
-        cy = r * dy
-        return (-(1.0 - mu) * i1 - mu / r - 0.5 * (cx * cx + cy * cy)) - pl1
 
-    def lobe_fp(r, mu):
-        i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
-        cx = 1.0 + r * dx - mu
-        cy = r * dy
-        return ((1.0 - mu) * (r + dx) * i1 * i1 * i1 + mu / (r * r)
-                - (cx * dx + cy * dy))
+def _lobe_f(r, mu, pl1, dx, dy):
+    """F(r) = Phi(c2 + r d) - Phi_L1 along the directions (dx, dy, dz)."""
+    i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
+    cx = 1.0 + r * dx - mu
+    cy = r * dy
+    return (-(1.0 - mu) * i1 - mu / r - 0.5 * (cx * cx + cy * cy)) - pl1
 
+
+def _lobe_fp(r, mu, dx, dy):
+    """dF/dr."""
+    i1 = torch.rsqrt(1.0 + 2.0 * r * dx + r * r)
+    cx = 1.0 + r * dx - mu
+    cy = r * dy
+    return ((1.0 - mu) * (r + dx) * i1 * i1 * i1 + mu / (r * r)
+            - (cx * dx + cy * dy))
+
+
+def _donor_radius_loop(q, xl1_val, phi_l1, dx, dy, dz):
+    """The lobe radius along each direction (dx, dy, dz) (N,) of the
+    walkers' q, xl1, phi_l1 (...), and the slope dF/dr there: (r, slope),
+    each (..., N), without a graph.  Bisection of F over (1e-6 rmax,
+    rmax], rmax = 1 - xl1, then (float32) safeguarded Newton steps: a
+    proposal outside the bracket by the strict tests takes its midpoint.
+    The plain version of the kernel K9 (``ops/csrc/wd_donor.cu``)."""
+    f64 = q.dtype == torch.float64
+    n_bisect = _DONOR_BISECT_F64 if f64 else _DONOR_BISECT_F32
+    n_newton = 0 if f64 else _DONOR_NEWTON_F32
     with torch.no_grad():
-        mu0, pl10 = mu.detach(), pl1.detach()
+        mu = (q.detach() / (1.0 + q.detach()))[..., None]
+        pl1 = phi_l1.detach()[..., None]
         rmax = (1.0 - xl1_val.detach())[..., None]
         shape = rmax.shape[:-1] + dx.shape
         lo = (torch.full_like(dx, 1e-6) * rmax).expand(shape)
         hi = rmax.expand(shape)
+        for _ in range(n_bisect):
+            mid = 0.5 * (lo + hi)
+            inside = _lobe_f(mid, mu, pl1, dx, dy) < 0.0
+            lo = torch.where(inside, mid, lo)
+            hi = torch.where(inside, hi, mid)
+        r = 0.5 * (lo + hi)
+        for _ in range(n_newton):
+            fr = _lobe_f(r, mu, pl1, dx, dy)
+            inside = fr < 0.0
+            lo = torch.where(inside, r, lo)
+            hi = torch.where(inside, hi, r)
+            rn = r - fr / torch.clamp(_lobe_fp(r, mu, dx, dy), min=1e-12)
+            bad = (rn < lo) | (rn > hi)
+            r = torch.where(bad, 0.5 * (lo + hi), rn)
+        return r, _lobe_fp(r, mu, dx, dy)
 
-        def bisect(lo, hi, n):
-            for _ in range(n):
-                mid = 0.5 * (lo + hi)
-                inside = lobe_f(mid, mu0, pl10) < 0.0
-                lo = torch.where(inside, mid, lo)
-                hi = torch.where(inside, hi, mid)
-            return lo, hi
 
-        if dt == torch.float64:
-            lo, hi = bisect(lo, hi, 54)
-            r = 0.5 * (lo + hi)
-        else:
-            lo, hi = bisect(lo, hi, 8)
-            r = 0.5 * (lo + hi)
-            for _ in range(4):
-                fr = lobe_f(r, mu0, pl10)
-                inside = fr < 0.0
-                lo = torch.where(inside, r, lo)
-                hi = torch.where(inside, hi, r)
-                rn = r - fr / torch.clamp(lobe_fp(r, mu0), min=1e-12)
-                bad = (rn < lo) | (rn > hi)
-                r = torch.where(bad, 0.5 * (lo + hi), rn)
-        slope = lobe_fp(r, mu0)
-    if _recording(mu, pl1):
-        r = implicit_tangent(r, lobe_f(r), slope)
-
+def _donor_grid_plain(r, mu, dx, dy, dz, d_omega):
+    """The grid's elements at the radii ``r`` (..., N): positions c2 + r
+    d, outward normals grad(Phi)/|grad(Phi)| and areas r^2 dOmega /
+    (d . n), ``mu`` (..., 1).  The plain version of the grid K9 writes."""
     px = 1.0 + r * dx
     py = r * dy
     pz = r * dz
@@ -487,6 +522,41 @@ def donor_grid(q, xl1_val, phi_l1, n_lat=16, n_lon=24):
     areas = r * r * d_omega / mu_dn
     return DonorGrid(torch.stack([px, py, pz], dim=-1),
                      torch.stack([nx, ny, nz], dim=-1), areas)
+
+
+def donor_grid(q, xl1_val, phi_l1, n_lat=16, n_lon=24):
+    """Tile the Roche-lobe-filling donor surface: directions from the
+    donor centre on an off-pole (lat x lon) grid, the lobe radius along
+    each (Phi = Phi_L1), outward normals grad(Phi)/|grad(Phi)| and areas
+    r^2 dOmega / (d . n).  ``q``, ``xl1_val``, ``phi_l1``: (...); returns a
+    :class:`DonorGrid` of (..., n_lat * n_lon) elements.
+
+    float64 bisects the radius to machine precision (54 steps); float32
+    takes 8 bisection steps and 4 safeguarded Newton steps, as the JAX
+    package does.  Either solve runs without a graph; the radius gets the
+    IFT tangent of F(r) = Phi(c2 + r d) - Phi_L1.  Off the CPU the solve
+    is one launch of ``ops.wd_donor.donor_grid_kernel`` (the kernel K9 on
+    the card), which with no graph recorded also writes the grid."""
+    dx, dy, dz, d_omega = _directions(n_lat, n_lon, q.dtype, q.device)
+    recording = _recording(q, phi_l1)
+    if not _geometry._on_card(q):
+        r, slope = _donor_radius_loop(q, xl1_val, phi_l1, dx, dy, dz)
+    else:
+        from ..ops import wd_donor
+
+        lead = torch.broadcast_shapes(q.shape, xl1_val.shape, phi_l1.shape)
+        r, slope, grid = wd_donor.donor_grid_kernel(
+            *(a.detach().expand(lead).reshape(-1)
+              for a in (q, xl1_val, phi_l1)),
+            dx, dy, dz, d_omega, grid=not recording)
+        if grid is not None:
+            return DonorGrid(*(g.reshape(lead + g.shape[1:]) for g in grid))
+        r, slope = (a.reshape(lead + a.shape[1:]) for a in (r, slope))
+    mu = (q / (1.0 + q))[..., None]
+    if recording:
+        r = implicit_tangent(r, _lobe_f(r, mu, phi_l1[..., None], dx, dy),
+                             slope)
+    return _donor_grid_plain(r, mu, dx, dy, dz, d_omega)
 
 
 def _donor_sum_plain(e, normals, areas, ulimb_donor):

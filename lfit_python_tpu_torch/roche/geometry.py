@@ -67,6 +67,22 @@ def _recording(*ts):
         isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
+def _on_card(t):
+    """True where the tensor ``t`` lies off the CPU: there the donor grid
+    and the white dwarf's sweep take the kernels of ``ops.wd_donor``."""
+    return t.device.type != "cpu"
+
+
+def _wd_kernel_route(precise, args):
+    """True where a white-dwarf sweep on ``args`` takes the kernel K10:
+    its first tensor off the CPU, with no graph recorded through ``args``
+    and no ``precise`` refinement (which stays in PyTorch).  A Python
+    number among ``args`` then reaches K10's wrapper, which raises."""
+    first = next((a for a in args if isinstance(a, torch.Tensor)), None)
+    return (precise is None and first is not None and _on_card(first)
+            and not _recording(*args))
+
+
 def implicit_tangent(x, residual, slope):
     """Attach the implicit-function-theorem tangent to a solved root with
     exactly zero primal change.
@@ -303,7 +319,25 @@ def origin_shadow_distance(q, incl_deg, phases, xl1_val, phi_l1,
     takes two float64 Newton steps, and the clearance and the gradient
     are evaluated once in float64 there; both are then returned in
     float64 (``components.wd_flux`` finishes the edge fraction in
-    float64)."""
+    float64).
+
+    Tensors off the CPU, with no graph recorded through them and no
+    ``precise``, take one launch of ``ops.wd_donor.wd_distance_kernel``
+    (the kernel K10's distance mode on the card); otherwise
+    :func:`_shadow_distance_plain` runs."""
+    args = (q, incl_deg, phases, xl1_val, phi_l1)
+    if _wd_kernel_route(precise, args):
+        from ..ops import wd_donor
+
+        return wd_donor.wd_distance_kernel(*args)
+    return _shadow_distance_plain(*args, precise=precise)
+
+
+def _shadow_distance_plain(q, incl_deg, phases, xl1_val, phi_l1,
+                           precise=None):
+    """:func:`origin_shadow_distance` in PyTorch operations: the plain
+    version of the kernel K10's distance mode (``ops/csrc/wd_donor.cu``),
+    and with ``precise`` its float64 refinement."""
     clear, t, mu, ex, ey, ci, t_lo, t_hi, no_occ = _origin_clearance(
         q, incl_deg, phases, xl1_val, phi_l1)
     if precise is not None:

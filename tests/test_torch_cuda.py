@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (contacts: float32, float64 and mixed precision) and
 its backward, K2 (gas stream), K3 (GP recursion) and its reverse kernel,
-K4-K6 (the core geometry's bisections), and K7 and K8 (the flux curves'
-sweeps) and their backward kernels on the card, against their
+K4-K6 (the core geometry's bisections), K7 and K8 (the flux curves'
+sweeps) and their backward kernels, and K9 and K10 (the donor grid's
+radius solve, the white dwarf's sweep) on the card, against their
 plain PyTorch versions, the posterior and its gradient through them, and
 the fit command, its chunked sampling loop and its checkpoints on the card.
 
@@ -21,9 +22,11 @@ import pytest
 import torch
 
 from lfit_python_tpu_torch.examples import build_model, with_calib_widths
+from lfit_python_tpu_torch.models import components as comp
 from lfit_python_tpu_torch.models.cv import CVConfig
 from lfit_python_tpu_torch.models.likelihood import make_ln_prob
-from lfit_python_tpu_torch.ops import contacts, gp, roche, stream, sweeps
+from lfit_python_tpu_torch.ops import (contacts, gp, roche, stream, sweeps,
+                                       wd_donor)
 from lfit_python_tpu_torch.roche import geometry as tg
 
 pytestmark = pytest.mark.cuda
@@ -1615,3 +1618,201 @@ def test_gradient_through_the_sweep_kernels_matches_plain(cuda):
     assert bool(torch.isfinite(g32).all())
     assert _f64_close(g64, pg64)
     assert _f32_gate(g32, pg32, pg64)
+
+
+# ---- K9, K10: the donor grid's radius solve, the white dwarf's sweep ----
+
+def wd_rows(dev, dtype, W=64, E=3, P=96, seed=9):
+    """K10's inputs as the posterior hands them: (W, E, P) phases across
+    ingress, egress, mid-eclipse and out of eclipse, (W, E, 1) columns of
+    a parameter table (q, rwd, ulimb) and (W, 1, 1) walkers (incl, x1,
+    pl1, r_ins); q 0.03-3.5, inclinations 75-90 deg (rays that miss the
+    donor among them), rwd 0.005-0.03 with rows at 0.2 and 1e-4."""
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(np.r_[rng.uniform(0.03, 3.5, W - 2), 0.03, 3.5],
+                     dtype=dtype, device=dev)
+    x1 = tg.xl1(q)
+    pl1 = tg.l1_potential(q, x1)
+    r_ins = tg.inscribed_radius(q, x1, pl1)
+    incl = torch.tensor(rng.uniform(75.0, 90.0, W), dtype=dtype, device=dev)
+    table = torch.tensor(rng.uniform(0.1, 0.6, (W, E, 14)), dtype=dtype,
+                         device=dev)
+    table[..., 4] = q[:, None]
+    table[..., 8] = torch.tensor(rng.uniform(0.005, 0.03, (W, E)),
+                                 dtype=dtype, device=dev)
+    table[::7, :, 8] = 0.2
+    table[1::7, :, 8] = 1e-4
+    ph = torch.tensor(np.linspace(-0.15, 0.15, P)[None, None, :]
+                      + rng.uniform(-0.003, 0.003, (W, E, 1)),
+                      dtype=dtype, device=dev)
+    col = [a[:, None, None] for a in (incl, x1, pl1, r_ins)]
+    return (table[..., 4:5], col[0], ph, table[..., 8:9], table[..., 7:8],
+            col[1], col[2], col[3])
+
+
+def donor_walkers(dev, dtype, W=64, seed=9):
+    q = torch.tensor(np.random.default_rng(seed).uniform(0.03, 3.5, W),
+                     dtype=dtype, device=dev)
+    x1 = tg.xl1(q)
+    return q, x1, tg.l1_potential(q, x1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_donor_grid_kernel_bit_identical(cuda, dtype):
+    """K9 at 64 walkers x 16 x 24 directions: the grid (a forward
+    evaluation's launch), and the radius and its slope (a recorded
+    graph's), the plain grid's and the plain loop's bits; one launch
+    each."""
+    q, x1, pl1 = donor_walkers(cuda, dtype)
+    dirs = comp._directions(16, 24, dtype, cuda)
+    before = wd_donor.DONOR_GRID_LAUNCHES
+    none, none2, grid = wd_donor.donor_grid_kernel(q, x1, pl1, *dirs)
+    r, slope, none3 = wd_donor.donor_grid_kernel(q, x1, pl1, *dirs,
+                                                 grid=False)
+    assert none is none2 is none3 is None
+    assert wd_donor.DONOR_GRID_LAUNCHES == before + 2
+    r0, slope0 = comp._donor_radius_loop(q, x1, pl1, *dirs[:3])
+    grid0 = comp._donor_grid_plain(r0, (q / (1.0 + q))[:, None], *dirs)
+    torch.cuda.synchronize()
+    for a, b in zip((r, slope, *grid), (r0, slope0, *grid0)):
+        assert a.shape == b.shape and same_bits(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wd_curve_kernel_bit_identical(cuda, dtype):
+    """K10 on (64, 3, 96) points with per-row and per-walker parameters
+    read in place: the fraction the plain chain's bits, and the distance
+    mode the plain distance's (d and the clearance); both the bits of
+    the same inputs broadcast and copied; one launch each."""
+    args = wd_rows(cuda, dtype)
+    before = wd_donor.WD_LAUNCHES
+    y = wd_donor.wd_curve_kernel(*args)
+    dist = (args[0], args[1], args[2], args[5], args[6])
+    d, clear = wd_donor.wd_distance_kernel(*dist)
+    assert wd_donor.WD_LAUNCHES == before + 2
+    torch.cuda.synchronize()
+    assert same_bits(y, comp._wd_curve_plain(*args))
+    d0, clear0 = tg._shadow_distance_plain(*dist)
+    assert same_bits(d, d0) and same_bits(clear, clear0)
+    assert int((clear == 10.0).sum()) > 0 and bool(torch.isfinite(y).all())
+    assert int((y == 0).sum()) and int((y == 1).sum()) \
+        and int(((y > 0) & (y < 1)).sum())
+    shape = y.shape
+    copied = [a.expand(shape).contiguous() for a in args]
+    assert same_bits(y, wd_donor.wd_curve_kernel(*copied))
+
+
+def test_wd_donor_kernels_are_one_device_event(cuda):
+    """One wrapper call of K9 and of K10 is one launch of its kernel and
+    no other device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, x1, pl1 = donor_walkers(cuda, torch.float32)
+    dirs = comp._directions(16, 24, torch.float32, cuda)
+    args = wd_rows(cuda, torch.float32)
+    calls = {"donor_grid_kernel": lambda: wd_donor.donor_grid_kernel(
+                 q, x1, pl1, *dirs),
+             "wd_curve_kernel": lambda: wd_donor.wd_curve_kernel(*args)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and name in names[0], names
+
+
+def test_wd_donor_routing_on_the_card(cuda):
+    """wd_flux and donor_grid on CUDA tensors are one launch each with
+    the plain chains' bits; with a gradient recorded wd_flux launches
+    nothing and donor_grid launches K9 for the radius alone, with the
+    plain loop's gradient; wd_flux with a Python number raises and the
+    wrappers refuse what the kernels cannot take."""
+    args = wd_rows(cuda, torch.float32)
+    before = (wd_donor.DONOR_GRID_LAUNCHES, wd_donor.WD_LAUNCHES)
+    y = comp.wd_flux(*args[:7], r_ins=args[7])
+    q, x1, pl1 = (a[:, None] for a in donor_walkers(cuda, torch.float32))
+    grid = comp.donor_grid(q, x1, pl1, 6, 8)
+    assert (wd_donor.DONOR_GRID_LAUNCHES, wd_donor.WD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    plain = mock.patch.object(tg, "_on_card", lambda t: False)
+    with plain:
+        assert same_bits(y, comp.wd_flux(*args[:7], r_ins=args[7]))
+        grid0 = comp.donor_grid(q, x1, pl1, 6, 8)
+    assert all(same_bits(a, b) for a, b in zip(grid, grid0))
+    leaf = q.clone().requires_grad_()
+    comp.wd_flux(leaf[..., None], *args[1:7], r_ins=args[7]).sum()
+    g = torch.autograd.grad(comp.donor_grid(leaf, x1, pl1, 6, 8).areas.sum(),
+                            leaf)[0]
+    assert (wd_donor.DONOR_GRID_LAUNCHES, wd_donor.WD_LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+    with plain:
+        g0 = torch.autograd.grad(comp.donor_grid(
+            leaf, x1, pl1, 6, 8).areas.sum(), leaf)[0]
+    assert same_bits(g, g0)
+    with pytest.raises(TypeError, match="ulimb is not a tensor"):
+        comp.wd_flux(*args[:4], 0.3, *args[5:7], r_ins=args[7])
+    assert wd_donor.WD_LAUNCHES == before[1] + 1
+    with pytest.raises(TypeError):
+        wd_donor.wd_curve_kernel(*args[:3], args[3].double(), *args[4:])
+    with pytest.raises(ValueError):
+        wd_donor.wd_curve_kernel(*args[:3], args[3].cpu(), *args[4:])
+    with pytest.raises(ValueError):
+        wd_donor.donor_grid_kernel(q[:, 0], x1[:, 0], pl1[:-1, 0],
+                                   *comp._directions(6, 8, torch.float32,
+                                                     cuda))
+
+
+@pytest.mark.parametrize("mode", ["float32", "float64", "precise", "gp"])
+def test_posterior_through_the_wd_donor_kernels_matches_plain(cuda, mode):
+    """ln p and flux at 256 walkers on the north-star tree (with use_gp
+    on every eclipse for "gp"): the same bits through K9 / K10 and
+    through the plain chains; K9 once an evaluation, K10 once (0 in the
+    precise mode, 2 more for the GP changepoints)."""
+    model = build_model(n_eclipses=5, complex_spot=[False] * 5,
+                        use_gp=mode == "gp", n_points=128,
+                        bands=("g", "r")).compile()
+    dtype = torch.float64 if mode == "float64" else torch.float32
+    lp = make_ln_prob(model, CVConfig(mixed_precision=mode == "precise"),
+                      dtype=dtype, device=cuda)
+    start = model.var_start()
+    rng = np.random.default_rng(4)
+    pos = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                       * rng.standard_normal((256, start.size)),
+                       dtype=dtype, device=cuda)
+    before = (wd_donor.DONOR_GRID_LAUNCHES, wd_donor.WD_LAUNCHES)
+    a = lp(pos)
+    k10 = {"precise": 0, "gp": 3}.get(mode, 1)
+    assert (wd_donor.DONOR_GRID_LAUNCHES, wd_donor.WD_LAUNCHES) == (
+        before[0] + 1, before[1] + k10)
+    fa = lp.model_flux(pos)
+    with mock.patch.object(tg, "_on_card", lambda t: False):
+        b, fb = lp(pos), lp.model_flux(pos)
+    assert int(torch.isfinite(a).sum()) > 128
+    assert same_bits(a, b) and same_bits(fa, fb)
+
+
+def test_gradient_through_the_wd_donor_kernels_matches_plain(cuda):
+    """value_and_grad at 256 chains on the widths model: K9 once (its
+    radius and slope), K10 never; ln p and the gradient the plain
+    chains' bits."""
+    model = with_calib_widths(build_model(
+        n_eclipses=5, complex_spot=[False] * 5, n_points=128,
+        bands=("g", "r"))).compile()
+    start = model.var_start()
+    rng = np.random.default_rng(5)
+    lp = make_ln_prob(model, dtype=torch.float32, device=cuda)
+    p = torch.tensor(start[None] + 1e-3 * np.abs(start)[None]
+                     * rng.standard_normal((256, start.size)),
+                     dtype=torch.float32, device=cuda)
+    before = (wd_donor.DONOR_GRID_LAUNCHES, wd_donor.WD_LAUNCHES)
+    v, g = lp.value_and_grad(p)
+    assert (wd_donor.DONOR_GRID_LAUNCHES, wd_donor.WD_LAUNCHES) == (
+        before[0] + 1, before[1])
+    with mock.patch.object(tg, "_on_card", lambda t: False):
+        v0, g0 = lp.value_and_grad(p)
+    assert same_bits(v, v0) and same_bits(g, g0)

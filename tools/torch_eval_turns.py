@@ -13,6 +13,10 @@ line:
   .calib exposure widths), three host-clock turns each after a warm-up;
   where the checkout has the GP likelihood, ms per ln_prob evaluation of
   the same tree with use_gp on every eclipse, at 1024 walkers;
+- s per hmc_step (16 leapfrog steps) and per nuts_step (max depth 6) at
+  the 256 chains of the value_and_grad above, from one chain ball at a
+  fixed step size, two turns each after a warm-up, with the NUTS
+  steps' mean depths;
 - ms per call of the checkout's kernels, through its own wrappers and
   timed with CUDA events: K1 on the contact rows one evaluation hands it
   (5120 x 512); K1 in float64 and in mixed precision on the rows one
@@ -193,7 +197,34 @@ def main():
                       "eval_ms": ev, "value_and_grad_ms": vg,
                       "eval_sha256": eval_digests(model, pos, lpw, posw),
                       "gp_eval_ms": gp_turns(spec, pos, kernels),
+                      **sampler_turns(lpw, model.var_start()),
                       "kernels": kernels}))
+
+
+def sampler_turns(lpw, start):
+    """{hmc_step_s, nuts_step_s: two turns each, nuts_depth: the mean
+    depth of each NUTS step}: one hmc_step of 16 leapfrog steps and one
+    nuts_step of max depth 6 at 256 chains of ``lpw``, each from the same
+    chain ball around ``start`` at init_hmc's step size, after one
+    warm-up step."""
+    from lfit_python_tpu_torch.sampling.hmc import hmc_step, init_hmc
+    from lfit_python_tpu_torch.sampling.nuts import nuts_step
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    x0 = torch.tensor(start, dtype=F32, device=DEV)
+    hs = init_hmc(gen, x0, 1e-3 * x0.abs() + 1e-6, lpw, 256)
+    depths = []
+
+    def nuts():
+        depths.append(nuts_step(hs, lpw, gen, max_depth=6)[4].item())
+
+    out = {}
+    for name, step in (("hmc_step_s", lambda: hmc_step(hs, lpw, gen, 16)),
+                       ("nuts_step_s", nuts)):
+        step()
+        out[name] = [ms / 1e3 for ms in turns(step, n_turns=2, reps=1)]
+    return {**out, "nuts_depth": depths}
 
 
 def eval_digests(model, pos, lpw, posw):
