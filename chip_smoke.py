@@ -239,7 +239,9 @@ x 256 walkers.  Phases:
      5120 rows x 128 phases; K10's distance mode on the GP changepoints')
      and on a stress set (q 0.03-3.5, inclinations 75-90 deg, phases
      across ingress, egress and mid-eclipse, rays that miss the donor,
-     the inscribed-sphere guard), float32 and float64: the same bits;
+     the inscribed-sphere guard), and at K10's row lengths
+     (WD_PHASES: rows of fewer phases than a warp to the widths' 384) and
+     K9's grids (DONOR_GRIDS), float32 and float64: the same bits;
      each kernel's time (traced in phase 2, and event-timed), its plain
      version's, its bound, ptxas's registers and frame; the float32,
      float64, precise and GP forward evaluations and value_and_grad
@@ -527,11 +529,11 @@ WD_GP_CHANGEPOINTS = 2
 # K10 instantiation (CUDA 12.8, sm_90a; K10's flag 0 the curve, 1 the
 # distance mode): K10's frames are the arrays of sinf / cosf's and sin /
 # cos's Payne-Hanek slow path (|x| > 48039 / 105615), which no angle of the
-# sweep reaches; K9 calls no trig
+# sweep reaches; K9 calls no trig; nothing spills
 WD_DONOR_FRAMES = {"donor_grid_kernel<f32>": (0, 0),
                    "donor_grid_kernel<f64>": (0, 0),
                    "wd_curve_kernel<f32, 0>": (32, 0),
-                   "wd_curve_kernel<f32, 1>": (40, 8),
+                   "wd_curve_kernel<f32, 1>": (32, 0),
                    "wd_curve_kernel<f64, 0>": (40, 0),
                    "wd_curve_kernel<f64, 1>": (40, 0)}
 # operations counted by hand from wd_donor.cu (each add, multiply, divide,
@@ -545,6 +547,28 @@ WD_DONOR_FRAMES = {"donor_grid_kernel<f32>": (0, 0),
 # curve 354 (with the guard 8, x 5 and the edge fraction 27)
 WD_DONOR_OPS = {"donor_grid": {"float32": 474, "float64": 1408},
                 "wd_curve": 354, "wd_distance": 314}
+# instructions issued a solve (K9) and a point (K10) on the north star's
+# path by each instantiation, all-in (the loop's a point and what a lane
+# runs outside it, over its points or solves), from the build's SASS
+# (tools/wd_donor_sass_counts.py); after an edit of wd_donor.cu that
+# changes their code, run that tool on the card and paste its counts
+WD_DONOR_SASS_PER_POINT = {"donor_grid_kernel<f32>": 845.0,
+                           "donor_grid_kernel<f64>": 3346.0,
+                           "wd_curve_kernel<f32, 0>": 734.25,
+                           "wd_curve_kernel<f32, 1>": 621.0,
+                           "wd_curve_kernel<f64, 0>": 1177.25,
+                           "wd_curve_kernel<f64, 1>": 907.0}
+# the instantiation of each of phase 24's calls, by dtype
+WD_SASS_OF = {"donor_grid": "donor_grid_kernel<{}>",
+              "wd_curve": "wd_curve_kernel<{}, 0>",
+              "wd_distance": "wd_curve_kernel<{}, 1>"}
+# phase 24's other shapes: K10's row lengths (fewer phases than a warp, a
+# warp's, between, the north star's 128 and around it, the widths' P *
+# n_sub = 384) on 37 x 3 rows, not a multiple of a block's; K9's grids
+# (n_lat, n_lon) of fewer directions than a block, a few, more than a
+# block's chunk, on 13 walkers
+WD_PHASES = (1, 2, 5, 31, 32, 33, 127, 128, 129, 384)
+DONOR_GRIDS = ((6, 8), (5, 7), (3, 3), (32, 48))
 NO_LIBRARY = "no single PyTorch call computes this function: {}"
 
 
@@ -3176,6 +3200,33 @@ def _wd_stress(dev, dtype, W=1024, E=2, P=128, seed=24):
             "wd_distance": ((qw, iw, ph, xw, pw), {})}
 
 
+def _wd_shapes(dev, dtype):
+    """[(wrapper, args, kwargs)] of phase 24's other shapes: K10 in both
+    modes at each of WD_PHASES (the stress set's first 37 walkers x 3
+    eclipses and its first P phases; at P = 1 rows whose parameters vary
+    along the last axis, a point each, as the GP changepoints' are) and
+    K9 in both modes at each of DONOR_GRIDS (its first 13 walkers)."""
+    from lfit_python_tpu_torch.models import components as comp
+
+    st = _wd_stress(dev, dtype, W=37, E=3, P=max(WD_PHASES) + 8)
+    curve = st["wd_curve"][0]
+    out = []
+    for P in WD_PHASES:
+        args = list(curve)
+        args[2] = args[2][..., :P].contiguous()
+        if P == 1:
+            args = [a[..., 0].expand(37, 3).contiguous() for a in args]
+        out += [("wd_curve", tuple(args), {}),
+                ("wd_distance", (args[0], args[1], args[2], args[5],
+                                 args[6]), {})]
+    q, x1, pl1 = (a[:13] for a in st["donor_grid"][0][:3])
+    for grid in DONOR_GRIDS:
+        out.append(("donor_grid", (q, x1, pl1,
+                                   *comp._directions(*grid, dtype, dev)),
+                    {"grid": True}))
+    return out
+
+
 def _wd_outputs(fn, name, args, kwargs):
     """The outputs of a K9 / K10 wrapper or plain version as a tuple: K9's
     in both modes, the radius and its slope (a recorded graph's launch)
@@ -3291,7 +3342,37 @@ def _wd_donor_phase(dev, smi, model, pos, wd_args, wd_us, registers,
         print(f"[24 wd_donor] {tag} set, {str(dtype)[6:]}: kernel against "
               f"its plain version: " + "; ".join(line))
 
-    # times and bounds at the north star's shapes
+    # K10's row lengths and K9's grids
+    for dtype in (f32, f64):
+        worst, calls = 0.0, _wd_shapes(dev, dtype)
+        for n, args, kw in calls:
+            k = _wd_outputs(kernels[n], n, args, kw)
+            p = _wd_outputs(plain[n], n, args, kw)
+            torch.cuda.synchronize()
+            res = [_same_bits(a, b) for a, b in zip(k, p)]
+            _check(len(k) == len(p) and all(r[0] for r in res),
+                   f"K9 / K10: {n} differs from its plain version at "
+                   f"shape {tuple(_broadcast_shape(args[:3]))} in {dtype}")
+            err = max(r[1] for r in res)
+            worst = max(worst, err)
+            key = "wd_curve" if n == "wd_distance" else n
+            out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err)
+        print(f"[24 wd_donor] K10 at rows of {WD_PHASES} phases (37 x 3 "
+              f"rows; both modes) and K9 at grids {DONOR_GRIDS} (13 "
+              f"walkers; both modes), {str(dtype)[6:]}: {len(calls)} calls "
+              f"against their plain versions: the same bits (max |d| "
+              f"{worst:.1e})")
+
+    # times and bounds at the north star's shapes; the issue floor (each
+    # counted operation an FP32 lane's issue slot: --fmad=false fuses
+    # none) and the build's SASS at the issue rate and each pipe's
+    sys.path.insert(0, str(ROOT / "tools"))
+    import wd_donor_sass_counts
+
+    sass = wd_donor_sass_counts.counts(wd_donor_sass_counts.built_sass())
+    issue_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
+                   * SM_LANES["fp32"] * _sm_clock_hz())
+    warp_clocks = issue_per_s / SM_LANES["fp32"] * 4   # warp issue slots/s
     for tag, n in _WD_CALLS:
         for dtype in (f32, f64):
             dt = str(dtype)[6:]
@@ -3304,9 +3385,18 @@ def _wd_donor_phase(dev, smi, model, pos, wd_args, wd_us, registers,
             size = (f"{args[0].numel()} walkers x {args[3].numel()} "
                     "directions" if n == "donor_grid" else
                     f"{math.prod(_broadcast_shape(args))} points")
+            count = sass[WD_SASS_OF[n].format("f32" if dtype == f32
+                                              else "f64")]
+            points = ops / (WD_DONOR_OPS[n][dt] if n == "donor_grid"
+                            else WD_DONOR_OPS[n])
+            at = {"issue": count["issue_cycles"], **count["cycles"]}
             res = {"ms": ms, "plain_ms": plain_ms, "traced_us": traced,
                    "bound_ms": bound, "bound_by": by, "ops": ops,
-                   "bytes": nbytes}
+                   "bytes": nbytes, "issue_floor_ms": ops / issue_per_s * 1e3,
+                   "sass_per_" + count["per"]: count["counts"],
+                   "sass_outside_per_lane": count["outside"],
+                   "sass_ms": {k: points / 32 * c / warp_clocks * 1e3
+                               for k, c in at.items()}}
             print(f"[24 wd_donor] {tag}_kernel, {size}, {dt}: {traced:.1f} "
                   f"us traced in phase 2, {ms:.4f} ms a call event-timed "
                   f"(host-paced below ~0.1 ms); plain {plain_ms:.3f} ms "
@@ -3314,7 +3404,16 @@ def _wd_donor_phase(dev, smi, model, pos, wd_args, wd_us, registers,
                   f"time); {ops / 1e6:.1f} M operations, {nbytes / 1e6:.2f} "
                   f"MB: bound {bound * 1e3:.2f} us (set by {by}; the kernel "
                   f"at {bound * 1e3 / max(traced, 1e-9):.1%} of it traced); "
-                  f"{smi}")
+                  f"issue floor {res['issue_floor_ms'] * 1e3:.2f} us (the "
+                  f"kernel at "
+                  f"{res['issue_floor_ms'] * 1e3 / max(traced, 1e-9):.1%} "
+                  f"of it); its SASS, {count['issue_cycles']} instructions "
+                  f"a {count['per']} all-in ({count['loop_issue_cycles']} "
+                  f"in its loop), at the issue rate "
+                  f"{res['sass_ms']['issue'] * 1e3:.2f} us, "
+                  + ", ".join(f"{k} pipe {v * 1e3:.2f} us"
+                              for k, v in res["sass_ms"].items()
+                              if k != "issue") + f"; {smi}")
             if n == "wd_distance":
                 out["wd_curve"].setdefault("distance", {})[dt] = res
             elif dtype == f32:
@@ -3536,6 +3635,15 @@ def main():
     print(f"[1 device] K1 executes, from its SASS: {json.dumps(k1_counted)}")
     _check(k1_counted == K1_EXECUTED, "K1_EXECUTED is not this build's "
            "count (tools/k1_sass_counts.py)")
+    import wd_donor_sass_counts
+
+    wd_sass = {k: v["issue_cycles"] for k, v in wd_donor_sass_counts.counts(
+        wd_donor_sass_counts.built_sass()).items()}
+    print("[1 device] K9 / K10 instructions a solve / a point on the north "
+          "star's path (SASS, tools/wd_donor_sass_counts.py): "
+          + json.dumps(wd_sass))
+    _check(wd_sass == WD_DONOR_SASS_PER_POINT, "WD_DONOR_SASS_PER_POINT is "
+           "not this build's count (tools/wd_donor_sass_counts.py)")
 
     # ---- the north-star model and 1024 walkers around its start -------
     t0 = time.perf_counter()

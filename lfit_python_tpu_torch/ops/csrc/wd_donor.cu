@@ -29,41 +29,59 @@
 // directions = 393,216 solves of 8 bisections and 4 Newton steps
 // (float32: some 470 operations a solve with the grid) writing the grid's
 // 7 values each (11 MB): the bytes take ~3.3 us, the operations ~2.8 us
-// at the card's peak.  K10 is
-// 5120 rows x 128 phases = 655,360 points of ~330 operations reading a
-// phase and writing one value (5 MB).  Neither kernel has a dependent
-// chain longer than a few hundred operations, so a thread a solve or a
-// point fills the card, and the first design is that: one thread each, no
-// shared memory, no warp intrinsic.
+// at the card's peak and ~5.6 us at one an FP32 lane and clock (the issue
+// floor: --fmad=false fuses none).  K10 is 5120 rows x 128 phases =
+// 655,360 points of ~354 operations reading a phase and writing one value
+// (5 MB): ~3.5 us at the peak, ~6.9 us at the issue floor.  Neither has a
+// dependent chain longer than a few hundred operations, so independent
+// solves and points fill the card, and what a kernel issues beyond the
+// counted operations is its cost.
 //
-// What the design does about the eager chains' costs.  Each per-walker or
-// per-row input is read where the thread needs it through an index map
-// (K10: element ((i / div) % mod) * stride of the input for point i; K9:
-// walker w at w * stride), so no parameter is expanded to (rows, P) and
-// copied, and a strided view (a column of the parameter table) is read in
-// place.  K9 writes the grid's positions and normals as (W, N, 3) at once,
-// with no stack of three components.
+// What the design does about it.  K10: a group of L lanes serves a row (L =
+// 32 from 32 phases on; below, the power of two that holds the row, 32 / L
+// rows a warp; where a parameter varies along the last axis, as in the
+// distance mode's (2, rows) changepoints, the rows are single points, a
+// thread each), lane l phases l, l + L, ...; 1024 walkers' 5120 rows of 128
+// phases are 4 phases a lane, one row a warp.  Each lane makes its row's
+// prologue once: the row's parameters read through index maps in row units
+// (row r reads element ((r / div) % mod) * stride, no parameter expanded to
+// (rows, P) and copied, a strided column read in place), the divisions by the
+// multiply-high of the divisor's magic number, made on the host; and the
+// terms that do not depend on the phase (mu, 1 - mu, -2 (1 - mu), sin and cos
+// of the inclination, the squared sphere radius, r_ins - rwd, 1 - u and the
+// edge fraction's total).  K9: a block of 384 threads serves a walker (a few,
+// blockDim.y, for a grid of fewer directions than half a block), a lane a
+// direction; the walker's terms (mu, 1 - mu, pl1, the bracket) are made once
+// by its first lane into shared memory, and no index is divided.  Measured on
+// the H100 (PERF.md section 6; tools/torch_wd_donor_variants.py): K10 takes
+// one phase a lane at a time (four a lane as unrolled chains with 16-byte
+// loads and stores, and two in float64, were slower: their registers cost
+// more warps than the chains gave back), and K9 writes its grid in place
+// (staged in shared memory and written by 16-byte stores it was slower: the
+// solve is bound by what it issues, not by its bytes).
 //
 // Bit-identity with the plain versions: each expression below is one
 // PyTorch operation per operator, in the plain version's order; built
 // with --fmad=false, so no multiply-add is contracted (PyTorch's eager ops
-// round each operation).  Python's double constants enter PyTorch's
-// kernels rounded to the tensor's type, and so they are written here as
-// T(double); torch.deg2rad multiplies by pi / 180 so rounded.  A division
-// by a Python number on a CUDA tensor is a product by the reciprocal,
-// rounded in the tensor's type (ATen's div_true_kernel_cuda for a CPU
-// scalar): (1 - a ** 3) / 3.0 is a product by T(1) / T(3).  a ** 3 is a *
-// a * a (ATen's pow specialises the exponent 3), 1.0 / r is r's reciprocal
-// (Tensor.__rtruediv__) times 1.  sin, cos and acos are sinf, cosf and
-// acosf (sin, cos, acos in float64), as PyTorch's; rsqrt is rsqrtf.
-// torch.minimum / maximum / clamp propagate NaN and so do nmin, nmax,
-// clamp_min and clamp_nan; a comparison with NaN is false, as in
-// torch.where.  sin / cos carry a Payne-Hanek slow path with an array in
-// local memory for |x| > 105615 (float64; 48039 float32), which no angle
-// here reaches.
+// round each operation).  A term made once a row or a walker is the value
+// the plain chain makes at every point, by the same operations.  Python's
+// double constants enter PyTorch's kernels rounded to the tensor's type,
+// and so they are written here as T(double); torch.deg2rad multiplies by
+// pi / 180 so rounded.  A division by a Python number on a CUDA tensor is
+// a product by the reciprocal, rounded in the tensor's type (ATen's
+// div_true_kernel_cuda for a CPU scalar): (1 - a ** 3) / 3.0 is a product
+// by T(1) / T(3).  a ** 3 is a * a * a (ATen's pow specialises the
+// exponent 3), 1.0 / r is r's reciprocal (Tensor.__rtruediv__) times 1.
+// sin, cos and acos are sinf, cosf and acosf (sin, cos, acos in float64),
+// as PyTorch's; rsqrt is rsqrtf.  torch.minimum / maximum / clamp
+// propagate NaN and so do nmin, nmax, clamp_min and clamp_nan; a
+// comparison with NaN is false, as in torch.where.  sin / cos carry a
+// Payne-Hanek slow path with an array in local memory for |x| > 105615
+// (float64; 48039 float32), which no angle here reaches.
 //
 // Everything above the "kernel and launcher" line is plain arithmetic with
-// no CUDA intrinsic: a host loop can run it (tests/test_torch_wd_donor.py).
+// no CUDA intrinsic: a host loop can run it (tests/test_torch_wd_donor.py),
+// the kernels' maps from their threads to solves and points included.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,6 +101,13 @@ template <> WD_FN double sin_<double>(double v) { return sin(v); }
 template <typename T> WD_FN T cos_(T v);
 template <> WD_FN float cos_<float>(float v) { return cosf(v); }
 template <> WD_FN double cos_<double>(double v) { return cos(v); }
+// sin and cos of one angle: sinf and cosf in float32; sincos in float64,
+// one range reduction for both (the bits of sin and cos)
+WD_FN void sincos_(float v, float& s, float& c) {
+  s = sinf(v);
+  c = cosf(v);
+}
+WD_FN void sincos_(double v, double& s, double& c) { sincos(v, &s, &c); }
 template <typename T> WD_FN T acos_(T v);
 template <> WD_FN float acos_<float>(float v) { return acosf(v); }
 template <> WD_FN double acos_<double>(double v) { return acos(v); }
@@ -110,6 +135,51 @@ template <typename T> WD_FN T clamp_nan(T v, T lo, T hi) {
 // roche/geometry.py's _CLEAR_VISIBLE: the clearance of a ray that misses
 // the donor's sphere
 #define WD_CLEAR_VISIBLE 10.0
+
+// ---- index maps ---------------------------------------------------------
+
+// the high 32 bits of a * b
+WD_FN unsigned umulhi_(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
+
+// n / d for n < 2^31 as (umulhi(n, m) + n) >> s, d's magic number m and
+// shift s made on the host (PyTorch's IntDivider's scheme): no integer
+// division on the card
+struct FastDiv {
+  unsigned d, m, s;
+};
+static inline FastDiv fast_div(unsigned d) {
+  FastDiv f;
+  f.d = d;
+  f.s = 0;
+  while ((1ull << f.s) < d) ++f.s;
+  f.m = (unsigned)(((1ull << 32) * ((1ull << f.s) - d)) / d + 1);
+  return f;
+}
+WD_FN unsigned div_(const FastDiv& f, unsigned n) {
+  return (umulhi_(n, f.m) + n) >> f.s;
+}
+
+// an input's index map in row units: row r reads element ((r / div) % mod)
+// * stride, div 1 dividing nothing and mod 0 wrapping nothing
+struct RowMap {
+  FastDiv div, mod;
+  long long stride;
+};
+static inline RowMap row_map(long long div, long long mod, long long stride) {
+  RowMap m;
+  m.div = fast_div(div > 1 ? (unsigned)div : 1u);
+  m.mod = fast_div(mod > 1 ? (unsigned)mod : 1u);
+  m.mod.d = (unsigned)mod;
+  m.stride = stride;
+  return m;
+}
+WD_FN long long row_at(const RowMap& m, unsigned r) {
+  unsigned j = m.div.d > 1u ? div_(m.div, r) : r;
+  if (m.mod.d) j -= div_(m.mod, j) * m.mod.d;
+  return (long long)j * m.stride;
+}
 
 // ---- K9: the donor grid -------------------------------------------------
 
@@ -149,22 +219,25 @@ template <typename T> WD_FN T lobe_fp(const Lobe<T>& s, T r) {
 #ifndef WD_NEWTON_F32
 #define WD_NEWTON_F32 4
 #endif
+// and K9's block in each type: `threads` threads, at least `blocks` of
+// them an SM (ptxas keeps the registers within 64K over their threads)
 template <typename T> struct DonorSteps;
 template <> struct DonorSteps<double> {
   static constexpr int bisections = WD_BISECT_F64, newtons = 0;
+  static constexpr int threads = 384, blocks = 3;
 };
 template <> struct DonorSteps<float> {
   static constexpr int bisections = WD_BISECT_F32, newtons = WD_NEWTON_F32;
+  static constexpr int threads = 384, blocks = 5;
 };
 
 // components._donor_radius_loop's radius at one (walker, direction):
-// DonorSteps<T>::bisections steps over (1e-6 rmax, rmax), rmax = 1 - x1,
-// then DonorSteps<T>::newtons safeguarded Newton steps (a proposal outside
-// the bracket, by the strict tests rn < lo or rn > hi, takes the
-// bracket's midpoint; a NaN proposal passes them, as in torch.where)
-template <typename T> WD_FN T lobe_root(const Lobe<T>& s, T x1) {
-  const T rmax = T(1) - x1;
-  T lo = T(1e-6) * rmax, hi = rmax;
+// DonorSteps<T>::bisections steps over the walker's bracket (1e-6 rmax,
+// rmax), rmax = 1 - x1, then DonorSteps<T>::newtons safeguarded Newton
+// steps (a proposal outside the bracket, by the strict tests rn < lo or
+// rn > hi, takes the bracket's midpoint; a NaN proposal passes them, as
+// in torch.where)
+template <typename T> WD_FN T lobe_root(const Lobe<T>& s, T lo, T hi) {
   for (int k = 0; k < DonorSteps<T>::bisections; ++k) {
     const T mid = T(0.5) * (lo + hi);
     const bool inside = lobe_f(s, mid) < T(0);
@@ -184,49 +257,111 @@ template <typename T> WD_FN T lobe_root(const Lobe<T>& s, T x1) {
   return r;
 }
 
+// K9's block: x lanes across the directions (a multiple of 32) and g
+// walkers (blockDim (x, g)), x g <= the type's threads; lane tx solves
+// directions tx, tx + x, ... of its walker
+struct DonorShape {
+  unsigned x, g;
+};
+static inline DonorShape donor_shape(unsigned n_dir, unsigned threads) {
+  DonorShape sh;
+  sh.x = (n_dir + 31) / 32 * 32;
+  if (sh.x > threads) sh.x = threads;
+  sh.g = threads / sh.x;
+  return sh;
+}
+static inline unsigned donor_blocks(unsigned n_walkers, DonorShape sh) {
+  return (n_walkers + sh.g - 1) / sh.g;
+}
+
 // K9's arrays.  q, x1, pl1 are per walker, walker w at w * stride; dx, dy,
 // dz, d_omega per direction (n_dir, contiguous); r, slope (W, N), pos and
 // nrm (W, N, 3) and area (W, N), contiguous.  r null: no radius and slope
-// (the grid alone, on a forward evaluation); pos null: no grid
+// (the grid alone, on a forward evaluation); pos null: no grid.  sh: the
+// block's shape
 template <typename T> struct DonorArgs {
   const T *q, *x1, *pl1, *dx, *dy, *dz, *d_omega;
   T *r, *slope, *pos, *nrm, *area;
-  long long sq, sx1, spl1, n_walkers, n_dir;
+  long long sq, sx1, spl1;
+  unsigned n_walkers, n_dir;
+  DonorShape sh;
 };
 
-// solve i = w * n_dir + j: the radius along direction j of walker w and,
-// where r is given, it and its slope; where pos is given,
-// components._donor_grid_plain's element
+// a walker's terms, the same along each of its directions: mu, 1 - mu,
+// pl1 and the bracket (1e-6 rmax, rmax)
+template <typename T> struct Walker {
+  T mu, omu, pl1, lo, hi;
+};
+
+// the walker of slot ty of block b, and whether it is one
 template <typename T>
-WD_FN void donor_solve_at(const DonorArgs<T>& a, long long i) {
-  const long long w = i / a.n_dir, j = i - w * a.n_dir;
+WD_FN unsigned donor_walker_of(const DonorArgs<T>& a, unsigned b,
+                               unsigned ty, bool& real) {
+  const unsigned w = b * a.sh.g + ty;
+  real = w < a.n_walkers;
+  return w;
+}
+
+// f(j) for each direction j of lane tx, in its order: tx, tx + x, ...
+template <typename T, typename F>
+WD_FN void donor_dirs(const DonorArgs<T>& a, unsigned tx, F f) {
+  for (unsigned j = tx; j < a.n_dir; j += a.sh.x) f(j);
+}
+
+// the first lane of each walker slot makes its walker's terms into wk
+template <typename T>
+WD_FN void donor_walkers(const DonorArgs<T>& a, unsigned b, unsigned tx,
+                         unsigned ty, Walker<T>* wk) {
+  bool real;
+  const unsigned w = donor_walker_of(a, b, ty, real);
+  if (tx != 0 || !real) return;
+  Walker<T> k;
   const T q = a.q[w * a.sq];
-  Lobe<T> s;
-  s.mu = q / (T(1) + q);
-  s.omu = T(1) - s.mu;
-  s.pl1 = a.pl1[w * a.spl1];
-  s.dx = a.dx[j];
-  s.dy = a.dy[j];
-  s.dz = a.dz[j];
-  const T r = lobe_root(s, a.x1[w * a.sx1]);
+  k.mu = q / (T(1) + q);
+  k.omu = T(1) - k.mu;
+  k.pl1 = a.pl1[w * a.spl1];
+  k.hi = T(1) - a.x1[w * a.sx1];
+  k.lo = T(1e-6) * k.hi;
+  wk[ty] = k;
+}
+
+// the solve of direction j of walker slot ty of block b: the radius and,
+// where r is given, it and its slope; where pos is given,
+// components._donor_grid_plain's element (its position, normal and area)
+template <typename T>
+WD_FN void donor_solve(const DonorArgs<T>& a, unsigned b, unsigned ty,
+                       unsigned j, const Walker<T>* wk) {
+  bool real;
+  const unsigned w = donor_walker_of(a, b, ty, real);
+  if (!real) return;
+  const Walker<T> k = wk[ty];
+  Lobe<T> l;
+  l.mu = k.mu;
+  l.omu = k.omu;
+  l.pl1 = k.pl1;
+  l.dx = a.dx[j];
+  l.dy = a.dy[j];
+  l.dz = a.dz[j];
+  const T r = lobe_root(l, k.lo, k.hi);
+  const long long i = (long long)w * a.n_dir + j;
   if (a.r != nullptr) {
     a.r[i] = r;
-    a.slope[i] = lobe_fp(s, r);
+    a.slope[i] = lobe_fp(l, r);
   }
   if (a.pos == nullptr) return;
-  const T px = T(1) + r * s.dx;
-  const T py = r * s.dy;
-  const T pz = r * s.dz;
+  const T px = T(1) + r * l.dx;
+  const T py = r * l.dy;
+  const T pz = r * l.dz;
   const T i1 = rsqrt_(px * px + py * py + pz * pz);
   const T i2 = T(1) / r;
   const T i13 = i1 * i1 * i1;
   const T i23 = i2 * i2 * i2;
-  const T gx = s.omu * px * i13 + s.mu * (px - T(1)) * i23 - (px - s.mu);
-  const T gy = py * (s.omu * i13 + s.mu * i23 - T(1));
-  const T gz = pz * (s.omu * i13 + s.mu * i23);
+  const T gx = k.omu * px * i13 + k.mu * (px - T(1)) * i23 - (px - k.mu);
+  const T gy = py * (k.omu * i13 + k.mu * i23 - T(1));
+  const T gz = pz * (k.omu * i13 + k.mu * i23);
   const T gn = clamp_min(sqrt_(gx * gx + gy * gy + gz * gz), T(1e-12));
   const T nx = gx / gn, ny = gy / gn, nz = gz / gn;
-  const T mu_dn = clamp_min(s.dx * nx + s.dy * ny + s.dz * nz, T(1e-3));
+  const T mu_dn = clamp_min(l.dx * nx + l.dy * ny + l.dz * nz, T(1e-3));
   a.pos[3 * i] = px;
   a.pos[3 * i + 1] = py;
   a.pos[3 * i + 2] = pz;
@@ -238,34 +373,65 @@ WD_FN void donor_solve_at(const DonorArgs<T>& a, long long i) {
 
 // ---- K10: the white dwarf's sweep ---------------------------------------
 
-// g(t) = Phi(t e) along the ray from the origin (r1 = t)
-template <typename T> WD_FN T origin_g(T mu, T omu, T ex, T ey, T t) {
-  const T i2 = rsqrt_(t * t - T(2) * ex * t + T(1));
-  const T cx = t * ex - mu;
-  const T cy = t * ey;
-  return -omu / t - mu * i2 - T(0.5) * (cx * cx + cy * cy);
+// a row's terms that do not depend on the phase: the shadow distance's
+// (mu, 1 - mu, -2 (1 - mu), sin i, -sin i, cos i, (1 - x1)^2, pl1) and the
+// curve's (rwd, r_ins - rwd, u, 1 - u, the edge fraction's total)
+template <typename T> struct WdRow {
+  T mu, omu, m2omu, si, nsi, ci, rad2, pl1;
+  T rwd, gap, u, ou, total;
+};
+
+// _origin_clearance's terms of the row's q, inclination (deg), x1, pl1
+template <typename T>
+WD_FN void wd_row_geometry(WdRow<T>& w, T q, T incl, T x1, T pl1) {
+  w.mu = q / (T(1) + q);
+  w.omu = T(1) - w.mu;
+  w.m2omu = T(-2.0) * w.omu;
+  const T i_rad = incl * T(WD_PI_180);
+  w.si = sin_(i_rad);
+  w.ci = cos_(i_rad);
+  w.nsi = -w.si;
+  const T rad = T(1) - x1;
+  w.rad2 = rad * rad;
+  w.pl1 = pl1;
 }
 
-// geometry._shadow_distance_plain at one point (no precise refinement):
-// the clearance of the ray from the origin towards the observer at
-// inclination incl (deg) and phase ph, from the chord midpoint by 4
-// clamped Newton steps with the chord's end values as insurance; then
-// grad(Phi) at the minimum, perpendicular to the line of sight, and the
-// signed sky distance d = clear / |grad_perp|.  ex = sin(i) cos(2 pi ph),
-// which wd_flux's guard calls tstar, is returned too
+// _wd_curve_plain's terms of the row's rwd, ulimb, r_ins
 template <typename T>
-WD_FN void origin_shadow(T q, T incl, T ph, T x1, T pl1, T& d, T& clear,
+WD_FN void wd_row_curve(WdRow<T>& w, T rwd, T ulimb, T r_ins) {
+  const T third = T(1) / T(3);
+  w.rwd = rwd;
+  w.gap = r_ins - rwd;
+  w.u = ulimb;
+  w.ou = T(1) - ulimb;
+  w.total = w.ou * T(WD_PI) + ulimb * T(2) * T(WD_PI) * third;
+}
+
+// g(t) = Phi(t e) along the ray from the origin (r1 = t)
+template <typename T> WD_FN T origin_g(const WdRow<T>& w, T ex, T ey, T t) {
+  const T i2 = rsqrt_(t * t - T(2) * ex * t + T(1));
+  const T cx = t * ex - w.mu;
+  const T cy = t * ey;
+  return -w.omu / t - w.mu * i2 - T(0.5) * (cx * cx + cy * cy);
+}
+
+// geometry._shadow_distance_plain at one phase ph of the row w (no precise
+// refinement): the clearance of the ray from the origin towards the
+// observer, from the chord midpoint by 4 clamped Newton steps with the
+// chord's end values as insurance; then grad(Phi) at the minimum,
+// perpendicular to the line of sight, and the signed sky distance d =
+// clear / |grad_perp|.  ex = sin(i) cos(2 pi ph), which wd_flux's guard
+// calls tstar, is returned too
+template <typename T>
+WD_FN void origin_shadow(const WdRow<T>& w, T ph, T& d, T& clear,
                          T& ex_out) {
-  const T mu = q / (T(1) + q);
-  const T omu = T(1) - mu;
-  const T i_rad = incl * T(WD_PI_180);
-  const T si = sin_(i_rad), ci = cos_(i_rad);
-  const T rad = T(1) - x1;
   const T th = T(WD_TWO_PI) * ph;
-  const T ex = si * cos_(th);
-  const T ey = -si * sin_(th);
+  T sth, cth;
+  sincos_(th, sth, cth);
+  const T ex = w.si * cth;
+  const T ey = w.nsi * sth;
   const T tstar = ex;
-  const T disc = rad * rad - (T(1) - tstar * tstar);
+  const T disc = w.rad2 - (T(1) - tstar * tstar);
   const T half = sqrt_(clamp_min(disc, T(1e-30)));
   const T t_lo = clamp_min(tstar - half, T(1e-6));
   const T t_hi = clamp_min(tstar + half, T(1e-6));
@@ -276,32 +442,32 @@ WD_FN void origin_shadow(T q, T incl, T ph, T x1, T pl1, T& d, T& clear,
     const T i2 = rsqrt_(t * t - T(2) * ex * t + T(1));
     const T u2 = t - ex;
     const T i23 = i2 * i2 * i2;
-    const T cx = t * ex - mu;
+    const T cx = t * ex - w.mu;
     const T cy = t * ey;
-    const T g1 = omu / (t * t) + mu * u2 * i23 - (cx * ex + cy * ey);
-    const T g2 = T(-2.0) * omu / (t * t * t)
-                 + mu * (i23 - T(3) * u2 * u2 * i23 * i2 * i2) - ee2;
+    const T g1 = w.omu / (t * t) + w.mu * u2 * i23 - (cx * ex + cy * ey);
+    const T g2 = w.m2omu / (t * t * t)
+                 + w.mu * (i23 - T(3) * u2 * u2 * i23 * i2 * i2) - ee2;
     const T step = g2 > T(1e-12) ? g1 / clamp_min(g2, T(1e-12)) : T(0);
     t = nmin(nmax(t - step, t_lo), t_hi);
   }
-  T val = origin_g(mu, omu, ex, ey, t);
-  const T v_lo = origin_g(mu, omu, ex, ey, t_lo);
-  const T v_hi = origin_g(mu, omu, ex, ey, t_hi);
+  T val = origin_g(w, ex, ey, t);
+  const T v_lo = origin_g(w, ex, ey, t_lo);
+  const T v_hi = origin_g(w, ex, ey, t_hi);
   t = v_lo < val ? t_lo : t;
   val = nmin(val, v_lo);
   t = v_hi < val ? t_hi : t;
   val = nmin(val, v_hi);
-  clear = no_occ ? T(WD_CLEAR_VISIBLE) : val - pl1;
-  const T rx = t * ex, ry = t * ey, rz = t * ci;
+  clear = no_occ ? T(WD_CLEAR_VISIBLE) : val - w.pl1;
+  const T rx = t * ex, ry = t * ey, rz = t * w.ci;
   const T i1 = rsqrt_(rx * rx + ry * ry + rz * rz);
   const T dxx = rx - T(1);
   const T i2 = rsqrt_(dxx * dxx + ry * ry + rz * rz);
   const T i13 = i1 * i1 * i1, i23 = i2 * i2 * i2;
-  const T gx = omu * rx * i13 + mu * dxx * i23 - (rx - mu);
-  const T gy = ry * (omu * i13 + mu * i23 - T(1));
-  const T gz = rz * (omu * i13 + mu * i23);
-  const T gdote = gx * ex + gy * ey + gz * ci;
-  const T qx = gx - gdote * ex, qy = gy - gdote * ey, qz = gz - gdote * ci;
+  const T gx = w.omu * rx * i13 + w.mu * dxx * i23 - (rx - w.mu);
+  const T gy = ry * (w.omu * i13 + w.mu * i23 - T(1));
+  const T gz = rz * (w.omu * i13 + w.mu * i23);
+  const T gdote = gx * ex + gy * ey + gz * w.ci;
+  const T qx = gx - gdote * ex, qy = gy - gdote * ey, qz = gz - gdote * w.ci;
   const T g_norm = sqrt_(clamp_min(qx * qx + qy * qy + qz * qz, T(1e-24)));
   d = clear / g_norm;
   ex_out = ex;
@@ -309,75 +475,135 @@ WD_FN void origin_shadow(T q, T incl, T ph, T x1, T pl1, T& d, T& clear,
 
 // components._EdgeVisibleFraction.forward: the visible fraction of a
 // linearly limb-darkened disc whose centre lies x disc radii inside a
-// straight shadow edge
-template <typename T> WD_FN T edge_fraction(T x, T u) {
+// straight shadow edge, the row's limb darkening
+template <typename T> WD_FN T edge_fraction(const WdRow<T>& w, T x) {
   const T a = clamp_nan(-x, T(-1), T(1));
   const T s2 = clamp_min(T(1) - a * a, T(0));
   const T uni = acos_(a) - a * sqrt_(s2);
   const T third = T(1) / T(3);
   const T sq = T(WD_HALF_PI) * ((T(1) - a) - (T(1) - a * a * a) * third);
-  const T total = (T(1) - u) * T(WD_PI) + u * T(2) * T(WD_PI) * third;
-  return ((T(1) - u) * uni + u * sq) / total;
+  return (w.ou * uni + w.u * sq) / w.total;
 }
 
-// components._wd_curve_plain (no precise refinement) at one point
-template <typename T>
-WD_FN T wd_fraction(T q, T incl, T ph, T x1, T pl1, T rwd, T ulimb,
-                    T r_ins) {
+// components._wd_curve_plain (no precise refinement) at one phase of the
+// row w
+template <typename T> WD_FN T wd_fraction(const WdRow<T>& w, T ph) {
   T d, clear, tstar;
-  origin_shadow(q, incl, ph, x1, pl1, d, clear, tstar);
+  origin_shadow(w, ph, d, clear, tstar);
   const T miss = sqrt_(clamp_min(T(1) - tstar * tstar, T(0)));
-  const bool certain_occ = (tstar > T(0)) & (miss < r_ins - rwd);
+  const bool certain_occ = (tstar > T(0)) & (miss < w.gap);
   const T x = clear > T(0.25) ? T(1)
               : certain_occ   ? T(-1)
-                              : clamp_nan(d / rwd, T(-1), T(1));
-  return edge_fraction(x, ulimb);
+                              : clamp_nan(d / w.rwd, T(-1), T(1));
+  return edge_fraction(w, x);
 }
 
-// K10's inputs, in this order, each a pointer and an index map: point i
-// reads element ((i / div) % mod) * stride, div 1 dividing nothing and mod
-// 0 wrapping nothing (a phase: its own element; a per-row parameter: its
-// row's)
+// K10's inputs, in this order, each a pointer and an index map in row
+// units (a phase: its row's first; a parameter: its row's)
 enum { WD_PH, WD_Q, WD_INCL, WD_X1, WD_PL1, WD_RWD, WD_ULIMB, WD_RINS,
        WD_INPUTS };
 
+// K10's block and the most lanes a row
+#define WD_BLOCK 128
+constexpr unsigned WD_ROW_LANES = 32;
+
+// K10's arrays: rows x P points, row r's phases at p[WD_PH] + its map,
+// one apart; out and out2 (the distance mode: d and clear) (rows, P),
+// contiguous; lanes a row (a power of two) and its log2
 template <typename T> struct WdArgs {
   const T* p[WD_INPUTS];
-  unsigned div[WD_INPUTS], mod[WD_INPUTS];
-  long long stride[WD_INPUTS];
-  T *out, *out2;     // the fraction; the distance mode: d and clear
-  long long n;
+  RowMap map[WD_INPUTS];
+  T *out, *out2;
+  unsigned rows, P, lanes, log2_lanes;
 };
 
-template <typename T>
-WD_FN T wd_in(const WdArgs<T>& a, int k, unsigned i) {
-  unsigned j = a.div[k] > 1u ? i / a.div[k] : i;
-  if (a.mod[k]) j %= a.mod[k];
-  return a.p[k][(long long)j * a.stride[k]];
+// the lanes of a row's group: 32 from 32 phases on, else the least power
+// of two that holds the row
+template <typename T> static inline void wd_layout(WdArgs<T>& a,
+                                                   unsigned rows, unsigned P) {
+  a.rows = rows;
+  a.P = P;
+  a.lanes = 1;
+  a.log2_lanes = 0;
+  while (a.lanes < P && a.lanes < WD_ROW_LANES) {
+    a.lanes <<= 1;
+    ++a.log2_lanes;
+  }
+}
+template <typename T> static inline unsigned wd_blocks(const WdArgs<T>& a) {
+  return (unsigned)(((unsigned long long)a.rows * a.lanes + WD_BLOCK - 1)
+                    / WD_BLOCK);
 }
 
-// point i of K10: the visible fraction, or (DISTANCE) d and clear
+// the row and lane of thread t of block b
+struct WdLane {
+  unsigned row, lane;
+};
+template <typename T>
+WD_FN WdLane wd_lane(const WdArgs<T>& a, unsigned b, unsigned t) {
+  const unsigned g = b * WD_BLOCK + t;
+  WdLane l;
+  l.row = g >> a.log2_lanes;
+  l.lane = g & (a.lanes - 1u);
+  return l;
+}
+
+// f(p) for each phase p that lane `lane` of a row's L lanes serves, in
+// its order: lane, lane + L, ...
+template <typename F>
+WD_FN void wd_visit(unsigned P, unsigned L, unsigned lane, F f) {
+  for (unsigned p = lane; p < P; p += L) f(p);
+}
+
+template <typename T> WD_FN T wd_in(const WdArgs<T>& a, int k, unsigned r) {
+  return a.p[k][row_at(a.map[k], r)];
+}
+
+// row r's prologue: its terms, once
 template <bool DISTANCE, typename T>
-WD_FN void wd_point_at(const WdArgs<T>& a, unsigned i) {
-  const T q = wd_in(a, WD_Q, i), incl = wd_in(a, WD_INCL, i);
-  const T ph = wd_in(a, WD_PH, i), x1 = wd_in(a, WD_X1, i);
-  const T pl1 = wd_in(a, WD_PL1, i);
+WD_FN WdRow<T> wd_row(const WdArgs<T>& a, unsigned r) {
+  WdRow<T> w;
+  wd_row_geometry(w, wd_in(a, WD_Q, r), wd_in(a, WD_INCL, r),
+                  wd_in(a, WD_X1, r), wd_in(a, WD_PL1, r));
+  if (!DISTANCE)
+    wd_row_curve(w, wd_in(a, WD_RWD, r), wd_in(a, WD_ULIMB, r),
+                 wd_in(a, WD_RINS, r));
+  return w;
+}
+
+// phase p of the row w: the visible fraction into out[p], or (DISTANCE) d
+// into out[p] and clear into out2[p]
+template <bool DISTANCE, typename T>
+WD_FN void wd_point(const WdRow<T>& w, const T* ph, T* out, T* out2,
+                    unsigned p) {
   if (DISTANCE) {
-    T d, clear, tstar;
-    origin_shadow(q, incl, ph, x1, pl1, d, clear, tstar);
-    a.out[i] = d;
-    a.out2[i] = clear;
+    T d, clear, ex;
+    origin_shadow(w, ph[p], d, clear, ex);
+    out[p] = d;
+    out2[p] = clear;
   } else {
-    a.out[i] = wd_fraction(q, incl, ph, x1, pl1, wd_in(a, WD_RWD, i),
-                           wd_in(a, WD_ULIMB, i), wd_in(a, WD_RINS, i));
+    out[p] = wd_fraction(w, ph[p]);
   }
+}
+
+// lane `lane` of row r's group: the row's prologue, then its phases
+template <bool DISTANCE, typename T>
+WD_FN void wd_row_sweep(const WdArgs<T>& a, unsigned r, unsigned lane) {
+  const WdRow<T> w = wd_row<DISTANCE>(a, r);
+  const T* ph = a.p[WD_PH] + row_at(a.map[WD_PH], r);
+  const long long at = (long long)r * a.P;
+  T* out = a.out + at;
+  T* out2 = DISTANCE ? a.out2 + at : nullptr;
+  wd_visit(a.P, a.lanes, lane,
+           [&](unsigned p) { wd_point<DISTANCE>(w, ph, out, out2, p); });
 }
 
 // the launchers' flat arguments, as ops/wd_donor.py hands them: K9 12
 // pointers (q, x1, pl1, dx, dy, dz, d_omega, r, slope, pos, nrm, area) and
 // 5 integers (the three strides, n_walkers, n_dir);
 // K10 10 pointers (the WD_INPUTS inputs, then out and out2) and 3 x
-// WD_INPUTS + 1 integers (div, mod, stride of each input, then n)
+// WD_INPUTS + 2 integers (div, mod, stride of each input's row map, then
+// rows and P)
 template <typename T>
 static DonorArgs<T> donor_args(const void* const* p, const long long* v) {
   DonorArgs<T> a;
@@ -396,8 +622,9 @@ static DonorArgs<T> donor_args(const void* const* p, const long long* v) {
   a.sq = v[0];
   a.sx1 = v[1];
   a.spl1 = v[2];
-  a.n_walkers = v[3];
-  a.n_dir = v[4];
+  a.n_walkers = (unsigned)v[3];
+  a.n_dir = (unsigned)v[4];
+  a.sh = donor_shape(a.n_dir, DonorSteps<T>::threads);
   return a;
 }
 
@@ -406,37 +633,52 @@ static WdArgs<T> wd_args(const void* const* p, const long long* v) {
   WdArgs<T> a;
   for (int k = 0; k < WD_INPUTS; ++k) {
     a.p[k] = (const T*)p[k];
-    a.div[k] = (unsigned)v[k];
-    a.mod[k] = (unsigned)v[WD_INPUTS + k];
-    a.stride[k] = v[2 * WD_INPUTS + k];
+    a.map[k] = row_map(v[k], v[WD_INPUTS + k], v[2 * WD_INPUTS + k]);
   }
   a.out = (T*)p[WD_INPUTS];
   a.out2 = (T*)p[WD_INPUTS + 1];
-  a.n = v[3 * WD_INPUTS];
+  wd_layout(a, (unsigned)v[3 * WD_INPUTS], (unsigned)v[3 * WD_INPUTS + 1]);
   return a;
 }
 
 // ---- kernel and launcher ------------------------------------------------
 
-// K9 and K10: one thread a solve or a point, blocks of WD_BLOCK threads
-#define WD_BLOCK 128
-
+// K9: block (x, g) of donor_shape, one walker a slot: its terms made once
+// into shared memory, then its directions, x apart
 template <typename T>
-__global__ void __launch_bounds__(WD_BLOCK)
+__global__ void __launch_bounds__(DonorSteps<T>::threads,
+                                  DonorSteps<T>::blocks)
 donor_grid_kernel(const DonorArgs<T> a) {
-  const long long i = (long long)blockIdx.x * WD_BLOCK + threadIdx.x;
-  if (i < a.n_walkers * a.n_dir) donor_solve_at(a, i);
+  __shared__ Walker<T> wk[DonorSteps<T>::threads / 32];
+  const unsigned b = blockIdx.x, tx = threadIdx.x, ty = threadIdx.y;
+  donor_walkers(a, b, tx, ty, wk);
+  __syncthreads();
+  donor_dirs(a, tx, [&](unsigned j) { donor_solve(a, b, ty, j, wk); });
 }
 
+// K10: WD_BLOCK threads, wd_lane's row and lane each
 template <typename T, bool DISTANCE>
 __global__ void __launch_bounds__(WD_BLOCK)
 wd_curve_kernel(const WdArgs<T> a) {
-  const unsigned i = blockIdx.x * WD_BLOCK + threadIdx.x;
-  if (i < a.n) wd_point_at<DISTANCE>(a, i);
+  const WdLane l = wd_lane(a, blockIdx.x, threadIdx.x);
+  if (l.row < a.rows) wd_row_sweep<DISTANCE>(a, l.row, l.lane);
 }
 
-static dim3 wd_grid(long long n) {
-  return dim3((unsigned)((n + WD_BLOCK - 1) / WD_BLOCK));
+template <typename T>
+static int donor_launch(const void* const* ptrs, const long long* ints,
+                        cudaStream_t s) {
+  const DonorArgs<T> a = donor_args<T>(ptrs, ints);
+  donor_grid_kernel<T><<<donor_blocks(a.n_walkers, a.sh),
+                         dim3(a.sh.x, a.sh.g), 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool DISTANCE>
+static int wd_launch(const void* const* ptrs, const long long* ints,
+                     cudaStream_t s) {
+  const WdArgs<T> a = wd_args<T>(ptrs, ints);
+  wd_curve_kernel<T, DISTANCE><<<wd_blocks(a), WD_BLOCK, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // Each launcher runs on ``stream`` and returns the cudaError_t of the
@@ -448,33 +690,19 @@ extern "C" int donor_grid_launch(int is_double, const void* const* ptrs,
   if (n < 1 || n > (1ll << 30) || (ptrs[7] == nullptr && ptrs[9] == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_double)
-    donor_grid_kernel<double><<<wd_grid(n), WD_BLOCK, 0, s>>>(
-        donor_args<double>(ptrs, ints));
-  else
-    donor_grid_kernel<float><<<wd_grid(n), WD_BLOCK, 0, s>>>(
-        donor_args<float>(ptrs, ints));
-  return (int)cudaGetLastError();
+  return is_double ? donor_launch<double>(ptrs, ints, s)
+                   : donor_launch<float>(ptrs, ints, s);
 }
 
 extern "C" int wd_curve_launch(int is_double, int distance,
                                const void* const* ptrs,
                                const long long* ints, void* stream) {
-  const long long n = ints[3 * WD_INPUTS];
-  if (n < 1 || n > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  const long long rows = ints[3 * WD_INPUTS], P = ints[3 * WD_INPUTS + 1];
+  if (rows < 1 || P < 1 || rows * P > (1ll << 30))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = wd_grid(n);
-  if (is_double && distance)
-    wd_curve_kernel<double, true><<<grid, WD_BLOCK, 0, s>>>(
-        wd_args<double>(ptrs, ints));
-  else if (is_double)
-    wd_curve_kernel<double, false><<<grid, WD_BLOCK, 0, s>>>(
-        wd_args<double>(ptrs, ints));
-  else if (distance)
-    wd_curve_kernel<float, true><<<grid, WD_BLOCK, 0, s>>>(
-        wd_args<float>(ptrs, ints));
-  else
-    wd_curve_kernel<float, false><<<grid, WD_BLOCK, 0, s>>>(
-        wd_args<float>(ptrs, ints));
-  return (int)cudaGetLastError();
+  if (is_double && distance) return wd_launch<double, true>(ptrs, ints, s);
+  if (is_double) return wd_launch<double, false>(ptrs, ints, s);
+  if (distance) return wd_launch<float, true>(ptrs, ints, s);
+  return wd_launch<float, false>(ptrs, ints, s);
 }

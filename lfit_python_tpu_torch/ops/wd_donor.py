@@ -2,12 +2,13 @@
 kernel wrappers.
 
 K9 (``donor_grid_kernel`` in ``csrc/wd_donor.cu``) solves the Roche
-lobe's radius along each direction of the donor grid, a thread a
-(walker, direction), and writes its slope and, unless a gradient is being
-recorded, the grid's positions, normals and areas:
+lobe's radius along each direction of the donor grid, a block a walker
+with its lanes across the directions, and writes its slope and, unless a
+gradient is being recorded, the grid's positions, normals and areas:
 :func:`~..models.components.donor_grid`.  K10 (``wd_curve_kernel``)
 computes the white dwarf's visible fraction at every (row, phase), a
-thread a point: :func:`~..models.components.wd_flux`; its distance mode
+group of lanes a row (a row's parameters read and its phase-independent
+terms made once): :func:`~..models.components.wd_flux`; its distance mode
 returns the shadow distance and the clearance of
 :func:`~..roche.geometry.origin_shadow_distance`.  They are kernels of the
 port's own: on the TPU each is an XLA program with its loops fused
@@ -159,26 +160,63 @@ def donor_grid_kernel(q, x1, pl1, dx, dy, dz, d_omega, grid=True):
     return r, slope, None if out is None else plain.DonorGrid(*out)
 
 
-def _index_map(t, shape):
-    """(tensor, div, mod, stride) for reading ``t`` broadcast to
-    ``shape`` at the flat index i of a point: element ((i / div) % mod) *
-    stride of the tensor, div 1 dividing nothing and mod 0 wrapping
-    nothing.  ``t`` itself where its dimensions of more than one element
-    are one run of ``shape``'s dimensions, none of them broadcast, whose
-    strides merge into one (a parameter per row or per walker, a column of
-    the parameter table, the phases); else a contiguous copy of ``t``
-    broadcast to ``shape``."""
+def _in_place(t, shape):
+    """(div, mod, stride) for reading ``t`` broadcast to ``shape`` in
+    place at the flat index i: element ((i / div) % mod) * stride of the
+    tensor, div 1 dividing nothing and mod 0 wrapping nothing; None unless
+    its dimensions of more than one element are one run of ``shape``'s
+    dimensions, none of them broadcast, whose strides merge into one (a
+    parameter per row or per walker, a column of the parameter table, the
+    phases)."""
     e = t.expand(shape)
     real = [k for k in range(len(shape)) if shape[k] > 1 and e.stride(k)]
     if not real:
-        return t, 1, 0, 0
+        return 1, 0, 0
     lo, hi = real[0], real[-1] + 1
     if real != [k for k in range(lo, hi) if shape[k] > 1] or any(
             e.stride(a) != e.stride(b) * shape[b]
             for a, b in zip(real, real[1:])):
-        return e.contiguous(), 1, 0, 1
+        return None
     mod = math.prod(shape[lo:hi]) if math.prod(shape[:lo]) > 1 else 0
-    return t, math.prod(shape[hi:]), mod, e.stride(real[-1])
+    return math.prod(shape[hi:]), mod, e.stride(real[-1])
+
+
+def _index_map(t, shape):
+    """(tensor, div, mod, stride): ``t`` and its :func:`_in_place` map
+    where it has one; else a contiguous copy of ``t`` broadcast to
+    ``shape``, (1, 0, 1)."""
+    m = _in_place(t, shape)
+    if m is None:
+        return t.expand(shape).contiguous(), 1, 0, 1
+    return (t, *m)
+
+
+def _row_layout(ins, shape):
+    """(P, row shape, {name: (tensor, div, mod, stride)}): K10's rows of
+    P phases and each input's map in row units.  The rows are ``shape``'s
+    leading dimensions and P its last where no parameter varies along it
+    (each read once a row); else (the changepoints' (2, rows) stack) each
+    point is a row of one phase.  A parameter is read at its row's first
+    phase; the phases in place where a row's are one apart, else from a
+    contiguous copy."""
+    P = shape[-1] if shape else 1
+    if P > 1 and any(t.expand(shape).stride(-1)
+                     for n, t in ins.items() if n != "phases"):
+        P = 1
+    rows = shape[:-1] if P > 1 else shape
+    maps = {}
+    for n, t in ins.items():
+        e = t.expand(shape)
+        if P == 1:
+            maps[n] = _index_map(e, shape)
+            continue
+        m = _in_place(e[..., 0], rows)
+        if n == "phases" and (m is None or e.stride(-1) != 1):
+            maps[n] = (e.contiguous(), 1, 0, P)
+        else:
+            maps[n] = (e, *m) if m is not None else \
+                _index_map(e[..., 0], rows)
+    return P, rows, maps
 
 
 def _wd_launch(tag, distance, ins):
@@ -192,11 +230,13 @@ def _wd_launch(tag, distance, ins):
     n = out.numel()
     if n:
         _fits(tag, n)
-        maps = [_index_map(t, shape) for t in ins.values()]
+        P, rows, maps = _row_layout(ins, shape)
+        maps = list(maps.values())
         maps += [(None, 1, 0, 0)] * (len(_WD_INPUTS) - len(maps))
         _launch("wd_curve", ref, int(distance),
                 _pointers([m[0] for m in maps] + [out, out2]),
-                _ints([m[k] for k in (1, 2, 3) for m in maps] + [n]))
+                _ints([m[k] for k in (1, 2, 3) for m in maps]
+                      + [n // P, P]))
         WD_LAUNCHES += 1
     return (out, out2) if distance else out
 

@@ -1702,6 +1702,52 @@ def test_wd_curve_kernel_bit_identical(cuda, dtype):
     assert same_bits(y, wd_donor.wd_curve_kernel(*copied))
 
 
+# K10's row lengths: fewer phases than a warp, a warp's, between, the
+# north star's 128 and around it, and the widths' P * n_sub (128 x 3); K9's
+# grids (n_lat, n_lon): fewer directions than a block, a few, more than a
+# block's chunk
+WD_PHASES = (1, 2, 5, 31, 32, 33, 127, 128, 129, 384)
+DONOR_GRIDS = ((6, 8), (5, 7), (3, 3), (32, 48))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", WD_PHASES)
+def test_wd_curve_kernel_row_lengths(cuda, P, dtype):
+    """K10 in both modes at each row length, on 37 x 3 rows (not a
+    multiple of a block's rows), the first P of wd_rows' phases (and, at
+    P = 1, points whose parameters vary along the last axis, the
+    changepoints' layout): the plain chains' bits."""
+    args = list(wd_rows(cuda, dtype, W=37, P=max(P, 8)))
+    args[2] = args[2][..., :P].contiguous()
+    if P == 1:
+        args[2] = args[2][..., 0]
+        args = [a[..., 0] for a in args[:2]] + [args[2]] + [
+            a[..., 0] for a in args[3:]]
+    y = wd_donor.wd_curve_kernel(*args)
+    dist = (args[0], args[1], args[2], args[5], args[6])
+    d, clear = wd_donor.wd_distance_kernel(*dist)
+    torch.cuda.synchronize()
+    assert same_bits(y, comp._wd_curve_plain(*args))
+    d0, clear0 = tg._shadow_distance_plain(*dist)
+    assert same_bits(d, d0) and same_bits(clear, clear0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid", DONOR_GRIDS)
+def test_donor_grid_kernel_grids(cuda, grid, dtype):
+    """K9 at odd grids on 13 walkers (not a multiple of a block's): the
+    grid, and the radius and its slope, the plain versions' bits."""
+    q, x1, pl1 = donor_walkers(cuda, dtype, W=13)
+    dirs = comp._directions(*grid, dtype, cuda)
+    grid_k = wd_donor.donor_grid_kernel(q, x1, pl1, *dirs)[2]
+    r, slope, _ = wd_donor.donor_grid_kernel(q, x1, pl1, *dirs, grid=False)
+    r0, slope0 = comp._donor_radius_loop(q, x1, pl1, *dirs[:3])
+    grid0 = comp._donor_grid_plain(r0, (q / (1.0 + q))[:, None], *dirs)
+    torch.cuda.synchronize()
+    for a, b in zip((r, slope, *grid_k), (r0, slope0, *grid0)):
+        assert a.shape == b.shape and same_bits(a, b)
+
+
 def test_wd_donor_kernels_are_one_device_event(cuda):
     """One wrapper call of K9 and of K10 is one launch of its kernel and
     no other device event."""

@@ -60,6 +60,7 @@ _SHIM = r"""
 #include <cmath>
 #include <cstddef>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline __attribute__((always_inline))
 #define __launch_bounds__(...)
@@ -68,34 +69,107 @@ static inline double rsqrt(double v) { return 1.0 / std::sqrt(v); }
 """
 
 _HOST = r"""
-// the kernels' threads one after another
-extern "C" void donor_grid_host(int is_double, const void* const* ptrs,
-                                const long long* ints) {
-  const long long n = ints[3] * ints[4];
-  if (is_double) {
-    const DonorArgs<double> a = donor_args<double>(ptrs, ints);
-    for (long long i = 0; i < n; ++i) donor_solve_at(a, i);
-  } else {
-    const DonorArgs<float> a = donor_args<float>(ptrs, ints);
-    for (long long i = 0; i < n; ++i) donor_solve_at(a, i);
+#include <vector>
+
+// the kernels' blocks one after another, each stretch of a block between
+// its barriers over all its threads
+
+template <typename T>
+static void donor_blocks_host(const void* const* ptrs,
+                              const long long* ints) {
+  const DonorArgs<T> a = donor_args<T>(ptrs, ints);
+  const DonorShape sh = a.sh;
+  Walker<T> wk[DonorSteps<T>::threads / 32];
+  for (unsigned b = 0; b < donor_blocks(a.n_walkers, sh); ++b) {
+    for (unsigned ty = 0; ty < sh.g; ++ty)
+      for (unsigned tx = 0; tx < sh.x; ++tx)
+        donor_walkers(a, b, tx, ty, wk);
+    for (unsigned ty = 0; ty < sh.g; ++ty)
+      for (unsigned tx = 0; tx < sh.x; ++tx)
+        donor_dirs(a, tx, [&](unsigned j) { donor_solve(a, b, ty, j, wk); });
   }
 }
 
+extern "C" void donor_grid_host(int is_double, const void* const* ptrs,
+                                const long long* ints) {
+  if (is_double) donor_blocks_host<double>(ptrs, ints);
+  else donor_blocks_host<float>(ptrs, ints);
+}
+
 template <typename T>
-static void wd_rows(int distance, const void* const* ptrs,
-                    const long long* ints) {
+static void wd_blocks_host(int distance, const void* const* ptrs,
+                           const long long* ints) {
   const WdArgs<T> a = wd_args<T>(ptrs, ints);
-  for (unsigned i = 0; i < (unsigned)a.n; ++i) {
-    if (distance) wd_point_at<true>(a, i);
-    else wd_point_at<false>(a, i);
-  }
+  for (unsigned b = 0; b < wd_blocks(a); ++b)
+    for (unsigned t = 0; t < WD_BLOCK; ++t) {
+      const WdLane l = wd_lane(a, b, t);
+      if (l.row >= a.rows) continue;
+      if (distance) wd_row_sweep<true>(a, l.row, l.lane);
+      else wd_row_sweep<false>(a, l.row, l.lane);
+    }
 }
 
 extern "C" void wd_curve_host(int is_double, int distance,
                               const void* const* ptrs,
                               const long long* ints) {
-  if (is_double) wd_rows<double>(distance, ptrs, ints);
-  else wd_rows<float>(distance, ptrs, ints);
+  if (is_double) wd_blocks_host<double>(distance, ptrs, ints);
+  else wd_blocks_host<float>(distance, ptrs, ints);
+}
+
+// the kernels' maps alone: how often K9's lanes solve and store each
+// (walker, direction), and K10's lanes compute each (row, phase)
+template <typename T>
+static void donor_cover_t(unsigned W, unsigned N, int* counts,
+                          unsigned* shape) {
+  DonorArgs<T> a;
+  a.n_walkers = W;
+  a.n_dir = N;
+  a.sh = donor_shape(N, DonorSteps<T>::threads);
+  shape[0] = a.sh.x;
+  shape[1] = a.sh.g;
+  shape[2] = donor_blocks(W, a.sh);
+  for (unsigned b = 0; b < shape[2]; ++b)
+    for (unsigned ty = 0; ty < a.sh.g; ++ty)
+      for (unsigned tx = 0; tx < a.sh.x; ++tx) {
+        bool real;
+        const unsigned w = donor_walker_of(a, b, ty, real);
+        donor_dirs(a, tx, [&](unsigned j) {
+          if (real) ++counts[(long long)w * N + j];
+        });
+      }
+}
+
+extern "C" void donor_cover(int is_double, long long W, long long N,
+                            int* counts, unsigned* shape) {
+  if (is_double) donor_cover_t<double>(W, N, counts, shape);
+  else donor_cover_t<float>(W, N, counts, shape);
+}
+
+template <typename T>
+static void wd_cover_t(unsigned rows, unsigned P, int* counts,
+                       unsigned* shape) {
+  WdArgs<T> a;
+  wd_layout(a, rows, P);
+  shape[0] = a.lanes;
+  shape[1] = wd_blocks(a);
+  for (unsigned b = 0; b < wd_blocks(a); ++b)
+    for (unsigned t = 0; t < WD_BLOCK; ++t) {
+      const WdLane l = wd_lane(a, b, t);
+      if (l.row >= a.rows) continue;
+      int* c = counts + (long long)l.row * P;
+      wd_visit(P, a.lanes, l.lane, [&](unsigned p) { ++c[p]; });
+    }
+}
+
+extern "C" void wd_cover(int is_double, long long rows, long long P,
+                         int* counts, unsigned* shape) {
+  if (is_double) wd_cover_t<double>(rows, P, counts, shape);
+  else wd_cover_t<float>(rows, P, counts, shape);
+}
+
+// n / d by the kernels' multiply-high
+extern "C" unsigned fast_div_host(unsigned d, unsigned n) {
+  return div_(fast_div(d), n);
 }
 """
 
@@ -119,10 +193,15 @@ def build_source(build, defines=()):
                     str(build / "host.cpp")], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
-    p = ctypes.c_void_p
-    lib.donor_grid_host.argtypes = [ctypes.c_int, p, p]
-    lib.wd_curve_host.argtypes = [ctypes.c_int, ctypes.c_int, p, p]
-    lib.donor_grid_host.restype = lib.wd_curve_host.restype = None
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    for fn, types in ((lib.donor_grid_host, [i, p, p]),
+                      (lib.wd_curve_host, [i, i, p, p]),
+                      (lib.donor_cover, [i, ll, ll, p, p]),
+                      (lib.wd_cover, [i, ll, ll, p, p])):
+        fn.argtypes = types
+        fn.restype = None
+    lib.fast_div_host.argtypes = [ctypes.c_uint, ctypes.c_uint]
+    lib.fast_div_host.restype = ctypes.c_uint
     return lib
 
 
@@ -343,6 +422,28 @@ class TestDonorGrid:
         assert torch.isfinite(g).all()
 
 
+def check_against_plain(a, dtype, atol):
+    """K10 (both modes) on the inputs ``a`` against ``_wd_curve_plain``
+    and ``_shadow_distance_plain`` at TestWhiteDwarf's
+    ``test_against_the_plain_chain`` tolerances."""
+    got = wd_donor.wd_curve_kernel(**a)
+    ref = comp._wd_curve_plain(**a)
+    assert got.dtype == dtype and got.shape == ref.shape
+    tol = atol + atol / (2.0 * a["rwd"])
+    assert bool(((got - ref).abs() <= tol).all()), float(
+        ((got - ref).abs() - tol).max())
+    args = (a["q"], a["incl_deg"], a["phases"], a["xl1_val"], a["phi_l1"])
+    d, clear = wd_donor.wd_distance_kernel(*args)
+    d0, clear0 = tg._shadow_distance_plain(*args)
+    rtol = 1e-3 if dtype == F32 else 50 * atol
+    np.testing.assert_allclose(clear.numpy(), clear0.numpy(), rtol=rtol,
+                               atol=atol)
+    # the distance where the curve reads it (test_distance_against_jax)
+    used = clear0.numpy() <= 0.25
+    np.testing.assert_allclose(d.numpy()[used], d0.numpy()[used],
+                               rtol=rtol, atol=atol)
+
+
 # ---- K10 ----------------------------------------------------------------
 
 class TestWhiteDwarf:
@@ -389,24 +490,7 @@ class TestWhiteDwarf:
         4 clamped Newton steps end at points of another value where an
         early step rounds otherwise (there x is -1 either way); the
         distance where the curve reads it."""
-        a = wd_inputs(dtype)
-        got = wd_donor.wd_curve_kernel(**a)
-        ref = comp._wd_curve_plain(**a)
-        assert got.dtype == dtype and got.shape == ref.shape
-        tol = atol + atol / (2.0 * a["rwd"])
-        assert bool(((got - ref).abs() <= tol).all()), float(
-            ((got - ref).abs() - tol).max())
-        args = (a["q"], a["incl_deg"], a["phases"], a["xl1_val"],
-                a["phi_l1"])
-        d, clear = wd_donor.wd_distance_kernel(*args)
-        d0, clear0 = tg._shadow_distance_plain(*args)
-        rtol = 1e-3 if dtype == F32 else 50 * atol
-        np.testing.assert_allclose(clear.numpy(), clear0.numpy(), rtol=rtol,
-                                   atol=atol)
-        # the distance where the curve reads it (test_distance_against_jax)
-        used = clear0.numpy() <= 0.25
-        np.testing.assert_allclose(d.numpy()[used], d0.numpy()[used],
-                                   rtol=rtol, atol=atol)
+        check_against_plain(wd_inputs(dtype), dtype, atol)
 
     def test_index_maps_give_the_copies_bits(self, through_source):
         """Each layout of the inputs, read through its index map, gives
@@ -492,6 +576,105 @@ class TestWhiteDwarf:
         with mock.patch.object(tg, "_on_card", lambda t: False):
             ref = wd_contact_extension(*args)
         np.testing.assert_allclose(ext.numpy(), ref.numpy(), atol=1e-12)
+
+
+# ---- the kernels' maps from their threads to solves and points ---------
+
+# row lengths: fewer phases than a warp, a warp's, between, the north
+# star's 128 and around it, and the widths' P * n_sub (128 x 3)
+PHASES = (1, 2, 5, 31, 32, 33, 127, 128, 129, 384)
+# donor grids (n_lat, n_lon): the north star's 384 directions, fewer than
+# a block, a few, more than a block's chunk
+GRIDS = ((16, 24), (6, 8), (5, 7), (3, 3), (32, 48))
+
+
+def cover(lib, fn, is_double, n_outer, n_inner):
+    """The counts of the stand-in's map ``fn`` (``donor_cover``,
+    ``wd_cover``) over (n_outer, n_inner) solves or points, and the
+    launch shape it reports."""
+    counts = np.zeros((n_outer, n_inner), dtype=np.int32)
+    shape = np.zeros(3, dtype=np.uint32)
+    getattr(lib, fn)(int(is_double), n_outer, n_inner,
+                     counts.ctypes.data, shape.ctypes.data)
+    return counts, shape
+
+
+class TestLayouts:
+    @pytest.mark.parametrize("dtype", [F32, F64])
+    @pytest.mark.parametrize("P", PHASES)
+    def test_k10_map_covers_each_point_once(self, source_lib, P, dtype):
+        """K10's map from (block, thread) to a row and its phases computes
+        every point of rows x P exactly once, for row counts that are not
+        a multiple of a block's rows; a row's lanes are 32 from 32 phases
+        on, else the least power of two that holds it."""
+        lanes = 32 if P >= 32 else 1 << (P - 1).bit_length()
+        for rows in (1, 7, 130, 1023):
+            counts, shape = cover(source_lib, "wd_cover", dtype == F64,
+                                  rows, P)
+            assert (counts == 1).all(), (rows, np.unique(counts))
+            assert shape[0] == lanes
+            assert shape[1] == -(-rows * lanes // 128)
+
+    @pytest.mark.parametrize("dtype", [F32, F64])
+    @pytest.mark.parametrize("grid", GRIDS)
+    def test_k9_map_covers_each_solve_once(self, source_lib, grid, dtype):
+        """K9's walker blocks solve and store every (walker, direction)
+        exactly once, for walker counts that are not a multiple of a
+        block's walkers; at the north star's 384 directions a block is one
+        walker of 384 lanes (1024 walkers: 1024 blocks)."""
+        N = grid[0] * grid[1]
+        threads = 384
+        for W in (1, 5, 1023):
+            counts, shape = cover(source_lib, "donor_cover", dtype == F64,
+                                  W, N)
+            assert (counts == 1).all(), (W, np.unique(counts))
+            x, g, blocks = (int(v) for v in shape[:3])
+            assert x % 32 == 0 and x * g <= threads
+            assert blocks == -(-W // g)
+            if N == 384:
+                assert (x, g, blocks) == (threads, 1, W)
+
+    def test_fast_division(self, source_lib):
+        """The index maps' n / d by multiply-high and shift, for divisors
+        and numerators up to 2^30."""
+        rng = np.random.default_rng(11)
+        ds = np.r_[1, 2, 3, 5, 7, 24, 128, 384, 5120, 2 ** 30,
+                   rng.integers(1, 2 ** 30, 40)]
+        ns = np.r_[0, 1, 2 ** 30, 2 ** 30 - 1, rng.integers(0, 2 ** 30, 40)]
+        for d in ds:
+            for n in np.r_[ns, d - 1, d, d + 1, 3 * d - 1]:
+                if 0 <= n <= 2 ** 30:
+                    assert source_lib.fast_div_host(int(d), int(n)) \
+                        == int(n) // int(d), (d, n)
+
+    @pytest.mark.parametrize("dtype,atol", [(F32, 2e-6), (F64, 1e-13)])
+    @pytest.mark.parametrize("P", PHASES)
+    def test_k10_row_lengths_against_the_plain_chain(self, through_source,
+                                                     P, dtype, atol):
+        """K10's source through its row prologue and point body at each
+        row length (5 rows, the first P of wd_inputs' phases), both
+        modes, against the plain chains at test_against_the_plain_chain's
+        tolerances."""
+        a = wd_inputs(dtype, n=5, P=max(P, 8))
+        a["phases"] = a["phases"][:, :P].contiguous()
+        check_against_plain(a, dtype, atol)
+
+    @pytest.mark.parametrize("dtype,rtol", [(F32, 2e-6), (F64, 1e-13)])
+    @pytest.mark.parametrize("grid", GRIDS[1:])
+    def test_k9_grids_against_the_plain_loop(self, through_source, grid,
+                                             dtype, rtol):
+        """K9's source at odd grids (13 walkers) against the plain loop
+        and grid at test_against_the_plain_loop's tolerances."""
+        q, x1, pl1, _ = (t(a, dtype) for a in walkers(13))
+        out = donor_kernel(q, x1, pl1, *grid)
+        r, slope = donor_kernel(q, x1, pl1, *grid, grid=False)
+        dirs = comp._directions(*grid, dtype, q.device)
+        r0, slope0 = comp._donor_radius_loop(q, x1, pl1, *dirs[:3])
+        grid0 = comp._donor_grid_plain(r0, (q / (1.0 + q))[:, None], *dirs)
+        for got, want in ((r, r0), (slope, slope0), *zip(out, grid0)):
+            assert got.shape == want.shape and got.dtype == dtype
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                                       atol=rtol * 1e-3)
 
 
 # ---- the posterior with the stand-in in the kernels' place -------------
