@@ -23,6 +23,7 @@ import torch
 from ..ops.stream import stream_impacts
 from ..roche.geometry import (earth_vector, findi, inscribed_radius,
                               l1_potential, xl1)
+from ..utils.tracing import CONTACTS, annotate
 from . import components as comp
 
 __all__ = [
@@ -183,23 +184,6 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
     if r_ins is None:
         r_ins = inscribed_radius(q, x1, pl1)
 
-    if precise is not None:
-        # the disc grid in float64, cast down: float32 rounding of the
-        # element coordinates alone moves their contact phases by ~1e-7
-        # cycles, which flips elements across data phases
-        f64 = torch.float64
-        disc_pos64, disc_w64 = comp.disc_elements(
-            rwd.to(f64), rdisc_x.to(f64) * precise[2], dexp.to(f64),
-            config.n_disc_rad, config.n_disc_az)
-        disc_pos, disc_w = disc_pos64.to(dtype), disc_w64.to(dtype)
-    else:
-        disc_pos64 = None
-        disc_pos, disc_w = comp.disc_elements(
-            rwd, rdisc, dexp, config.n_disc_rad, config.n_disc_az)
-    spot_pos, spot_w = comp.spot_elements(
-        q, rdisc, scale, az, exp1, exp2, config.n_spot,
-        impact=geometry.spot_impact)
-    normal = comp.spot_normal(az, tilt, yaw)
     dgrid = donor if donor is not None else comp.donor_grid(
         q, x1, pl1, config.n_donor_lat, config.n_donor_lon)
 
@@ -235,39 +219,58 @@ def cv_fluxes(pars, phases, widths=None, config: CVConfig = CVConfig(),
     # strip are solved; the other half is (-phi_out, -phi_in) of its
     # partner.  In the mixed-precision mode the float64 positions take the
     # same path (the spot strip's are its float32 ones).
-    n_rad, n_az = config.n_disc_rad, config.n_disc_az
-    lead = disc_pos.shape[:-2]
-    mirror = n_az % 2 == 0
-    n_solve_disc = n_rad * n_az // 2 if mirror else disc_pos.shape[-2]
+    with annotate(CONTACTS):
+        if precise is not None:
+            # the disc grid in float64, cast down: float32 rounding of
+            # the element coordinates alone moves their contact phases by
+            # ~1e-7 cycles, which flips elements across data phases
+            f64 = torch.float64
+            disc_pos64, disc_w64 = comp.disc_elements(
+                rwd.to(f64), rdisc_x.to(f64) * precise[2], dexp.to(f64),
+                config.n_disc_rad, config.n_disc_az)
+            disc_pos, disc_w = disc_pos64.to(dtype), disc_w64.to(dtype)
+        else:
+            disc_pos64 = None
+            disc_pos, disc_w = comp.disc_elements(
+                rwd, rdisc, dexp, config.n_disc_rad, config.n_disc_az)
+        spot_pos, spot_w = comp.spot_elements(
+            q, rdisc, scale, az, exp1, exp2, config.n_spot,
+            impact=geometry.spot_impact)
+        normal = comp.spot_normal(az, tilt, yaw)
+        n_rad, n_az = config.n_disc_rad, config.n_disc_az
+        lead = disc_pos.shape[:-2]
+        mirror = n_az % 2 == 0
+        n_solve_disc = n_rad * n_az // 2 if mirror else disc_pos.shape[-2]
 
-    def solved(disc, spot):
+        def solved(disc, spot):
+            if mirror:
+                disc = disc.reshape(lead + (n_rad, n_az, 3))[
+                    ..., :n_az // 2, :].reshape(lead + (n_solve_disc, 3))
+            return torch.cat([disc, spot.expand(lead + spot.shape[-2:])],
+                             dim=-2)
+
+        all_pos = solved(disc_pos, spot_pos)
+        all_pos64 = (None if disc_pos64 is None
+                     else solved(disc_pos64, spot_pos.to(torch.float64)))
+        intervals = comp.element_intervals(
+            q, incl, all_pos, x1, pl1, precise=precise,
+            positions64=all_pos64, r_ins=r_ins)
         if mirror:
-            disc = disc.reshape(lead + (n_rad, n_az, 3))[
-                ..., :n_az // 2, :].reshape(lead + (n_solve_disc, 3))
-        return torch.cat([disc, spot.expand(lead + spot.shape[-2:])], dim=-2)
-
-    all_pos = solved(disc_pos, spot_pos)
-    all_pos64 = (None if disc_pos64 is None
-                 else solved(disc_pos64, spot_pos.to(torch.float64)))
-    intervals = comp.element_intervals(q, incl, all_pos, x1, pl1,
-                                       precise=precise,
-                                       positions64=all_pos64, r_ins=r_ins)
-    if mirror:
-        s_in, s_out, s_ecl = intervals
-        half_az = n_az // 2
-        di = s_in[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
-        do = s_out[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
-        de = s_ecl[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
-        disc_iv = (
-            torch.cat([di, -torch.flip(do, dims=(-1,))], dim=-1)
-            .reshape(lead + (-1,)),
-            torch.cat([do, -torch.flip(di, dims=(-1,))], dim=-1)
-            .reshape(lead + (-1,)),
-            torch.cat([de, torch.flip(de, dims=(-1,))], dim=-1)
-            .reshape(lead + (-1,)))
-    else:
-        disc_iv = tuple(a[..., :n_solve_disc] for a in intervals)
-    spot_iv = tuple(a[..., n_solve_disc:] for a in intervals)
+            s_in, s_out, s_ecl = intervals
+            half_az = n_az // 2
+            di = s_in[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
+            do = s_out[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
+            de = s_ecl[..., :n_solve_disc].reshape(lead + (n_rad, half_az))
+            disc_iv = (
+                torch.cat([di, -torch.flip(do, dims=(-1,))], dim=-1)
+                .reshape(lead + (-1,)),
+                torch.cat([do, -torch.flip(di, dims=(-1,))], dim=-1)
+                .reshape(lead + (-1,)),
+                torch.cat([de, torch.flip(de, dims=(-1,))], dim=-1)
+                .reshape(lead + (-1,)))
+        else:
+            disc_iv = tuple(a[..., :n_solve_disc] for a in intervals)
+        spot_iv = tuple(a[..., n_solve_disc:] for a in intervals)
     disc_curve = comp.element_flux_curve(ph, w, disc_iv, disc_w)
     spot_curve = comp.element_flux_curve(ph, w, spot_iv, spot_w)
     ydisc = dF[..., None] * disc_curve

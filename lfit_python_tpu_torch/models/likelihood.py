@@ -32,6 +32,7 @@ from ..ops.stream import stream_impacts
 from ..roche.geometry import (findi, inscribed_radius, l1_potential,
                               origin_shadow_distance, xl1)
 from ..roche.stream import stream_steps_for
+from ..utils.tracing import FLUX, GEOMETRY, GP, PARAMS, annotate
 from .components import DonorGrid, donor_curve_nodes, donor_grid, sum_last
 from .cv import (CVConfig, CVGeometry, core_precise, cv_physical_ok,
                  cv_total_flux)
@@ -110,22 +111,24 @@ def gp_flicker_ln_like(cv_pars, model_flux, gp_pars, geom: CVGeometry,
     (W, E, 3) = (ln_ampin, ln_ampout, ln_tau); ``phase``, ``flux``,
     ``err``, ``mask`` (E, P).  The changepoints are comparisons, so they
     carry no gradient: they are found under ``no_grad``."""
-    ln_ampin, ln_ampout, ln_tau = gp_pars.unbind(dim=-1)
-    q, dphi, rwd = cv_pars[..., 4], cv_pars[..., 5], cv_pars[..., 8]
-    phi0 = cv_pars[..., 13]
-    with torch.no_grad():
-        ext = wd_contact_extension(q, geom.incl, dphi, rwd, geom.x1,
-                                   geom.pl1)
-        wrapped = torch.remainder(phase - phi0[..., None] + 0.5, 1.0) - 0.5
-        in_ecl = wrapped.abs() <= (0.5 * dphi + ext)[..., None]
-        reset = torch.cat([torch.zeros_like(in_ecl[..., :1]),
-                           in_ecl[..., 1:] != in_ecl[..., :-1]], dim=-1)
-    resid = flux - model_flux
-    sigma2 = torch.where(in_ecl, torch.exp(2.0 * ln_ampin)[..., None],
-                         torch.exp(2.0 * ln_ampout)[..., None])
-    c = math.sqrt(3.0) / torch.exp(ln_tau)
-    return segmented_matern32_ln_like(phase, resid, err, sigma2, c,
-                                      reset=reset, mask=mask)
+    with annotate(GP):
+        ln_ampin, ln_ampout, ln_tau = gp_pars.unbind(dim=-1)
+        q, dphi, rwd = cv_pars[..., 4], cv_pars[..., 5], cv_pars[..., 8]
+        phi0 = cv_pars[..., 13]
+        with torch.no_grad():
+            ext = wd_contact_extension(q, geom.incl, dphi, rwd, geom.x1,
+                                       geom.pl1)
+            wrapped = torch.remainder(phase - phi0[..., None] + 0.5,
+                                      1.0) - 0.5
+            in_ecl = wrapped.abs() <= (0.5 * dphi + ext)[..., None]
+            reset = torch.cat([torch.zeros_like(in_ecl[..., :1]),
+                               in_ecl[..., 1:] != in_ecl[..., :-1]], dim=-1)
+        resid = flux - model_flux
+        sigma2 = torch.where(in_ecl, torch.exp(2.0 * ln_ampin)[..., None],
+                             torch.exp(2.0 * ln_ampout)[..., None])
+        c = math.sqrt(3.0) / torch.exp(ln_tau)
+        return segmented_matern32_ln_like(phase, resid, err, sigma2, c,
+                                          reset=reset, mask=mask)
 
 
 class Posterior:
@@ -170,21 +173,24 @@ class Posterior:
         ``precise`` (the flux model's), so is its float64 solve of the
         mixed-precision mode (:func:`core_precise`)."""
         model = self.model
-        full = model.full_from_var(var.to(self.dtype))
-        lp = ln_prior_table(full, model.prior_table)
-        cvp = model.cv_params(full)                          # (W, E, 18)
-        q, dphi = cvp[:, 0, 4], cvp[:, 0, 5]
-        x1 = xl1(q)
-        pl1 = l1_potential(q, x1)
-        incl = findi(q, dphi, x1, pl1)
-        rdisc = cvp[..., 6] * x1[:, None]
-        impacts = stream_impacts(q, rdisc, x1, n_steps=self.stream_steps)
-        fine = (core_precise(q, dphi, self.config, self.dtype) if precise
-                else None)
-        geom = CVGeometry(x1[:, None], pl1[:, None], incl[:, None], rdisc,
-                          impacts, None if fine is None
-                          else tuple(a[:, None] for a in fine))
-        return full, lp, cvp, geom, cv_physical_ok(cvp, geom)
+        with annotate(PARAMS):
+            full = model.full_from_var(var.to(self.dtype))
+            lp = ln_prior_table(full, model.prior_table)
+            cvp = model.cv_params(full)                      # (W, E, 18)
+        with annotate(GEOMETRY):
+            q, dphi = cvp[:, 0, 4], cvp[:, 0, 5]
+            x1 = xl1(q)
+            pl1 = l1_potential(q, x1)
+            incl = findi(q, dphi, x1, pl1)
+            rdisc = cvp[..., 6] * x1[:, None]
+            impacts = stream_impacts(q, rdisc, x1,
+                                     n_steps=self.stream_steps)
+            fine = (core_precise(q, dphi, self.config, self.dtype)
+                    if precise else None)
+            geom = CVGeometry(x1[:, None], pl1[:, None], incl[:, None],
+                              rdisc, impacts, None if fine is None
+                              else tuple(a[:, None] for a in fine))
+            return full, lp, cvp, geom, cv_physical_ok(cvp, geom)
 
     def _flux(self, cvp, geom):
         """Model flux (W, E, P) on the solved geometry.  The inscribed
@@ -192,17 +198,20 @@ class Posterior:
         curve's quadrature nodes are core-node quantities: solved once per
         walker (the prior alone needs none of them)."""
         cfg = self.config
-        q = cvp[:, :1, 4]
-        geom = geom._replace(r_ins=inscribed_radius(q, geom.x1, geom.pl1))
-        dgrid = donor_grid(q, geom.x1, geom.pl1, cfg.n_donor_lat,
-                           cfg.n_donor_lon)
-        nodes = None
-        if cfg.n_donor_quad:
-            nodes = donor_curve_nodes(
-                geom.incl[:, 0], DonorGrid(*(a[:, 0] for a in dgrid)),
-                cfg.ulimb_donor, cfg.n_donor_quad)           # (W, n + 1)
-        return cv_total_flux(cvp, self.phase, self.width, cfg,
-                             geometry=geom, donor=dgrid, donor_curve=nodes)
+        with annotate(FLUX):
+            q = cvp[:, :1, 4]
+            geom = geom._replace(r_ins=inscribed_radius(q, geom.x1,
+                                                        geom.pl1))
+            dgrid = donor_grid(q, geom.x1, geom.pl1, cfg.n_donor_lat,
+                               cfg.n_donor_lon)
+            nodes = None
+            if cfg.n_donor_quad:
+                nodes = donor_curve_nodes(
+                    geom.incl[:, 0], DonorGrid(*(a[:, 0] for a in dgrid)),
+                    cfg.ulimb_donor, cfg.n_donor_quad)       # (W, n + 1)
+            return cv_total_flux(cvp, self.phase, self.width, cfg,
+                                 geometry=geom, donor=dgrid,
+                                 donor_curve=nodes)
 
     def _terms(self, var):
         """(prior table sum (W,), physical validity (W, E), ln-likelihood

@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.tracing import CHAIN_COPY, annotate
+
 __all__ = ["EnsembleState", "init_walkers", "ensemble_step", "run_sampler",
            "run_chunked"]
 
@@ -183,13 +185,15 @@ def run_chunked(state, step_fn, n_steps, thin=1, chunk_size=64,
     for i in range(1, n_steps + 1):
         state, aux = step_fn(state)
         pending.append(aux if isinstance(aux, tuple) else (aux,))
-        if state.step % thin == 0:
-            rows, lp = extract(state)
-            chain[k] = rows.cpu().numpy()
-            chain_lp[k] = lp.cpu().numpy()
-            k += 1
-        if i in ends:
-            chunk = [torch.stack(col).cpu().numpy() for col in zip(*pending)]
+        with annotate(CHAIN_COPY):
+            if state.step % thin == 0:
+                rows, lp = extract(state)
+                chain[k] = rows.cpu().numpy()
+                chain_lp[k] = lp.cpu().numpy()
+                k += 1
+            chunk = ([torch.stack(col).cpu().numpy() for col in zip(*pending)]
+                     if i in ends else None)
+        if chunk is not None:
             done.append(chunk)
             if progress is not None:
                 progress(i, float(chunk[0].mean()))

@@ -1,11 +1,19 @@
-"""Profiling hooks: a device trace of a block, named spans, a step meter.
+"""Profiling hooks: a device trace of a block, and named spans in it.
 
 Port of ``lfit_python_tpu/utils/tracing.py`` on ``torch.profiler``:
 :func:`trace_to` records the host and the card (CPU and CUDA activities)
 for the enclosed block, or its first steps, and writes one Chrome trace
 under ``logdir`` (open it in Perfetto or ``chrome://tracing``);
-:func:`annotate` is a named span in that trace; :class:`StepMeter` is a windowed step-rate meter
-(ln-prob evaluations per second is the north-star metric).
+:func:`annotate` is a named span in that trace, a ``record_function``
+range on the profiler's clock beside the card's kernels, and next to
+nothing when no profiler runs.
+
+The program's stages are such spans: ``lfit.params`` (the tree and the
+priors), ``lfit.geometry`` (the core geometry), ``lfit.flux`` (the flux
+model) with ``lfit.flux.contacts`` (the contact solve) inside it,
+``lfit.like.gp`` (the GP likelihood) and ``lfit.chain.copy`` (a kept
+row's copy to the host between sampler steps).  A ``fit --profile`` trace
+shows them.
 
 Only a process's first profiler window is sure to keep every kernel
 record: a later window, after many untraced launches, may lose its first
@@ -21,7 +29,19 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Trace", "trace_to", "annotate", "StepMeter"]
+__all__ = ["Trace", "trace_to", "annotate", "PARAMS", "GEOMETRY", "FLUX",
+           "CONTACTS", "GP", "CHAIN_COPY", "SPANS"]
+
+# the program's stage spans (module docstring)
+PARAMS = "lfit.params"
+GEOMETRY = "lfit.geometry"
+FLUX = "lfit.flux"
+CONTACTS = "lfit.flux.contacts"
+GP = "lfit.like.gp"
+CHAIN_COPY = "lfit.chain.copy"
+SPANS = (PARAMS, GEOMETRY, FLUX, CONTACTS, GP, CHAIN_COPY)
+
+_OFF = contextlib.nullcontext()
 
 
 class Trace:
@@ -81,34 +101,9 @@ def trace_to(logdir, steps=None):
 
 
 def annotate(name):
-    """Named span in the trace; a context manager or a decorator."""
-    return torch.profiler.record_function(name)
-
-
-class StepMeter:
-    """Windowed sampler-step rate and ln-prob-eval rate meter."""
-
-    def __init__(self, n_walkers, window=50):
-        self.n_walkers = n_walkers
-        self.window = window
-        self._t = []
-        self._s = []
-
-    def tick(self, step):
-        self._t.append(time.perf_counter())
-        self._s.append(step)
-        if len(self._t) > self.window:
-            self._t.pop(0)
-            self._s.pop(0)
-
-    @property
-    def steps_per_sec(self):
-        if len(self._t) < 2:
-            return float("nan")
-        dt = self._t[-1] - self._t[0]
-        return (self._s[-1] - self._s[0]) / dt if dt > 0 else float("nan")
-
-    @property
-    def evals_per_sec(self):
-        # one full step = one ln-prob evaluation per walker
-        return self.steps_per_sec * self.n_walkers
+    """Named span in the trace, a context manager to enter where the span
+    starts: a ``record_function`` range while a profiler runs, else one
+    shared ``nullcontext`` (a flag check, not the dispatcher's range)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

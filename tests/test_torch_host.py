@@ -63,18 +63,6 @@ def test_trace_to_records_only_its_first_steps(tmp_path, capsys):
     assert not {"step_2", "step_3"} & names
 
 
-def test_step_meter_rates(monkeypatch):
-    clock = iter([10.0, 10.5, 11.0, 11.5, 12.0])
-    monkeypatch.setattr(tracing.time, "perf_counter", lambda: next(clock))
-    meter = tracing.StepMeter(n_walkers=64, window=3)
-    assert np.isnan(meter.steps_per_sec)
-    for step in (0, 1, 2, 3, 5):
-        meter.tick(step)
-    # the window keeps the last 3 ticks: steps 2 -> 5 in 1.0 s
-    assert meter.steps_per_sec == pytest.approx(3.0)
-    assert meter.evals_per_sec == pytest.approx(192.0)
-
-
 # ---- notifications -----------------------------------------------------
 
 def test_notify_channels_match_the_jax_module(tmp_path):
