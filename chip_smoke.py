@@ -12,7 +12,9 @@ and NUTS at 256 chains on the same model with the exposure widths a
 .calib light curve gets (0.3 / 127 cycles); the GP flickering likelihood
 runs on the same tree with use_gp on every eclipse, and on 10
 complex-spot GP eclipses at 4096 walkers; parallel tempering at 4 rungs
-x 256 walkers.  Phases:
+x 256 walkers.  Every posterior call in this process runs eagerly (no
+CUDA graph: the phases compare paths by patching module functions);
+the phases' subprocesses take the graph route as the fit does.  Phases:
 
   1. device: the card, its power limit, the builds of K1 (contacts.cu),
      K1's backward (contacts_backward.cu), K2 (stream.cu) and K3 (gp.cu)
@@ -3541,6 +3543,13 @@ def main():
     from lfit_python_tpu_torch.sampling.pt import init_pt, pt_step
 
     _check("jax" not in sys.modules, "the port imported jax")
+    # every posterior call here runs eagerly: the phases hold the kernels
+    # to their plain versions by patching module functions on one
+    # posterior, which a CUDA graph captured before the patch would not
+    # see (the graph route is held by tests/test_torch_cuda.py and the
+    # benchmark); the phases' fresh processes replay as the fit does
+    from lfit_python_tpu_torch.models import graphs
+    mock.patch.object(graphs, "routable", lambda var: False).start()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)

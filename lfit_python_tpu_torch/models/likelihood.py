@@ -17,6 +17,10 @@ the gradient samplers: every root solve carries its implicit-function-
 theorem gradient, the contact phases through K1's backward
 (``ops.contacts``) and the stream impacts through K2's forward
 sensitivities (``ops.stream``).
+
+On the card the forward entries (the call, ``ln_prior``, ``ln_like``,
+``parts``) are replayed from a CUDA graph once their input's shape has
+been seen (``models/graphs.py``); ``value_and_grad`` runs eagerly.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..utils.tracing import FLUX, GEOMETRY, GP, PARAMS, annotate
 from .components import DonorGrid, donor_curve_nodes, donor_grid, sum_last
 from .cv import (CVConfig, CVGeometry, core_precise, cv_physical_ok,
                  cv_total_flux)
+from .graphs import GraphCache
 from .priors import ln_prior_table
 from .tree import CompiledModel
 
@@ -164,6 +169,9 @@ class Posterior:
         # ln_tau) per eclipse, and which eclipses use the GP likelihood
         self.gp_idx = dev(model.gp_idx, torch.int64)
         self.gp_mask = dev(model.gp_mask, torch.bool)
+        # the index maps and the prior table, kept on the device
+        self.tables = model.tensors(dtype, self.phase.device)
+        self._graphs = GraphCache()
 
     def _core(self, var, precise=False):
         """The part of an evaluation the prior needs: (full vectors
@@ -175,7 +183,7 @@ class Posterior:
         model = self.model
         with annotate(PARAMS):
             full = model.full_from_var(var.to(self.dtype))
-            lp = ln_prior_table(full, model.prior_table)
+            lp = ln_prior_table(full, self.tables.prior)
             cvp = model.cv_params(full)                      # (W, E, 18)
         with annotate(GEOMETRY):
             q, dphi = cvp[:, 0, 4], cvp[:, 0, 5]
@@ -247,30 +255,40 @@ class Posterior:
         return torch.where(torch.isfinite(total), total,
                            torch.full_like(total, -math.inf))
 
-    def __call__(self, var):
+    def _forward(self, entry, fn, var):
+        """``fn(var)`` under ``inference_mode``, through the graph cache."""
         with torch.inference_mode():
-            return self._ln_prob(var)
+            return self._graphs(entry, fn, var)
+
+    def __call__(self, var):
+        return self._forward("ln_prob", self._ln_prob, var)
+
+    def _ln_prior(self, var):
+        _, lp, _, _, ok = self._core(var)
+        return self._prior_of(lp, ok)
 
     def ln_prior(self, var):
         """Prior table plus the physical-validity checks, (W,): the
         geometry and one stream integration, no flux model."""
-        with torch.inference_mode():
-            _, lp, _, _, ok = self._core(var)
-            return self._prior_of(lp, ok)
+        return self._forward("ln_prior", self._ln_prior, var)
+
+    def _ln_like(self, var):
+        return self._terms(var)[2].sum(dim=-1)
 
     def ln_like(self, var):
         """The summed ln-likelihood (W,), without the validity mask (it
         may be NaN where the geometry is infeasible: the prior is -inf
         there)."""
-        with torch.inference_mode():
-            return self._terms(var)[2].sum(dim=-1)
+        return self._forward("ln_like", self._ln_like, var)
+
+    def _parts(self, var):
+        lp, ok, ll = self._terms(var)
+        return self._prior_of(lp, ok), ll.sum(dim=-1)
 
     def parts(self, var):
         """``(ln_prior(var), ln_like(var))`` from one shared pass: one
         geometry solve and one stream integration for both."""
-        with torch.inference_mode():
-            lp, ok, ll = self._terms(var)
-            return self._prior_of(lp, ok), ll.sum(dim=-1)
+        return self._forward("parts", self._parts, var)
 
     def value_and_grad(self, var):
         """``(ln p (W,), d ln p / d var (W, D))`` of sampled vectors

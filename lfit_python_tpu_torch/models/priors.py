@@ -3,19 +3,22 @@
 Port of ``lfit_python_tpu/models/priors.py``: the host-side declarations
 (``Prior``, ``Param``, ``PriorTable``) are numpy, and ``ln_prior_table``
 evaluates the five prior families branch-free on a ``(..., D)`` tensor
-and selects each row by its type code.
+and selects each row by its type code.  A posterior keeps its table on
+the card as :class:`PriorTensors` (:func:`prior_tensors`), so that an
+evaluation copies nothing from the host.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["Prior", "Param", "PriorTable", "make_prior_table", "ln_prior_table"]
+__all__ = ["Prior", "Param", "PriorTable", "PriorTensors", "make_prior_table",
+           "prior_tensors", "ln_prior_table"]
 
 _PRIOR_CODES = {
     "uniform": 0,
@@ -70,9 +73,28 @@ def make_prior_table(params: Sequence[Param]) -> PriorTable:
     )
 
 
-def ln_prior_table(vals: torch.Tensor, table: PriorTable) -> torch.Tensor:
+class PriorTensors(NamedTuple):
+    """A :class:`PriorTable` as tensors on one device."""
+    codes: torch.Tensor   # (D,) int64
+    p1: torch.Tensor      # (D,) in the values' dtype
+    p2: torch.Tensor      # (D,)
+
+
+def prior_tensors(table: PriorTable, dtype, device) -> PriorTensors:
+    """``table`` as :class:`PriorTensors` in ``dtype`` on ``device``, made
+    outside any inference mode so that a gradient may use them."""
+    with torch.inference_mode(False):
+        return PriorTensors(
+            torch.as_tensor(table.codes, dtype=torch.int64, device=device),
+            torch.as_tensor(table.p1, dtype=dtype, device=device),
+            torch.as_tensor(table.p2, dtype=dtype, device=device))
+
+
+def ln_prior_table(vals: torch.Tensor, table) -> torch.Tensor:
     """Sum of ln prior probabilities over the last axis of ``vals``
-    ``(..., D)``; returns ``(...)``.
+    ``(..., D)``; returns ``(...)``.  ``table`` is a :class:`PriorTable`
+    (copied to ``vals``' device on each call) or its
+    :class:`PriorTensors` on that device in ``vals``' dtype.
 
     Out-of-support values yield -inf.  Every family is evaluated for every
     row and the row's own family is picked by its code, so values that are
@@ -83,9 +105,9 @@ def ln_prior_table(vals: torch.Tensor, table: PriorTable) -> torch.Tensor:
     """
     v = vals
     dt, dev = v.dtype, v.device
-    codes = torch.as_tensor(table.codes, dtype=torch.int64, device=dev)
-    p1 = torch.as_tensor(table.p1, dtype=dt, device=dev)
-    p2 = torch.as_tensor(table.p2, dtype=dt, device=dev)
+    if isinstance(table, PriorTable):
+        table = prior_tensors(table, dt, dev)
+    codes, p1, p2 = table
     neg_inf = torch.full((), -math.inf, dtype=dt, device=dev)
     tiny = torch.finfo(dt).tiny
     one = torch.ones((), dtype=dt, device=dev)

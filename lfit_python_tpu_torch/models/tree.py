@@ -3,7 +3,9 @@
 Port of ``lfit_python_tpu/models/tree.py``.  The tree is declarative: it
 compiles once, in numpy, into index maps (sampled vector -> full parameter
 vector -> per-eclipse 18-slot CV vectors) and stacked, padded data arrays.
-Every posterior evaluation then only indexes tensors.
+Every posterior evaluation then only indexes tensors: the maps and the
+prior table are kept on the evaluation's device
+(:meth:`CompiledModel.tensors`), so that it copies nothing from the host.
 
 Core params (shared by every eclipse):  q, dphi, rwd.
 Band params (shared per filter):        wdFlux, rsFlux, ulimb.
@@ -20,18 +22,20 @@ values (exp1 = 1, exp2 = 1, tilt = 90, yaw = 0) pinned as constants.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .priors import Param, PriorTable, make_prior_table
+from .priors import (Param, PriorTable, PriorTensors, make_prior_table,
+                     prior_tensors)
 
 __all__ = [
     "Lightcurve",
     "EclipseSpec",
     "HierarchicalModel",
     "CompiledModel",
+    "ModelTensors",
     "CORE_NAMES",
     "BAND_NAMES",
     "ECLIPSE_NAMES",
@@ -139,6 +143,16 @@ class HierarchicalModel:
         return _compile(self)
 
 
+class ModelTensors(NamedTuple):
+    """A :class:`CompiledModel`'s index maps, constants and prior table as
+    tensors on one device, in one dtype."""
+    full_start: torch.Tensor   # (n_full,)
+    var_idx: torch.Tensor      # (n_var,) int64
+    cv_idx: torch.Tensor       # (E, 18) int64
+    cv_const: torch.Tensor     # (E, 18)
+    prior: PriorTensors
+
+
 @dataclass
 class CompiledModel:
     """Flat-vector layout, index maps and stacked data of one model.
@@ -172,6 +186,9 @@ class CompiledModel:
     # the tree it was compiled from (each eclipse's name, band and light
     # curve, for the plots); None where the model was carried across
     spec: Optional[HierarchicalModel] = field(default=None, repr=False)
+    # ModelTensors by (dtype, device), made on first use (tensors())
+    _tensors: dict = field(default_factory=dict, init=False, repr=False,
+                           compare=False)
 
     @property
     def n_eclipses(self) -> int:
@@ -202,6 +219,28 @@ class CompiledModel:
             groups.setdefault(self.param_labels[i], []).append(pos)
         return list(groups.items())
 
+    def tensors(self, dtype, device) -> ModelTensors:
+        """The index maps, constants and prior table as tensors in
+        ``dtype`` on ``device``: made on the first call for that pair (outside
+        any inference mode, so that a gradient may use them) and kept."""
+        device = torch.device(device)
+        key = (dtype, device)
+        t = self._tensors.get(key)
+        if t is None:
+            with torch.inference_mode(False):
+                t = ModelTensors(
+                    torch.as_tensor(self.full_start, dtype=dtype,
+                                    device=device),
+                    torch.as_tensor(self.var_idx, dtype=torch.int64,
+                                    device=device),
+                    torch.as_tensor(self.cv_idx, dtype=torch.int64,
+                                    device=device),
+                    torch.as_tensor(self.cv_const, dtype=dtype,
+                                    device=device),
+                    prior_tensors(self.prior_table, dtype, device))
+            self._tensors[key] = t
+        return t
+
     def full_from_var(self, var_vec):
         """Place a sampled ``(..., n_var)`` vector into the full template
         ``(..., n_full)``.  Works on numpy arrays or tensors."""
@@ -210,23 +249,19 @@ class CompiledModel:
                 self.full_start, var_vec.shape[:-1] + (self.n_full,)).copy()
             full[..., self.var_idx] = var_vec
             return full
-        start = torch.as_tensor(self.full_start, dtype=var_vec.dtype,
-                                device=var_vec.device)
-        full = start.expand(var_vec.shape[:-1] + (self.n_full,)).clone()
-        idx = torch.as_tensor(self.var_idx, dtype=torch.int64,
-                              device=var_vec.device)
-        full[..., idx] = var_vec
+        t = self.tensors(var_vec.dtype, var_vec.device)
+        full = t.full_start.expand(
+            var_vec.shape[:-1] + (self.n_full,)).clone()
+        full[..., t.var_idx] = var_vec
         return full
 
     def cv_params(self, full_vec: torch.Tensor) -> torch.Tensor:
         """Per-eclipse 18-slot CV parameters ``(..., E, 18)`` from a full
         vector ``(..., n_full)``: indexed slots, with the pinned neutral
         constants where ``cv_idx < 0``."""
-        dev, dt = full_vec.device, full_vec.dtype
-        idx = torch.as_tensor(self.cv_idx, dtype=torch.int64, device=dev)
-        const = torch.as_tensor(self.cv_const, dtype=dt, device=dev)
-        gathered = full_vec[..., idx.clamp(min=0)]
-        return torch.where(idx >= 0, gathered, const)
+        t = self.tensors(full_vec.dtype, full_vec.device)
+        gathered = full_vec[..., t.cv_idx.clamp(min=0)]
+        return torch.where(t.cv_idx >= 0, gathered, t.cv_const)
 
 
 def _compile(spec: HierarchicalModel) -> CompiledModel:

@@ -622,7 +622,9 @@ def contact_interval(q, incl_deg, px, py, xl1_val, phi_l1, r_ins,
     # 3. both edges on a trailing axis: sign = (-1 ingress, +1 egress)
     shape = torch.broadcast_shapes(
         phi_c.shape, w_inscr.shape, w_sphere.shape, e_A.shape) + (2,)
-    sign = torch.tensor([-1.0, 1.0], dtype=phi_c.dtype, device=phi_c.device)
+    # (-1, 1) made on the device: a capture may hold no host copy
+    sign = torch.arange(-1.0, 2.0, 2.0, dtype=phi_c.dtype,
+                        device=phi_c.device)
     (px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1, e_A, e_B, si, ci,
      phi_c_e, w_inscr_e, w_sphere_e) = (a[..., None] for a in (
          px, py, c1, ww, wx, wy, mu, rad, inv_rad, i2_p, pl1, e_A, e_B, si,

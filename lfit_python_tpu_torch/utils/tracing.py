@@ -13,7 +13,10 @@ priors), ``lfit.geometry`` (the core geometry), ``lfit.flux`` (the flux
 model) with ``lfit.flux.contacts`` (the contact solve) inside it,
 ``lfit.like.gp`` (the GP likelihood) and ``lfit.chain.copy`` (a kept
 row's copy to the host between sampler steps).  A ``fit --profile`` trace
-shows them.
+shows them.  A posterior call replayed from a CUDA graph
+(``models/graphs.py``) enters none of the posterior's stages: it is one
+``lfit.replay`` span, around the graph's replay and its input's and
+outputs' copies.
 
 Only a process's first profiler window is sure to keep every kernel
 record: a later window, after many untraced launches, may lose its first
@@ -30,7 +33,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["Trace", "trace_to", "annotate", "PARAMS", "GEOMETRY", "FLUX",
-           "CONTACTS", "GP", "CHAIN_COPY", "SPANS"]
+           "CONTACTS", "GP", "CHAIN_COPY", "SPANS", "REPLAY"]
 
 # the program's stage spans (module docstring)
 PARAMS = "lfit.params"
@@ -40,6 +43,8 @@ CONTACTS = "lfit.flux.contacts"
 GP = "lfit.like.gp"
 CHAIN_COPY = "lfit.chain.copy"
 SPANS = (PARAMS, GEOMETRY, FLUX, CONTACTS, GP, CHAIN_COPY)
+# a posterior call replayed from a CUDA graph
+REPLAY = "lfit.replay"
 
 _OFF = contextlib.nullcontext()
 

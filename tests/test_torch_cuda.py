@@ -3,8 +3,9 @@ its backward, K2 (gas stream), K3 (GP recursion) and its reverse kernel,
 K4-K6 (the core geometry's bisections), K7 and K8 (the flux curves'
 sweeps) and their backward kernels, and K9 and K10 (the donor grid's
 radius solve, the white dwarf's sweep) on the card, against their
-plain PyTorch versions, the posterior and its gradient through them, and
-the fit command, its chunked sampling loop and its checkpoints on the card.
+plain PyTorch versions, the posterior and its gradient through them, the
+posterior's forward calls replayed from CUDA graphs, and the fit command,
+its chunked sampling loop and its checkpoints on the card.
 
 Every test here needs a CUDA card (the kernels have no CPU form) and skips
 without one.  The file imports nothing of JAX, so on a machine with the
@@ -1110,9 +1111,11 @@ def test_forward_evaluation_solves_the_inscribed_radius_once(cuda):
         torch.cuda.synchronize()
         assert rec.call_count == 1
         assert tuple(rec.call_args.args[0].shape) == (256, 1)
+        # a batch not seen before: an eager call (a second call of a
+        # batch is captured, which runs the Python twice)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            lp(pos)
+            lp(pos[:128])
             torch.cuda.synchronize()
     events = prof.events()
     span = [e for e in events if e.name == "inscribed_radius"
@@ -1862,3 +1865,98 @@ def test_gradient_through_the_wd_donor_kernels_matches_plain(cuda):
     with mock.patch.object(tg, "_on_card", lambda t: False):
         v0, g0 = lp.value_and_grad(p)
     assert same_bits(v, v0) and same_bits(g, g0)
+
+
+# ---- the posterior's forward calls replayed from CUDA graphs -------------
+
+def bench_walkers(dev, config, n=64, seed=2 ** 31 + 5):
+    """The benchmark's configuration ``config`` (its light curves from
+    ``seed``) as the port's posterior, and ``n`` walkers of its start
+    ball."""
+    import json
+
+    from lfit_bench import run as bench
+    from lfit_bench.reference import spec
+
+    cfg = json.loads((bench.HERE / "configs" / f"{config}.json")
+                     .read_text())
+    model, post = bench.program(cfg, spec.light_curves(cfg, seed), dev)
+    start = torch.tensor(model.var_start(), dtype=post.dtype, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    noise = torch.randn((n, start.numel()), generator=gen,
+                        dtype=post.dtype, device=dev)
+    return post, start + 1e-3 * torch.clamp(start.abs(), min=1e-2) * noise
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("config", ["hier5_calib", "prod10_gp"])
+@pytest.mark.parametrize("entry", ["__call__", "parts", "ln_prior"])
+def test_a_replay_gives_the_eager_bits(cuda, config, entry):
+    """Both benchmark configurations at 64 walkers: the first call of a
+    batch (eager), the second (its warm-up, then the capture) and the
+    replays after it give the eager evaluation's bits, on two inputs of
+    the one shape in turns."""
+    post, pos = bench_walkers(cuda, config)
+    other = pos.flip(0).contiguous()
+    fn = getattr(post, entry)
+    inner = {"__call__": post._ln_prob, "parts": post._parts,
+             "ln_prior": post._ln_prior}[entry]
+    with torch.inference_mode():
+        want = {0: inner(pos), 1: inner(other)}
+    got = [(k, fn(x)) for k, x in enumerate((pos, other, pos, other, pos))]
+    assert len(post._graphs.graphs) == 1
+    for k, out in got:
+        assert all(same_bits(a, b) for a, b in zip(_outs(out),
+                                                   _outs(want[k % 2])))
+    assert bool(torch.isfinite(_outs(want[0])[0]).any())
+
+
+def test_two_replays_return_outputs_that_are_not_aliased(cuda):
+    """A replay returns clones: the first half's ln p survives the second
+    half's replay (the stretch move's two calls a step)."""
+    post, pos = bench_walkers(cuda, "hier5_calib")
+    other = pos.flip(0).contiguous()
+    post.parts(pos), post.parts(pos)
+    a, b = post.parts(pos), post.parts(other)
+    with torch.inference_mode():
+        want = post._parts(pos)
+    assert all(x.data_ptr() != y.data_ptr() for x in a for y in b)
+    assert all(same_bits(x, y) for x, y in zip(a, want))
+
+
+@pytest.mark.parametrize("config", ["hier5_calib", "prod10_gp"])
+def test_launch_counters_count_each_replay(cuda, config):
+    """The kernel wrappers' counters advance by the eager call's launches
+    at the capture's call (its warm-up; the capture runs nothing) and at
+    each replay: K1 and K2 once a call, K7 twice, K3 once with the GP."""
+    from lfit_python_tpu_torch import ops
+
+    post, pos = bench_walkers(cuda, config)
+
+    def counted():
+        before = ops.launch_counts()
+        post(pos)
+        return tuple(a - b for a, b in zip(ops.launch_counts(), before))
+
+    eager = counted()
+    assert [counted() for _ in range(3)] == [eager] * 3
+    (replay,) = post._graphs.graphs.values()
+    assert replay.launches == eager
+    names = [(m.__name__.rsplit(".", 1)[1], n)
+             for m, n in ops._all_counters()]
+    per_call = dict(zip(names, eager))
+    assert per_call["contacts", "LAUNCHES"] == 1
+    assert per_call["stream", "LAUNCHES"] == 1
+    assert per_call["sweeps", "CURVE_LAUNCHES"] == 2
+    assert per_call["gp", "LAUNCHES"] == (config == "prod10_gp")
+
+
+def test_value_and_grad_stays_eager_on_the_card(cuda):
+    post, pos = bench_walkers(cuda, "hier5_calib", n=16)
+    for _ in range(3):
+        post.value_and_grad(pos)
+    assert post._graphs.graphs == {} and post._graphs.seen == set()

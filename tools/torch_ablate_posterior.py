@@ -260,7 +260,8 @@ def device_per_range(calls):
 def ablate(model, cases, dtype, device, n_walkers, reps):
     """One row per case: (name, ms, device kernels, device ms, K1
     kernels), each evaluation under ``torch.inference_mode`` as the
-    sampler's."""
+    sampler's, and eager: a CUDA graph's replay would run the kernels
+    captured before a stage was ablated."""
     import torch
 
     from lfit_python_tpu_torch.models.likelihood import make_ln_prob
@@ -274,11 +275,12 @@ def ablate(model, cases, dtype, device, n_walkers, reps):
         with patched(**kws[name]), torch.inference_mode():
             yield
 
-    ms = host_ms({name: lambda: post(pos) for name in kws}, reps, ablated)
+    ms = host_ms({name: lambda: post._ln_prob(pos) for name in kws}, reps,
+                 ablated)
 
     def call(name):
         with ablated(name):
-            post(pos)
+            post._ln_prob(pos)
     dev = device_per_range({name: lambda name=name: call(name)
                             for name in kws})
     return [(name, ms[name], *dev[name]) for name, _ in cases]
