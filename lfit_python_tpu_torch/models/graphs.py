@@ -1,17 +1,21 @@
-"""Forward posterior calls replayed from CUDA graphs.
+"""Posterior calls replayed from CUDA graphs.
 
-A posterior evaluation on the card is a few hundred small kernels, and the
-host takes longer to enqueue them one by one than the card takes to run
-them.  :class:`GraphCache` captures a forward call once per (entry, input
-shape, dtype, device) as a ``torch.cuda.CUDAGraph`` and replays it after
-that: the kernels the eager call launches, in its order, with its
-arguments, so that a replay gives the eager call's bits.
+A posterior evaluation on the card is a few hundred small kernels (a
+gradient evaluation a few thousand), and the host takes longer to enqueue
+them one by one than the card takes to run them.  :class:`GraphCache`
+captures a call once per (entry, input shape, dtype, device) as a
+``torch.cuda.CUDAGraph`` and replays it after that: the kernels the eager
+call launches, in its order, with its arguments, so that a replay gives
+the eager call's bits.  A gradient entry (``value_and_grad``) is captured
+whole: the forward, autograd's backward pass and what follows it.
 
 The route depends only on what a call can observe (:func:`routable`, and
 whether its key was seen before):
 
 - a call on the CPU, one that autograd records (grad mode on) and one made
-  while a graph is being captured run eagerly;
+  while a graph is being captured run eagerly (a gradient entry turns
+  grad mode off around its call and autograd on inside it, so that it
+  takes the route in any grad mode of its caller);
 - the first call with a key runs eagerly;
 - the second runs once on a side stream (the warm-up, whose result it
   returns) and is then captured with a static input buffer, the recipe of
@@ -100,9 +104,8 @@ def routable(var):
 
 
 class GraphCache:
-    """One posterior's forward calls, eager or replayed (module
-    docstring).  ``capture(fn, var) -> (replay, fn(var))`` makes a
-    graph."""
+    """One posterior's calls, eager or replayed (module docstring).
+    ``capture(fn, var) -> (replay, fn(var))`` makes a graph."""
 
     def __init__(self, capture=capture):
         self.capture = capture
@@ -110,7 +113,7 @@ class GraphCache:
         self.graphs = {}
 
     def __call__(self, entry, fn, var):
-        """``fn(var)`` of the forward entry named ``entry``."""
+        """``fn(var)`` of the entry named ``entry``."""
         if not routable(var):
             return fn(var)
         key = (entry, tuple(var.shape), var.dtype, var.device)

@@ -18,9 +18,9 @@ theorem gradient, the contact phases through K1's backward
 (``ops.contacts``) and the stream impacts through K2's forward
 sensitivities (``ops.stream``).
 
-On the card the forward entries (the call, ``ln_prior``, ``ln_like``,
-``parts``) are replayed from a CUDA graph once their input's shape has
-been seen (``models/graphs.py``); ``value_and_grad`` runs eagerly.
+On the card the entries (the call, ``ln_prior``, ``ln_like``, ``parts``
+and ``value_and_grad``) are replayed from a CUDA graph once their input's
+shape has been seen (``models/graphs.py``).
 """
 
 from __future__ import annotations
@@ -290,18 +290,25 @@ class Posterior:
         geometry solve and one stream integration for both."""
         return self._forward("parts", self._parts, var)
 
-    def value_and_grad(self, var):
-        """``(ln p (W,), d ln p / d var (W, D))`` of sampled vectors
-        ``var`` (W, D), in ``var``'s dtype.  Walkers are independent, so
-        the gradient of the summed ln p is each walker's own; non-finite
-        gradient entries (a walker outside the support) are zeroed."""
-        with torch.inference_mode(False), torch.enable_grad():
+    def _value_and_grad(self, var):
+        with torch.enable_grad():
             v = var.detach().to(self.dtype).clone().requires_grad_()
             total = self._ln_prob(v)
             grad, = torch.autograd.grad(total.sum(), v)
         grad = torch.where(torch.isfinite(grad), grad,
                            torch.zeros_like(grad))
         return total.detach().to(var.dtype), grad.to(var.dtype)
+
+    def value_and_grad(self, var):
+        """``(ln p (W,), d ln p / d var (W, D))`` of sampled vectors
+        ``var`` (W, D), in ``var``'s dtype.  Walkers are independent, so
+        the gradient of the summed ln p is each walker's own; non-finite
+        gradient entries (a walker outside the support) are zeroed.  The
+        forward and the backward pass are one entry of the graph cache,
+        in any grad mode (``_value_and_grad`` turns autograd on itself and
+        returns detached tensors)."""
+        with torch.inference_mode(False), torch.no_grad():
+            return self._graphs("value_and_grad", self._value_and_grad, var)
 
 
 def make_ln_prob(model: CompiledModel, config: CVConfig | None = None,

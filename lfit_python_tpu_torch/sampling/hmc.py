@@ -15,7 +15,9 @@ each chain's value depending on its own row only; where it has a
 ``value_and_grad`` method (the port's ``Posterior``) that is used.  Every
 random draw comes from an explicit ``torch.Generator`` on the chains'
 device, through :func:`trajectory_draws`, so a test can feed
-:func:`_trajectory` the reference's own draws.
+:func:`_trajectory` the reference's own draws.  A trajectory's updates of
+position and momentum between its gradient evaluations, and its accept
+test, are the span ``lfit.hmc.leapfrog`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..utils.tracing import LEAPFROG, annotate
 
 __all__ = ["HMCState", "value_and_grad", "init_hmc", "trajectory_draws",
            "batch_trajectories", "hmc_step", "warmup_hmc", "run_hmc"]
@@ -62,12 +66,15 @@ def value_and_grad(ln_prob_fn):
 def init_hmc(generator, start, scatter, ln_prob_fn, n_chains,
              step_size=1e-3, max_rounds=100, vg_fn=None) -> HMCState:
     """Chain ball around ``start`` (D,) with per-parameter ``scatter``
-    (D,); chains with a non-finite ln-probability are redrawn, and only
-    those re-evaluated, for at most ``max_rounds`` rounds.  ``scatter``
-    doubles as the initial diagonal scale: inv_mass starts at
-    scatter^2.  ``vg_fn(x) -> (ln p, grad)`` evaluates the chains in
-    place of :func:`value_and_grad` of ``ln_prob_fn`` (a batch of any
-    size: the redrawn ones)."""
+    (D,); chains with a non-finite ln-probability are redrawn, for at
+    most ``max_rounds`` rounds, and the batch evaluated again, whose
+    redrawn rows are taken (each row's value is its own): every call has
+    the chains' shape, so that a redraw's size is never a key of its own
+    to the posterior's graph cache (``models/graphs.py``), as the JAX
+    package's init evaluates its whole batch.  ``scatter`` doubles as the
+    initial diagonal scale: inv_mass starts at scatter^2.  ``vg_fn(x) ->
+    (ln p, grad)`` evaluates the chains in place of
+    :func:`value_and_grad` of ``ln_prob_fn``."""
     vg = value_and_grad(ln_prob_fn) if vg_fn is None else vg_fn
     D = start.shape[0]
 
@@ -82,9 +89,9 @@ def init_hmc(generator, start, scatter, ln_prob_fn, n_chains,
         bad = torch.nonzero(~torch.isfinite(lp)).flatten()
         if bad.numel() == 0:
             break
-        fresh = draw(bad.numel())
-        pos[bad] = fresh
-        lp[bad], g[bad] = vg(fresh)
+        pos[bad] = draw(bad.numel())
+        lp_all, g_all = vg(pos)
+        lp[bad], g[bad] = lp_all[bad], g_all[bad]
     return HMCState(pos, lp, g,
                     torch.tensor(step_size, dtype=start.dtype,
                                  device=start.device),
@@ -109,33 +116,36 @@ def _trajectory(x0, lp0, g0, eps, inv_mass, vg_fn, n_leapfrog, noise,
     """One HMC trajectory for every chain, given its draws (see
     :func:`trajectory_draws`).  Returns (x, lp, g, accept, accept_prob,
     divergent), per chain."""
-    # jittered step size per chain: breaks resonant periodic orbits
-    eps = (eps * (0.8 + 0.2 * jitter))[:, None]
-    p0 = torch.rsqrt(torch.clamp(inv_mass, min=1e-30)) * noise
-
     def kinetic(p):
         return 0.5 * torch.sum(inv_mass * p * p, dim=-1)
 
     # leapfrog with fused half-steps: one position update and one
-    # gradient evaluation per step
+    # gradient evaluation per step; the updates between the gradient
+    # evaluations are the span LEAPFROG
     x, lp, g = x0, lp0, g0
-    p = p0 + 0.5 * eps * g0
+    with annotate(LEAPFROG):
+        # jittered step size per chain: breaks resonant periodic orbits
+        eps = (eps * (0.8 + 0.2 * jitter))[:, None]
+        p0 = torch.rsqrt(torch.clamp(inv_mass, min=1e-30)) * noise
+        p = p0 + 0.5 * eps * g0
     for _ in range(n_leapfrog):
-        x = x + eps * inv_mass * p
+        with annotate(LEAPFROG):
+            x = x + eps * inv_mass * p
         lp, g = vg_fn(x)
-        p = p + eps * g
-    p = p - 0.5 * eps * g       # undo the trailing half of the last update
-
-    delta_h = (-lp0 + kinetic(p0)) - (-lp + kinetic(p))
-    divergent = ~torch.isfinite(delta_h) | (delta_h < -1000.0)
-    accept_prob = torch.where(
-        divergent, torch.zeros_like(delta_h),
-        torch.clamp(torch.exp(torch.clamp(delta_h, max=0.0)), max=1.0))
-    accept = u_acc < accept_prob
-    return (torch.where(accept[:, None], x, x0),
-            torch.where(accept, lp, lp0),
-            torch.where(accept[:, None], g, g0),
-            accept, accept_prob, divergent)
+        with annotate(LEAPFROG):
+            p = p + eps * g
+    with annotate(LEAPFROG):
+        p = p - 0.5 * eps * g   # undo the trailing half of the last update
+        delta_h = (-lp0 + kinetic(p0)) - (-lp + kinetic(p))
+        divergent = ~torch.isfinite(delta_h) | (delta_h < -1000.0)
+        accept_prob = torch.where(
+            divergent, torch.zeros_like(delta_h),
+            torch.clamp(torch.exp(torch.clamp(delta_h, max=0.0)), max=1.0))
+        accept = u_acc < accept_prob
+        return (torch.where(accept[:, None], x, x0),
+                torch.where(accept, lp, lp0),
+                torch.where(accept[:, None], g, g0),
+                accept, accept_prob, divergent)
 
 
 def batch_trajectories(ln_prob_fn, n_leapfrog, vg_fn=None):

@@ -21,6 +21,11 @@ outputs' copies.
 Only a process's first profiler window is sure to keep every kernel
 record: a later window, after many untraced launches, may lose its first
 ones.  Trace a fresh process for a complete count.
+
+An HMC trajectory's eager updates of position and momentum between its
+gradient evaluations, its last half-step and its accept test are the span
+``lfit.hmc.leapfrog`` (``sampling/hmc.py``): host work that no graph
+holds, outside the posterior's stages.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["Trace", "trace_to", "annotate", "PARAMS", "GEOMETRY", "FLUX",
-           "CONTACTS", "GP", "CHAIN_COPY", "SPANS", "REPLAY"]
+           "CONTACTS", "GP", "CHAIN_COPY", "SPANS", "REPLAY", "LEAPFROG"]
 
 # the program's stage spans (module docstring)
 PARAMS = "lfit.params"
@@ -45,6 +50,8 @@ CHAIN_COPY = "lfit.chain.copy"
 SPANS = (PARAMS, GEOMETRY, FLUX, CONTACTS, GP, CHAIN_COPY)
 # a posterior call replayed from a CUDA graph
 REPLAY = "lfit.replay"
+# an HMC trajectory's updates between its gradient evaluations
+LEAPFROG = "lfit.hmc.leapfrog"
 
 _OFF = contextlib.nullcontext()
 

@@ -37,6 +37,7 @@ from lfit_python_tpu.ops.pallas_contacts import contacts_op_diff
 from lfit_python_tpu.roche import geometry as jg
 from lfit_python_tpu_torch.ops import contacts
 from lfit_python_tpu_torch.roche import geometry as tg
+from jax_fresh_compiles import fresh_jax_compiles  # noqa: F401
 
 NAMES = ("q", "incl", "px", "py", "x1", "pl1")
 SOURCE = (Path(contacts.__file__).resolve().parent / "csrc"

@@ -1956,7 +1956,67 @@ def test_launch_counters_count_each_replay(cuda, config):
 
 
 def test_value_and_grad_stays_eager_on_the_card(cuda):
+    """Past the cache's cap on keys (four forward batches captured first)
+    a gradient evaluation stays eager on the card, with the eager
+    evaluation's bits."""
+    from lfit_python_tpu_torch.models import graphs
+
     post, pos = bench_walkers(cuda, "hier5_calib", n=16)
+    for n in range(1, graphs.MAX_GRAPHS + 1):
+        post(pos[:n]), post(pos[:n])
+    assert len(post._graphs.graphs) == graphs.MAX_GRAPHS
+    want = post._value_and_grad(pos)
     for _ in range(3):
+        out = post.value_and_grad(pos)
+        assert all(same_bits(a, b) for a, b in zip(out, want))
+    assert all(k[0] != "value_and_grad" for k in post._graphs.graphs)
+
+
+def test_a_replayed_value_and_grad_gives_the_eager_bits(cuda):
+    """The north star's gradient at the HMC cell's 256 chains: the first
+    call eager, the second its warm-up then the capture (forward and
+    backward in one graph), the replays after it, each the eager
+    evaluation's bits on two inputs of the one shape in turns; outputs
+    not aliased from one replay to the next."""
+    post, pos = bench_walkers(cuda, "hier5_calib", n=256)
+    other = pos.flip(0).contiguous()
+    want = {0: post._value_and_grad(pos), 1: post._value_and_grad(other)}
+    got = [(k % 2, post.value_and_grad(x))
+           for k, x in enumerate((pos, other, pos, other, pos))]
+    assert list(post._graphs.graphs) == [
+        ("value_and_grad", (256, pos.shape[1]), pos.dtype, pos.device)]
+    for k, out in got:
+        assert all(same_bits(a, b) for a, b in zip(out, want[k]))
+    assert all(a.data_ptr() != b.data_ptr()
+               for a in got[-2][1] for b in got[-1][1])
+    assert bool(torch.isfinite(want[0][0]).all())
+    assert bool((want[0][1] != 0).any())
+
+
+def test_launch_counters_count_each_gradient_replay(cuda):
+    """A gradient replay adds the eager gradient evaluation's launches,
+    forward and backward: K1 and its backward, K2 with its sensitivities,
+    K7 and K7's backward twice each, K8 and K8's backward twice each."""
+    from lfit_python_tpu_torch import ops
+
+    post, pos = bench_walkers(cuda, "hier5_calib", n=64)
+
+    def counted():
+        before = ops.launch_counts()
         post.value_and_grad(pos)
-    assert post._graphs.graphs == {} and post._graphs.seen == set()
+        return tuple(a - b for a, b in zip(ops.launch_counts(), before))
+
+    eager = counted()
+    assert [counted() for _ in range(3)] == [eager] * 3
+    (replay,) = post._graphs.graphs.values()
+    assert replay.launches == eager
+    names = [(m.__name__.rsplit(".", 1)[1], n)
+             for m, n in ops._all_counters()]
+    per_call = dict(zip(names, eager))
+    assert per_call["contacts", "LAUNCHES"] == 1
+    assert per_call["contacts", "BACKWARD_LAUNCHES"] == 1
+    assert per_call["stream", "SENS_LAUNCHES"] == 1
+    assert per_call["sweeps", "CURVE_LAUNCHES"] == 2
+    assert per_call["sweeps", "CURVE_BACKWARD_LAUNCHES"] == 2
+    assert per_call["sweeps", "DONOR_LAUNCHES"] == 2
+    assert per_call["sweeps", "DONOR_BACKWARD_LAUNCHES"] == 2

@@ -24,6 +24,7 @@ from lfit_python_tpu_torch.ops import contacts
 from lfit_python_tpu_torch.ops import stream as tstream
 from lfit_python_tpu_torch.roche import geometry as tg
 from lfit_python_tpu_torch.roche import stream as ts
+from jax_fresh_compiles import fresh_jax_compiles  # noqa: F401
 
 
 def leaf(a, dtype=torch.float64):

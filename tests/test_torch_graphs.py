@@ -5,9 +5,12 @@ eagerly, is captured, or is replayed; here the capture is injected (a
 host stand-in of a CUDA graph: its replay runs the captured function into
 the static outputs), so that the decision, the replay's copies and the
 launch counters are checked without a card.  The tables the posterior
-keeps on its device give the values the per-call copies gave, a forward
-call copies nothing from numpy, and ``value_and_grad`` never takes the
-route.  The card's own tests (``test_torch_cuda.py``) replay real graphs.
+keeps on its device give the values the per-call copies gave, and a
+forward call copies nothing from numpy.  ``value_and_grad`` is an entry
+of its own, captured forward and backward together in any grad mode, and
+holds the benchmark's float64 reference's gradient; ``init_hmc``'s
+redraws take no slot of the cache.  The card's own tests
+(``test_torch_cuda.py``) replay real graphs.
 """
 
 import numpy as np
@@ -254,14 +257,193 @@ def test_a_replayed_entry_gives_the_eager_bits(gp_posterior, on_card, entry):
             assert torch.equal(a, b)
 
 
-def test_value_and_grad_never_takes_the_graph_route(gp_posterior, on_card):
+def test_value_and_grad_takes_its_own_entry_alone(gp_posterior, on_card):
+    """``value_and_grad`` never takes a forward entry's route: its calls
+    see and capture its own entry alone, and a forward call after them is
+    a first sight."""
     _, post, var = gp_posterior
     post._graphs = graphs.GraphCache(capture=Captures())
     for _ in range(3):
         post.value_and_grad(var)
-    assert post._graphs.capture.made == [] and post._graphs.seen == set()
-    post(var), post(var)
+    key = (tuple(var.shape), var.dtype, var.device)
+    assert post._graphs.seen == {("value_and_grad", *key)}
+    assert list(post._graphs.graphs) == [("value_and_grad", *key)]
+    post(var)
     assert len(post._graphs.capture.made) == 1
+    post(var)
+    assert set(post._graphs.graphs) == {("value_and_grad", *key),
+                                        ("ln_prob", *key)}
+
+
+# ---- the gradient entry ---------------------------------------------------
+
+class _OnCard:
+    """A tensor's stand-in on a card, for the route's rules."""
+    is_cuda = True
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_the_rules_of_the_route(monkeypatch, capturing):
+    """On a card a call takes the route with grad mode off; under another
+    capture it does not, nor with grad mode on, nor on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    var = _OnCard()
+    with torch.no_grad():
+        assert graphs.routable(var) is not capturing
+        assert not graphs.routable(torch.ones(1))
+    with torch.enable_grad():
+        assert graphs.routable(var) is False
+
+
+def test_a_forward_entry_stays_eager_under_autograd_the_gradient_does_not(
+        gp_posterior, on_card):
+    """Under autograd a forward entry's calls stay eager, while
+    ``value_and_grad`` on the same cache, which turns grad mode off around
+    its entry, is captured."""
+    _, post, var = gp_posterior
+    post._graphs = graphs.GraphCache(capture=Captures())
+    fn, calls = _counting(_double)
+    x = torch.ones(3, 2, requires_grad=True)
+    with torch.enable_grad():
+        for _ in range(3):
+            post._graphs("ln_prob", fn, x)
+        for _ in range(2):
+            post.value_and_grad(var)
+    assert calls == [(3, 2)] * 3
+    assert list(post._graphs.graphs) == [("value_and_grad",
+                                          tuple(var.shape), var.dtype,
+                                          var.device)]
+
+
+def test_a_gradient_call_on_the_cpu_runs_eagerly(gp_posterior):
+    _, post, var = gp_posterior
+    post._graphs = graphs.GraphCache(capture=Captures())
+    outs = [post.value_and_grad(var) for _ in range(3)]
+    assert post._graphs.capture.made == [] and post._graphs.seen == set()
+    assert all(torch.equal(a, b) for o in outs[1:]
+               for a, b in zip(o, outs[0]))
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference"])
+def test_value_and_grad_replays_in_any_grad_mode(gp_posterior, on_card,
+                                                 mode):
+    """The first call of a batch eager, the second captured, the replays
+    after it: each the eager evaluation's bits, on two inputs of the one
+    shape in turns, in the caller's grad mode ``mode`` (the route; the
+    short stream scan leaves these walkers outside the support, and
+    ``test_value_and_grad_holds_the_reference_gradient`` replays finite
+    gradients)."""
+    _, post, var = gp_posterior
+    post._graphs = graphs.GraphCache(capture=Captures())
+    other = var.flip(0).contiguous()
+    want = {0: post._value_and_grad(var), 1: post._value_and_grad(other)}
+    ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference": torch.inference_mode}[mode]
+    with ctx():
+        got = [(k % 2, post.value_and_grad(x))
+               for k, x in enumerate((var, other, var, other))]
+    (replay,) = post._graphs.graphs.values()
+    assert len(post._graphs.capture.made) == 1 and replay.graph.replays == 2
+    for k, (lp, g) in got:
+        assert torch.equal(lp, want[k][0]) and torch.equal(g, want[k][1])
+        assert not lp.requires_grad and not g.requires_grad
+
+
+def test_init_hmc_redraws_take_no_slot_of_the_graph_cache(on_card):
+    """A start ball that redraws (q scattered across its prior's lower
+    bound; with this seed the rounds redraw 4, then 1, then 1 chains):
+    every gradient call has the chains' shape, so the cache captures the
+    chains' key alone, and each chain carries its own evaluation."""
+    from lfit_python_tpu_torch.sampling import hmc
+
+    model, post, _ = _posterior()
+    post.stream_steps = 4352    # finite ln p at the start vector
+    post._graphs = graphs.GraphCache(capture=Captures())
+    start = torch.tensor(model.var_start())
+    scatter = 1e-3 * start.abs().clamp(min=1e-2)
+    scatter[model.param_names.index("q_core")] = 0.25
+    calls = []
+
+    def vg(x):
+        calls.append(tuple(x.shape))
+        return post.value_and_grad(x)
+
+    state = hmc.init_hmc(torch.Generator().manual_seed(2), start, scatter,
+                         post, 8, vg_fn=vg)
+    assert len(calls) > 2 and set(calls) == {(8, start.numel())}
+    assert list(post._graphs.graphs) == [
+        ("value_and_grad", (8, start.numel()), start.dtype, start.device)]
+    lp, g = post._value_and_grad(state.positions)
+    assert bool(torch.isfinite(state.log_prob).all())
+    assert torch.equal(state.log_prob, lp) and torch.equal(state.grad, g)
+
+
+# the one-eclipse north star at a low resolution, for the gradient against
+# the benchmark's float64 reference
+HIER1 = dict(n_eclipses=1, cv_config=TINY)
+
+
+@pytest.fixture(scope="module")
+def hier1_reference():
+    import json
+
+    from lfit_bench import check
+    from lfit_bench.reference import spec
+    from lfit_bench.reference.cv import CVConfig as RefCVConfig
+    from lfit_bench.reference.posterior import Posterior as RefPosterior
+
+    cfg = json.loads((bench.HERE / "configs" / "hier5_calib.json")
+                     .read_text())
+    cfg.update(HIER1)
+    curves = spec.light_curves(cfg, 11)
+    ref_model = spec.build_spec(cfg, curves,
+                                spec.REFERENCE_CLASSES).compile()
+    ref = RefPosterior(ref_model, RefCVConfig(**TINY), dtype=torch.float64,
+                       device="cpu")
+    start = np.asarray(ref_model.var_start())
+    scale = 1e-3 * np.maximum(np.abs(start), 1e-2)
+    x = start + scale * np.random.default_rng(11).standard_normal(
+        (3, start.size))
+    # central differences at 1e-4 of the ball's scale: the float64
+    # rounding of ln p over the step is ~1e-9 of a scaled gradient, the
+    # truncation ~1e-8
+    D = start.size
+    h = 1e-4 * scale
+    pts = np.concatenate([x[:, None] + np.diag(h)[None],
+                          x[:, None] - np.diag(h)[None]], axis=1)
+    lp = check.reference_eval(ref, pts.reshape(-1, D))[0].reshape(3, 2, D)
+    return cfg, curves, x, scale, (lp[:, 0] - lp[:, 1]) / (2 * h)
+
+
+# the gradient's distance from the reference's: the norm of the difference
+# scaled by the ball's scale over the larger of the scaled reference's
+# norm and sqrt(D) (lfit_bench/samplers/hmc.py's grad_gap).  float64:
+# the port and the reference are one model's arithmetic, 6e-7 measured;
+# float32: the model's rounding, 6.3e-4 measured
+GRAD_TOL = {torch.float64: 1e-5, torch.float32: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_value_and_grad_holds_the_reference_gradient(hier1_reference,
+                                                     on_card, dtype):
+    """The port's gradient at three seeded points of the one-eclipse
+    north star, eager, from the injected capture and replayed (the same
+    bits), against central differences of the float64 reference."""
+    cfg, curves, x, scale, g_ref = hier1_reference
+    _, post = bench.program(dict(cfg, dtype=str(dtype).split(".")[1]),
+                            curves, "cpu")
+    post._graphs = graphs.GraphCache(capture=Captures())
+    var = torch.tensor(x, dtype=dtype)
+    eager, captured, replayed = (post.value_and_grad(var) for _ in range(3))
+    assert len(post._graphs.capture.made) == 1
+    for out in (captured, replayed):
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    g = eager[1].double().numpy()
+    num = np.linalg.norm((g - g_ref) * scale, axis=1)
+    den = np.maximum(np.linalg.norm(g_ref * scale, axis=1),
+                     np.sqrt(x.shape[1]))
+    assert np.all(num / den <= GRAD_TOL[dtype]), num / den
 
 
 def test_a_forward_call_copies_nothing_from_numpy(gp_posterior, monkeypatch):
